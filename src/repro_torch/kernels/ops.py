@@ -1,0 +1,57 @@
+"""The dispatch point between the port's kernels and plain matrix
+products (the counterpart of the JAX package's ``kernels/ops.py``).
+
+- ``matmul``: a ``QuantizedTensor`` weight goes to ``quant_matmul``
+  (the hand-written kernel on the card, its plain version on the CPU);
+  a plain weight goes to the library matrix product, as the JAX package
+  leaves it to XLA — with bf16 operands, f32 accumulation and one cast
+  to ``out_dtype``. The tied unembedding asks for f32 logits: on the
+  card ``torch.mm(..., out_dtype=torch.float32)``, on the CPU an f32
+  product of the bf16 values (rounding the logits to bf16 would flip
+  greedy tokens against the JAX package).
+- ``decode_attention`` / ``decode_attention_quant``: the kernels'
+  wrappers, which take the plain version only for CPU tensors.
+
+There is no backend switch and no fallback: a CUDA tensor reaches the
+kernel or the wrapper raises. The TPU lane-alignment tiling rules of
+the JAX ``ops.matmul`` do not carry over; the CUDA kernels take every
+shape on the path and mask ragged edges themselves.
+
+Reduced-precision reductions in cuBLAS bf16 products are turned off
+here (``allow_bf16_reduced_precision_reduction = False``) and TF32 is
+left off, so the library products accumulate in full f32 like XLA's
+``preferred_element_type=f32`` dots.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention_quant import decode_attention_quant
+from repro_torch.kernels.quant_matmul import quant_matmul
+from repro_torch.quant.quantize import QuantizedTensor
+
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+__all__ = ["matmul", "decode_attention", "decode_attention_quant",
+           "quant_matmul"]
+
+
+def matmul(x: torch.Tensor, w: Union[torch.Tensor, QuantizedTensor], *,
+           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x @ w for plain or quantized (K, N) weights; x's leading dims are
+    flattened into M."""
+    out_dtype = out_dtype or x.dtype
+    lead, K = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, K)
+    if isinstance(w, QuantizedTensor):
+        y = quant_matmul(x2, w, out_dtype=out_dtype)
+    elif x.is_cuda:
+        w = w.to(x.dtype)
+        y = (torch.mm(x2, w) if out_dtype == x.dtype
+             else torch.mm(x2, w, out_dtype=out_dtype))
+    else:
+        y = torch.matmul(x2.float(), w.float()).to(out_dtype)
+    return y.reshape(*lead, y.shape[-1])

@@ -1,0 +1,119 @@
+"""GQA attention for one decode token over a dense KV cache.
+
+Counterpart of the decode half of the JAX package's
+``models/attention.py`` (``attention_decode``, ``kv_cache_write``,
+``kv_cache_read``, ``init_kv_cache``; paging, cross-attention and the
+prefill ``chunked_attention`` are not ported yet).
+
+The cache is updated in place. A row whose ``advance`` flag is False
+(a frozen slot of the serving engine) keeps its old cache contents:
+the write selects the old row back in for it, which replaces the JAX
+package's write-then-select of the old value (``_freeze_rows``).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import layers
+from repro_torch.quant.quantize import (FLOAT_FORMATS, dequantize_rows,
+                                        kv_group_size, quantize_rows)
+
+
+def attention_specs(cfg: ModelConfig) -> Dict:
+    return {"wqkv": layers.linear_spec(cfg.d_model,
+                                       cfg.q_dim + 2 * cfg.kv_dim),
+            "wo": layers.linear_spec(cfg.q_dim, cfg.d_model)}
+
+
+def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
+                     lens: torch.Tensor,
+                     advance: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (B, 1, D); cache one layer's leaves (B, Hkv, S, ·); lens (B,)
+    tokens already cached per row. The new token's K/V go to ring slot
+    ``lens % S`` and attention reads ``min(lens + 1, S)`` positions."""
+    B = x.shape[0]
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    qkv = layers.linear(p["wqkv"], x)
+    q = qkv[..., :cfg.q_dim].reshape(B, H, hd)
+    k = qkv[..., cfg.q_dim:cfg.q_dim + cfg.kv_dim].reshape(B, Hkv, hd)
+    v = qkv[..., cfg.q_dim + cfg.kv_dim:].reshape(B, Hkv, hd)
+    q = layers.apply_rope(q, lens, cfg.rope_theta)
+    k = layers.apply_rope(k, lens, cfg.rope_theta)
+    S = cache["k"].shape[2]
+    kv_quant = cfg.kv_quant
+    if ("k_scale" in cache) == (kv_quant in FLOAT_FORMATS):
+        raise ValueError(f"cache leaves {sorted(cache)} are not a "
+                         f"{kv_quant} cache")
+    kv_cache_write(cache, k, v, lens % S, kv_quant=kv_quant,
+                   group=cfg.quant_group, advance=advance)
+    kv_len = torch.clamp(lens + 1, max=S)
+    if kv_quant in FLOAT_FORMATS:
+        out = ops.decode_attention(q, cache["k"], cache["v"], kv_len)
+    else:
+        out = ops.decode_attention_quant(
+            q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"],
+            kv_len, fmt=kv_quant)
+    return layers.linear(p["wo"], out.reshape(B, 1, H * hd))
+
+
+def kv_cache_write(cache: Dict, k: torch.Tensor, v: torch.Tensor,
+                   slot: torch.Tensor, *, kv_quant: str = "bf16",
+                   group: int = 32,
+                   advance: Optional[torch.Tensor] = None) -> None:
+    """Write one (B, Hkv, hd) K/V row per batch row at ring ``slot``
+    (B,), in place. Quantized caches quantize the row at the write point
+    (payload into ``k``/``v``, groupwise scales into ``k_scale`` /
+    ``v_scale``). Rows with ``advance`` False keep their old contents."""
+    B = k.shape[0]
+    if kv_quant in FLOAT_FORMATS:
+        rows = {"k": k, "v": v}
+    else:
+        kq, ks = quantize_rows(k, kv_quant, group)
+        vq, vs = quantize_rows(v, kv_quant, group)
+        rows = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    bidx = torch.arange(B, device=k.device)
+    for name, new in rows.items():
+        leaf = cache[name]
+        new = new.to(leaf.dtype)
+        if advance is not None:
+            new = torch.where(advance[:, None, None], new,
+                              leaf[bidx, :, slot])
+        leaf[bidx, :, slot] = new
+
+
+def kv_cache_read(cache: Dict, *, kv_quant: str = "bf16",
+                  dtype: torch.dtype = torch.bfloat16
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The attention-visible (B, Hkv, S, hd) K/V view of one layer's
+    cache (dequantized for q8_0/q4_0 caches)."""
+    if kv_quant in FLOAT_FORMATS:
+        return cache["k"], cache["v"]
+    return (dequantize_rows(cache["k"], cache["k_scale"], kv_quant, dtype),
+            dequantize_rows(cache["v"], cache["v_scale"], kv_quant, dtype))
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+                  kv_quant: str = "bf16", device: torch.device,
+                  dtype: torch.dtype = torch.bfloat16) -> Dict:
+    """One layer's zeroed cache leaves: bf16 K/V (B, Hkv, S, hd), or an
+    int8 payload (hd, or hd // 2 for q4_0) plus bf16 scales
+    (B, Hkv, S, hd // g)."""
+    Hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    shape = (batch, Hkv, max_len)
+    if kv_quant in FLOAT_FORMATS:
+        return {"k": torch.zeros(shape + (hd,), dtype=dtype, device=device),
+                "v": torch.zeros(shape + (hd,), dtype=dtype, device=device)}
+    g = kv_group_size(hd, cfg.quant_group, kv_quant)
+    pd = hd // 2 if kv_quant == "q4_0" else hd
+    return {
+        "k": torch.zeros(shape + (pd,), dtype=torch.int8, device=device),
+        "v": torch.zeros(shape + (pd,), dtype=torch.int8, device=device),
+        "k_scale": torch.zeros(shape + (hd // g,), dtype=dtype,
+                               device=device),
+        "v_scale": torch.zeros(shape + (hd // g,), dtype=dtype,
+                               device=device),
+    }

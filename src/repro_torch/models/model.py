@@ -1,0 +1,125 @@
+"""Dense GQA decoder: parameters, cache and the decode step.
+
+Counterpart of the dense family of the JAX package's ``models/model.py``
+(``init``, ``init_cache``, ``decode_step`` with ``advance_mask``,
+``reference_decode`` with stepwise prefill). The fused ``prefill`` and
+the other families are not ported yet.
+
+Parameters are a nested dict like the JAX package's, except that the
+layer stack is a list of per-layer dicts instead of stacked (L, ...)
+leaves. The cache is ``{"lens": (B,) int32, "layers": [per-layer
+leaves]}`` and ``decode_step`` updates it in place.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Union
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import layers
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.params import ParamSpec, init_params
+from repro_torch.quant.quantize import FLOAT_FORMATS, quantize_tree
+
+
+def _norm_spec(d: int) -> ParamSpec:
+    return ParamSpec((d,), init="ones")
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig,
+                 device: Union[str, torch.device, None] = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.cfg.param_dtype == "bf16" \
+            else torch.float32
+
+    def param_specs(self) -> Dict:
+        cfg = self.cfg
+        specs = layers.embed_specs(cfg)
+        specs["final_norm"] = _norm_spec(cfg.d_model)
+        specs["layers"] = [{
+            "attn_norm": _norm_spec(cfg.d_model),
+            "attn": attn.attention_specs(cfg),
+            "ffn_norm": _norm_spec(cfg.d_model),
+            "mlp": mlp_mod.mlp_specs(cfg),
+        } for _ in range(cfg.num_layers)]
+        return specs
+
+    def init(self, generator: torch.Generator,
+             quantize: Optional[bool] = None) -> Dict:
+        """Seeded random parameters, quantized to ``cfg.quant_policy``
+        unless ``quantize`` is False."""
+        params = init_params(self.param_specs(), generator,
+                             dtype=self.dtype, device=self.device)
+        do_quant = (self.cfg.quant_policy not in FLOAT_FORMATS
+                    if quantize is None else quantize)
+        if do_quant:
+            params = quantize_tree(params, self.cfg.quant_policy,
+                                   self.cfg.quant_group)
+        return params
+
+    def init_cache(self, batch: int, max_len: int) -> Dict:
+        """A zeroed cache in ``cfg.kv_quant``'s format."""
+        return {
+            "lens": torch.zeros((batch,), dtype=torch.int32,
+                                device=self.device),
+            "layers": [attn.init_kv_cache(self.cfg, batch, max_len,
+                                          kv_quant=self.cfg.kv_quant,
+                                          device=self.device)
+                       for _ in range(self.cfg.num_layers)],
+        }
+
+    def decode_step(self, params, tokens: torch.Tensor, cache: Dict,
+                    advance_mask: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+        """tokens (B, 1) → logits (B, vocab) f32; the cache is updated
+        in place. Rows where ``advance_mask`` (B,) is False keep their
+        cache frozen: no K/V write and no ``lens`` advance (the serving
+        engine's retired and waiting slots)."""
+        cfg = self.cfg
+        x = layers.embed(params, tokens)
+        lens = cache["lens"]
+        for p_l, c_l in zip(params["layers"], cache["layers"]):
+            z = layers.rmsnorm(x, p_l["attn_norm"], cfg.norm_eps)
+            x = x + attn.attention_decode(p_l["attn"], cfg, z, c_l, lens,
+                                          advance_mask)
+            z = layers.rmsnorm(x, p_l["ffn_norm"], cfg.norm_eps)
+            x = x + mlp_mod.mlp_forward(p_l["mlp"], z)
+        if advance_mask is None:
+            lens += 1
+        else:
+            lens += advance_mask.to(lens.dtype)
+        x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        logits = layers.unembed(params, x, cfg)[:, 0]
+        return logits[:, :cfg.vocab_size]
+
+    def reference_decode(self, params, prompt: Sequence[int],
+                         max_new_tokens: int, eos_id: int = -1, *,
+                         max_len: int = 64) -> List[int]:
+        """Greedy single-request decode, the prompt fed one token at a
+        time through ``decode_step`` (the engine's chunked-admission
+        path): the oracle the serving engine is held to. Returns the
+        generated tokens (stops at EOS or ``max_new_tokens``)."""
+        if max_new_tokens <= 0:
+            return []
+        if len(prompt) == 0:
+            raise ValueError("reference_decode needs at least one prompt "
+                             "token")
+        cache = self.init_cache(1, max_len)
+        tok = torch.empty((1, 1), dtype=torch.long, device=self.device)
+        for t in prompt:
+            tok.fill_(int(t))
+            logits = self.decode_step(params, tok, cache)
+        out = [int(torch.argmax(logits[0]))]
+        while len(out) < max_new_tokens and out[-1] != eos_id:
+            tok.fill_(out[-1])
+            logits = self.decode_step(params, tok, cache)
+            out.append(int(torch.argmax(logits[0])))
+        return out

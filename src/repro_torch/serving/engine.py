@@ -1,0 +1,406 @@
+"""Continuous-batching serving engine with chunked prefill admission and
+K-substep decode megasteps (the core of the JAX package's
+``serving/engine.py``).
+
+The engine owns a fixed decode batch of ``slots``. Every ``step()`` runs
+one **megastep**: ``megastep_k`` substeps of ``Model.decode_step`` over
+the whole batch, with per-slot sampling, per-slot EOS/length retirement
+and the per-slot prompt cursor all kept on the device. The host reads
+one packed ``(4, K, slots)`` block (tokens, emission mask, prefill
+progress, nonfinite flag) per megastep, so one device→host transfer
+serves K tokens per slot.
+
+- **Chunked admission**: a request's prompt rides inside the megastep,
+  one prompt token per substep through ``decode_step`` (the path that
+  ``Model.reference_decode`` takes), from a per-slot on-device chunk of
+  ``max(megastep_k, 16)`` prompt tokens that the host refreshes between
+  megasteps. The slot emits its first token in the substep that feeds
+  its last prompt token; decoding neighbours never stall.
+- **Retirement**: a slot that emits EOS or reaches its budget turns
+  idle; idle and waiting slots ride the fixed-shape batch with
+  ``advance_mask`` False, so their cache rows are never written.
+- **Nonfinite logits**: a slot whose logits hold a NaN or inf emits
+  nothing, turns idle at once, and its request ends with
+  ``error = "nonfinite-logits"``; the other slots are untouched.
+
+The cache and the slot state are updated in place. That replaces the
+JAX package's donated megastep carries, so the port has no
+``donate_carries`` knob. Left out of this slice: stall admission with
+batched prefill, paging and the prefix cache, pipelined dispatch,
+preemption, the EDF queue, cancellation and fault injection.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Deque, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import WEIGHT_FORMATS
+from repro_torch.models import Model
+from repro_torch.quant.quantize import (FLOAT_FORMATS, QuantizedTensor,
+                                        quantize_tree)
+from repro_torch.serving.sampler import SamplingConfig, sample_batched
+
+DEFAULT_MEGASTEP_K = 8
+PAD_ID = 0
+
+PHASE_IDLE = 0      # retired / never filled: cache frozen, no emission
+PHASE_PREFILL = 1   # consuming prompt tokens, no emission yet
+PHASE_DECODE = 2    # generating: sample + emit every substep
+
+
+class PromptTooLong(ValueError):
+    """The prompt can never fit this engine's cache: admitting it would
+    write past the slot's rows and corrupt its own stream."""
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray               # (S,) int32
+    max_new_tokens: int = 32
+    eos_id: int = -1                 # -1 → never stops early
+    # per-request sampling overrides (None → the engine's SamplingConfig)
+    temperature: Optional[float] = None
+    top_k: Optional[int] = None
+    top_p: Optional[float] = None
+    # filled by the engine:
+    output: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    error: Optional[str] = None      # e.g. "nonfinite-logits"
+
+
+@dataclasses.dataclass
+class EngineStats:
+    steps: int = 0               # decode substeps executed (K per megastep)
+    megasteps: int = 0
+    tokens_generated: int = 0
+    prefills: int = 0            # requests admitted
+    chunk_refills: int = 0       # prompt chunks refreshed after the first
+    poisoned: int = 0            # requests retired on nonfinite logits
+    decode_wall_s: float = 0.0   # wall time in step()
+
+
+@dataclasses.dataclass
+class SlotState:
+    """Per-slot serving state on the device, (slots,) each."""
+    last_token: torch.Tensor    # int32, input token of the next substep
+    gen_len: torch.Tensor       # int32, tokens generated so far
+    max_new: torch.Tensor       # int32
+    eos_id: torch.Tensor        # int32
+    phase: torch.Tensor         # int32, PHASE_IDLE/PREFILL/DECODE
+    prefill_pos: torch.Tensor   # int32, next prompt index to feed
+    prompt_len: torch.Tensor    # int32
+    chunk_base: torch.Tensor    # int32, prompt index of prompt_buf[:, 0]
+    prompt_buf: torch.Tensor    # int32 (slots, chunk)
+    temperature: torch.Tensor   # float32
+    top_k: torch.Tensor         # int32
+    top_p: torch.Tensor         # float32
+
+
+def _init_slot_state(slots: int, chunk: int, device) -> SlotState:
+    def i32(fill=0, shape=(slots,)):
+        return torch.full(shape, fill, dtype=torch.int32, device=device)
+    return SlotState(
+        last_token=i32(), gen_len=i32(), max_new=i32(), eos_id=i32(-1),
+        phase=i32(PHASE_IDLE), prefill_pos=i32(), prompt_len=i32(),
+        chunk_base=i32(), prompt_buf=i32(0, (slots, chunk)),
+        temperature=torch.zeros((slots,), device=device),
+        top_k=i32(), top_p=torch.ones((slots,), device=device))
+
+
+class ServingEngine:
+    """Serves ``Request``s on ``model.device`` (the card unless the
+    model was built with ``device="cpu"``)."""
+
+    def __init__(self, model: Model, params, *, slots: int = 4,
+                 max_len: int = 1024,
+                 sampling: SamplingConfig = SamplingConfig(),
+                 seed: int = 0,
+                 megastep_k: Optional[int] = None,
+                 quant_policy: Optional[str] = None,
+                 kv_quant: Optional[str] = None):
+        if kv_quant is not None:
+            if kv_quant not in WEIGHT_FORMATS:
+                raise ValueError(
+                    f"kv_quant must be bf16|q8_0|q4_0 (got {kv_quant!r})")
+            if kv_quant != model.cfg.kv_quant:
+                model = Model(dataclasses.replace(model.cfg,
+                                                  kv_quant=kv_quant),
+                              device=model.device)
+        self.model = model
+        self.cfg = model.cfg
+        self.device = model.device
+        self.kv_quant = model.cfg.kv_quant
+        if quant_policy is not None and quant_policy not in FLOAT_FORMATS:
+            for fmt in _quantized_formats(params):
+                if fmt != quant_policy:
+                    raise ValueError(
+                        f"params already quantized as {fmt!r}; cannot "
+                        f"serve them under quant_policy={quant_policy!r}")
+            params = quantize_tree(params, quant_policy,
+                                   model.cfg.quant_group)
+        self.quant_policy = quant_policy or "bf16"
+        self.params = params
+        self.slots = slots
+        self.max_len = max_len
+        self.sampling = sampling
+        self.seed = seed
+        if megastep_k is not None and int(megastep_k) < 1:
+            raise ValueError(f"megastep_k must be >= 1 (got {megastep_k})")
+        self.megastep_k = int(megastep_k) if megastep_k else \
+            DEFAULT_MEGASTEP_K
+        # prompt tokens staged on the device per slot; any value >=
+        # megastep_k keeps a prefilling slot fed for a whole megastep
+        self.prefill_chunk = max(self.megastep_k, 16)
+        self.queue: Deque[Request] = collections.deque()
+        self.reset()
+
+    def reset(self) -> None:
+        """Drop all requests and device state (fresh cache and slots,
+        the sampling generator reseeded)."""
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(self.seed)
+        self.cache = self.model.init_cache(self.slots, self.max_len)
+        self.state = _init_slot_state(self.slots, self.prefill_chunk,
+                                      self.device)
+        self.active: List[Optional[Request]] = [None] * self.slots
+        # host mirror of each slot's prompt cursor, and the prompt it
+        # was admitted with
+        self._prefill_pos: List[int] = [0] * self.slots
+        self._slot_prompt: List[Optional[np.ndarray]] = [None] * self.slots
+        self._stochastic_slots: set = set()
+        self.queue.clear()
+        self.stats = EngineStats()
+
+    # -- public API --------------------------------------------------------
+    def submit(self, req: Request) -> None:
+        """Queue a request. An empty prompt or a negative budget is
+        rejected, a zero budget completes at once with no output, and a
+        prompt longer than the cache raises ``PromptTooLong``."""
+        prompt_len = len(np.asarray(req.prompt))
+        if prompt_len == 0:
+            raise ValueError(
+                f"request {req.uid}: empty prompt — decode needs at least "
+                "one prompt token")
+        if req.max_new_tokens < 0:
+            raise ValueError(f"request {req.uid}: max_new_tokens must be "
+                             f">= 0 (got {req.max_new_tokens})")
+        if req.max_new_tokens == 0:
+            req.done = True
+            return
+        if prompt_len > self.max_len:
+            raise PromptTooLong(
+                f"request {req.uid}: prompt of {prompt_len} tokens exceeds "
+                f"the cache capacity {self.max_len}")
+        self.queue.append(req)
+
+    def has_work(self) -> bool:
+        return bool(self.queue) or any(r is not None for r in self.active)
+
+    def step(self) -> int:
+        """Admit what fits, run one megastep and hand its tokens to the
+        requests. Returns the number of slots still occupied."""
+        t0 = time.perf_counter()
+        admit = self._fill_slots_chunked()
+        if any(r is not None for r in self.active):
+            occupants = tuple(self.active)
+            block = self._megastep(admit)
+            self._drain(block, occupants)
+        self.stats.decode_wall_s += time.perf_counter() - t0
+        return sum(r is not None for r in self.active)
+
+    def run(self, max_steps: int = 10000) -> None:
+        """Serve until the queue and the slots are empty (at most
+        ``max_steps`` megasteps)."""
+        for _ in range(max_steps):
+            if not self.has_work():
+                return
+            self.step()
+
+    # -- admission -----------------------------------------------------------
+    def _req_sampling(self, req: Request):
+        smp = self.sampling
+        return (smp.temperature if req.temperature is None else req.temperature,
+                smp.top_k if req.top_k is None else req.top_k,
+                smp.top_p if req.top_p is None else req.top_p)
+
+    def _empty_admit(self) -> Dict[str, np.ndarray]:
+        n, c = self.slots, self.prefill_chunk
+        return {"new": np.zeros((n,), bool),
+                "refill": np.zeros((n,), bool),
+                "tokens": np.zeros((n, c), np.int32),
+                "base": np.zeros((n,), np.int32),
+                "prompt_len": np.zeros((n,), np.int32),
+                "max_new": np.zeros((n,), np.int32),
+                "eos": np.full((n,), -1, np.int32),
+                "temp": np.zeros((n,), np.float32),
+                "top_k": np.zeros((n,), np.int32),
+                "top_p": np.ones((n,), np.float32)}
+
+    def _fill_slots_chunked(self) -> Dict[str, np.ndarray]:
+        """Host side of admission: the next prompt chunk for slots still
+        prefilling, first chunk and metadata for queued requests taken
+        into free slots. The arrays ride into the next megastep."""
+        admit = self._empty_admit()
+        chunk = self.prefill_chunk
+        for s, req in enumerate(self.active):
+            prompt = self._slot_prompt[s]
+            pos = self._prefill_pos[s]
+            if req is None or prompt is None or pos >= len(prompt):
+                continue
+            admit["refill"][s] = True
+            admit["base"][s] = pos
+            seg = prompt[pos:pos + chunk]
+            admit["tokens"][s, :len(seg)] = seg
+            if pos > 0:
+                self.stats.chunk_refills += 1
+        for s in range(self.slots):
+            if self.active[s] is not None or not self.queue:
+                continue
+            req = self.queue.popleft()
+            prompt = np.asarray(req.prompt, np.int32)
+            admit["new"][s] = True
+            seg = prompt[:chunk]
+            admit["tokens"][s, :len(seg)] = seg
+            admit["prompt_len"][s] = len(prompt)
+            admit["max_new"][s] = req.max_new_tokens
+            admit["eos"][s] = req.eos_id
+            temp, topk, topp = self._req_sampling(req)
+            admit["temp"][s] = temp
+            admit["top_k"][s] = topk
+            admit["top_p"][s] = topp
+            self.active[s] = req
+            self._slot_prompt[s] = prompt
+            self._prefill_pos[s] = 0
+            if temp > 0.0:
+                self._stochastic_slots.add(s)
+            self.stats.prefills += 1
+        return admit
+
+    def _merge_admissions(self, admit: Dict[str, np.ndarray]) -> None:
+        """Fold the host's admission arrays into the device state: fresh
+        slots get their cache rows and ``lens`` zeroed and their slot
+        state rebuilt; chunk refills only swap the prompt window."""
+        new = np.flatnonzero(admit["new"])
+        upd = np.flatnonzero(admit["new"] | admit["refill"])
+        dev = self.device
+        st = self.state
+        if len(new):
+            idx = torch.as_tensor(new, device=dev)
+            for layer in self.cache["layers"]:
+                for leaf in layer.values():
+                    leaf[idx] = 0
+            self.cache["lens"][idx] = 0
+            for field, key in (("max_new", "max_new"), ("eos_id", "eos"),
+                               ("prompt_len", "prompt_len"),
+                               ("temperature", "temp"), ("top_k", "top_k"),
+                               ("top_p", "top_p")):
+                t = getattr(st, field)
+                t[idx] = torch.as_tensor(admit[key][new], device=dev,
+                                         dtype=t.dtype)
+            st.last_token[idx] = 0
+            st.gen_len[idx] = 0
+            st.prefill_pos[idx] = 0
+            st.phase[idx] = PHASE_PREFILL
+        if len(upd):
+            idx = torch.as_tensor(upd, device=dev)
+            st.chunk_base[idx] = torch.as_tensor(admit["base"][upd],
+                                                 device=dev)
+            st.prompt_buf[idx] = torch.as_tensor(admit["tokens"][upd],
+                                                 device=dev)
+
+    # -- fused K-substep decode ----------------------------------------------
+    def _megastep(self, admit: Dict[str, np.ndarray]) -> torch.Tensor:
+        """K substeps of decode_step with in-loop sampling and
+        retirement; returns the packed (4, K, slots) int32 block (tokens,
+        emitted, prefill position, nonfinite) on the device."""
+        self._merge_admissions(admit)
+        st = self.state
+        chunk = self.prefill_chunk
+        all_greedy = not self._stochastic_slots
+        rows = []
+        for _ in range(self.megastep_k):
+            is_pre = st.phase == PHASE_PREFILL
+            is_dec = st.phase == PHASE_DECODE
+            off = torch.clamp(st.prefill_pos - st.chunk_base, 0, chunk - 1)
+            ptok = torch.gather(st.prompt_buf, 1, off[:, None].long())[:, 0]
+            # a prefilling slot whose chunk ran dry waits, cache frozen,
+            # for the host's refill (only when the chunk < megastep_k)
+            starved = is_pre & (st.prefill_pos - st.chunk_base >= chunk)
+            feeding = is_pre & ~starved
+            in_tok = torch.where(is_pre, ptok, st.last_token)
+            logits = self.model.decode_step(
+                self.params, in_tok[:, None].long(), self.cache,
+                advance_mask=feeding | is_dec)
+            bad = (is_pre | is_dec) & ~torch.isfinite(logits).all(dim=-1)
+            if all_greedy:
+                tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            else:
+                tok = sample_batched(logits, self.generator, st.temperature,
+                                     st.top_k, st.top_p)
+            finishing = feeding & (st.prefill_pos + 1 >= st.prompt_len)
+            emit = (is_dec | finishing) & ~bad
+            tok = torch.where(emit, tok, torch.full_like(tok, PAD_ID))
+            st.gen_len += emit.to(torch.int32)
+            done_now = emit & ((tok == st.eos_id) | (st.gen_len >= st.max_new))
+            phase = torch.where(
+                emit, torch.where(done_now, PHASE_IDLE, PHASE_DECODE),
+                st.phase)
+            st.phase.copy_(torch.where(bad, PHASE_IDLE, phase))
+            st.last_token.copy_(torch.where(emit, tok, st.last_token))
+            st.prefill_pos += feeding.to(torch.int32)
+            rows.append(torch.stack([tok, emit.to(torch.int32),
+                                     st.prefill_pos.clone(),
+                                     bad.to(torch.int32)]))
+        self.stats.megasteps += 1
+        self.stats.steps += self.megastep_k
+        return torch.stack(rows, dim=1)
+
+    def _drain(self, block: torch.Tensor, occupants) -> None:
+        """Copy the block to the host (the megastep's one sync point)
+        and hand tokens and retirements to the requests that rode it."""
+        block = block.cpu().numpy()
+        toks, emitted = block[0], block[1].astype(bool)
+        last_pos = block[2][-1]
+        bad = block[3].astype(bool).any(axis=0)
+        for s in range(self.slots):
+            if occupants[s] is not None and not bad[s]:
+                self._prefill_pos[s] = int(last_pos[s])
+        for k in range(toks.shape[0]):
+            for s in range(self.slots):
+                req = occupants[s]
+                if req is None or not emitted[k, s]:
+                    continue
+                tok = int(toks[k, s])
+                req.output.append(tok)
+                self.stats.tokens_generated += 1
+                if tok == req.eos_id or len(req.output) >= req.max_new_tokens:
+                    req.done = True        # the device already froze it
+                    self._free_slot(s)
+        for s in range(self.slots):
+            req = occupants[s]
+            if bad[s] and req is not None and not req.done:
+                req.error = "nonfinite-logits"
+                req.done = True
+                self.stats.poisoned += 1
+                self._free_slot(s)
+
+    def _free_slot(self, s: int) -> None:
+        self.active[s] = None
+        self._stochastic_slots.discard(s)
+        self._slot_prompt[s] = None
+
+
+def _quantized_formats(params) -> set:
+    if isinstance(params, QuantizedTensor):
+        return {params.fmt}
+    if isinstance(params, dict):
+        params = list(params.values())
+    if isinstance(params, list):
+        return set().union(*(_quantized_formats(p) for p in params))
+    return set()
