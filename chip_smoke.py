@@ -8,8 +8,10 @@ Phases (any failed check raises and the process exits nonzero):
 1. the card's name and power limit, torch and CUDA versions;
 2. build the hand-written kernels from ``src/repro_torch/kernels/csrc``;
 3. hold each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and at edge shapes, and time kernel, plain
-   version and library call beside the least time the card could take;
+   the paths' shapes (decode and prefill) and at edge shapes, and time
+   kernel, plain version and library call beside the least time the
+   card could take; check that a ``quant_matmul`` output row does not
+   depend on M (bit for bit);
 4. main path: llama3.2-1b at full width (seeded random weights, q8_0
    weights, bf16 cache) served by ``repro_torch.launch.serve`` with 4
    slots, max_len 1024, 8-substep megasteps and chunked admission, 8
@@ -18,10 +20,18 @@ Phases (any failed check raises and the process exits nonzero):
    step through the kernels against the plain versions (beside a
    planted fault the check must catch); then serves the same requests
    again under the profiler for the device's idle share;
-5. second path: full width, 4 layers, q4_0 weights with a q8_0 and then
-   a q4_0 cache (the q4 GEMV and both quantized attention loaders),
-   with the same launch-count and decode-step checks;
-6. one ``{"kernels": [...]}`` line, the card line, and the last line
+5. prefill path: the same model at full width and depth with stall
+   admission, 8 requests with prompts of 270-900 tokens (buckets of 512
+   and 1024 positions); checks launch counts, the streams against
+   ``reference_decode(stepwise_prefill=False)``, and one fused prefill
+   of the first bucket through the kernels against the plain versions
+   (beside a planted lookahead fault); times each prefill and profiles
+   them for the device's idle share;
+6. second path: full width, 4 layers, q4_0 weights with a q8_0 and then
+   a q4_0 cache (the q4 GEMV and both quantized attention loaders), then
+   the q8_0 cache again under stall admission, with the same
+   launch-count and decode-step checks;
+7. one ``{"kernels": [...]}`` line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits nonzero without printing a result when CUDA is unavailable, or
@@ -48,6 +58,13 @@ STEP_SEEDS = 3                     # token batches per decode-step check
 # served paths: at most 1.21e-2 for sound kernels, at least 1.15e-1 with
 # the attention off by one position (PERF.md, Findings).
 STEP_REL_TOL = 3e-2
+PREFILL_SEEDS = 5                  # token batches per prefill check
+PREFILL_PROMPTS = (300, 310, 480, 500, 700, 760, 900, 270)
+# Kernels vs plain versions through one fused prefill of the first bucket
+# (4 x 512, seq_lens 300-500), as a share of the largest logit. Measured
+# on an H100 over 5 token batches: at most 1.72e-2 for sound kernels, at
+# least 3.21e-1 with the attention looking one key ahead (PERF.md).
+PREFILL_REL_TOL = 4e-2
 
 
 def fail(msg: str) -> None:
@@ -180,6 +197,7 @@ def main() -> None:
              "checkout of the repository")
     sys.path.insert(0, os.path.join(ROOT, "src"))
 
+    import numpy as np
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops
@@ -187,13 +205,15 @@ def main() -> None:
                                                       decode_attention_plain)
     from repro_torch.kernels.decode_attention_quant import (
         decode_attention_quant, decode_attention_quant_plain)
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
     from repro_torch.kernels.quant_matmul import (quant_matmul,
                                                   quant_matmul_plain)
     from repro_torch.launch import serve
     from repro_torch.models import Model
     from repro_torch.quant import (dequantize, dequantize_rows, quantize,
                                    quantize_rows)
-    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.engine import Request, ServingEngine
     from repro_torch.serving.sampler import SamplingConfig
 
     dev = torch.device("cuda")
@@ -207,32 +227,42 @@ def main() -> None:
     print(f"build: {sorted(libs)} in {secs:.1f}s "
           f"({build.BUILD_DIR})", flush=True)
 
-    kernels_all = (decode_attention, decode_attention_quant, quant_matmul)
+    kernels_all = (decode_attention, decode_attention_quant, quant_matmul,
+                   flash_attention)
 
     def zero_counts():
         for k in kernels_all:
             k.launches = 0
 
     def off_by_one(fn):
-        """A planted fault: the attention reads one position fewer."""
+        """A planted fault: the decode attention reads one position
+        fewer."""
         return lambda *a, **kw: fn(*a[:-1], a[-1] - 1, **kw)
+
+    def lookahead(q, k, v, *, causal=True, window=0, q_offset=0):
+        """A planted fault: each prefill query also sees the next key
+        (kpos <= qpos + 1), the causal off-by-one a kernel mask could
+        make."""
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset + 1)
 
     @contextlib.contextmanager
     def plain_versions(fault: bool = False):
         """Route the model's kernel calls to the plain versions (the
-        reference pass of the kernel-vs-plain decode-step check), with
-        the planted fault in the attention where ``fault``."""
+        reference pass of the kernel-vs-plain checks), with the planted
+        faults in the attention where ``fault``."""
         saved = (ops.quant_matmul, ops.decode_attention,
-                 ops.decode_attention_quant)
+                 ops.decode_attention_quant, ops.flash_attention)
         wrap = off_by_one if fault else (lambda fn: fn)
         ops.quant_matmul = quant_matmul_plain
         ops.decode_attention = wrap(decode_attention_plain)
         ops.decode_attention_quant = wrap(decode_attention_quant_plain)
+        ops.flash_attention = lookahead if fault else flash_attention_plain
         try:
             yield
         finally:
             (ops.quant_matmul, ops.decode_attention,
-             ops.decode_attention_quant) = saved
+             ops.decode_attention_quant, ops.flash_attention) = saved
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -314,7 +344,8 @@ def main() -> None:
             replaces=("src/repro/kernels/decode_attention.py:82"
                       if fmt == "bf16" else
                       "src/repro/kernels/decode_attention_quant.py:119"),
-            shape=shape, launches=0, max_abs_err=err, tol=tol, ms=ms,
+            shape=shape, path="main" if fmt == "bf16" else f"second {fmt}",
+            launches=0, max_abs_err=err, tol=tol, ms=ms,
             call_ms=call_ms, plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
             library_ms=lib_ms,
             library="torch.nn.functional.scaled_dot_product_attention"
@@ -342,7 +373,7 @@ def main() -> None:
         "w_down": (cfg_full.d_ff, cfg_full.d_model),
     }
 
-    def qmm_case(fmt, label, M, K, N, out_dtype, timed):
+    def qmm_case(fmt, label, M, K, N, out_dtype, timed, path=None):
         x = randn(M, K).bfloat16()
         w = quantize(randn(K, N, scale=K ** -0.5), fmt)
         out = quant_matmul(x, w, out_dtype=out_dtype)
@@ -351,10 +382,22 @@ def main() -> None:
         err = float((out.float() - ref.float()).abs().max())
         tol = (bf16_tol(ref) if out_dtype == torch.bfloat16
                else 1e-5 * float(ref.abs().max()))
-        name = f"quant_matmul[{fmt} {label} {K}x{N}]"
+        name = f"quant_matmul[{fmt} {label} {K}x{N}" + (
+            "]" if M <= 8 else f" M{M}]")
         print(f"  {name} M{M} -> {out_dtype}: max_abs_err {err:.3e} "
               f"(tol {tol:.3e})", flush=True)
         check(err <= tol, f"{name} M{M}: {err} > {tol}")
+        if M > 8:
+            # an output row must not depend on how many rows share the
+            # call: the same rows alone (M = 1) give the same bits
+            for r in (0, M // 2, M - 1):
+                alone = quant_matmul(x[r:r + 1].contiguous(), w,
+                                     out_dtype=out_dtype)
+                check(torch.equal(alone[0], out[r]),
+                      f"{name}: row {r} of the M {M} call differs from "
+                      "the same row alone (M 1)")
+            print(f"    rows 0, {M // 2}, {M - 1} bit-equal to M 1 calls",
+                  flush=True)
         if not timed:
             return
         nbytes = (x.numel() * 2 + w.data.numel() + w.scales.numel() * 2
@@ -365,7 +408,8 @@ def main() -> None:
             w, data=w.data.clone(), scales=w.scales.clone()))
             for _ in range(n_cp - 1)]
         ms, call_ms = time_calls(
-            lambda a, b: quant_matmul(a, b, out_dtype=out_dtype), copies, 100)
+            lambda a, b: quant_matmul(a, b, out_dtype=out_dtype), copies,
+            100 if M <= 8 else 20)
         plain_ms, _ = time_calls(
             lambda a, b: quant_matmul_plain(a, b, out_dtype), copies, 10)
         wd = dequantize(w, torch.bfloat16)
@@ -376,7 +420,8 @@ def main() -> None:
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/quant_matmul.cu",
             replaces="src/repro/kernels/quant_matmul.py:79",
-            shape=f"M{M} K{K} N{N}", launches=0, max_abs_err=err, tol=tol,
+            shape=f"M{M} K{K} N{N}", path=path, launches=0,
+            max_abs_err=err, tol=tol,
             ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
             library_ms=lib_ms,
             library="torch.matmul on pre-dequantized bf16 weights")
@@ -387,12 +432,113 @@ def main() -> None:
 
     for fmt in ("q8_0", "q4_0"):
         for label, (K, N) in linear_shapes.items():
-            qmm_case(fmt, label, B, K, N, torch.bfloat16, timed=True)
+            qmm_case(fmt, label, B, K, N, torch.bfloat16, timed=True,
+                     path="main" if fmt == "q8_0" else "second q4_0")
         qmm_case(fmt, "wo", 1, *linear_shapes["wo"], torch.bfloat16,
                  timed=False)
         qmm_case(fmt, "wqkv", 3, *linear_shapes["wqkv"], torch.float32,
                  timed=False)
         qmm_case(fmt, "ragged", 9, 96, 50, torch.bfloat16, timed=False)
+    # prefill M: a bucket of 4 x 512 rows, and a ragged 333
+    for label, (K, N) in linear_shapes.items():
+        qmm_case("q8_0", label, 2048, K, N, torch.bfloat16, timed=True,
+                 path="prefill")
+        qmm_case("q8_0", label, 333, K, N, torch.bfloat16, timed=False)
+    qmm_case("q4_0", "w_gate_up", 2048, *linear_shapes["w_gate_up"],
+             torch.bfloat16, timed=True, path="second q8_0 stall")
+    qmm_case("q4_0", "w_gate_up", 333, *linear_shapes["w_gate_up"],
+             torch.bfloat16, timed=False)
+
+    def visible_pairs(sq, skv, window, q_offset):
+        """(query, key) pairs the causal (and window) mask lets through:
+        the work the attention must do for these inputs."""
+        n = 0
+        for i in range(sq):
+            pos = i + q_offset
+            lo = max(0, pos - window + 1) if window else 0
+            n += max(0, min(skv - 1, pos) - lo + 1)
+        return n
+
+    def flash_case(b, hq, hkv, sq, skv, d, window, q_offset, timed):
+        q = randn(b, hq, sq, d).bfloat16()
+        k = randn(b, hkv, skv, d).bfloat16()
+        v = randn(b, hkv, skv, d).bfloat16()
+        kw = dict(causal=True, window=window, q_offset=q_offset)
+        out = flash_attention(q, k, v, **kw)
+        ref = flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        tol = bf16_tol(ref)
+        shape = (f"B{b} Hq{hq} Hkv{hkv} Sq{sq} Skv{skv} D{d} window{window} "
+                 f"q_offset{q_offset}")
+        print(f"  flash_attention {shape}: max_abs_err {err:.3e} "
+              f"(tol {tol:.3e})", flush=True)
+        check(err <= tol, f"flash_attention {shape}: {err} > {tol}")
+        if not timed:
+            return
+        # the design anchors tiles at position 0: a row's bits do not
+        # depend on how far the sequence runs on after it
+        cut = sq * 3 // 5
+        part = flash_attention(*(t[:, :, :cut].contiguous()
+                                 for t in (q, k, v)), **kw)
+        check(torch.equal(part, out[:, :, :cut]),
+              f"flash_attention {shape}: rows of the first {cut} positions "
+              f"differ from the same rows at Sq {cut}")
+        nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2
+        flops = 4.0 * visible_pairs(sq, skv, window, q_offset) * b * hq * d
+        t_bound, by = bound(nbytes, flops)
+        n_cp = copies_for(nbytes)
+        copies = [(q, k, v)] + [tuple(t.clone() for t in (q, k, v))
+                                for _ in range(n_cp - 1)]
+        ms, call_ms = time_calls(lambda *a: flash_attention(*a, **kw),
+                                 copies, 100)
+        plain_ms, _ = time_calls(lambda *a: flash_attention_plain(*a, **kw),
+                                 copies, 5)
+        lib_ms, _ = time_calls(
+            lambda qq, kk, vv: F.scaled_dot_product_attention(
+                qq, kk, vv, is_causal=True, enable_gqa=True), copies, 50)
+        rows[f"flash_attention[B{b} S{sq}]"] = dict(
+            name=f"flash_attention[B{b} S{sq}]", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:87",
+            shape=shape, path="prefill", launches=0, max_abs_err=err,
+            tol=tol, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+            bound_ms=t_bound, bound_by=by, library_ms=lib_ms,
+            library="torch.nn.functional.scaled_dot_product_attention"
+                    " (is_causal, enable_gqa)")
+        print(f"    rows of Sq {cut} bit-equal to the same rows at Sq {sq}; "
+              f"device ms {ms:.4f} (per call back to back {call_ms:.4f})  "
+              f"plain {plain_ms:.4f}  sdpa {lib_ms:.4f}  bound "
+              f"{t_bound:.4f} ({by}, {nbytes / 1e6:.2f} MB, "
+              f"{flops / 1e9:.2f} GFLOP)", flush=True)
+
+    # the prefill path's shapes (4 x 512 and 3 x 1024 buckets), then
+    # Sq 1, ragged S, a query block past the keys, two windows, the other
+    # instantiated (head_dim, G) pairs, and rows with no visible key
+    flash_case(4, Hq, Hkv, 512, 512, D, 0, 0, timed=True)
+    flash_case(3, Hq, Hkv, 1024, 1024, D, 0, 0, timed=True)
+    for case in ((2, Hq, Hkv, 1, 1, D, 0, 0), (2, Hq, Hkv, 333, 333, D, 0, 0),
+                 (2, Hq, Hkv, 100, 300, D, 0, 200),
+                 (2, Hq, Hkv, 512, 512, D, 16, 0),
+                 (2, Hq, Hkv, 333, 333, D, 100, 0),
+                 (2, 32, 32, 200, 200, 128, 0, 0),
+                 (2, 4, 2, 130, 130, 32, 0, 0),
+                 (1, Hq, Hkv, 24, 16, D, 12, 8)):
+        flash_case(*case, timed=False)
+
+    # the tied unembedding is a library product (torch.mm to f32 logits):
+    # does one row's result depend on how many rows share the call?
+    emb = randn(cfg_full.padded_vocab, cfg_full.d_model,
+                scale=cfg_full.d_model ** -0.5).bfloat16()
+    xs = randn(4, cfg_full.d_model).bfloat16()
+    rows4 = ops.matmul(xs, emb.t(), out_dtype=torch.float32)
+    unembed_rows_equal = {
+        m: bool(torch.equal(ops.matmul(xs[:m], emb.t(),
+                                       out_dtype=torch.float32)[0], rows4[0]))
+        for m in (1, 2, 3)}
+    print("  unembed (torch.mm, f32 logits): row 0 bit-equal to the M 4 "
+          f"call at M 1/2/3: {unembed_rows_equal}", flush=True)
+    del emb, xs, rows4
 
     # -- shared checks of a served path -------------------------------------
     def clone_cache(c):
@@ -400,59 +546,98 @@ def main() -> None:
                 "layers": [{k: t.clone() for k, t in layer.items()}
                            for layer in c["layers"]]}
 
+    def judge(logits, tol, label, what):
+        """Kernels vs plain versions (and the plain versions with the
+        planted fault) for one batch of logits: the kernels must stay
+        within ``tol`` of the logit scale, the planted fault must land
+        beyond it, so the check would have caught it, and the greedy
+        argmax must agree on every row but a near tie: one whose plain
+        top-2 margin is within twice the measured error, which bf16
+        rounding can flip. Returns (error, fault error) as shares of the
+        largest logit."""
+        lk, lp, lf = logits["kernels"], logits["plain"], logits["fault"]
+        check(bool(torch.isfinite(lk).all()), f"{label}: nonfinite logits")
+        scale = float(lp.abs().max())
+        err_abs = float((lk - lp).abs().max())
+        err = err_abs / scale
+        fault = float((lf - lp).abs().max()) / scale
+        top2 = lp.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        flips = lk.argmax(-1) != lp.argmax(-1)
+        near_tie = margin <= 2 * err_abs
+        print(f"  {label}: {what} logits kernels vs plain max_abs_err "
+              f"{err:.3e} of the logit scale {scale:.3f} (tol {tol:.1e}); "
+              f"planted fault {fault:.3e}; argmax differs on "
+              f"{int(flips.sum())} of {lk.shape[0]} rows, "
+              f"{int(near_tie.sum())} near ties (least top-2 margin "
+              f"{float(margin.min()) / scale:.3e})", flush=True)
+        check(err <= tol, f"{label}: kernel-vs-plain {what} logits {err} > "
+              f"{tol}")
+        check(fault > tol, f"{label}: the planted fault's error {fault} is "
+              f"within the tolerance {tol}")
+        check(not bool((flips & ~near_tie).any()),
+              f"{label}: the kernels' greedy argmax differs from the "
+              "plain versions' on a row that is no near tie")
+        return err, fault
+
+    def three_routes(run):
+        """run() through the kernels, the plain versions, and the plain
+        versions with the planted faults."""
+        out = {}
+        for route in ("kernels", "plain", "fault"):
+            ctx = (contextlib.nullcontext() if route == "kernels"
+                   else plain_versions(fault=route == "fault"))
+            with ctx:
+                out[route] = run()
+        torch.cuda.synchronize()
+        return out
+
     def step_vs_plain(engine, label):
         """One decode step from the engine's current cache, for a few
-        seeded token batches: through the kernels, through the plain
-        versions, and through the plain versions with the planted fault.
-        The kernels must stay within STEP_REL_TOL of the logit scale,
-        and the planted fault must land beyond it, so the check would
-        have caught it. Greedy argmax must agree on every row but a near
-        tie: one whose plain top-2 margin is within twice the measured
-        error, which bf16 rounding can flip."""
+        seeded token batches, judged against STEP_REL_TOL (the planted
+        fault: the attention one position short)."""
         worst, fault_least = 0.0, math.inf
         for seed in range(STEP_SEEDS):
             g = torch.Generator(device=dev)
             g.manual_seed(seed)
             toks = torch.randint(1, engine.cfg.vocab_size,
                                  (engine.slots, 1), generator=g, device=dev)
-            logits = {}
-            for route in ("kernels", "plain", "fault"):
-                cache = clone_cache(engine.cache)
-                ctx = (contextlib.nullcontext() if route == "kernels"
-                       else plain_versions(fault=route == "fault"))
-                with ctx:
-                    logits[route] = engine.model.decode_step(
-                        engine.params, toks, cache)
-            torch.cuda.synchronize()
-            lk, lp, lf = logits["kernels"], logits["plain"], logits["fault"]
-            check(bool(torch.isfinite(lk).all()), f"{label}: nonfinite logits")
-            scale = float(lp.abs().max())
-            err_abs = float((lk - lp).abs().max())
-            err = err_abs / scale
-            fault = float((lf - lp).abs().max()) / scale
-            top2 = lp.topk(2, dim=-1).values
-            margin = top2[:, 0] - top2[:, 1]
-            flips = lk.argmax(-1) != lp.argmax(-1)
-            near_tie = margin <= 2 * err_abs
-            print(f"  {label} seed {seed}: decode_step logits kernels vs "
-                  f"plain max_abs_err {err:.3e} of the logit scale "
-                  f"{scale:.3f} (tol {STEP_REL_TOL:.1e}); planted fault "
-                  f"{fault:.3e}; argmax differs on {int(flips.sum())} of "
-                  f"{engine.slots} rows, {int(near_tie.sum())} near ties "
-                  f"(least top-2 margin {float(margin.min()) / scale:.3e})",
-                  flush=True)
-            check(err <= STEP_REL_TOL,
-                  f"{label}: kernel-vs-plain logits {err} > {STEP_REL_TOL}")
-            check(fault > STEP_REL_TOL, f"{label}: the planted fault's error "
-                  f"{fault} is within the tolerance {STEP_REL_TOL}")
-            check(not bool((flips & ~near_tie).any()),
-                  f"{label}: the kernels' greedy argmax differs from the "
-                  "plain versions' on a row that is no near tie")
+            logits = three_routes(lambda: engine.model.decode_step(
+                engine.params, toks, clone_cache(engine.cache)))
+            err, fault = judge(logits, STEP_REL_TOL, f"{label} seed {seed}",
+                               "decode_step")
             worst, fault_least = max(worst, err), min(fault_least, fault)
         return dict(max_rel_err=worst, fault_least_rel_err=fault_least)
 
-    def check_served(engine, requests, steps, label):
+    def prefill_vs_plain(engine, lens, label):
+        """One fused prefill of a bucket with these true lengths, for a
+        few seeded token batches, judged against PREFILL_REL_TOL (the
+        planted fault: each query also sees the next key)."""
+        n, S = len(lens), engine._bucket_len(max(lens))
+        seq_lens = torch.tensor(lens, device=dev)
+        worst, fault_least = 0.0, math.inf
+        for seed in range(PREFILL_SEEDS):
+            g = torch.Generator(device=dev)
+            g.manual_seed(seed)
+            toks = torch.randint(1, engine.cfg.vocab_size, (n, S),
+                                 generator=g, device=dev)
+            logits = three_routes(lambda: engine.model.prefill(
+                engine.params, toks, engine.model.init_cache(
+                    n, engine.max_len), seq_lens=seq_lens))
+            err, fault = judge(logits, PREFILL_REL_TOL,
+                               f"{label} seed {seed}",
+                               f"prefill ({n} x {S}, seq_lens {lens})")
+            worst, fault_least = max(worst, err), min(fault_least, fault)
+        return dict(max_rel_err=worst, fault_least_rel_err=fault_least)
+
+    def check_served(engine, requests, label, warmup_steps=0):
+        """Outputs complete and in range; launch counts equal to one
+        attention and four linears per layer per decode step (the
+        warmup's steps included where the counters saw them), plus per
+        prefill call one flash attention and four linears per layer."""
         L = engine.cfg.num_layers
+        st = engine.stats
+        steps, batches = st.steps + warmup_steps, st.prefill_batches
         for r in requests:
             check(r.done and r.error is None,
                   f"{label}: request {r.uid} not done ({r.error})")
@@ -463,10 +648,11 @@ def main() -> None:
         quant_cache = engine.kv_quant != "bf16"
         want = {"decode_attention": 0 if quant_cache else L * steps,
                 "decode_attention_quant": L * steps if quant_cache else 0,
-                "quant_matmul": 4 * L * steps}
+                "quant_matmul": 4 * L * (steps + batches),
+                "flash_attention": L * batches}
         got = {k.__name__: k.launches for k in kernels_all}
-        print(f"  {label}: launches {got} over {steps} decode steps x {L} "
-              f"layers", flush=True)
+        print(f"  {label}: launches {got} over {steps} decode steps and "
+              f"{batches} prefill calls x {L} layers", flush=True)
         check(got == want, f"{label}: launches {got} != expected {want}")
         return got
 
@@ -483,8 +669,8 @@ def main() -> None:
                       "--device", "cuda"])
     torch.cuda.synchronize()
     eng = res.engine
-    main_steps = res.warmup_steps + eng.stats.steps
-    main_counts = check_served(eng, res.requests, main_steps, "main path")
+    main_counts = check_served(eng, res.requests, "main path",
+                               warmup_steps=res.warmup_steps)
     st = eng.stats
     tok_s = st.tokens_generated / st.decode_wall_s
     ms_step = 1e3 * st.decode_wall_s / st.steps
@@ -509,41 +695,181 @@ def main() -> None:
     del eng, res
     torch.cuda.empty_cache()
 
-    # -- 5. second path: q4_0 weights, quantized caches -----------------------
+    # -- 5. prefill path: stall admission through the fused prefill -------
+    print("prefill path: llama3.2-1b full width, q8_0 weights, bf16 cache, "
+          "stall admission", flush=True)
+    model_p = Model(cfg_full, device=dev)
+    eng = ServingEngine(model_p, model_p.init(gen, quantize=False), slots=4,
+                        max_len=1024, sampling=SamplingConfig(),
+                        megastep_k=8, quant_policy="q8_0", admission="stall")
+    prng = np.random.default_rng(2)
+    prompts = [prng.integers(1, cfg_full.vocab_size, n).astype(np.int32)
+               for n in PREFILL_PROMPTS]
+
+    def prefill_requests():
+        return [Request(uid=i, prompt=p, max_new_tokens=32)
+                for i, p in enumerate(prompts)]
+
+    # warmup: first-use costs of the prefill shapes stay out of the run
+    eng.submit(Request(uid=-1, prompt=prompts[0], max_new_tokens=2))
+    eng.run()
+    eng.reset()
+    impl = eng._prefill_impl
+    calls = []
+
+    def timed_prefill(tokens, seq_lens, *rest):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        first = impl(tokens, seq_lens, *rest)
+        e1.record()
+        e1.synchronize()
+        calls.append(dict(rows=tokens.shape[0], S=tokens.shape[1],
+                          tokens=int(seq_lens.sum()),
+                          ms=e0.elapsed_time(e1),
+                          wall_ms=1e3 * (time.perf_counter() - t0)))
+        return first
+
+    eng._prefill_impl = timed_prefill
+    reqs = prefill_requests()
+    zero_counts()
+    torch.cuda.synchronize()
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    torch.cuda.synchronize()
+    st = eng.stats
+    prefill_counts = check_served(eng, reqs, "prefill path")
+    check(0 < st.prefill_batches < st.prefills,
+          f"prefill path: {st.prefill_batches} prefill calls for "
+          f"{st.prefills} requests: no bucket was shared")
+    by_bucket = {}
+    for c in calls:
+        b = by_bucket.setdefault(c["S"], dict(calls=0, rows=0, tokens=0,
+                                              ms=0.0))
+        b["calls"] += 1
+        b["rows"] += c["rows"]
+        b["tokens"] += c["tokens"]
+        b["ms"] += c["ms"]
+        print(f"  prefill call: {c['rows']} x {c['S']} (M {c['rows'] * c['S']}"
+              f", {c['tokens']} real tokens): {c['ms']:.3f} ms on CUDA "
+              f"events, {c['tokens'] / c['ms'] * 1e3:.1f} prefill tok/s "
+              f"({c['rows'] * c['S'] / c['ms'] * 1e3:.1f} padded)",
+              flush=True)
+    for S, b in sorted(by_bucket.items()):
+        b.update(ms_per_call=b["ms"] / b["calls"],
+                 tok_s=b["tokens"] / b["ms"] * 1e3)
+        print(f"  bucket {S}: {b['calls']} calls, {b['ms_per_call']:.3f} ms "
+              f"per call, {b['tok_s']:.1f} prefill tok/s", flush=True)
+    prefill_s = sum(c["wall_ms"] for c in calls) / 1e3
+    decode_tokens = st.tokens_generated - st.prefills
+    decode_s = st.decode_wall_s - prefill_s
+    print(f"  prefill path: {st.tokens_generated} tokens ({st.prefills} from "
+          f"{st.prefill_batches} prefill calls in {prefill_s:.3f} s), "
+          f"decode after stall admission {decode_tokens} tokens in "
+          f"{decode_s:.3f} s = {decode_tokens / decode_s:.1f} tok/s, "
+          f"{1e3 * decode_s / st.steps:.3f} ms per decode step ({st.steps} "
+          "steps)", flush=True)
+    for uid in (0, 4, 7):                   # buckets 4 x 512, 3 x 1024, 1 x 512
+        r = reqs[uid]
+        ref = eng.model.reference_decode(eng.params, r.prompt,
+                                         r.max_new_tokens, max_len=1024,
+                                         stepwise_prefill=False)
+        check(ref == r.output, f"prefill path: request {uid} engine stream "
+              "differs from reference_decode(stepwise_prefill=False)")
+    print("  prefill path: engine streams == Model.reference_decode("
+          "stepwise_prefill=False) (requests 0, 4, 7)", flush=True)
+    prefill_path = dict(calls=calls, buckets=by_bucket,
+                        prefill_batches=st.prefill_batches,
+                        prefills=st.prefills,
+                        decode_tok_s=decode_tokens / decode_s,
+                        decode_ms_per_step=1e3 * decode_s / st.steps)
+    prefill_path.update(prefill_vs_plain(
+        eng, list(PREFILL_PROMPTS[:4]), "prefill path"))
+
+    # where the prefill's time goes: the same requests again, each prefill
+    # call under the profiler (card only); idle share = 1 - kernel time /
+    # the calls' wall time
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    groups = {"flash_attention": 0.0, "quant_matmul": 0.0, "other": 0.0}
+    prof_wall = [0.0]
+
+    def profiled_prefill(*args):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            first = impl(*args)
+            torch.cuda.synchronize()
+            prof_wall[0] += 1e3 * (time.perf_counter() - t0)
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                key = ("flash_attention" if "flash_attention" in e.name else
+                       "quant_matmul" if ("quant_matmul" in e.name
+                                          or "sum_splits" in e.name)
+                       else "other")
+                groups[key] += e.time_range.elapsed_us() / 1e3
+        return first
+
+    eng.reset()
+    eng._prefill_impl = profiled_prefill
+    replay = prefill_requests()
+    for r in replay:
+        eng.submit(r)
+    eng.run()
+    check([r.output for r in replay] == [r.output for r in reqs],
+          "prefill path: the profiled replay served other tokens")
+    busy = sum(groups.values())
+    if busy == 0.0:
+        print("  prefill profile: device time not measured (the trace holds "
+              "no CUDA kernel events)", flush=True)
+        prefill_path.update(device_idle_share=None)
+    else:
+        print(f"  prefill profile: {len(calls)} calls, wall {prof_wall[0]:.3f}"
+              f" ms, device kernel time {busy:.3f} ms -> device idle share "
+              f"{1 - busy / prof_wall[0]:.3f}; device ms by group "
+              + ", ".join(f"{g} {ms:.3f}" for g, ms in groups.items()),
+              flush=True)
+        prefill_path.update(profiled_wall_ms=prof_wall[0],
+                            device_ms_by_group=groups,
+                            device_idle_share=1 - busy / prof_wall[0])
+    del eng, model_p
+    torch.cuda.empty_cache()
+
+    # -- 6. second path: q4_0 weights, quantized caches, stall admission ----
     cfg4 = dataclasses.replace(cfg_full, num_layers=MAIN_LAYERS_SECOND_PATH)
     model4 = Model(cfg4, device=dev)
     params4 = model4.init(gen, quantize=False)
-    second_counts, step_checks = {}, {}
-    for kvq in ("q8_0", "q4_0"):
-        label = f"second path (4 layers, q4_0 weights, {kvq} cache)"
+    counts = {"main": main_counts, "prefill": prefill_counts}
+    step_checks = {}
+    for kvq, admission in (("q8_0", "chunked"), ("q4_0", "chunked"),
+                           ("q8_0", "stall")):
+        key = f"second {kvq}" + (" stall" if admission == "stall" else "")
+        label = (f"second path (4 layers, q4_0 weights, {kvq} cache, "
+                 f"{admission} admission)")
         eng = ServingEngine(model4, params4, slots=4, max_len=1024,
                             sampling=SamplingConfig(), megastep_k=8,
-                            quant_policy="q4_0", kv_quant=kvq)
+                            quant_policy="q4_0", kv_quant=kvq,
+                            admission=admission)
         reqs = serve.make_requests(cfg4.vocab_size, 6, 16, seed=1)
         zero_counts()
         for r in reqs:
             eng.submit(r)
         eng.run()
         torch.cuda.synchronize()
-        second_counts[kvq] = check_served(eng, reqs, eng.stats.steps, label)
-        step_checks[kvq] = step_vs_plain(eng, label)
+        counts[key] = check_served(eng, reqs, label)
+        step_checks[key] = step_vs_plain(eng, label)
         del eng
     del params4
     torch.cuda.empty_cache()
 
-    # -- 6. the kernel line ---------------------------------------------------
-    for name, row in rows.items():
-        if name == "decode_attention":
-            row["launches"] = main_counts["decode_attention"]
-        elif name.startswith("decode_attention_quant"):
-            fmt = name[name.index("[") + 1:-1]
-            row["launches"] = second_counts[fmt]["decode_attention_quant"]
-        elif "q8_0" in name:
-            row["launches"] = main_counts["quant_matmul"]
-        else:
-            row["launches"] = second_counts["q4_0"]["quant_matmul"]
-    print(json.dumps({"main_path": main_path,
-                      "second_path_step_checks": step_checks}))
+    # -- 7. the kernel line ---------------------------------------------------
+    for row in rows.values():
+        kernel = row["name"].split("[")[0]
+        row["launches"] = counts[row.pop("path")][kernel]
+    print(json.dumps({"main_path": main_path, "prefill_path": prefill_path,
+                      "second_path_step_checks": step_checks,
+                      "unembed_rows_equal_across_m": unembed_rows_equal}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,9 @@ products (the counterpart of the JAX package's ``kernels/ops.py``).
   card ``torch.mm(..., out_dtype=torch.float32)``, on the CPU an f32
   product of the bf16 values (rounding the logits to bf16 would flip
   greedy tokens against the JAX package).
+- ``attention``: prefill attention in the (B, H, S, D) layout, the
+  ``flash_attention`` kernel's wrapper. There is no ``use_pallas``
+  switch and no tile picking: the kernel takes every Sq and Skv.
 - ``decode_attention`` / ``decode_attention_quant``: the kernels'
   wrappers, which take the plain version only for CPU tensors.
 
@@ -30,13 +33,14 @@ import torch
 
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.decode_attention_quant import decode_attention_quant
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.quant_matmul import quant_matmul
 from repro_torch.quant.quantize import QuantizedTensor
 
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
-__all__ = ["matmul", "decode_attention", "decode_attention_quant",
-           "quant_matmul"]
+__all__ = ["matmul", "attention", "decode_attention",
+           "decode_attention_quant", "flash_attention", "quant_matmul"]
 
 
 def matmul(x: torch.Tensor, w: Union[torch.Tensor, QuantizedTensor], *,
@@ -55,3 +59,11 @@ def matmul(x: torch.Tensor, w: Union[torch.Tensor, QuantizedTensor], *,
     else:
         y = torch.matmul(x2.float(), w.float()).to(out_dtype)
     return y.reshape(*lead, y.shape[-1])
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0,
+              q_offset: int = 0) -> torch.Tensor:
+    """Prefill attention; q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D)."""
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           q_offset=q_offset)

@@ -5,11 +5,14 @@ Replaces the JAX package's Pallas kernel ``quant_matmul``
 ``_dequant_block_q8`` / ``_dequant_block_q4``) with the CUDA kernel in
 ``csrc/quant_matmul.cu``. At decode M (the number of slots) it is bound
 by the weight bytes, K*N*(1 + 2/32) for q8_0 and K*N*(0.5 + 2/32) for
-q4_0; its design (coalesced 4-column rows per thread, x staged through
-shared memory a K tile at a time, K split across CTAs so enough of them
-stream, a deterministic second pass over the split partials) is
-described in the source. Any M and any N work; K must be a multiple of
-the quantization group.
+q4_0; at prefill M by its f32 arithmetic on the CUDA cores. Its design
+(coalesced 4-column rows per thread, x staged through shared memory a K
+tile at a time, K cut into chunks planned from the weight's shape and
+the SM count alone: split across CTAs with a deterministic second pass
+at decode M, walked inside each CTA at larger M, summed in chunk order
+either way so that an output row does not depend on M) is described in
+the source. Any M and any N work; K must be a multiple of the
+quantization group.
 
 ``quant_matmul_plain`` is the plain PyTorch version, the JAX package's
 XLA path: dequantize to the activation dtype, multiply in f32, cast to
@@ -45,8 +48,9 @@ def quant_matmul_plain(x: torch.Tensor, w: QuantizedTensor,
 @functools.lru_cache(maxsize=None)
 def _workspace(M: int, K: int, N: int, group: int) -> int:
     """f32 elements of split-K scratch the kernel asks for at this shape
-    (its plan lives in the CUDA source), -1 for a group it does not
-    take. The kernel checks the size again at launch."""
+    (its plan lives in the CUDA source): nonzero only at decode M, where
+    K is split across CTAs; -1 for a group it does not take. The kernel
+    checks the size again at launch."""
     fn = build.function("quant_matmul", "quant_matmul_workspace",
                         (_I, _I, _I, _I))
     return fn(M, K, N, group)

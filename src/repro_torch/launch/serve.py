@@ -52,6 +52,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--megastep-k", type=int, default=None,
                     help="decode substeps per megastep (default 8)")
+    ap.add_argument("--admission", default="chunked",
+                    choices=["chunked", "stall"],
+                    help="prompt admission: ride inside the megastep "
+                         "(chunked) or batched prefill calls between "
+                         "megasteps (stall)")
     ap.add_argument("--temperature", type=float, default=0.8,
                     help="sampling temperature (0 = greedy); top-k 40")
     ap.add_argument("--seed", type=int, default=0,
@@ -86,7 +91,7 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
         model, params, slots=args.slots, max_len=args.max_len,
         sampling=SamplingConfig(temperature=args.temperature, top_k=40),
         seed=args.seed, megastep_k=args.megastep_k,
-        quant_policy=args.precision)
+        quant_policy=args.precision, admission=args.admission)
 
     # warmup: first-use costs (kernel build and load, library handles)
     # stay out of the timed run
@@ -114,9 +119,10 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
           f"{st.tokens_generated / decode_s:.1f} tok/s, "
           f"{1e3 * decode_s / max(st.steps, 1):.3f} ms per decode step "
           f"({st.steps} steps in {st.megasteps} megasteps "
-          f"[K={engine.megastep_k}], {st.prefills} admissions, "
-          f"{st.chunk_refills} chunk refills; warmup {warmup_s:.2f}s "
-          f"excluded)")
+          f"[K={engine.megastep_k}], {st.prefills} admissions "
+          f"({engine.admission}: {st.chunk_refills} chunk refills, "
+          f"{st.prefill_batches} prefill batches); warmup "
+          f"{warmup_s:.2f}s excluded)")
     return ServeResult(engine, requests, warmup_steps)
 
 

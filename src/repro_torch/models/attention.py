@@ -1,9 +1,14 @@
-"""GQA attention for one decode token over a dense KV cache.
+"""GQA attention: the full-sequence prefill forward and one decode token
+over a dense KV cache.
 
-Counterpart of the decode half of the JAX package's
-``models/attention.py`` (``attention_decode``, ``kv_cache_write``,
-``kv_cache_read``, ``init_kv_cache``; paging, cross-attention and the
-prefill ``chunked_attention`` are not ported yet).
+Counterpart of the JAX package's ``models/attention.py``:
+``attention_forward`` (the self-attention branch, with ``return_kv``),
+``attention_decode``, ``kv_cache_write``, ``kv_cache_read`` and
+``init_kv_cache``. ``chunked_attention`` moved to
+``repro_torch.kernels.flash_attention``: it is the plain version of the
+prefill attention kernel there, and ``attention_forward`` reaches it
+through ``ops.attention``. Paging, cross-attention and ``kv_override``
+are not ported yet.
 
 The cache is updated in place. A row whose ``advance`` flag is False
 (a frozen slot of the serving engine) keeps its old cache contents:
@@ -29,6 +34,35 @@ def attention_specs(cfg: ModelConfig) -> Dict:
             "wo": layers.linear_spec(cfg.q_dim, cfg.d_model)}
 
 
+def attention_forward(p, cfg: ModelConfig, x: torch.Tensor, *,
+                      positions: torch.Tensor, return_kv: bool = False):
+    """Full-sequence causal self-attention (prefill). x (B, S, D_model),
+    positions (B, S) absolute. With ``return_kv`` also returns the roped
+    K and the V, (B, Hkv, S, hd) each, for the cache fill."""
+    B, S, _ = x.shape
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    qkv = layers.linear(p["wqkv"], x)
+    q = qkv[..., :cfg.q_dim].reshape(B, S, H, hd)
+    k = qkv[..., cfg.q_dim:cfg.q_dim + cfg.kv_dim].reshape(B, S, Hkv, hd)
+    v = qkv[..., cfg.q_dim + cfg.kv_dim:].reshape(B, S, Hkv, hd)
+    q = layers.apply_rope(q, positions, cfg.rope_theta)
+    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    out = ops.attention(q, k, v, causal=True, window=0)
+    out = out.transpose(1, 2).reshape(B, S, H * hd)
+    out = layers.linear(p["wo"], out)
+    if return_kv:
+        return out, k, v
+    return out
+
+
+def check_cache_format(cfg: ModelConfig, cache: Dict) -> None:
+    """Raise when a layer's cache leaves are not ``cfg.kv_quant``'s."""
+    if ("k_scale" in cache) == (cfg.kv_quant in FLOAT_FORMATS):
+        raise ValueError(f"cache leaves {sorted(cache)} are not a "
+                         f"{cfg.kv_quant} cache")
+
+
 def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
                      lens: torch.Tensor,
                      advance: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -45,9 +79,7 @@ def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
     k = layers.apply_rope(k, lens, cfg.rope_theta)
     S = cache["k"].shape[2]
     kv_quant = cfg.kv_quant
-    if ("k_scale" in cache) == (kv_quant in FLOAT_FORMATS):
-        raise ValueError(f"cache leaves {sorted(cache)} are not a "
-                         f"{kv_quant} cache")
+    check_cache_format(cfg, cache)
     kv_cache_write(cache, k, v, lens % S, kv_quant=kv_quant,
                    group=cfg.quant_group, advance=advance)
     kv_len = torch.clamp(lens + 1, max=S)
@@ -83,6 +115,33 @@ def kv_cache_write(cache: Dict, k: torch.Tensor, v: torch.Tensor,
             new = torch.where(advance[:, None, None], new,
                               leaf[bidx, :, slot])
         leaf[bidx, :, slot] = new
+
+
+def kv_cache_write_prefill(cache: Dict, k: torch.Tensor, v: torch.Tensor,
+                           *, kv_quant: str = "bf16",
+                           group: int = 32) -> None:
+    """Write prefill K/V (B, Hkv, S, hd) into positions [0, S) of every
+    row of one layer's cache, in place (the ``S <= S_cache`` branch of
+    the JAX package's ``_write_prefill_kv``). Quantized caches quantize
+    the rows at the write point, per position, so they equal what the
+    stepwise decode path writes one at a time. Rows past a prompt's true
+    length are the padding's junk, as in the JAX package: decode reads
+    only ``lens + 1`` rows and overwrites the junk in order before it is
+    ever visible. A prompt longer than the cache (the ring branch) is
+    for the windowed family, which the port does not carry yet."""
+    S, S_cache = k.shape[2], cache["k"].shape[2]
+    if S > S_cache:
+        raise ValueError(f"prefill of {S} positions into a {S_cache}-row "
+                         "cache needs the ring write of the windowed "
+                         "family, which the port does not carry yet")
+    if kv_quant in FLOAT_FORMATS:
+        rows = {"k": k, "v": v}
+    else:
+        kq, ks = quantize_rows(k, kv_quant, group)
+        vq, vs = quantize_rows(v, kv_quant, group)
+        rows = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    for name, new in rows.items():
+        cache[name][:, :, :S] = new.to(cache[name].dtype)
 
 
 def kv_cache_read(cache: Dict, *, kv_quant: str = "bf16",

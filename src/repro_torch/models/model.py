@@ -1,14 +1,17 @@
-"""Dense GQA decoder: parameters, cache and the decode step.
+"""Dense GQA decoder: parameters, cache, the fused prefill and the decode
+step.
 
 Counterpart of the dense family of the JAX package's ``models/model.py``
-(``init``, ``init_cache``, ``decode_step`` with ``advance_mask``,
-``reference_decode`` with stepwise prefill). The fused ``prefill`` and
-the other families are not ported yet.
+(``init``, ``init_cache``, ``prefill`` with ``seq_lens``, ``decode_step``
+with ``advance_mask``, ``reference_decode`` with stepwise or fused
+prefill). The other families, ``cache_axes`` and the windowed configs'
+``window_for`` are not ported yet: every config the port carries
+attends over its whole cache (window 0).
 
 Parameters are a nested dict like the JAX package's, except that the
 layer stack is a list of per-layer dicts instead of stacked (L, ...)
 leaves. The cache is ``{"lens": (B,) int32, "layers": [per-layer
-leaves]}`` and ``decode_step`` updates it in place.
+leaves]}``, and ``prefill`` and ``decode_step`` update it in place.
 """
 from __future__ import annotations
 
@@ -76,6 +79,42 @@ class Model:
                        for _ in range(self.cfg.num_layers)],
         }
 
+    def prefill(self, params, tokens: torch.Tensor, cache: Dict,
+                seq_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Run the prompts (B, S), fill cache positions [0, S) in place
+        and return the f32 logits (B, vocab) of each row's last real
+        position. ``seq_lens`` (B,) marks right-padded rows' true
+        lengths (the engine prefills a length bucket in one call); the
+        padding writes junk K/V past ``lens``, which decode never reads
+        before overwriting it. ``lens`` advances by ``seq_lens``, or by
+        S without it. The JAX package's ``prefill`` takes
+        ``{"tokens", "seq_lens"}`` and returns a new cache."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        x = layers.embed(params, tokens)
+        positions = torch.arange(S, device=tokens.device).expand(B, S)
+        for p_l, c_l in zip(params["layers"], cache["layers"]):
+            attn.check_cache_format(cfg, c_l)
+            z = layers.rmsnorm(x, p_l["attn_norm"], cfg.norm_eps)
+            z, k, v = attn.attention_forward(p_l["attn"], cfg, z,
+                                             positions=positions,
+                                             return_kv=True)
+            x = x + z
+            attn.kv_cache_write_prefill(c_l, k, v, kv_quant=cfg.kv_quant,
+                                        group=cfg.quant_group)
+            z = layers.rmsnorm(x, p_l["ffn_norm"], cfg.norm_eps)
+            x = x + mlp_mod.mlp_forward(p_l["mlp"], z)
+        cache["lens"] += S if seq_lens is None else seq_lens.to(
+            cache["lens"].dtype)
+        x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        if seq_lens is None:
+            last = x[:, -1:]
+        else:
+            rows = torch.arange(B, device=x.device)
+            last = x[rows, seq_lens.long() - 1][:, None]
+        logits = layers.unembed(params, last, cfg)[:, 0]
+        return logits[:, :cfg.vocab_size]
+
     def decode_step(self, params, tokens: torch.Tensor, cache: Dict,
                     advance_mask: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
@@ -102,11 +141,14 @@ class Model:
 
     def reference_decode(self, params, prompt: Sequence[int],
                          max_new_tokens: int, eos_id: int = -1, *,
-                         max_len: int = 64) -> List[int]:
-        """Greedy single-request decode, the prompt fed one token at a
+                         max_len: int = 64,
+                         stepwise_prefill: bool = True) -> List[int]:
+        """Greedy single-request decode: the oracle the serving engine is
+        held to. ``stepwise_prefill`` feeds the prompt one token at a
         time through ``decode_step`` (the engine's chunked-admission
-        path): the oracle the serving engine is held to. Returns the
-        generated tokens (stops at EOS or ``max_new_tokens``)."""
+        path); False runs it through the fused ``prefill``, alone and
+        unpadded (the stall-admission path). Returns the generated
+        tokens (stops at EOS or ``max_new_tokens``)."""
         if max_new_tokens <= 0:
             return []
         if len(prompt) == 0:
@@ -114,9 +156,14 @@ class Model:
                              "token")
         cache = self.init_cache(1, max_len)
         tok = torch.empty((1, 1), dtype=torch.long, device=self.device)
-        for t in prompt:
-            tok.fill_(int(t))
-            logits = self.decode_step(params, tok, cache)
+        if stepwise_prefill:
+            for t in prompt:
+                tok.fill_(int(t))
+                logits = self.decode_step(params, tok, cache)
+        else:
+            toks = torch.as_tensor(list(prompt), dtype=torch.long,
+                                   device=self.device)
+            logits = self.prefill(params, toks[None], cache)
         out = [int(torch.argmax(logits[0]))]
         while len(out) < max_new_tokens and out[-1] != eos_id:
             tok.fill_(out[-1])

@@ -1,5 +1,5 @@
-"""Continuous-batching serving engine with chunked prefill admission and
-K-substep decode megasteps (the core of the JAX package's
+"""Continuous-batching serving engine with chunked or stall prefill
+admission and K-substep decode megasteps (the core of the JAX package's
 ``serving/engine.py``).
 
 The engine owns a fixed decode batch of ``slots``. Every ``step()`` runs
@@ -16,6 +16,13 @@ serves K tokens per slot.
   ``max(megastep_k, 16)`` prompt tokens that the host refreshes between
   megasteps. The slot emits its first token in the substep that feeds
   its last prompt token; decoding neighbours never stall.
+- **Stall admission** (``admission="stall"``): between megasteps, the
+  queued requests that fit into free slots are grouped by padded
+  length (the next power of two, at least 8, capped at ``max_len``) and
+  each group is prefilled in one ``Model.prefill`` call into a scratch
+  cache, whose rows are copied into the live cache at the slots. The
+  first token is sampled from the prefill's logits; decoding slots
+  stall meanwhile.
 - **Retirement**: a slot that emits EOS or reaches its budget turns
   idle; idle and waiting slots ride the fixed-shape batch with
   ``advance_mask`` False, so their cache rows are never written.
@@ -25,9 +32,9 @@ serves K tokens per slot.
 
 The cache and the slot state are updated in place. That replaces the
 JAX package's donated megastep carries, so the port has no
-``donate_carries`` knob. Left out of this slice: stall admission with
-batched prefill, paging and the prefix cache, pipelined dispatch,
-preemption, the EDF queue, cancellation and fault injection.
+``donate_carries`` knob. Left out so far: paging and the prefix cache,
+pipelined dispatch, preemption and the resume of preempted requests,
+the EDF queue, cancellation and fault injection.
 """
 from __future__ import annotations
 
@@ -46,6 +53,7 @@ from repro_torch.quant.quantize import (FLOAT_FORMATS, QuantizedTensor,
 from repro_torch.serving.sampler import SamplingConfig, sample_batched
 
 DEFAULT_MEGASTEP_K = 8
+ADMISSIONS = ("chunked", "stall")
 PAD_ID = 0
 
 PHASE_IDLE = 0      # retired / never filled: cache frozen, no emission
@@ -80,6 +88,7 @@ class EngineStats:
     megasteps: int = 0
     tokens_generated: int = 0
     prefills: int = 0            # requests admitted
+    prefill_batches: int = 0     # stall-path prefill calls
     chunk_refills: int = 0       # prompt chunks refreshed after the first
     poisoned: int = 0            # requests retired on nonfinite logits
     decode_wall_s: float = 0.0   # wall time in step()
@@ -123,7 +132,12 @@ class ServingEngine:
                  seed: int = 0,
                  megastep_k: Optional[int] = None,
                  quant_policy: Optional[str] = None,
-                 kv_quant: Optional[str] = None):
+                 kv_quant: Optional[str] = None,
+                 admission: str = "chunked"):
+        if admission not in ADMISSIONS:
+            raise ValueError(f"admission must be 'chunked' or 'stall' "
+                             f"(got {admission!r})")
+        self.admission = admission
         if kv_quant is not None:
             if kv_quant not in WEIGHT_FORMATS:
                 raise ValueError(
@@ -206,7 +220,7 @@ class ServingEngine:
         """Admit what fits, run one megastep and hand its tokens to the
         requests. Returns the number of slots still occupied."""
         t0 = time.perf_counter()
-        admit = self._fill_slots_chunked()
+        admit = self._fill_slots()
         if any(r is not None for r in self.active):
             occupants = tuple(self.active)
             block = self._megastep(admit)
@@ -241,6 +255,100 @@ class ServingEngine:
                 "temp": np.zeros((n,), np.float32),
                 "top_k": np.zeros((n,), np.int32),
                 "top_p": np.ones((n,), np.float32)}
+
+    def _fill_slots(self) -> Dict[str, np.ndarray]:
+        if self.admission == "chunked":
+            return self._fill_slots_chunked()
+        self._fill_slots_stall()
+        return self._empty_admit()
+
+    def _bucket_len(self, prompt_len: int) -> int:
+        """Padded prefill length: the next power of two (at least 8),
+        capped at ``max_len`` (``submit`` rejects longer prompts)."""
+        return min(max(8, 1 << (prompt_len - 1).bit_length()), self.max_len)
+
+    def _fill_slots_stall(self) -> None:
+        """Stall admission: length-bucketed prefill calls into the free
+        slots, run between megasteps while decoding slots wait."""
+        free = [s for s in range(self.slots) if self.active[s] is None]
+        buckets: Dict[int, List] = {}
+        while free and self.queue:
+            req = self.queue.popleft()
+            p = np.asarray(req.prompt, np.int32)
+            buckets.setdefault(self._bucket_len(len(p)), []).append(
+                (free.pop(0), req, p))
+        for blen, group in buckets.items():
+            n = len(group)
+            toks = np.full((n, blen), PAD_ID, np.int32)
+            for i, (_, _, p) in enumerate(group):
+                toks[i, :len(p)] = p
+            smp = [self._req_sampling(r) for _, r, _ in group]
+            first = self._prefill_impl(
+                toks, np.asarray([len(p) for _, _, p in group], np.int32),
+                np.asarray([s for s, _, _ in group], np.int64),
+                np.asarray([r.max_new_tokens for _, r, _ in group], np.int32),
+                np.asarray([r.eos_id for _, r, _ in group], np.int32),
+                np.asarray([v[0] for v in smp], np.float32),
+                np.asarray([v[1] for v in smp], np.int32),
+                np.asarray([v[2] for v in smp], np.float32))
+            self.stats.prefill_batches += 1
+            for i, (s, req, p) in enumerate(group):
+                tok = int(first[i])
+                req.output.append(tok)
+                self.stats.prefills += 1
+                self.stats.tokens_generated += 1
+                self._prefill_pos[s] = len(p)
+                if tok == req.eos_id or len(req.output) >= req.max_new_tokens:
+                    req.done = True       # the first token already ends it
+                    continue
+                self.active[s] = req
+                self._slot_prompt[s] = p
+                if smp[i][0] > 0.0:
+                    self._stochastic_slots.add(s)
+
+    def _prefill_impl(self, tokens: np.ndarray, seq_lens: np.ndarray,
+                      slot_idx: np.ndarray, max_new: np.ndarray,
+                      eos_id: np.ndarray, temp: np.ndarray,
+                      top_k: np.ndarray, top_p: np.ndarray) -> np.ndarray:
+        """Prefill one length bucket (n, S) into a scratch cache, copy
+        its rows into the live cache at ``slot_idx`` (n,), sample the
+        first tokens and set the slots' state for decoding. Returns the
+        first tokens on the host (the call's one sync)."""
+        dev = self.device
+        n = tokens.shape[0]
+        lens = torch.as_tensor(seq_lens, device=dev)
+        idx = torch.as_tensor(slot_idx, device=dev)
+        one = self.model.init_cache(n, self.max_len)
+        logits = self.model.prefill(
+            self.params, torch.as_tensor(tokens, device=dev).long(), one,
+            seq_lens=lens)
+        for live, scratch in zip(self.cache["layers"], one["layers"]):
+            for name, leaf in live.items():
+                leaf.index_copy_(0, idx, scratch[name])
+        self.cache["lens"].index_copy_(0, idx, one["lens"])
+        st = self.state
+        t_temp = torch.as_tensor(temp, device=dev)
+        t_topk = torch.as_tensor(top_k, device=dev)
+        t_topp = torch.as_tensor(top_p, device=dev)
+        if (temp > 0.0).any():
+            first = sample_batched(logits, self.generator, t_temp, t_topk,
+                                   t_topp)
+        else:
+            first = torch.argmax(logits, dim=-1).to(torch.int32)
+        t_max_new = torch.as_tensor(max_new, device=dev)
+        t_eos = torch.as_tensor(eos_id, device=dev)
+        alive = (first != t_eos) & (t_max_new > 1)
+        lens = lens.to(torch.int32)
+        for field, val in (
+                ("last_token", first), ("gen_len", torch.ones_like(first)),
+                ("max_new", t_max_new), ("eos_id", t_eos),
+                ("phase", torch.where(alive, PHASE_DECODE, PHASE_IDLE)),
+                ("prefill_pos", lens), ("prompt_len", lens),
+                ("temperature", t_temp), ("top_k", t_topk),
+                ("top_p", t_topp)):
+            t = getattr(st, field)
+            t.index_copy_(0, idx, val.to(t.dtype))
+        return first.cpu().numpy()
 
     def _fill_slots_chunked(self) -> Dict[str, np.ndarray]:
         """Host side of admission: the next prompt chunk for slots still
