@@ -10,8 +10,10 @@ Phases (any failed check raises and the process exits nonzero):
 3. hold each kernel against its plain PyTorch version on the card, at
    the paths' shapes (decode and prefill) and at edge shapes, and time
    kernel, plain version and library call beside the least time the
-   card could take; check that a ``quant_matmul`` output row does not
-   depend on M (bit for bit);
+   card could take (with each kernel's launch grid); check that a
+   ``quant_matmul`` output
+   row does not depend on M, and a decode-attention slot not on the
+   batch or the cache length (bit for bit);
 4. main path: llama3.2-1b at full width (seeded random weights, q8_0
    weights, bf16 cache) served by ``repro_torch.launch.serve`` with 4
    slots, max_len 1024, 8-substep megasteps and chunked admission, 8
@@ -65,8 +67,6 @@ PREFILL_PROMPTS = (300, 310, 480, 500, 700, 760, 900, 270)
 # on an H100 over 5 token batches: at most 1.72e-2 for sound kernels, at
 # least 3.21e-1 with the attention looking one key ahead (PERF.md).
 PREFILL_REL_TOL = 4e-2
-
-
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
@@ -84,22 +84,40 @@ def card_line() -> str:
     return out[0]
 
 
-def time_calls(fn, args_list, reps: int):
+def cuda_events(fn, args_list, calls: int) -> list:
+    """The CUDA events (kernels, copies, fills) of a torch.profiler trace
+    of ``calls`` calls of fn, cycling through ``args_list``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(*args_list[i % len(args_list)])
+        torch.cuda.synchronize()
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def time_calls(fn, args_list, reps: int, per_call: int = 0):
     """(device ms, wall ms) per call of fn(*args), cycling through
     ``args_list`` (copies whose bytes together exceed the 50 MB L2, so
     each call finds its inputs in device memory), after a warmup.
 
     Device ms: the call's kernels' own time, summed from a
-    torch.profiler trace of ``reps`` calls. Wall ms: CUDA events around
-    ``reps`` back-to-back calls; where the host enqueues a call more
-    slowly than the card runs it, this is the host's rate, not the
-    kernel's."""
+    torch.profiler trace of ``reps`` calls. The profiler now and then
+    drops events, which would read too low, so the trace must hold
+    exactly ``per_call`` CUDA events a call: the kernels a port wrapper
+    launches, from its plan; else the most that two traces of one call
+    hold. A trace that holds another count is taken again, up to twice,
+    and then fails the run. Wall ms: CUDA events around ``reps``
+    back-to-back calls; where the host enqueues a call more slowly than
+    the card runs it, this is the host's rate, not the kernel's."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     for a in args_list[:3]:
         fn(*a)
     torch.cuda.synchronize()
+    if not per_call:
+        per_call = max(len(cuda_events(fn, args_list, 1)) for _ in range(2))
+        check(per_call > 0, "a traced call shows no CUDA event")
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -108,13 +126,13 @@ def time_calls(fn, args_list, reps: int):
     end.record()
     torch.cuda.synchronize()
     wall_ms = start.elapsed_time(end) / reps
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            fn(*args_list[i % len(args_list)])
-        torch.cuda.synchronize()
-    dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
-    check(dev_us > 0, "the profiler trace holds no CUDA kernel events")
+    for _ in range(3):
+        events = cuda_events(fn, args_list, reps)
+        if len(events) == reps * per_call:
+            break
+    check(len(events) == reps * per_call, f"the profiler trace holds "
+          f"{len(events)} CUDA events for {reps} calls of {per_call}")
+    dev_us = sum(e.time_range.elapsed_us() for e in events)
     return dev_us / 1e3 / reps, wall_ms
 
 
@@ -202,12 +220,13 @@ def main() -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.decode_attention import (decode_attention,
-                                                      decode_attention_plain)
+                                                      decode_attention_plain,
+                                                      num_splits)
     from repro_torch.kernels.decode_attention_quant import (
         decode_attention_quant, decode_attention_quant_plain)
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
-    from repro_torch.kernels.quant_matmul import (quant_matmul,
+    from repro_torch.kernels.quant_matmul import (launch_grid, quant_matmul,
                                                   quant_matmul_plain)
     from repro_torch.launch import serve
     from repro_torch.models import Model
@@ -226,6 +245,12 @@ def main() -> None:
     libs, secs = build.build()
     print(f"build: {sorted(libs)} in {secs:.1f}s "
           f"({build.BUILD_DIR})", flush=True)
+    # the profiler's first window starts its tracing; keep that out of
+    # the timed ones
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(1024, device=dev).sum()
+        torch.cuda.synchronize()
 
     kernels_all = (decode_attention, decode_attention_quant, quant_matmul,
                    flash_attention)
@@ -322,7 +347,7 @@ def main() -> None:
         n_cp = copies_for(sum(t.numel() * t.element_size() for t in args))
         copies = [args] + [tuple(t.clone() for t in args)
                            for _ in range(n_cp - 1)]
-        ms, call_ms = time_calls(kern, copies, 100)
+        ms, call_ms = time_calls(kern, copies, 100, per_call=1)
         plain_ms, _ = time_calls(plain, copies, 10)
         # library yardstick: SDPA with a kv_len mask (over the bf16 view
         # for a quantized cache; the dequantization is not timed)
@@ -337,6 +362,8 @@ def main() -> None:
         lib = lambda qq, kk, vv, mm: F.scaled_dot_product_attention(
             qq, kk, vv, attn_mask=mm, enable_gqa=True)
         lib_ms, _ = time_calls(lib, lib_args, 50)
+        splits = num_splits(s)
+        grid = dict(ctas=b * hkv * splits, splits=splits, k_chunks=None)
         rows[name] = dict(
             name=name,
             route="cuda",
@@ -349,10 +376,42 @@ def main() -> None:
             call_ms=call_ms, plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
             library_ms=lib_ms,
             library="torch.nn.functional.scaled_dot_product_attention"
-                    " (attn_mask, enable_gqa)")
-        print(f"    device ms {ms:.4f} (per call back to back {call_ms:.4f})  "
-              f"plain {plain_ms:.4f}  sdpa {lib_ms:.4f}  "
-              f"bound {t_bound:.4f} ({by}, {nbytes / 1e6:.2f} MB)",
+                    " (attn_mask, enable_gqa)",
+            grid=grid)
+        print(f"    device ms {ms:.4f} (per call back to back {call_ms:.4f})"
+              f"  plain {plain_ms:.4f}  sdpa {lib_ms:.4f}  bound {t_bound:.4f} ({by}, "
+              f"{nbytes / 1e6:.2f} MB); grid {grid['ctas']} CTAs, "
+              f"{splits} splits", flush=True)
+
+    def attention_alone(fmt, lens, window):
+        """Slot b of a B 4, S 1024 call has the same bits as the same slot
+        decoded alone (B 1) in a cache of 512 positions: the split
+        boundaries are absolute cache positions and empty splits add
+        nothing."""
+        q = randn(4, Hq, D).bfloat16()
+        k = randn(4, Hkv, 1024, D).bfloat16()
+        v = randn(4, Hkv, 1024, D).bfloat16()
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        if fmt == "bf16":
+            cache = (k, v)
+            kern = lambda qq, c, ll: decode_attention(qq, *c, ll, window=window)
+        else:
+            kq, ks = quantize_rows(k, fmt)
+            vq, vs = quantize_rows(v, fmt)
+            cache = (kq, ks, vq, vs)
+            kern = lambda qq, c, ll: decode_attention_quant(
+                qq, *c, ll, fmt=fmt, window=window)
+        full = kern(q, cache, lens_t)
+        for i in range(4):
+            alone = kern(q[i:i + 1].contiguous(),
+                         tuple(t[i:i + 1, :, :512].contiguous() for t in cache),
+                         lens_t[i:i + 1].clone())
+            check(torch.equal(alone[0], full[i]),
+                  f"decode attention [{fmt}] kv_len {lens[i]} window {window}:"
+                  " slot alone (B 1, S 512) differs from the same slot in a "
+                  "B 4, S 1024 call")
+        print(f"  decode attention [{fmt}] kv_len {lens} window {window}: "
+              "every slot bit-equal alone (B 1, S 512) and in B 4, S 1024",
               flush=True)
 
     print("kernels vs plain versions on the card:", flush=True)
@@ -365,6 +424,11 @@ def main() -> None:
         attention_case(fmt, 3, 16, 16, 333, 128, [0, 1, 333], 0,
                        timed=False)
         attention_case(fmt, 2, 4, 2, 50, 32, [3, 50], 0, timed=False)
+        # a window whose visible run crosses split boundaries (D 32, G 2)
+        attention_case(fmt, 2, 4, 2, 600, 32, [300, 520], 300, timed=False)
+        attention_alone(fmt, [255, 256, 257, 500], 0)
+        attention_alone(fmt, [127, 128, 129, 300], 0)
+        attention_alone(fmt, [300, 500, 257, 400], 100)
 
     linear_shapes = {
         "wqkv": (cfg_full.d_model, cfg_full.q_dim + 2 * cfg_full.kv_dim),
@@ -407,15 +471,18 @@ def main() -> None:
         copies = [(x, w)] + [(x, dataclasses.replace(
             w, data=w.data.clone(), scales=w.scales.clone()))
             for _ in range(n_cp - 1)]
+        # the GEMM, and the second pass where K is split across CTAs
+        ctas, splits, chunks = launch_grid(M, K, N, w.group)
         ms, call_ms = time_calls(
             lambda a, b: quant_matmul(a, b, out_dtype=out_dtype), copies,
-            100 if M <= 8 else 20)
+            100 if M <= 8 else 20, per_call=1 + (splits > 1))
         plain_ms, _ = time_calls(
             lambda a, b: quant_matmul_plain(a, b, out_dtype), copies, 10)
         wd = dequantize(w, torch.bfloat16)
         lib_copies = [(x, wd)] + [(x, wd.clone()) for _ in
                                   range(copies_for(wd.numel() * 2) - 1)]
         lib_ms, _ = time_calls(torch.matmul, lib_copies, 50)
+        grid = dict(ctas=ctas, splits=splits, k_chunks=chunks)
         rows[name] = dict(
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/quant_matmul.cu",
@@ -424,11 +491,12 @@ def main() -> None:
             max_abs_err=err, tol=tol,
             ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
             library_ms=lib_ms,
-            library="torch.matmul on pre-dequantized bf16 weights")
-        print(f"    device ms {ms:.4f} (per call back to back {call_ms:.4f})  "
-              f"plain {plain_ms:.4f}  matmul(bf16) "
-              f"{lib_ms:.4f}  bound {t_bound:.4f} ({by}, "
-              f"{nbytes / 1e6:.2f} MB)", flush=True)
+            library="torch.matmul on pre-dequantized bf16 weights",
+            grid=grid)
+        print(f"    device ms {ms:.4f} (per call back to back {call_ms:.4f})"
+              f"  plain {plain_ms:.4f}  matmul(bf16) {lib_ms:.4f}  bound {t_bound:.4f} ({by}, "
+              f"{nbytes / 1e6:.2f} MB); grid {ctas} CTAs, {splits} along K, "
+              f"{chunks} K chunks", flush=True)
 
     for fmt in ("q8_0", "q4_0"):
         for label, (K, N) in linear_shapes.items():
@@ -491,7 +559,7 @@ def main() -> None:
         copies = [(q, k, v)] + [tuple(t.clone() for t in (q, k, v))
                                 for _ in range(n_cp - 1)]
         ms, call_ms = time_calls(lambda *a: flash_attention(*a, **kw),
-                                 copies, 100)
+                                 copies, 100, per_call=1)
         plain_ms, _ = time_calls(lambda *a: flash_attention_plain(*a, **kw),
                                  copies, 5)
         lib_ms, _ = time_calls(
@@ -505,7 +573,9 @@ def main() -> None:
             tol=tol, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
             bound_ms=t_bound, bound_by=by, library_ms=lib_ms,
             library="torch.nn.functional.scaled_dot_product_attention"
-                    " (is_causal, enable_gqa)")
+                    " (is_causal, enable_gqa)",
+            grid=dict(ctas=-(-sq // 64) * b * hkv, splits=None,
+                      k_chunks=None))
         print(f"    rows of Sq {cut} bit-equal to the same rows at Sq {sq}; "
               f"device ms {ms:.4f} (per call back to back {call_ms:.4f})  "
               f"plain {plain_ms:.4f}  sdpa {lib_ms:.4f}  bound "

@@ -1,202 +1,467 @@
-// W8A16 / W4A16 groupwise dequant GEMV/GEMM, for sm_90a.
+// W8A16 / W4A16 groupwise dequant GEMM on the tensor cores, for sm_90a.
 //
 // Replaces the JAX package's Pallas kernel
-//   src/repro/kernels/quant_matmul.py  quant_matmul (_qmm_kernel,
-//   _dequant_block_q8 / _dequant_block_q4)
+//   src/repro/kernels/quant_matmul.py:79  quant_matmul (_qmm_kernel,
+//   _dequant_block_q8 / _dequant_block_q4; pallas_call at :117)
 // out (M, N) = x (M, K) @ dequant(w), with w stored (K, N), N contiguous:
 // q8_0 int8 (K, N) or q4_0 nibble-packed int8 (K/2, N) (low nibble = even
 // k), bf16 scales (K/group, N).
 //
-// Bound: at decode M (1..8 slots) the weight bytes, K*N*(1 + 2/32) for
-// q8_0 and K*N*(0.5 + 2/32) for q4_0, over the card's memory rate; the
-// work is 2*M FLOPs per weight, far below the tensor-core line. Design
-// against that bound: consecutive threads take consecutive groups of 4
-// columns, so each weight row is read coalesced (4 bytes a thread) and
-// exactly once per M tile; each group's 4 scales are read once per 32
-// rows; x is staged through shared memory a K tile at a time (x for
-// M = 8, K = 8192 does not fit whole).
+// Bound (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16). At decode M (1..8
+// slots) the weight bytes, K*N*(1 + 2/32) for q8_0 and K*N*(0.5 + 2/32)
+// for q4_0, over the memory rate. At prefill M (a bucket of 512-3072
+// rows) the 2*M*K*N operations over the tensor-core rate.
+//
+// Design: one kernel, one instruction shape, for every M. The product is
+// computed transposed (swap AB): out^T (N, M) = w^T (N, K) x^T (K, M),
+// so the weights are the A operand and the activations the B operand of
+// mma.sync.m16n8k16 (bf16 in, f32 accumulate). A warp owns 32 output
+// columns (two m16 tiles) and steps through x 8 rows (one n8) at a
+// time: decode M fills one n8, a prefill CTA holds 128 rows of x (16 n8
+// per CTA, 8 per warp) and reuses every dequantized weight fragment
+// across them. The int8 payload, its bf16 scales and the bf16 rows of x
+// stream through a shared-memory ring of 32-k tiles (4 stages at decode
+// M, 3 at prefill M) by TMA: one thread starts a stage's three tile
+// copies and an mbarrier counts their bytes (per-thread cp.async of the
+// same tiles left the kernel waiting on its loads). The payload lands
+// with TMA's 128-byte swizzle and x with its 64-byte swizzle, so the
+// fragment loads below hit distinct banks; where N is not a multiple of
+// 16 (TMA needs 16-byte row pitches) the tiles are copied element by
+// element into the same layout. Each thread dequantizes its A fragments
+// straight from the shared int8 tile; it owns 4 consecutive columns
+// (thread-to-row map permuted within the warp's 32 columns), so one
+// 32-bit shared load gives 4 weights of one k row. x's B fragments come
+// from the shared tile by ldmatrix. Two CTAs
+// share an SM (at most 128 registers a thread), so one CTA's loads and
+// dequantization overlap the other's tensor-core work (with one CTA of 8
+// warps an SM they ran one after the other; PERF.md has the numbers).
 //
 // K is cut into chunks of k_per_split rows, planned from (K, N, group,
-// SM count) alone, never from M. At decode M (one M tile) the chunks go
-// to separate CTAs (grid.y), so enough of them stream at N = 2048: each
-// writes f32 partial sums and a second kernel adds them in chunk order.
-// At larger M the grid fills the card without a split: one CTA per (N
-// block, M tile) walks the chunks itself, sums each into its own f32
-// partial and adds the partials to a running sum in chunk order. Both
-// routes compute s = 0; s += partial[chunk] in the same order, so an
-// output row does not depend on how many rows share the call (a
-// prompt prefilled alone and inside a padded bucket round alike).
-// At prefill M the kernel is bound by its arithmetic on the CUDA cores
-// (2*M*K*N FLOPs in f32 FMAs, with the dequant redone per M tile); a
-// tensor-core GEMM for prefill M is later work.
+// SM count) alone, never from M. With one M tile (decode M, or up to
+// 128 rows) the chunks go to separate CTAs (grid.y), so enough of them
+// stream the weights: each writes its chunk's f32 sums, and a second
+// kernel adds them in chunk order. With more M tiles the grid fills the
+// card without a split: each CTA walks the chunks itself, sums each in
+// its own accumulators and adds them, in chunk order, to a running sum
+// in shared memory (each thread's own floats: registers are kept for
+// two CTAs an SM). Both routes compute s = 0; s += chunk[c] in the same
+// order, and every output element is summed by the same mma instructions
+// in the same k order, at the same row of its m16 tile, whatever M: a
+// row's bits do not depend on how many rows share the call (a prompt
+// prefilled alone and inside a padded bucket round alike). Each output
+// element belongs to one warp, so no warps combine inside a chunk.
 //
-// Numerics follow the Pallas kernel: each weight is dequantized in f32
-// and rounded to bf16, bf16(float(q) * float(scale)); products with the
-// bf16 activations accumulate in f32, one explicit fused multiply-add per
-// product in k order, so every M-tile instantiation sums a row alike;
-// the sum is cast to out_dtype.
+// Numerics follow the Pallas kernel: each weight is rounded to bf16 as
+// bf16(float(q) * float(scale)) before the product (q is exact in bf16
+// and the product is rounded once, by fma.rn.bf16x2 with a -0 addend);
+// products accumulate in f32 on the tensor cores; the sum is cast to
+// out_dtype.
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the driver at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <cstring>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kCols = 4;                          // columns per thread
-constexpr int kColThreads = 64;                   // threads across N
-constexpr int kRowGroups = 4;                     // threads across K
-constexpr int kThreads = kColThreads * kRowGroups;
-constexpr int kBlockN = kColThreads * kCols;      // 256 columns per CTA
-constexpr int kXTile = 512;                       // max K rows of x per stage
+constexpr int kThreads = 256;                     // 8 warps
+constexpr int kBK = 32;                           // k rows per stage
+constexpr int kBigMT = 128;                       // x rows per CTA past decode M
+constexpr int kPlanN = 256;                       // columns per block, for the plan
+constexpr int kPlanRound = 4;                     // chunks hold a multiple of this many groups
 
 enum Fmt { kQ8 = 0, kQ4 = 1 };
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
+// The CTA's shape for an M tile of MT rows: 8 warps of 32 columns each,
+// along N only (MT 8) or 4 along N by 2 along M (MT 128). A stage holds
+// the payload tile (128-column boxes, 128-byte swizzle), x (64-byte rows,
+// 64-byte swizzle) and the scale row, each where TMA writes it.
+template <int FMT, int MT>
+struct Tile {
+  static constexpr int kStages = MT >= 64 ? 3 : 4;  // shared-memory ring
+  static constexpr int kWarpsM = MT >= 64 ? 2 : 1;
+  static constexpr int kWarpsN = 8 / kWarpsM;
+  static constexpr int kBN = 32 * kWarpsN;        // columns per CTA
+  static constexpr int kN8 = MT / kWarpsM / 8;    // n8 tiles of x per warp
+  static constexpr int kWRows = FMT == kQ8 ? kBK : kBK / 2;   // payload rows
+  static constexpr int kBoxes = kBN / 128;        // payload boxes of 128 columns
+  static constexpr int kWBytes = kWRows * kBN;
+  static constexpr int kXBytes = MT * kBK * 2;
+  static constexpr int kSBytes = kBN * 2;
+  static constexpr int kStage = (kWBytes + kXBytes + kSBytes + 1023) / 1024 * 1024;
+  static constexpr int kRing = kStages * kStage;
+  static constexpr int kBars = kRing;                  // kStages mbarriers
+  static constexpr int kRun = kRing + 1024;
+  static constexpr int kSmem = kRun + MT * kBN * 4 + 1024;  // + alignment slack
+};
+
+// byte offset of (row r, column c) in a payload tile: 128-column boxes of
+// kWRows rows, 16-byte chunks XORed with the row (TMA's 128-byte swizzle)
+template <int ROWS>
+__device__ __forceinline__ int w_off(int r, int c) {
+  return (c >> 7) * ROWS * 128 + r * 128 + ((((c >> 4) & 7) ^ (r & 7)) << 4) + (c & 15);
+}
+// byte offset of 16-byte chunk q of x row m: 64-byte rows, chunks XORed
+// with bits 1-2 of the row (TMA's 64-byte swizzle)
+__device__ __forceinline__ int x_off(int m, int q) {
+  return m * 64 + ((q ^ ((m >> 1) & 3)) << 4);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src_bytes < 16 fills the rest with zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// a 2-D TMA tile copy global -> shared, completing on bar
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                       uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col); fragments as
+// in the PTX ISA (gid = lane / 4, tig = lane % 4): a = {(gid, 2tig..+1),
+// (gid + 8, 2tig..+1), (gid, 2tig + 8..+9), (gid + 8, 2tig + 8..+9)},
+// b = {(k 2tig..+1, n gid), (k 2tig + 8..+9, n gid)}, c = {(gid, 2tig),
+// (gid, 2tig + 1), (gid + 8, 2tig), (gid + 8, 2tig + 1)}.
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// bf16x2 a * b + c, rounded once
+__device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+constexpr uint32_t kNegZero2 = 0x80008000u;      // bf16x2 (-0, -0)
+
+// q8_0: the weights of byte P of rows wa (even k, low half) and wb (odd
+// k), both XORed with 0x80808080 (q + 128), times the pair's scale.
+// 0x4B0000uu is the float 2^23 + u, so q = that - (2^23 + 128) exactly.
+template <int P>
+__device__ __forceinline__ uint32_t dequant_q8(uint32_t wa, uint32_t wb, uint32_t sc) {
+  constexpr uint32_t sel = 0x7440u | P;
+  const float qa = __uint_as_float(__byte_perm(wa, 0x4B000000u, sel)) - 8388736.f;
+  const float qb = __uint_as_float(__byte_perm(wb, 0x4B000000u, sel)) - 8388736.f;
+  const __nv_bfloat162 q = __floats2bfloat162_rn(qa, qb);   // exact
+  return fma_bf16x2(*reinterpret_cast<const uint32_t*>(&q), sc, kNegZero2);
+}
+
+// q4_0: the two weights of byte P of w (low nibble = even k, to the low
+// half), w4 = w >> 4, times the pair's scale. 0x4300 | (nibble ^ 8) is
+// the bf16 128 + (q + 8), so q = that - 136 exactly.
+template <int P>
+__device__ __forceinline__ uint32_t dequant_q4(uint32_t w, uint32_t w4, uint32_t sc) {
+  constexpr uint32_t sel = P | (P << 4) | ((4 + P) << 8) | ((4 + P) << 12);
+  const uint32_t v = (__byte_perm(w, w4, sel) & 0x000F000Fu) ^ 0x43084308u;
+  const uint32_t q = fma_bf16x2(v, 0x3F803F80u, 0xC308C308u);   // v * 1 - 136
+  return fma_bf16x2(q, sc, kNegZero2);
+}
+
+struct Maps {
+  CUtensorMap x, w, s;   // x (M, K) bf16; payload rows (.., N) int8; scales (K/group, N) bf16
+};
+
+// Stage one 32-k tile at k0 for columns [n0, n0 + BN) and rows [m0, m0 +
+// MT): with TMA (VEC: N % 16 == 0; one thread issues it), else element by
+// element into the same swizzled layout. Past N and M the tile is zero.
+template <int FMT, int MT, bool VEC>
+__device__ __forceinline__ void load_stage(uint8_t* st, uint64_t* bar, const Maps& maps,
+                                           const bf16* x, const int8_t* w,
+                                           const bf16* scales, int M, int K, int N,
+                                           int group, int k0, int n0, int m0, int tid) {
+  using T = Tile<FMT, MT>;
+  uint8_t* ws = st;
+  uint8_t* xs = st + T::kWBytes;
+  bf16* ss = reinterpret_cast<bf16*>(st + T::kWBytes + T::kXBytes);
+  const int prow0 = FMT == kQ8 ? k0 : k0 / 2;       // first payload row
+  if (VEC) {
+    if (tid == 0) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_expect_tx(bar, T::kWBytes + T::kXBytes + T::kSBytes);
+#pragma unroll
+      for (int b = 0; b < T::kBoxes; ++b)
+        tma_2d(ws + b * T::kWRows * 128, &maps.w, n0 + 128 * b, prow0, bar);
+      tma_2d(xs, &maps.x, k0, m0, bar);
+      tma_2d(ss, &maps.s, n0, k0 / group, bar);
+    }
+    return;
+  }
+  const bf16* srow = scales + (size_t)(k0 / group) * N;
+  for (int i = tid; i < T::kWRows * T::kBN; i += kThreads) {
+    const int r = i / T::kBN, c = i % T::kBN;
+    ws[w_off<T::kWRows>(r, c)] =
+        n0 + c < N ? (uint8_t)w[(size_t)(prow0 + r) * N + n0 + c] : (uint8_t)0;
+  }
+  for (int i = tid; i < T::kBN; i += kThreads)
+    ss[i] = n0 + i < N ? srow[n0 + i] : __float2bfloat16(0.f);
+  for (int i = tid; i < MT * 4; i += kThreads) {
+    const int r = i / 4, c = i % 4;
+    const bool in = m0 + r < M;
+    const bf16* src = in ? x + (size_t)(m0 + r) * K + k0 + 8 * c : x;
+    cp_async16(xs + x_off(r, c), src, in ? 16 : 0);
+  }
+}
+
+// grid: (ceil(M / MT), CTAs along K, ceil(N / BN)). CTA y reduces the K
+// chunks [y * cta_chunks, (y + 1) * cta_chunks), each of k_per_split
+// rows; with gridDim.y > 1 it holds one chunk and writes it to partial.
+template <int FMT, int MT, bool VEC>
+__global__ void __launch_bounds__(kThreads, 2)
+quant_matmul_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ x,
+                    const int8_t* __restrict__ w, const bf16* __restrict__ scales,
+                    void* __restrict__ out, float* __restrict__ partial, int out_f32,
+                    int M, int K, int N, int group, int k_per_split, int cta_chunks) {
+  using T = Tile<FMT, MT>;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + T::kBars);
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int wn0 = (warp % T::kWarpsN) * 32;       // warp's first column in the CTA
+  const int wm0 = (warp / T::kWarpsN) * (MT / T::kWarpsM);
+  const int m0 = blockIdx.x * MT;
+  const int n0 = blockIdx.z * T::kBN;
+  const int k_begin = blockIdx.y * cta_chunks * k_per_split;
+  const int k_end = min(K, k_begin + cta_chunks * k_per_split);
+  const int tiles = (k_end - k_begin) / kBK;
+  const int chunk_tiles = k_per_split / kBK;
+
+  // acc[m16 tile t][n8 tile j][c fragment]: the current chunk; run4
+  // (float4 (t * kN8 + j) * kThreads + tid in shared memory): the chunks
+  // so far, in chunk order
+  float acc[2][T::kN8][4];
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int j = 0; j < T::kN8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][j][e] = 0.f;
+  float4* run4 = reinterpret_cast<float4*>(smem + T::kRun);
+#pragma unroll
+  for (int i = 0; i < 2 * T::kN8; ++i) run4[i * kThreads + tid] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  constexpr int kStages = T::kStages;
+  if (VEC && tid == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(bars + s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < tiles)
+      load_stage<FMT, MT, VEC>(smem + s * T::kStage, bars + s, maps, x, w, scales, M, K, N,
+                               group, k_begin + s * kBK, n0, m0, tid);
+    if (!VEC) cp_async_commit();
+  }
+
+  for (int it = 0; it < tiles; ++it) {
+    if (VEC) mbar_wait(bars + it % kStages, (it / kStages) & 1);
+    else cp_async_wait<kStages - 2>();
+    __syncthreads();                    // tile it landed; tile it - 1's readers done
+    {
+      const int nt = it + kStages - 1;
+      if (nt < tiles)
+        load_stage<FMT, MT, VEC>(smem + (nt % kStages) * T::kStage, bars + nt % kStages,
+                                 maps, x, w, scales, M, K, N, group, k_begin + nt * kBK,
+                                 n0, m0, tid);
+      if (!VEC) cp_async_commit();
+    }
+    const uint8_t* st = smem + (it % kStages) * T::kStage;
+    const uint8_t* ws = st;
+    const uint8_t* xs = st + T::kWBytes;
+    const int c4 = wn0 + 4 * gid;       // this thread's first column in the CTA
+
+    // this thread's 4 columns' scales, each as a bf16x2 pair
+    uint32_t sc[4];
+    {
+      const uint2 s4 = *reinterpret_cast<const uint2*>(st + T::kWBytes + T::kXBytes + 2 * c4);
+      sc[0] = __byte_perm(s4.x, 0, 0x1010);
+      sc[1] = __byte_perm(s4.x, 0, 0x3232);
+      sc[2] = __byte_perm(s4.y, 0, 0x1010);
+      sc[3] = __byte_perm(s4.y, 0, 0x3232);
+    }
+    // one n8 tile: x's B fragments for both k16 steps at once
+    uint32_t b1[4];
+    if (T::kN8 == 1) ldmatrix_x4(b1, xs + x_off(wm0 + lane % 8, lane / 8));
+
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      // A fragments of the two m16 tiles: tile t, row gid is column
+      // 4 * gid + 2t, row gid + 8 is column 4 * gid + 2t + 1
+      uint32_t a[2][4];
+      if (FMT == kQ8) {
+        const int r = 16 * s + 2 * tig;
+        const uint32_t w0 = *reinterpret_cast<const uint32_t*>(ws + w_off<T::kWRows>(r + 0, c4)) ^ 0x80808080u;
+        const uint32_t w1 = *reinterpret_cast<const uint32_t*>(ws + w_off<T::kWRows>(r + 1, c4)) ^ 0x80808080u;
+        const uint32_t w2 = *reinterpret_cast<const uint32_t*>(ws + w_off<T::kWRows>(r + 8, c4)) ^ 0x80808080u;
+        const uint32_t w3 = *reinterpret_cast<const uint32_t*>(ws + w_off<T::kWRows>(r + 9, c4)) ^ 0x80808080u;
+        a[0][0] = dequant_q8<0>(w0, w1, sc[0]);
+        a[0][1] = dequant_q8<1>(w0, w1, sc[1]);
+        a[0][2] = dequant_q8<0>(w2, w3, sc[0]);
+        a[0][3] = dequant_q8<1>(w2, w3, sc[1]);
+        a[1][0] = dequant_q8<2>(w0, w1, sc[2]);
+        a[1][1] = dequant_q8<3>(w0, w1, sc[3]);
+        a[1][2] = dequant_q8<2>(w2, w3, sc[2]);
+        a[1][3] = dequant_q8<3>(w2, w3, sc[3]);
+      } else {
+        // payload row 8s + tig holds k 16s + 2tig, +1; row + 4 holds +8, +9
+        const int r = 8 * s + tig;
+        const uint32_t lo = *reinterpret_cast<const uint32_t*>(ws + w_off<T::kWRows>(r, c4));
+        const uint32_t hi = *reinterpret_cast<const uint32_t*>(ws + w_off<T::kWRows>(r + 4, c4));
+        const uint32_t lo4 = lo >> 4, hi4 = hi >> 4;
+        a[0][0] = dequant_q4<0>(lo, lo4, sc[0]);
+        a[0][1] = dequant_q4<1>(lo, lo4, sc[1]);
+        a[0][2] = dequant_q4<0>(hi, hi4, sc[0]);
+        a[0][3] = dequant_q4<1>(hi, hi4, sc[1]);
+        a[1][0] = dequant_q4<2>(lo, lo4, sc[2]);
+        a[1][1] = dequant_q4<3>(lo, lo4, sc[3]);
+        a[1][2] = dequant_q4<2>(hi, hi4, sc[2]);
+        a[1][3] = dequant_q4<3>(hi, hi4, sc[3]);
+      }
+      if (T::kN8 == 1) {
+        mma_bf16(acc[0][0], a[0], b1[2 * s], b1[2 * s + 1]);
+        mma_bf16(acc[1][0], a[1], b1[2 * s], b1[2 * s + 1]);
+      } else {
+        // two n8 tiles a time: B fragments of step s for tiles j, j + 1
+#pragma unroll
+        for (int j = 0; j < T::kN8; j += 2) {
+          uint32_t b[4];
+          ldmatrix_x4(b, xs + x_off(wm0 + 8 * (j + lane / 16) + lane % 8,
+                                    2 * s + (lane / 8) % 2));
+          mma_bf16(acc[0][j], a[0], b[0], b[1]);
+          mma_bf16(acc[1][j], a[1], b[0], b[1]);
+          mma_bf16(acc[0][j + 1], a[0], b[2], b[3]);
+          mma_bf16(acc[1][j + 1], a[1], b[2], b[3]);
+        }
+      }
+    }
+
+    // end of a chunk: run += chunk (a CTA of a split holds one chunk,
+    // so its run is 0 + chunk)
+    if ((it + 1) % chunk_tiles == 0 || it + 1 == tiles) {
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int j = 0; j < T::kN8; ++j) {
+          float4 r = run4[(t * T::kN8 + j) * kThreads + tid];
+          r.x += acc[t][j][0];
+          r.y += acc[t][j][1];
+          r.z += acc[t][j][2];
+          r.w += acc[t][j][3];
+          run4[(t * T::kN8 + j) * kThreads + tid] = r;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[t][j][e] = 0.f;
+        }
+    }
+  }
+  if (!VEC) cp_async_wait<0>();
+
+  // thread's outputs: rows m = wm0 + 8j + 2tig + e, columns n .. n + 3
+  const int n = n0 + wn0 + 4 * gid;
+#pragma unroll
+  for (int j = 0; j < T::kN8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = m0 + wm0 + 8 * j + 2 * tig + e;
+      if (m >= M) continue;
+      const float4 r0 = run4[j * kThreads + tid], r1 = run4[(T::kN8 + j) * kThreads + tid];
+      const float v[4] = {e ? r0.y : r0.x, e ? r0.w : r0.z, e ? r1.y : r1.x,
+                          e ? r1.w : r1.z};
+      if (gridDim.y > 1) {
+        float* dst = partial + ((size_t)blockIdx.y * M + m) * N + n;
+        if (VEC && n < N) {
+          *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (n + c < N) dst[c] = v[c];
+        }
+      } else if (out_f32) {
+        float* dst = static_cast<float*>(out) + (size_t)m * N + n;
+        if (VEC && n < N) {
+          *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (n + c < N) dst[c] = v[c];
+        }
+      } else {
+        bf16* dst = static_cast<bf16*>(out) + (size_t)m * N + n;
+        if (VEC && n < N) {
+          const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+          uint2 u;
+          u.x = *reinterpret_cast<const uint32_t*>(&lo);
+          u.y = *reinterpret_cast<const uint32_t*>(&hi);
+          *reinterpret_cast<uint2*>(dst) = u;
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (n + c < N) dst[c] = __float2bfloat16(v[c]);
+        }
+      }
+    }
 }
 
 __device__ __forceinline__ void store(void* out, size_t i, float v, int out_f32) {
   if (out_f32) static_cast<float*>(out)[i] = v;
   else static_cast<bf16*>(out)[i] = __float2bfloat16(v);
-}
-
-// Load the 4 int8 bytes of one payload row for this thread's columns.
-template <bool VEC>
-__device__ __forceinline__ void load_row(const int8_t* row, int n0, int N,
-                                         int8_t q[kCols]) {
-  if (VEC) {
-    // N % 4 == 0: the thread's 4 columns are all in range or all out
-    const uint32_t u = n0 < N ? *reinterpret_cast<const uint32_t*>(row + n0) : 0u;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) q[c] = (int8_t)(u >> (8 * c));
-  } else {
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) q[c] = n0 + c < N ? row[n0 + c] : 0;
-  }
-}
-
-// grid: (ceil(N / 256), ctas along K, ceil(M / MT)). CTA y reduces the
-// K chunks [y * cta_chunks, (y + 1) * cta_chunks), each of k_per_split
-// rows, for 256 columns and MT rows of x; its row groups take whole
-// quantization groups of a chunk round-robin.
-template <int FMT, bool VEC, int MT>
-__global__ void __launch_bounds__(kThreads)
-quant_matmul_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
-                    const bf16* __restrict__ scales, void* __restrict__ out,
-                    float* __restrict__ partial, int out_f32, int M, int K, int N,
-                    int group, int k_per_split, int cta_chunks, int x_tile) {
-  __shared__ float xs[MT * kXTile];
-  __shared__ float red[MT * kBlockN];
-
-  const int tid = threadIdx.x;
-  const int ct = tid % kColThreads, rg = tid / kColThreads;
-  const int n0 = blockIdx.x * kBlockN + ct * kCols;
-  const int m0 = blockIdx.z * MT;
-  const int mt = min(MT, M - m0);
-
-  // this thread's outputs i = tid + j * kThreads of the CTA's MT x 256
-  // block: the running sum over chunks, in chunk order
-  float run[MT];
-#pragma unroll
-  for (int j = 0; j < MT; ++j) run[j] = 0.f;
-
-  const int chunk0 = blockIdx.y * cta_chunks;
-  for (int ch = chunk0; ch < chunk0 + cta_chunks; ++ch) {
-    const int k_begin = ch * k_per_split;
-    if (k_begin >= K) break;
-    const int k_end = min(K, k_begin + k_per_split);
-
-    float acc[MT][kCols];
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[m][c] = 0.f;
-
-    for (int kt = k_begin; kt < k_end; kt += x_tile) {
-      const int kn = min(x_tile, k_end - kt);
-      __syncthreads();
-      for (int i = tid; i < MT * kn; i += kThreads) {
-        const int m = i / kn, kk = i % kn;
-        xs[m * x_tile + kk] = m < mt ? __bfloat162float(x[(size_t)(m0 + m) * K + kt + kk]) : 0.f;
-      }
-      __syncthreads();
-
-      for (int gi = rg; gi * group < kn; gi += kRowGroups) {
-        const int kg = kt + gi * group;             // first k of this group
-        float sc[kCols];
-        const bf16* srow = scales + (size_t)(kg / group) * N;
-#pragma unroll
-        for (int c = 0; c < kCols; ++c)
-          sc[c] = n0 + c < N ? __bfloat162float(srow[n0 + c]) : 0.f;
-        const float* xg = xs + (kg - kt);
-        if (FMT == kQ8) {
-          for (int r = 0; r < group; ++r) {
-            int8_t q[kCols];
-            load_row<VEC>(w + (size_t)(kg + r) * N, n0, N, q);
-            float wv[kCols];
-#pragma unroll
-            for (int c = 0; c < kCols; ++c) wv[c] = round_bf16((float)q[c] * sc[c]);
-#pragma unroll
-            for (int m = 0; m < MT; ++m) {
-              const float xv = xg[m * x_tile + r];
-#pragma unroll
-              for (int c = 0; c < kCols; ++c) acc[m][c] = __fmaf_rn(xv, wv[c], acc[m][c]);
-            }
-          }
-        } else {
-          for (int r = 0; r < group; r += 2) {
-            int8_t q[kCols];
-            load_row<VEC>(w + (size_t)((kg + r) / 2) * N, n0, N, q);
-            float wlo[kCols], whi[kCols];
-#pragma unroll
-            for (int c = 0; c < kCols; ++c) {
-              const uint32_t b = (uint8_t)q[c];
-              const int lo = ((int)(b << 28)) >> 28;  // even k, sign-extended
-              const int hi = ((int)(b << 24)) >> 28;  // odd k
-              wlo[c] = round_bf16((float)lo * sc[c]);
-              whi[c] = round_bf16((float)hi * sc[c]);
-            }
-#pragma unroll
-            for (int m = 0; m < MT; ++m) {
-              const float x0 = xg[m * x_tile + r], x1 = xg[m * x_tile + r + 1];
-#pragma unroll
-              for (int c = 0; c < kCols; ++c)
-                acc[m][c] = __fmaf_rn(x1, whi[c], __fmaf_rn(x0, wlo[c], acc[m][c]));
-            }
-          }
-        }
-      }
-    }
-
-    // the chunk's partial: the row groups' sums added in a fixed order
-    for (int r = 0; r < kRowGroups; ++r) {
-      if (rg == r) {
-#pragma unroll
-        for (int m = 0; m < MT; ++m)
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) {
-            float* dst = red + m * kBlockN + ct * kCols + c;
-            *dst = (r == 0 ? 0.f : *dst) + acc[m][c];
-          }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int j = 0; j < MT; ++j) run[j] += red[tid + j * kThreads];
-    __syncthreads();                              // red is rewritten next chunk
-  }
-
-#pragma unroll
-  for (int j = 0; j < MT; ++j) {
-    const int i = tid + j * kThreads;
-    const int m = i / kBlockN, n = blockIdx.x * kBlockN + i % kBlockN;
-    if (m >= mt || n >= N) continue;
-    if (gridDim.y == 1) store(out, (size_t)(m0 + m) * N + n, run[j], out_f32);
-    else partial[((size_t)blockIdx.y * M + m0 + m) * N + n] = run[j];
-  }
 }
 
 __global__ void sum_splits_kernel(const float* __restrict__ partial,
@@ -212,46 +477,100 @@ __global__ void sum_splits_kernel(const float* __restrict__ partial,
 constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // x rows per CTA (the kernel's MT) for a given M
-constexpr int m_tile(int M) { return M <= 1 ? 1 : (M <= 4 ? 4 : 8); }
+constexpr int m_tile(int M) { return M <= 8 ? 8 : kBigMT; }
 
 bool takes_group(int K, int group) {
-  return group > 0 && group % 2 == 0 && group <= kXTile && K % group == 0;
+  return group > 0 && group % kBK == 0 && K % group == 0;
 }
 
 struct Plan {
   int chunks, k_per_split;   // K cut into `chunks` runs of k_per_split rows
-  int ctas;                  // CTAs along K (grid.y): chunks at decode M, else 1
+  int ctas;                  // CTAs along K (grid.y): chunks with one M tile, else 1
 };
 
 // The K chunks: aim at two CTAs per SM of the current device for one M
-// tile, each chunk a whole multiple of kRowGroups quantization groups
-// where K has that many. The chunks depend on (K, N, group, SM count)
-// only; M decides just whether they go to separate CTAs (one M tile, so
-// the grid needs the split to fill the card) or are walked inside one.
+// tile of 256-column blocks, each chunk a multiple of kPlanRound
+// quantization groups (fewer, longer chunks: each chunk end adds the
+// chunk into the running sum, which costs the walking CTAs). The chunks
+// depend on (K, N, group, SM count) only; M decides just whether they go
+// to separate CTAs (one M tile, so the grid needs the split to fill the
+// card) or are walked inside one.
 Plan split_plan(int M, int K, int N, int group) {
   int dev = 0, sms = 1;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int groups = K / group;
-  const int want = std::max(1, std::min(groups, ceil_div(2 * sms, ceil_div(N, kBlockN))));
-  int per = std::max(1, ceil_div(groups, want));
-  if (per > kRowGroups) per = ceil_div(per, kRowGroups) * kRowGroups;
+  const int want = std::max(1, std::min(groups, ceil_div(2 * sms, ceil_div(N, kPlanN))));
+  const int per = ceil_div(ceil_div(groups, want), kPlanRound) * kPlanRound;
   const int k_per_split = per * group;
   const int chunks = std::max(1, ceil_div(K, k_per_split));
   const bool one_m_tile = ceil_div(M, m_tile(M)) == 1;
   return {chunks, k_per_split, one_m_tile ? chunks : 1};
 }
 
-template <int FMT, bool VEC, int MT>
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-D row-major map: rows of `cols` elements, `pitch` bytes apart;
+// boxes of box_c x box_r elements; out-of-range elements read as 0.
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int cols,
+              int rows, size_t pitch, int box_c, int box_r, CUtensorMapSwizzle swz) {
+  const EncodeTiled fn = encoder();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch};
+  const cuuint32_t box[2] = {(cuuint32_t)box_c, (cuuint32_t)box_r};
+  const cuuint32_t estr[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int FMT, int MT, bool VEC>
 cudaError_t launch(const void* x, const void* w, const void* scales, void* out,
                    float* partial, int out_f32, int M, int K, int N, int group,
                    Plan plan, cudaStream_t st) {
-  const int x_tile = (kXTile / group) * group;
-  dim3 grid(ceil_div(N, kBlockN), plan.ctas, ceil_div(M, MT));
-  quant_matmul_kernel<FMT, VEC, MT><<<grid, kThreads, 0, st>>>(
-      static_cast<const bf16*>(x), static_cast<const int8_t*>(w),
+  using T = Tile<FMT, MT>;
+  auto kernel = quant_matmul_kernel<FMT, MT, VEC>;
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  if (VEC) {
+    const int prows = FMT == kQ8 ? K : K / 2;
+    if (!make_map(&maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, (size_t)K * 2, kBK, MT,
+                  CU_TENSOR_MAP_SWIZZLE_64B) ||
+        !make_map(&maps.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, prows, (size_t)N, 128,
+                  T::kWRows, CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !make_map(&maps.s, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, scales, N, K / group,
+                  (size_t)N * 2, T::kBN, 1, CU_TENSOR_MAP_SWIZZLE_NONE))
+      return cudaErrorInvalidValue;
+  }
+  static bool attr_set = false;        // once per instantiation (one device)
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  dim3 grid(ceil_div(M, MT), plan.ctas, ceil_div(N, T::kBN));
+  kernel<<<grid, kThreads, T::kSmem, st>>>(
+      maps, static_cast<const bf16*>(x), static_cast<const int8_t*>(w),
       static_cast<const bf16*>(scales), out, partial, out_f32, M, K, N, group,
-      plan.k_per_split, plan.chunks / plan.ctas, x_tile);
+      plan.k_per_split, plan.chunks / plan.ctas);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || plan.ctas == 1) return err;
   const int MN = M * N;
@@ -264,23 +583,34 @@ template <int FMT, bool VEC>
 cudaError_t dispatch_m(const void* x, const void* w, const void* scales, void* out,
                        float* partial, int out_f32, int M, int K, int N, int group,
                        Plan plan, cudaStream_t st) {
-  switch (m_tile(M)) {
-    case 1: return launch<FMT, VEC, 1>(x, w, scales, out, partial, out_f32, M, K, N, group, plan, st);
-    case 4: return launch<FMT, VEC, 4>(x, w, scales, out, partial, out_f32, M, K, N, group, plan, st);
-  }
-  return launch<FMT, VEC, 8>(x, w, scales, out, partial, out_f32, M, K, N, group, plan, st);
+  if (m_tile(M) == 8)
+    return launch<FMT, 8, VEC>(x, w, scales, out, partial, out_f32, M, K, N, group, plan, st);
+  return launch<FMT, kBigMT, VEC>(x, w, scales, out, partial, out_f32, M, K, N, group, plan, st);
 }
 
 }  // namespace
 
 // The f32 scratch (in elements) that quant_matmul needs for its split-K
 // partial sums at this shape on the current device: 0 unless K is split
-// across CTAs (decode M), -1 when the kernel does not take this group
-// (it takes an even group <= 512 that divides K).
+// across CTAs (one M tile), -1 when the kernel does not take this group
+// (it takes a multiple of 32 that divides K).
 extern "C" int quant_matmul_workspace(int M, int K, int N, int group) {
   if (!takes_group(K, group)) return -1;
   const Plan plan = split_plan(M, K, N, group);
   return plan.ctas > 1 ? plan.ctas * M * N : 0;
+}
+
+// The launch grid for this shape on the current device: CTAs, CTAs along
+// K (splits) and K chunks, written to grid[0..2]. Returns 0, or -1 for a
+// group the kernel does not take.
+extern "C" int quant_matmul_grid(int M, int K, int N, int group, int* grid) {
+  if (!takes_group(K, group)) return -1;
+  const Plan plan = split_plan(M, K, N, group);
+  const int bn = m_tile(M) == 8 ? Tile<kQ8, 8>::kBN : Tile<kQ8, kBigMT>::kBN;
+  grid[0] = ceil_div(M, m_tile(M)) * plan.ctas * ceil_div(N, bn);
+  grid[1] = plan.ctas;
+  grid[2] = plan.chunks;
+  return 0;
 }
 
 // fmt: 0 = q8_0, 1 = q4_0. x (M, K) bf16; w int8 (K, N) / (K/2, N); scales
@@ -296,8 +626,8 @@ extern "C" int quant_matmul(int fmt, const void* x, const void* w,
   if (plan.ctas > 1 && partial_elems < plan.ctas * M * N) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(partial);
-  // 4-byte column loads need N % 4 == 0 (rows then stay 4-byte aligned)
-  const bool vec = N % kCols == 0;
+  // 16-byte payload and scale copies need N % 16 == 0 (rows stay aligned)
+  const bool vec = N % 16 == 0;
   if (fmt == kQ8) {
     return vec ? dispatch_m<kQ8, true>(x, w, scales, out, part, out_f32, M, K, N, group, plan, st)
                : dispatch_m<kQ8, false>(x, w, scales, out, part, out_f32, M, K, N, group, plan, st);

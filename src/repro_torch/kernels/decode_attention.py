@@ -5,9 +5,14 @@ Replaces the JAX package's Pallas kernel ``decode_attention``
 CUDA kernel in ``csrc/decode_attention.cu`` (bf16 loader); the same
 kernel, templated on a quantized loader, serves
 ``decode_attention_quant``. The kernel is bound by the cache bytes it
-reads; its design (one CTA per (batch, kv head) sharing each K/V read
-among the G grouped queries, shared-memory tiles of 64 positions with
-16-byte loads, f32 online softmax) is described in the source.
+reads. Its design (flash decoding: a grid of (batch x kv head, split)
+CTAs, each split a fixed run of ``SPLIT`` absolute cache positions
+holding the G grouped queries of one kv head, K/V tiles of 64 positions
+double-buffered by cp.async, f32 partial (m, l, acc) per split merged in
+split order by the last CTA of each (batch, kv head) to finish, found by
+an atomic ticket) is described in the source. Because the
+split boundaries depend on cache positions alone, a slot's output does
+not depend on the batch, the cache length or other slots' lengths.
 
 ``decode_attention_plain`` is the plain PyTorch version: the JAX
 package's ``ops._decode_attention_jnp`` with the same rounding points
@@ -27,10 +32,38 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 LOADERS = {"bf16": 0, "q8_0": 1, "q4_0": 2}
 NOT_INSTANTIATED = -1          # C result: no kernel for this (D, G)
+# Cache positions per split: split s covers [s * SPLIT, (s + 1) * SPLIT).
+# The kernel takes it as an argument (a multiple of its 64-position tile)
+# and sizes nothing by itself, so this is the one place it is set.
+SPLIT = 128
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_I, _P, _P, _P, _P, _P, _P, _P,
-             _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P)
+_ARGTYPES = (_I, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, _I,
+             _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P)
+_TICKETS = {}                  # device -> the kernel's int32 ticket counts
+
+
+def num_splits(S: int) -> int:
+    """Splits of a cache of S positions: ceil(S / SPLIT)."""
+    return -(-S // SPLIT)
+
+
+def split_scratch_elems(B: int, Hkv: int, G: int, S: int, D: int) -> int:
+    """f32 elements of the kernel's scratch: per (batch, kv head, split)
+    the unnormalized acc (G x D), then m (G) and l (G)."""
+    return B * Hkv * num_splits(S) * G * (D + 2)
+
+
+def _tickets(n: int, device) -> torch.Tensor:
+    """At least n int32 ticket counts on ``device``, zero between
+    launches: allocated zeroed once, and each launch's merging CTAs set
+    the counts they used back to 0. Launches on the current stream run
+    one after another, so they share the counts safely."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros((max(n, 256),), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
 
 
 def as_lens(kv_len, batch: int, device) -> torch.Tensor:
@@ -116,12 +149,19 @@ def launch_decode_kernel(loader: str, q: torch.Tensor, k: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0:
         return out
+    if S == 0:                     # no cache position: l == 0, output 0
+        return out.zero_()
+    n_part = split_scratch_elems(B, Hkv, G, S, D)
+    part = torch.empty((n_part,), dtype=torch.float32, device=q.device)
+    tickets = _tickets(B * Hkv, q.device)
     fn = build.function("decode_attention", "decode_attention", _ARGTYPES)
     err = fn(LOADERS[loader], q.data_ptr(), k.data_ptr(), v.data_ptr(),
              k_scale.data_ptr() if ng else None,
              v_scale.data_ptr() if ng else None, lens.data_ptr(),
-             out.data_ptr(), B, Hkv, G, S, D, ng, int(window),
-             softmax_scale(D), torch.cuda.current_stream(q.device).cuda_stream)
+             out.data_ptr(), part.data_ptr(), n_part, tickets.data_ptr(),
+             tickets.numel(), B, Hkv, G, S, D, ng,
+             int(window), SPLIT, softmax_scale(D),
+             torch.cuda.current_stream(q.device).cuda_stream)
     _require(err != NOT_INSTANTIATED,
              f"decode_attention.cu has no kernel for head_dim {D} with "
              f"{G} query heads per kv head")

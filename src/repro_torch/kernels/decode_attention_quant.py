@@ -4,11 +4,12 @@ Replaces the JAX package's Pallas kernel ``decode_attention_quant``
 (``src/repro/kernels/decode_attention_quant.py``,
 ``_decode_quant_kernel`` / ``_dequant_rows``) with the kernel of
 ``csrc/decode_attention.cu`` instantiated with a quantized loader: the
-int8 payload and bf16 scales are read directly and dequantized on their
-way into shared memory (``bf16(float(q) * scale)``, q4_0 nibbles
-sign-extended, low nibble = even feature), so device reads stay at the
-quantized width, the bytes that bound the kernel (8.5/16 or 4.5/16 of a
-bf16 cache, plus scales).
+int8 payload and bf16 scales are copied to shared memory as they are
+(cp.async, split along the cache like the bf16 loader) and dequantized
+there (``bf16(float(q) * scale)``, q4_0 nibbles sign-extended, low
+nibble = even feature), so device reads stay at the quantized width,
+the bytes that bound the kernel (8.5/16 or 4.5/16 of a bf16 cache, plus
+scales).
 
 ``decode_attention_quant_plain`` is the plain PyTorch version, the JAX
 package's XLA path: dequantize the rows to a bf16 view, then

@@ -1,18 +1,21 @@
-"""W8A16 / W4A16 groupwise dequant GEMV/GEMM: ``x @ dequant(w)``.
+"""W8A16 / W4A16 groupwise dequant GEMM: ``x @ dequant(w)``.
 
 Replaces the JAX package's Pallas kernel ``quant_matmul``
 (``src/repro/kernels/quant_matmul.py``: ``_qmm_kernel``,
 ``_dequant_block_q8`` / ``_dequant_block_q4``) with the CUDA kernel in
-``csrc/quant_matmul.cu``. At decode M (the number of slots) it is bound
-by the weight bytes, K*N*(1 + 2/32) for q8_0 and K*N*(0.5 + 2/32) for
-q4_0; at prefill M by its f32 arithmetic on the CUDA cores. Its design
-(coalesced 4-column rows per thread, x staged through shared memory a K
-tile at a time, K cut into chunks planned from the weight's shape and
-the SM count alone: split across CTAs with a deterministic second pass
-at decode M, walked inside each CTA at larger M, summed in chunk order
-either way so that an output row does not depend on M) is described in
-the source. Any M and any N work; K must be a multiple of the
-quantization group.
+``csrc/quant_matmul.cu``: one tensor-core kernel (``mma.sync`` m16n8k16,
+bf16 in, f32 accumulate) for every M. At decode M (the number of slots)
+it is bound by the weight bytes, K*N*(1 + 2/32) for q8_0 and
+K*N*(0.5 + 2/32) for q4_0; at prefill M by the tensor cores' rate. Its
+design (weights as the A operand, dequantized into the fragments from a
+TMA-fed shared-memory ring, element copies where N % 16 != 0;
+activations as the B operand 8 rows at a time; K cut into chunks
+planned from the weight's shape and the SM count alone: split across
+CTAs with a deterministic second pass
+when there is one M tile, walked inside each CTA otherwise, summed in
+chunk order either way, so that an output row does not depend on M) is
+described in the source. Any M and any N work; the quantization group
+must be a multiple of 32 that divides K.
 
 ``quant_matmul_plain`` is the plain PyTorch version, the JAX package's
 XLA path: dequantize to the activation dtype, multiply in f32, cast to
@@ -48,12 +51,22 @@ def quant_matmul_plain(x: torch.Tensor, w: QuantizedTensor,
 @functools.lru_cache(maxsize=None)
 def _workspace(M: int, K: int, N: int, group: int) -> int:
     """f32 elements of split-K scratch the kernel asks for at this shape
-    (its plan lives in the CUDA source): nonzero only at decode M, where
-    K is split across CTAs; -1 for a group it does not take. The kernel
-    checks the size again at launch."""
+    (its plan lives in the CUDA source): nonzero only with one M tile
+    (M <= 128), where K is split across CTAs; -1 for a group it does not
+    take. The kernel checks the size again at launch."""
     fn = build.function("quant_matmul", "quant_matmul_workspace",
                         (_I, _I, _I, _I))
     return fn(M, K, N, group)
+
+
+def launch_grid(M: int, K: int, N: int, group: int):
+    """(CTAs, CTAs along K, K chunks) of the kernel at this shape on the
+    current device, from the plan in the CUDA source; None for a group
+    it does not take."""
+    fn = build.function("quant_matmul", "quant_matmul_grid",
+                        (_I, _I, _I, _I, _P))
+    grid = (ctypes.c_int * 3)()
+    return None if fn(M, K, N, group, grid) else tuple(grid)
 
 
 def quant_matmul(x: torch.Tensor, w: QuantizedTensor,
