@@ -107,16 +107,18 @@ def time_calls(fn, args_list, reps: int, per_call: int = 0):
     drops events, which would read too low, so the trace must hold
     exactly ``per_call`` CUDA events a call: the kernels a port wrapper
     launches, from its plan; else the most that two traces of one call
-    hold. A trace that holds another count is taken again, up to twice,
-    and then fails the run. Wall ms: CUDA events around ``reps``
-    back-to-back calls; where the host enqueues a call more slowly than
-    the card runs it, this is the host's rate, not the kernel's."""
+    hold. A trace that holds another count is taken again, up to four
+    times, and then fails the run; ``time_calls.attempts`` keeps how many
+    traces the last call took, which each kernel row records. Wall ms:
+    CUDA events around ``reps`` back-to-back calls; where the host
+    enqueues a call more slowly than the card runs it, this is the
+    host's rate, not the kernel's."""
     import torch
     for a in args_list[:3]:
         fn(*a)
     torch.cuda.synchronize()
     if not per_call:
-        per_call = max(len(cuda_events(fn, args_list, 1)) for _ in range(2))
+        per_call = max(len(cuda_events(fn, args_list, 1)) for _ in range(3))
         check(per_call > 0, "a traced call shows no CUDA event")
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -126,10 +128,11 @@ def time_calls(fn, args_list, reps: int, per_call: int = 0):
     end.record()
     torch.cuda.synchronize()
     wall_ms = start.elapsed_time(end) / reps
-    for _ in range(3):
+    for attempt in range(1, 6):
         events = cuda_events(fn, args_list, reps)
         if len(events) == reps * per_call:
             break
+    time_calls.attempts = attempt
     check(len(events) == reps * per_call, f"the profiler trace holds "
           f"{len(events)} CUDA events for {reps} calls of {per_call}")
     dev_us = sum(e.time_range.elapsed_us() for e in events)
@@ -224,6 +227,7 @@ def main() -> None:
                                                       num_splits)
     from repro_torch.kernels.decode_attention_quant import (
         decode_attention_quant, decode_attention_quant_plain)
+    from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     from repro_torch.kernels.quant_matmul import (launch_grid, quant_matmul,
@@ -245,6 +249,14 @@ def main() -> None:
     libs, secs = build.build()
     print(f"build: {sorted(libs)} in {secs:.1f}s "
           f"({build.BUILD_DIR})", flush=True)
+    # flash_attention overlaps its wgmma groups with the softmax; ptxas
+    # may serialize them instead, which it reports
+    for stem in sorted(libs):
+        notes = build.perf_notes(stem)
+        print(f"  ptxas on {stem}.cu: {len(notes)} performance warnings"
+              + "".join(f"\n    {n[:200]}" for n in notes), flush=True)
+        check(stem != "flash_attention" or not notes,
+              "ptxas serialized flash_attention.cu's wgmma groups")
     # the profiler's first window starts its tracing; keep that out of
     # the timed ones
     from torch.profiler import ProfilerActivity, profile
@@ -295,6 +307,7 @@ def main() -> None:
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     cfg_full = get_config("llama3.2-1b")
     B, Hq, Hkv = 4, cfg_full.num_heads, cfg_full.num_kv_heads
     D, S = cfg_full.head_dim, 1024
@@ -348,6 +361,7 @@ def main() -> None:
         copies = [args] + [tuple(t.clone() for t in args)
                            for _ in range(n_cp - 1)]
         ms, call_ms = time_calls(kern, copies, 100, per_call=1)
+        attempts = time_calls.attempts
         plain_ms, _ = time_calls(plain, copies, 10)
         # library yardstick: SDPA with a kv_len mask (over the bf16 view
         # for a quantized cache; the dequantization is not timed)
@@ -377,9 +391,9 @@ def main() -> None:
             library_ms=lib_ms,
             library="torch.nn.functional.scaled_dot_product_attention"
                     " (attn_mask, enable_gqa)",
-            grid=grid)
-        print(f"    device ms {ms:.4f} (per call back to back {call_ms:.4f})"
-              f"  plain {plain_ms:.4f}  sdpa {lib_ms:.4f}  bound {t_bound:.4f} ({by}, "
+            grid=grid, trace_attempts=attempts)
+        print(f"    device ms {ms:.4f} (per call back to back {call_ms:.4f};"
+              f" {attempts} trace(s))  plain {plain_ms:.4f}  sdpa {lib_ms:.4f}  bound {t_bound:.4f} ({by}, "
               f"{nbytes / 1e6:.2f} MB); grid {grid['ctas']} CTAs, "
               f"{splits} splits", flush=True)
 
@@ -476,6 +490,7 @@ def main() -> None:
         ms, call_ms = time_calls(
             lambda a, b: quant_matmul(a, b, out_dtype=out_dtype), copies,
             100 if M <= 8 else 20, per_call=1 + (splits > 1))
+        attempts = time_calls.attempts
         plain_ms, _ = time_calls(
             lambda a, b: quant_matmul_plain(a, b, out_dtype), copies, 10)
         wd = dequantize(w, torch.bfloat16)
@@ -492,8 +507,9 @@ def main() -> None:
             ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
             library_ms=lib_ms,
             library="torch.matmul on pre-dequantized bf16 weights",
-            grid=grid)
-        print(f"    device ms {ms:.4f} (per call back to back {call_ms:.4f})"
+            grid=grid, trace_attempts=attempts)
+        print(f"    device ms {ms:.4f} (per call back to back {call_ms:.4f};"
+              f" {attempts} trace(s))"
               f"  plain {plain_ms:.4f}  matmul(bf16) {lib_ms:.4f}  bound {t_bound:.4f} ({by}, "
               f"{nbytes / 1e6:.2f} MB); grid {ctas} CTAs, {splits} along K, "
               f"{chunks} K chunks", flush=True)
@@ -558,13 +574,24 @@ def main() -> None:
         n_cp = copies_for(nbytes)
         copies = [(q, k, v)] + [tuple(t.clone() for t in (q, k, v))
                                 for _ in range(n_cp - 1)]
-        ms, call_ms = time_calls(lambda *a: flash_attention(*a, **kw),
-                                 copies, 100, per_call=1)
+        # the kernel and SDPA in turn, three times: the medians go in the
+        # row, the spreads beside them
+        kern_ms, lib_ms_all, call_ms_all, attempts = [], [], [], []
+        for _ in range(3):
+            ms, call_ms = time_calls(lambda *a: flash_attention(*a, **kw),
+                                     copies, 100, per_call=1)
+            kern_ms.append(ms)
+            call_ms_all.append(call_ms)
+            attempts.append(time_calls.attempts)
+            lib_ms_all.append(time_calls(
+                lambda qq, kk, vv: F.scaled_dot_product_attention(
+                    qq, kk, vv, is_causal=True, enable_gqa=True),
+                copies, 50)[0])
+        ms, call_ms, lib_ms = (sorted(x)[1] for x in
+                               (kern_ms, call_ms_all, lib_ms_all))
         plain_ms, _ = time_calls(lambda *a: flash_attention_plain(*a, **kw),
                                  copies, 5)
-        lib_ms, _ = time_calls(
-            lambda qq, kk, vv: F.scaled_dot_product_attention(
-                qq, kk, vv, is_causal=True, enable_gqa=True), copies, 50)
+        pl = fa_mod.plan(b, hq, hkv, sq, skv, d, **kw, sms=sms)
         rows[f"flash_attention[B{b} S{sq}]"] = dict(
             name=f"flash_attention[B{b} S{sq}]", route="cuda",
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -574,19 +601,27 @@ def main() -> None:
             bound_ms=t_bound, bound_by=by, library_ms=lib_ms,
             library="torch.nn.functional.scaled_dot_product_attention"
                     " (is_causal, enable_gqa)",
-            grid=dict(ctas=-(-sq // 64) * b * hkv, splits=None,
-                      k_chunks=None))
+            grid=dict(ctas=pl.ctas, splits=None, k_chunks=None,
+                      work_items=pl.items, block_q=pl.block_q,
+                      block_k=pl.block_k),
+            ms_runs=kern_ms, library_ms_runs=lib_ms_all,
+            trace_attempts=attempts)
         print(f"    rows of Sq {cut} bit-equal to the same rows at Sq {sq}; "
-              f"device ms {ms:.4f} (per call back to back {call_ms:.4f})  "
-              f"plain {plain_ms:.4f}  sdpa {lib_ms:.4f}  bound "
+              f"device ms {ms:.4f} of {', '.join(f'{t:.4f}' for t in kern_ms)}"
+              f" (per call back to back {call_ms:.4f}; traces {attempts})  "
+              f"plain {plain_ms:.4f}  sdpa {lib_ms:.4f} of "
+              f"{', '.join(f'{t:.4f}' for t in lib_ms_all)}  bound "
               f"{t_bound:.4f} ({by}, {nbytes / 1e6:.2f} MB, "
-              f"{flops / 1e9:.2f} GFLOP)", flush=True)
+              f"{flops / 1e9:.2f} GFLOP); {pl.items} work items of block_q "
+              f"{pl.block_q}, block_k {pl.block_k} on {pl.ctas} CTAs",
+              flush=True)
 
-    # the prefill path's shapes (4 x 512 and 3 x 1024 buckets), then
-    # Sq 1, ragged S, a query block past the keys, two windows, the other
-    # instantiated (head_dim, G) pairs, and rows with no visible key
-    flash_case(4, Hq, Hkv, 512, 512, D, 0, 0, timed=True)
-    flash_case(3, Hq, Hkv, 1024, 1024, D, 0, 0, timed=True)
+    # the prefill path's shapes (4 x 512, 3 x 1024 and 1 x 512 buckets),
+    # then Sq 1, ragged S, a query block past the keys, two windows, the
+    # other instantiated (head_dim, G) pairs, and rows with no visible key
+    flash_shapes = ((4, 512), (3, 1024), (1, 512))
+    for b, s_len in flash_shapes:
+        flash_case(b, Hq, Hkv, s_len, s_len, D, 0, 0, timed=True)
     for case in ((2, Hq, Hkv, 1, 1, D, 0, 0), (2, Hq, Hkv, 333, 333, D, 0, 0),
                  (2, Hq, Hkv, 100, 300, D, 0, 200),
                  (2, Hq, Hkv, 512, 512, D, 16, 0),
@@ -595,6 +630,14 @@ def main() -> None:
                  (2, 4, 2, 130, 130, 32, 0, 0),
                  (1, Hq, Hkv, 24, 16, D, 12, 8)):
         flash_case(*case, timed=False)
+    tiles = {f"{b} x {s_len}": fa_mod.plan(b, Hq, Hkv, s_len, s_len, D,
+                                           sms=sms)
+             for b, s_len in flash_shapes}
+    t4 = tiles["4 x 512"]
+    print(f"flash_attention tiles: block_q {t4.block_q} queries of one head"
+          f" a work item, block_k {t4.block_k}; work items on persistent CTAs "
+          + ", ".join(f"{pl.items} on {pl.ctas} ({name})"
+                      for name, pl in tiles.items()), flush=True)
 
     # the tied unembedding is a library product (torch.mm to f32 logits):
     # does one row's result depend on how many rows share the call?

@@ -6,7 +6,8 @@ its own shared library with a plain C interface, under
 All sources compile at once (one ``nvcc`` process each). A library is
 named after the hash of its source and flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is. Nothing is fetched or
-prebuilt.
+prebuilt. The compiler's report (ptxas ``-v``) is kept beside each
+library; ``perf_notes`` reads its performance warnings.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -66,11 +67,21 @@ def build() -> Tuple[Dict[str, ctypes.CDLL], float]:
             if p.returncode:
                 failed.append(f"{src.name}:\n{out.decode(errors='replace')}")
             else:
+                lib.with_suffix(".log").write_bytes(out)
                 os.replace(tmp, lib)
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     secs = time.perf_counter() - t0
     return {s.stem: ctypes.CDLL(str(_lib_path(s))) for s in srcs}, secs
+
+
+def perf_notes(stem: str) -> list:
+    """The "Potential Performance Loss" lines of ptxas's report on the
+    library built from ``csrc/<stem>.cu`` (for example C7520: its
+    ``wgmma`` instructions were serialized)."""
+    log = _lib_path(CSRC / f"{stem}.cu").with_suffix(".log")
+    return [line.strip() for line in log.read_text(errors="replace")
+            .splitlines() if "Performance Loss" in line]
 
 
 @functools.lru_cache(maxsize=None)
