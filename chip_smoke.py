@@ -13,15 +13,21 @@ Phases (any failed check raises and the process exits nonzero):
    card could take (with each kernel's launch grid); check that a
    ``quant_matmul`` output
    row does not depend on M, and a decode-attention slot not on the
-   batch or the cache length (bit for bit);
+   batch or the cache length (bit for bit); the fused RMSNorm, SwiGLU
+   and RoPE + cache write kernels at M 4 and 2048 and in the three
+   cache formats, with ring slots S - 1 and S and frozen rows;
 4. main path: llama3.2-1b at full width (seeded random weights, q8_0
    weights, bf16 cache) served by ``repro_torch.launch.serve`` with 4
    slots, max_len 1024, 8-substep megasteps and chunked admission, 8
-   greedy requests of 32 new tokens; checks outputs, launch counts, the
-   engine's streams against ``Model.reference_decode``, and one decode
-   step through the kernels against the plain versions (beside a
-   planted fault the check must catch); then serves the same requests
-   again under the profiler for the device's idle share;
+   greedy requests of 32 new tokens; every megastep is one replay of the
+   engine's captured CUDA graph; checks outputs, launch counts (the
+   captures' launches times the replays, and nothing launched outside a
+   replay after the warmup), the engine's streams against
+   ``Model.reference_decode``, and one decode step through the kernels
+   against the plain versions (beside a planted fault the check must
+   catch); then serves the same requests again under the profiler for
+   the device's idle share, from a trace that holds exactly the
+   expected events;
 5. prefill path: the same model at full width and depth with stall
    admission, 8 requests with prompts of 270-900 tokens (buckets of 512
    and 1024 positions); checks launch counts, the streams against
@@ -32,7 +38,10 @@ Phases (any failed check raises and the process exits nonzero):
 6. second path: full width, 4 layers, q4_0 weights with a q8_0 and then
    a q4_0 cache (the q4 GEMV and both quantized attention loaders), then
    the q8_0 cache again under stall admission, with the same
-   launch-count and decode-step checks;
+   launch-count and decode-step checks; then a stochastic leg
+   (temperature 0.8) through the sampling graph: greedy rows exact,
+   sampled tokens inside their top-k / top-p filters, the same tokens
+   from two runs with one seed;
 7. one ``{"kernels": [...]}`` line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -157,47 +166,75 @@ def bf16_tol(ref) -> float:
     return 2.0 ** -7 * float(ref.float().abs().max())
 
 
-def profile_served(engine, requests) -> dict:
-    """Where the served run's time goes: the main path's requests served
-    again by the same (reset) engine, the whole run under torch.profiler
-    tracing the card only. The device's idle share is 1 - the kernels'
+GROUPS = ("decode_attention", "quant_matmul", "rmsnorm", "swiglu",
+          "rope_cache_write", "flash_attention", "memcpy", "other")
+
+
+def group_of(name: str) -> str:
+    """The kernel group a CUDA event of a profiler trace belongs to."""
+    if "sum_splits" in name:
+        return "quant_matmul"
+    if "Memcpy" in name or "memcpy" in name:
+        return "memcpy"
+    return next((g for g in GROUPS[:-2] if g in name), "other")
+
+
+def profile_served(engine, make_requests):
+    """Where the served run's time goes: the requests of
+    ``make_requests()`` served again by the same (reset) engine, the
+    whole run under torch.profiler tracing the card only. Every
+    megastep is the same program (one copy in, one graph replay, one
+    copy out), so the trace must hold exactly that many CUDA events a
+    megastep: the most that three traces of one megastep hold. A trace
+    that holds another count (the profiler now and then drops events,
+    which would read too low) is taken again, up to five times, and
+    then fails the run. The device's idle share is 1 - the events'
     time / this run's own wall time in ``step()``; its ms per step beside
-    the unprofiled run's is what the tracing costs."""
+    the unprofiled run's is what the tracing costs. Returns the numbers
+    and the requests of the accepted trace."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     engine.reset()
-    for r in requests:
+    for r in make_requests():
         engine.submit(r)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        engine.run()
-        torch.cuda.synchronize()
+    per_megastep = max(len(cuda_events(engine.step, [()], 1))
+                       for _ in range(3))
+    check(per_megastep > 0, "a traced megastep shows no CUDA event")
+    for attempt in range(1, 6):
+        engine.reset()
+        requests = make_requests()
+        for r in requests:
+            engine.submit(r)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            engine.run()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        want = per_megastep * engine.stats.megasteps
+        print(f"  profile attempt {attempt}: {len(events)} CUDA events, "
+              f"expected {want} ({per_megastep} a megastep x "
+              f"{engine.stats.megasteps})", flush=True)
+        if len(events) == want:
+            break
+    check(len(events) == want, f"the served run's trace holds {len(events)} "
+          f"CUDA events, not {want}, after {attempt} attempts")
     st = engine.stats
     wall_ms = st.decode_wall_s * 1e3
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us() / 1e3
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_name.values())
-    if busy_ms == 0.0:
-        print(f"  profile: wall {wall_ms:.3f} ms; device time not measured "
-              "(the trace holds no CUDA kernel events)", flush=True)
-        return dict(profiled_ms_per_step=wall_ms / st.steps,
-                    device_ms_per_step=None, device_idle_share=None)
-    groups = {"decode_attention": 0.0, "quant_matmul": 0.0, "other": 0.0}
+    groups = dict.fromkeys(GROUPS, 0.0)
     for name, ms in by_name.items():
-        key = ("decode_attention" if "decode_attention" in name else
-               "quant_matmul" if ("quant_matmul" in name
-                                  or "sum_splits" in name) else "other")
-        groups[key] += ms / st.steps
+        groups[group_of(name)] += ms / st.steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print(f"  profile: the served run again under the profiler, {st.steps} "
-          f"decode steps in {st.megasteps} megasteps: wall "
-          f"{wall_ms / st.steps:.3f} ms per step, device kernel time "
-          f"{busy_ms / st.steps:.3f} ms per step -> device idle share "
-          f"{1 - busy_ms / wall_ms:.3f}", flush=True)
+          f"decode steps in {st.megasteps} megasteps ({st.graph_replays} "
+          f"graph replays): wall {wall_ms / st.steps:.3f} ms per step, "
+          f"device time {busy_ms / st.steps:.3f} ms per step -> device "
+          f"idle share {1 - busy_ms / wall_ms:.3f}", flush=True)
     print("  profile: device ms per step by group "
           + ", ".join(f"{g} {ms:.3f}" for g, ms in groups.items()),
           flush=True)
@@ -206,7 +243,9 @@ def profile_served(engine, requests) -> dict:
     return dict(profiled_ms_per_step=wall_ms / st.steps,
                 device_ms_per_step=busy_ms / st.steps,
                 device_idle_share=1 - busy_ms / wall_ms,
-                device_ms_per_step_by_group=groups)
+                device_ms_per_step_by_group=groups,
+                events_per_megastep=per_megastep,
+                profile_attempts=attempt), requests
 
 
 def main() -> None:
@@ -230,14 +269,19 @@ def main() -> None:
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
+    from repro_torch.kernels import fused_ops
+    from repro_torch.kernels.fused_ops import (rmsnorm, rmsnorm_plain,
+                                               rope_cache_write,
+                                               rope_cache_write_plain,
+                                               swiglu, swiglu_plain)
     from repro_torch.kernels.quant_matmul import (launch_grid, quant_matmul,
                                                   quant_matmul_plain)
     from repro_torch.launch import serve
     from repro_torch.models import Model
     from repro_torch.quant import (dequantize, dequantize_rows, quantize,
-                                   quantize_rows)
+                                   quantize_rows, unpack_int4_rows)
     from repro_torch.serving.engine import Request, ServingEngine
-    from repro_torch.serving.sampler import SamplingConfig
+    from repro_torch.serving.sampler import SamplingConfig, sample_batched
 
     dev = torch.device("cuda")
     card = card_line()
@@ -264,11 +308,8 @@ def main() -> None:
         torch.ones(1024, device=dev).sum()
         torch.cuda.synchronize()
 
-    kernels_all = (decode_attention, decode_attention_quant, quant_matmul,
-                   flash_attention)
-
     def zero_counts():
-        for k in kernels_all:
+        for k in ops.KERNELS:
             k.launches = 0
 
     def off_by_one(fn):
@@ -288,18 +329,23 @@ def main() -> None:
         """Route the model's kernel calls to the plain versions (the
         reference pass of the kernel-vs-plain checks), with the planted
         faults in the attention where ``fault``."""
-        saved = (ops.quant_matmul, ops.decode_attention,
-                 ops.decode_attention_quant, ops.flash_attention)
+        names = ("quant_matmul", "decode_attention",
+                 "decode_attention_quant", "flash_attention", "rmsnorm",
+                 "swiglu", "rope_cache_write")
+        saved = {n: getattr(ops, n) for n in names}
         wrap = off_by_one if fault else (lambda fn: fn)
         ops.quant_matmul = quant_matmul_plain
         ops.decode_attention = wrap(decode_attention_plain)
         ops.decode_attention_quant = wrap(decode_attention_quant_plain)
         ops.flash_attention = lookahead if fault else flash_attention_plain
+        ops.rmsnorm = rmsnorm_plain
+        ops.swiglu = swiglu_plain
+        ops.rope_cache_write = rope_cache_write_plain
         try:
             yield
         finally:
-            (ops.quant_matmul, ops.decode_attention,
-             ops.decode_attention_quant, ops.flash_attention) = saved
+            for n, fn in saved.items():
+                setattr(ops, n, fn)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -653,6 +699,197 @@ def main() -> None:
           f"call at M 1/2/3: {unembed_rows_equal}", flush=True)
     del emb, xs, rows4
 
+    # -- the fused small ops (no Pallas counterpart: XLA fuses them) --------
+    fused_src = "src/repro_torch/kernels/csrc/fused_ops.cu"
+
+    def fused_row(name, kern, plain, copies, nbytes, replaces, shape, path,
+                  err, tol, lib=None, lib_name=None):
+        """Time a fused kernel, its plain version and (where one PyTorch
+        call computes the same function) that call, and keep its row.
+        ``copies`` of the inputs exceed the L2 together where 100 copies
+        can (at M 2048); the decode shapes' inputs are a few kB, which
+        the path finds fresh from the kernel before."""
+        ms, call_ms = time_calls(kern, copies, 100, per_call=1)
+        attempts = time_calls.attempts
+        plain_ms, _ = time_calls(plain, copies, 20)
+        lib_ms = time_calls(lib, copies, 50)[0] if lib else None
+        t_bound, by = bound(nbytes, 0.0)
+        rows[name] = dict(
+            name=name, route="cuda", source=fused_src, replaces=replaces,
+            no_pallas_counterpart=True, shape=shape, path=path, launches=0,
+            max_abs_err=err, tol=tol, ms=ms, call_ms=call_ms,
+            plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
+            library_ms=lib_ms, library=lib_name,
+            grid=None, trace_attempts=attempts)
+        print(f"    device ms {ms:.4f} (per call back to back {call_ms:.4f};"
+              f" {attempts} trace(s))  plain {plain_ms:.4f}  library "
+              + (f"{lib_ms:.4f}" if lib else "-")
+              + f"  bound {t_bound:.4f} ({by}, {nbytes / 1e6:.3f} MB)",
+              flush=True)
+
+    def n_copies(nbytes):
+        return min(copies_for(nbytes), 100)
+
+    def rowwise_case(name, kern, plain, args, shape, timed, path, nbytes,
+                     replaces, lib=None, lib_name=None):
+        """RMSNorm or SwiGLU against its plain version (within one bf16
+        ulp at the output's scale, 1e-5 of it for f32), and timed where
+        the path runs it."""
+        out, ref = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        tol = (bf16_tol(ref) if out.dtype == torch.bfloat16
+               else 1e-5 * float(ref.abs().max()))
+        print(f"  {name} {shape}: max_abs_err {err:.3e} (tol {tol:.3e}), "
+              f"{int((out != ref).sum())} of {out.numel()} elements differ",
+              flush=True)
+        check(err <= tol, f"{name} {shape}: {err} > {tol}")
+        if not timed:
+            return
+        x = args[0]
+        copies = [args] + [(x.clone(),) + tuple(args[1:]) for _ in
+                           range(n_copies(x.numel() * x.element_size()) - 1)]
+        fused_row(f"{name}[{shape.rsplit(' ', 1)[0]}]", kern, plain, copies,
+                  nbytes, replaces, shape, path, err, tol, lib, lib_name)
+
+    def rmsnorm_case(M, d, dtype, timed=False, path=None):
+        x = (randn(M, d) * 3).to(dtype)
+        w = (1 + 0.1 * randn(d)).bfloat16()
+        eps = cfg_full.norm_eps
+        rowwise_case("rmsnorm", lambda a, b: rmsnorm(a, b, eps),
+                     lambda a, b: rmsnorm_plain(a, b, eps), (x, w),
+                     f"M{M} d{d} {str(dtype)[6:]}", timed, path,
+                     2 * x.numel() * x.element_size() + w.numel() * 2,
+                     "src/repro/models/layers.py:26",
+                     lib=lambda a, b: F.rms_norm(a, (d,), b, eps),
+                     lib_name="torch.nn.functional.rms_norm")
+
+    def swiglu_case(M, Fw, dtype, timed=False, path=None):
+        gu = (randn(M, 2 * Fw) * 2).to(dtype)
+        rowwise_case("swiglu", swiglu, swiglu_plain, (gu,),
+                     f"M{M} F{Fw} {str(dtype)[6:]}", timed, path,
+                     3 * M * Fw * gu.element_size(),
+                     "src/repro/models/mlp.py:37")
+
+    def unpacked(payload, fmt):
+        return (unpack_int4_rows(payload) if fmt == "q4_0"
+                else payload).to(torch.int32)
+
+    def ties(x, fmt, ng):
+        """Where x (..., D) bf16 divided by its group's f32 scale lands on
+        an exact .5: the plain version's division there may round either
+        way."""
+        D = x.shape[-1]
+        qmax = 127.0 if fmt == "q8_0" else 7.0
+        xg = x.float().reshape(x.shape[:-1] + (ng, D // ng))
+        sc = xg.abs().amax(dim=-1) / qmax
+        sc = torch.where(sc == 0, torch.ones_like(sc), sc)
+        r = (xg / sc[..., None]).abs()
+        return ((r - r.floor()) == 0.5).reshape(x.shape)
+
+    def rope_case(fmt, b, hq, hkv, s_len, d, lens, advance, timed=False,
+                  path=None):
+        theta = cfg_full.rope_theta
+        qkv = randn(b, (hq + 2 * hkv) * d).bfloat16()
+        old = randn(b, hkv, s_len, d).bfloat16()
+        if fmt == "bf16":
+            cache = {"k": old, "v": (old * 0.5).contiguous()}
+        else:
+            kq, ks = quantize_rows(old, fmt)
+            vq, vs = quantize_rows(old * 0.5, fmt)
+            cache = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        adv = (None if advance is None
+               else torch.tensor(advance, dtype=torch.bool, device=dev))
+        ck = {n: t.clone() for n, t in cache.items()}
+        cp = {n: t.clone() for n, t in cache.items()}
+        q = rope_cache_write(qkv, ck, lens_t, adv, theta, fmt)
+        qp = rope_cache_write_plain(qkv, cp, lens_t, adv, theta, fmt)
+        torch.cuda.synchronize()
+        err = float((q.float() - qp.float()).abs().max())
+        tol = bf16_tol(qp)
+        shape = (f"B{b} Hq{hq} Hkv{hkv} S{s_len} D{d} lens{lens} "
+                 f"advance{advance}")
+        label = f"rope_cache_write[{fmt}] {shape}"
+        check(err <= tol, f"{label}: q {err} > {tol}")
+        written = torch.zeros((b, s_len), dtype=torch.bool, device=dev)
+        for i, pos in enumerate(lens):
+            written[i, pos % s_len] = advance is None or advance[i]
+        frozen = ~written[:, None, :].expand(b, hkv, s_len)
+        for n, leaf in ck.items():
+            check(torch.equal(leaf[frozen], cache[n][frozen]),
+                  f"{label}: {n} changed outside the written ring slots")
+        kr = fused_ops.apply_rope(
+            qkv[:, hq * d:(hq + hkv) * d].reshape(b, hkv, d), lens_t, theta)
+        vr = qkv[:, (hq + hkv) * d:].reshape(b, hkv, d)
+        n_ties = 0
+        for i, pos in enumerate(lens):
+            if not (advance is None or advance[i]):
+                continue
+            sl = pos % s_len
+            if fmt == "bf16":
+                check(float((ck["k"][i, :, sl].float()
+                             - cp["k"][i, :, sl].float()).abs().max())
+                      <= bf16_tol(cp["k"][i, :, sl]),
+                      f"{label}: K row {i} beyond one bf16 ulp")
+                check(torch.equal(ck["v"][i, :, sl], cp["v"][i, :, sl]),
+                      f"{label}: V row {i} differs")
+                continue
+            ng = ck["k_scale"].shape[-1]
+            for n, x in (("k", kr[i]), ("v", vr[i])):
+                check(torch.equal(ck[f"{n}_scale"][i, :, sl],
+                                  cp[f"{n}_scale"][i, :, sl]),
+                      f"{label}: {n}_scale row {i} not bit-equal")
+                diff = (unpacked(ck[n][i, :, sl], fmt)
+                        - unpacked(cp[n][i, :, sl], fmt)).abs()
+                check(int(diff.max()) <= 1 and bool(
+                    ((diff == 0) | ties(x, fmt, ng)).all()),
+                    f"{label}: {n} payload row {i} off by more than one "
+                    "step, or off where the division is no .5 tie")
+                n_ties += int((diff > 0).sum())
+        print(f"  {label}: q max_abs_err {err:.3e} (tol {tol:.3e}); cache "
+              f"rows as the plain version's ({n_ties} payload elements one "
+              "step off on .5 ties), frozen rows and other slots "
+              "untouched", flush=True)
+        if not timed:
+            return
+        n_adv = b if advance is None else sum(advance)
+        row_bytes = sum(t[0, 0, 0].numel() * t.element_size()
+                        for t in ck.values())
+        nbytes = (qkv.numel() * 2 + b * 4 + (0 if adv is None else b)
+                  + q.numel() * 2 + n_adv * hkv * row_bytes)
+        copies = [(qkv, ck, lens_t, adv)] + [
+            (qkv.clone(), ck, lens_t, adv)
+            for _ in range(n_copies(qkv.numel() * 2) - 1)]
+        fused_row(f"rope_cache_write[{fmt}]",
+                  lambda a, c, ln, av: rope_cache_write(a, c, ln, av, theta,
+                                                        fmt),
+                  lambda a, c, ln, av: rope_cache_write_plain(
+                      a, c, ln, av, theta, fmt), copies, nbytes,
+                  "src/repro/models/layers.py:51", shape, path, err, tol)
+
+    print("fused small ops vs plain versions on the card:", flush=True)
+    d_model, d_ff = cfg_full.d_model, cfg_full.d_ff
+    for M, path in ((B, "main"), (2048, "prefill")):
+        rmsnorm_case(M, d_model, torch.bfloat16, timed=True, path=path)
+        swiglu_case(M, d_ff, torch.bfloat16, timed=True, path=path)
+    for M in (1, 333):
+        rmsnorm_case(M, d_model, torch.bfloat16)
+        swiglu_case(M, d_ff, torch.bfloat16)
+    for M, d in ((3, 128), (5, 100), (7, 1)):       # reduced, ragged widths
+        rmsnorm_case(M, d, torch.bfloat16)
+        swiglu_case(M, d, torch.bfloat16)
+    rmsnorm_case(3, d_model, torch.float32)
+    swiglu_case(3, d_ff, torch.float32)
+    ring = [S - 1, S, 5, 700]              # ring slots S - 1 and S (-> 0)
+    for fmt, path in (("bf16", "main"), ("q8_0", "second q8_0"),
+                      ("q4_0", "second q4_0")):
+        rope_case(fmt, B, Hq, Hkv, S, D, ring, None, timed=True, path=path)
+        rope_case(fmt, B, Hq, Hkv, S, D, ring, [True, False, True, False])
+        rope_case(fmt, 1, Hq, Hkv, S, D, [0], [True])
+        rope_case(fmt, 3, 4, 2, 16, 32, [16, 7, 15], [True, False, True])
+        rope_case(fmt, 2, 32, 32, 64, 128, [100, 63], None)
+
     # -- shared checks of a served path -------------------------------------
     def clone_cache(c):
         return {"lens": c["lens"].clone(),
@@ -743,14 +980,37 @@ def main() -> None:
             worst, fault_least = max(worst, err), min(fault_least, fault)
         return dict(max_rel_err=worst, fault_least_rel_err=fault_least)
 
-    def check_served(engine, requests, label, warmup_steps=0):
-        """Outputs complete and in range; launch counts equal to one
-        attention and four linears per layer per decode step (the
-        warmup's steps included where the counters saw them), plus per
-        prefill call one flash attention and four linears per layer."""
+    def per_megastep(engine):
+        """Kernel launches of one megastep: K substeps of one attention,
+        one RoPE + cache write, four linears, two RMSNorms and one SwiGLU
+        per layer, and the final RMSNorm."""
+        L, K = engine.cfg.num_layers, engine.megastep_k
+        quant_cache = engine.kv_quant != "bf16"
+        return {"decode_attention": 0 if quant_cache else L * K,
+                "decode_attention_quant": L * K if quant_cache else 0,
+                "quant_matmul": 4 * L * K, "flash_attention": 0,
+                "rmsnorm": (2 * L + 1) * K, "swiglu": L * K,
+                "rope_cache_write": L * K}
+
+    def per_prefill(engine):
+        """Kernel launches of one prefill call (eager)."""
         L = engine.cfg.num_layers
+        return {"decode_attention": 0, "decode_attention_quant": 0,
+                "quant_matmul": 4 * L, "flash_attention": L,
+                "rmsnorm": 2 * L + 1, "swiglu": L, "rope_cache_write": 0}
+
+    def check_served(engine, requests, label, warm, after_warm):
+        """Outputs complete and in range, and the launch counts under
+        graphs. The counters were zeroed before the path's warmup
+        request (stats ``warm``, counters ``after_warm`` at its end).
+        Every megastep is one graph replay; each capture enqueued exactly
+        one megastep's launches; the counters hold, for each capture, its
+        eager warmup run and the capture itself, plus each prefill call's
+        eager launches, and across the timed run they moved by the
+        prefill calls alone: no decode kernel launched outside a replay.
+        Returns the kernels' device launches over the path: warmup runs,
+        replays times one megastep's launches, and prefill calls."""
         st = engine.stats
-        steps, batches = st.steps + warmup_steps, st.prefill_batches
         for r in requests:
             check(r.done and r.error is None,
                   f"{label}: request {r.uid} not done ({r.error})")
@@ -758,16 +1018,39 @@ def main() -> None:
                   f"{label}: request {r.uid} got {len(r.output)} tokens")
             check(all(0 <= t < engine.cfg.vocab_size for t in r.output),
                   f"{label}: token id out of range")
-        quant_cache = engine.kv_quant != "bf16"
-        want = {"decode_attention": 0 if quant_cache else L * steps,
-                "decode_attention_quant": L * steps if quant_cache else 0,
-                "quant_matmul": 4 * L * (steps + batches),
-                "flash_attention": L * batches}
-        got = {k.__name__: k.launches for k in kernels_all}
-        print(f"  {label}: launches {got} over {steps} decode steps and "
-              f"{batches} prefill calls x {L} layers", flush=True)
-        check(got == want, f"{label}: launches {got} != expected {want}")
-        return got
+        for name, stats in (("warmup", warm), ("timed run", st)):
+            check(stats.graph_replays == stats.megasteps > 0,
+                  f"{label}: {stats.graph_replays} graph replays for the "
+                  f"{name}'s {stats.megasteps} megasteps")
+        check(st.graph_captures == 0, f"{label}: the timed run captured "
+              f"{st.graph_captures} graphs (all belong in the warmup)")
+        captures = warm.graph_captures
+        check(1 <= captures <= 2 and captures == len(engine.graph_launches),
+              f"{label}: {captures} captures, graphs "
+              f"{sorted(engine.graph_launches)}")
+        per, pre = per_megastep(engine), per_prefill(engine)
+        for greedy, got in engine.graph_launches.items():
+            which = "greedy" if greedy else "sampling"
+            check(got == per, f"{label}: the {which} graph's capture "
+                  f"enqueued {got}, not {per}")
+        counted = ops.launch_counts()
+        batches = warm.prefill_batches + st.prefill_batches
+        want = {k: 2 * captures * per[k] + batches * pre[k] for k in per}
+        check(counted == want, f"{label}: launch counters {counted} != "
+              f"expected {want}")
+        moved = {k: counted[k] - after_warm[k] for k in per}
+        want_moved = {k: st.prefill_batches * pre[k] for k in per}
+        check(moved == want_moved, f"{label}: across the timed run the "
+              f"counters moved by {moved}, not by the prefill calls' "
+              f"{want_moved}")
+        replays = warm.graph_replays + st.graph_replays
+        device = {k: (captures + replays) * per[k] + batches * pre[k]
+                  for k in per}
+        print(f"  {label}: {st.megasteps} megasteps = {st.graph_replays} "
+              f"graph replays ({warm.graph_replays} more in the warmup, "
+              f"{captures} captures); one megastep enqueues {per}; device "
+              f"launches {device} with {batches} prefill calls", flush=True)
+        return device
 
     # -- 4. main path ---------------------------------------------------------
     print("main path: llama3.2-1b full width, q8_0 weights, bf16 cache",
@@ -783,7 +1066,7 @@ def main() -> None:
     torch.cuda.synchronize()
     eng = res.engine
     main_counts = check_served(eng, res.requests, "main path",
-                               warmup_steps=res.warmup_steps)
+                               res.warmup_stats, res.launches_after_warmup)
     st = eng.stats
     tok_s = st.tokens_generated / st.decode_wall_s
     ms_step = 1e3 * st.decode_wall_s / st.steps
@@ -801,8 +1084,9 @@ def main() -> None:
     main_path = dict(tok_s=tok_s, ms_per_step=ms_step,
                      tokens=st.tokens_generated, steps=st.steps)
     main_path.update(step_vs_plain(eng, "main path"))
-    replay = serve.make_requests(eng.cfg.vocab_size, 8, 32, seed=0)
-    main_path.update(profile_served(eng, replay))
+    prof, replay = profile_served(
+        eng, lambda: serve.make_requests(eng.cfg.vocab_size, 8, 32, seed=0))
+    main_path.update(prof)
     check([r.output for r in replay] == [r.output for r in res.requests],
           "main path: the profiled replay served other tokens")
     del eng, res
@@ -823,9 +1107,12 @@ def main() -> None:
         return [Request(uid=i, prompt=p, max_new_tokens=32)
                 for i, p in enumerate(prompts)]
 
-    # warmup: first-use costs of the prefill shapes stay out of the run
+    # warmup: first-use costs of the prefill shapes, and the capture of
+    # the megastep graph, stay out of the run
+    zero_counts()
     eng.submit(Request(uid=-1, prompt=prompts[0], max_new_tokens=2))
     eng.run()
+    warm, after_warm = eng.stats, ops.launch_counts()
     eng.reset()
     impl = eng._prefill_impl
     calls = []
@@ -846,14 +1133,14 @@ def main() -> None:
 
     eng._prefill_impl = timed_prefill
     reqs = prefill_requests()
-    zero_counts()
     torch.cuda.synchronize()
     for r in reqs:
         eng.submit(r)
     eng.run()
     torch.cuda.synchronize()
     st = eng.stats
-    prefill_counts = check_served(eng, reqs, "prefill path")
+    prefill_counts = check_served(eng, reqs, "prefill path", warm,
+                                  after_warm)
     check(0 < st.prefill_batches < st.prefills,
           f"prefill path: {st.prefill_batches} prefill calls for "
           f"{st.prefills} requests: no bucket was shared")
@@ -906,7 +1193,7 @@ def main() -> None:
     # the calls' wall time
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    groups = {"flash_attention": 0.0, "quant_matmul": 0.0, "other": 0.0}
+    groups = dict.fromkeys(GROUPS, 0.0)
     prof_wall = [0.0]
 
     def profiled_prefill(*args):
@@ -917,11 +1204,7 @@ def main() -> None:
             prof_wall[0] += 1e3 * (time.perf_counter() - t0)
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
-                key = ("flash_attention" if "flash_attention" in e.name else
-                       "quant_matmul" if ("quant_matmul" in e.name
-                                          or "sum_splits" in e.name)
-                       else "other")
-                groups[key] += e.time_range.elapsed_us() / 1e3
+                groups[group_of(e.name)] += e.time_range.elapsed_us() / 1e3
         return first
 
     eng.reset()
@@ -964,16 +1247,110 @@ def main() -> None:
                             sampling=SamplingConfig(), megastep_k=8,
                             quant_policy="q4_0", kv_quant=kvq,
                             admission=admission)
-        reqs = serve.make_requests(cfg4.vocab_size, 6, 16, seed=1)
         zero_counts()
+        for r in serve.make_requests(cfg4.vocab_size, 2, 4, seed=5):
+            eng.submit(r)                 # warmup: captures the graph
+        eng.run()
+        warm, after_warm = eng.stats, ops.launch_counts()
+        eng.reset()
+        reqs = serve.make_requests(cfg4.vocab_size, 6, 16, seed=1)
         for r in reqs:
             eng.submit(r)
         eng.run()
         torch.cuda.synchronize()
-        counts[key] = check_served(eng, reqs, label)
+        counts[key] = check_served(eng, reqs, label, warm, after_warm)
         step_checks[key] = step_vs_plain(eng, label)
         del eng
-    del params4
+
+    # the stochastic leg: sampled requests beside greedy ones, through
+    # the sampling graph
+    smp = SamplingConfig(temperature=0.8, top_k=40, top_p=0.95)
+    label = ("stochastic leg (4 layers, q4_0 weights, q8_0 cache, "
+             f"temperature {smp.temperature}, top-k {smp.top_k}, top-p "
+             f"{smp.top_p})")
+    print(label, flush=True)
+    eng = ServingEngine(model4, params4, slots=4, max_len=1024,
+                        sampling=smp, megastep_k=8, quant_policy="q4_0",
+                        kv_quant="q8_0", seed=7)
+
+    def hot_requests():
+        reqs = serve.make_requests(cfg4.vocab_size, 6, 16, seed=2)
+        reqs[0].temperature = 0.0       # a greedy row among sampled ones
+        reqs[1].top_k = 1               # filters that leave the argmax
+        reqs[2].top_p = 1e-6
+        return reqs
+
+    zero_counts()
+    for r in hot_requests():            # warmup: the same mix of rows
+        eng.submit(r)
+    eng.run()
+    warm, after_warm = eng.stats, ops.launch_counts()
+    runs = []
+    for _ in range(2):
+        eng.reset()
+        runs.append(hot_requests())
+        for r in runs[-1]:
+            eng.submit(r)
+        eng.run()
+        torch.cuda.synchronize()
+        check_served(eng, runs[-1], label, warm, after_warm)
+    check(False in eng.graph_launches, f"{label}: no sampling graph")
+    first = [r.output for r in runs[0]]
+    check(first == [r.output for r in runs[1]],
+          f"{label}: two runs with one seed served other tokens")
+    for r in runs[0][:3]:
+        ref = eng.model.reference_decode(eng.params, r.prompt,
+                                         r.max_new_tokens, max_len=1024)
+        check(ref == r.output, f"{label}: request {r.uid} (greedy, top-k "
+              "1 or top-p 1e-6) differs from reference_decode")
+    neg_inf = torch.tensor(float("-inf"), device=dev)
+    for r in runs[0][3:]:
+        # each sampled token lies inside the top-k / top-p filter of its
+        # logits: the request replayed through decode_step (B 1)
+        cache = eng.model.init_cache(1, 1024)
+        tok = torch.empty((1, 1), dtype=torch.long, device=dev)
+        for t in r.prompt:
+            tok.fill_(int(t))
+            logits = eng.model.decode_step(eng.params, tok, cache)
+        for t in r.output:
+            lf = logits[0].float() / smp.temperature
+            V = lf.shape[-1]
+            lf = torch.where(lf < torch.sort(lf).values[V - smp.top_k],
+                             neg_inf, lf)
+            desc = torch.sort(lf, descending=True).values
+            cum = torch.cumsum(torch.softmax(desc, dim=-1), dim=-1)
+            cutoff = desc[min(int((cum < smp.top_p).sum()), V - 1)]
+            check(bool(lf[t] >= cutoff), f"{label}: request {r.uid} drew "
+                  f"token {t} outside its top-k / top-p filter")
+            tok.fill_(t)
+            logits = eng.model.decode_step(eng.params, tok, cache)
+    print(f"  {label}: greedy, top-k 1 and top-p 1e-6 rows == "
+          "reference_decode; sampled tokens inside their filters; two runs "
+          f"with seed {eng.seed} gave the same tokens; graphs "
+          + str(sorted("greedy" if k else "sampling"
+                       for k in eng.graph_launches)),
+          flush=True)
+    # the sampler's filters alone, on the card: 300 draws of 4 rows
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    lg = randn(4, 64)
+    draws = torch.stack([sample_batched(
+        lg, g, torch.tensor([0.0, 1.0, 1.0, 0.7], device=dev),
+        torch.tensor([0, 1, 5, 0], dtype=torch.int32, device=dev),
+        torch.tensor([1.0, 1.0, 1.0, 0.5], device=dev)) for _ in range(300)])
+    am = lg.argmax(-1).int()
+    p3 = torch.softmax(lg[3] / 0.7, -1)
+    order = p3.argsort(descending=True)
+    keep = int((p3[order].cumsum(0) < 0.5).sum()) + 1
+    check(bool((draws[:, 0] == am[0]).all() and (draws[:, 1] == am[1]).all())
+          and set(draws[:, 2].tolist()) <= set(lg[2].topk(5).indices.tolist())
+          and len(set(draws[:, 2].tolist())) > 1
+          and set(draws[:, 3].tolist()) <= set(order[:keep].tolist()),
+          "sample_batched: a draw outside its row's filter")
+    print("  sample_batched on the card: greedy and top-k 1 rows exact, "
+          "top-k 5 and top-p 0.5 draws inside their filters (300 draws)",
+          flush=True)
+    del eng, params4
     torch.cuda.empty_cache()
 
     # -- 7. the kernel line ---------------------------------------------------

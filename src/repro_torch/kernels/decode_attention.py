@@ -41,6 +41,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_I, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, _I,
              _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P)
 _TICKETS = {}                  # device -> the kernel's int32 ticket counts
+_OUTGROWN = []                 # ticket counts replaced by larger ones
 
 
 def num_splits(S: int) -> int:
@@ -58,9 +59,13 @@ def _tickets(n: int, device) -> torch.Tensor:
     """At least n int32 ticket counts on ``device``, zero between
     launches: allocated zeroed once, and each launch's merging CTAs set
     the counts they used back to 0. Launches on the current stream run
-    one after another, so they share the counts safely."""
+    one after another, so they share the counts safely. Counts that a
+    larger launch outgrows stay allocated: a captured CUDA graph may
+    still hold their address."""
     t = _TICKETS.get(device)
     if t is None or t.numel() < n:
+        if t is not None:
+            _OUTGROWN.append(t)
         t = torch.zeros((max(n, 256),), dtype=torch.int32, device=device)
         _TICKETS[device] = t
     return t

@@ -14,6 +14,11 @@ products (the counterpart of the JAX package's ``kernels/ops.py``).
   switch and no tile picking: the kernel takes every Sq and Skv.
 - ``decode_attention`` / ``decode_attention_quant``: the kernels'
   wrappers, which take the plain version only for CPU tensors.
+- ``rmsnorm``, ``swiglu`` and ``rope_cache_write``: the fused small ops
+  of ``fused_ops.py``, wrappers of the same kind.
+- ``launch_counts``: every kernel wrapper's launch count by name. A
+  wrapper counts the launches it enqueues, also into a CUDA graph being
+  captured; a graph's replays launch again without counting.
 
 There is no backend switch and no fallback: a CUDA tensor reaches the
 kernel or the wrapper raises. The TPU lane-alignment tiling rules of
@@ -27,20 +32,30 @@ left off, so the library products accumulate in full f32 like XLA's
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
 import torch
 
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.decode_attention_quant import decode_attention_quant
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.fused_ops import rmsnorm, rope_cache_write, swiglu
 from repro_torch.kernels.quant_matmul import quant_matmul
 from repro_torch.quant.quantize import QuantizedTensor
 
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
+KERNELS = (decode_attention, decode_attention_quant, quant_matmul,
+           flash_attention, rmsnorm, swiglu, rope_cache_write)
+
 __all__ = ["matmul", "attention", "decode_attention",
-           "decode_attention_quant", "flash_attention", "quant_matmul"]
+           "decode_attention_quant", "flash_attention", "quant_matmul",
+           "rmsnorm", "swiglu", "rope_cache_write", "KERNELS",
+           "launch_counts"]
+
+
+def launch_counts() -> Dict[str, int]:
+    return {k.__name__: k.launches for k in KERNELS}
 
 
 def matmul(x: torch.Tensor, w: Union[torch.Tensor, QuantizedTensor], *,

@@ -5,7 +5,9 @@ print throughput.
     python -m repro_torch.launch.serve --arch llama3.2-1b --no-reduced \\
         --precision q8_0
 
-Runs on the card by default (``--device cpu`` for a CPU run). The
+Runs on the card by default (``--device cpu`` for a CPU run). On the
+card the warmup request also captures the engine's megastep graph, so
+every megastep of the timed run is one graph replay. The
 counterpart of the JAX package's synchronous ``launch/serve.py`` path;
 the asyncio front-end is not ported yet, and there is no ``--kernels``
 switch: CUDA tensors always run the hand-written kernels.
@@ -15,7 +17,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -23,8 +25,9 @@ import torch
 from repro_torch.configs import CONFIGS, get_config, reduced
 from repro_torch.configs.base import WEIGHT_FORMATS
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import Model
-from repro_torch.serving.engine import Request, ServingEngine
+from repro_torch.serving.engine import EngineStats, Request, ServingEngine
 from repro_torch.serving.sampler import SamplingConfig
 
 
@@ -32,7 +35,8 @@ from repro_torch.serving.sampler import SamplingConfig
 class ServeResult:
     engine: ServingEngine
     requests: List[Request]
-    warmup_steps: int       # decode substeps spent in the warmup request
+    warmup_stats: EngineStats           # the warmup request's stats
+    launches_after_warmup: Dict[str, int]   # ops.launch_counts() then
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -93,14 +97,15 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
         seed=args.seed, megastep_k=args.megastep_k,
         quant_policy=args.precision, admission=args.admission)
 
-    # warmup: first-use costs (kernel build and load, library handles)
-    # stay out of the timed run
+    # warmup: first-use costs (kernel build and load, library handles,
+    # the megastep graph's capture) stay out of the timed run
     t0 = time.perf_counter()
     engine.submit(Request(uid=-1, prompt=np.arange(1, 6, dtype=np.int32),
                           max_new_tokens=max(args.max_new, 1)))
     engine.run()
     warmup_s = time.perf_counter() - t0
-    warmup_steps = engine.stats.steps
+    warmup_stats = engine.stats
+    launches_after_warmup = ops.launch_counts()
     engine.reset()
 
     requests = make_requests(cfg.vocab_size, args.requests, args.max_new,
@@ -121,9 +126,11 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
           f"({st.steps} steps in {st.megasteps} megasteps "
           f"[K={engine.megastep_k}], {st.prefills} admissions "
           f"({engine.admission}: {st.chunk_refills} chunk refills, "
-          f"{st.prefill_batches} prefill batches); warmup "
-          f"{warmup_s:.2f}s excluded)")
-    return ServeResult(engine, requests, warmup_steps)
+          f"{st.prefill_batches} prefill batches); "
+          f"{st.graph_replays} graph replays, "
+          f"{warmup_stats.graph_captures + st.graph_captures} graph "
+          f"captures; warmup {warmup_s:.2f}s excluded)")
+    return ServeResult(engine, requests, warmup_stats, launches_after_warmup)
 
 
 if __name__ == "__main__":

@@ -3,12 +3,13 @@ over a dense KV cache.
 
 Counterpart of the JAX package's ``models/attention.py``:
 ``attention_forward`` (the self-attention branch, with ``return_kv``),
-``attention_decode``, ``kv_cache_write``, ``kv_cache_read`` and
-``init_kv_cache``. ``chunked_attention`` moved to
-``repro_torch.kernels.flash_attention``: it is the plain version of the
-prefill attention kernel there, and ``attention_forward`` reaches it
-through ``ops.attention``. Paging, cross-attention and ``kv_override``
-are not ported yet.
+``attention_decode``, ``kv_cache_read`` and ``init_kv_cache``.
+``kv_cache_write`` lives in ``kernels/fused_ops.py``, beside the fused
+decode RoPE + cache write kernel whose plain version it is part of, and
+``chunked_attention`` in ``repro_torch.kernels.flash_attention``: it is
+the plain version of the prefill attention kernel there, and
+``attention_forward`` reaches it through ``ops.attention``. Paging,
+cross-attention and ``kv_override`` are not ported yet.
 
 The cache is updated in place. A row whose ``advance`` flag is False
 (a frozen slot of the serving engine) keeps its old cache contents:
@@ -68,53 +69,25 @@ def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
                      advance: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (B, 1, D); cache one layer's leaves (B, Hkv, S, ·); lens (B,)
     tokens already cached per row. The new token's K/V go to ring slot
-    ``lens % S`` and attention reads ``min(lens + 1, S)`` positions."""
+    ``lens % S`` and attention reads ``min(lens + 1, S)`` positions. RoPE
+    of q and k and the K/V write are one fused kernel
+    (``ops.rope_cache_write``; its plain version is ``apply_rope`` twice
+    and ``kv_cache_write``)."""
     B = x.shape[0]
-    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    qkv = layers.linear(p["wqkv"], x)
-    q = qkv[..., :cfg.q_dim].reshape(B, H, hd)
-    k = qkv[..., cfg.q_dim:cfg.q_dim + cfg.kv_dim].reshape(B, Hkv, hd)
-    v = qkv[..., cfg.q_dim + cfg.kv_dim:].reshape(B, Hkv, hd)
-    q = layers.apply_rope(q, lens, cfg.rope_theta)
-    k = layers.apply_rope(k, lens, cfg.rope_theta)
-    S = cache["k"].shape[2]
-    kv_quant = cfg.kv_quant
+    H, hd = cfg.num_heads, cfg.head_dim
+    qkv = layers.linear(p["wqkv"], x).reshape(B, -1)
     check_cache_format(cfg, cache)
-    kv_cache_write(cache, k, v, lens % S, kv_quant=kv_quant,
-                   group=cfg.quant_group, advance=advance)
+    q = ops.rope_cache_write(qkv, cache, lens, advance, cfg.rope_theta,
+                             cfg.kv_quant)
+    S = cache["k"].shape[2]
     kv_len = torch.clamp(lens + 1, max=S)
-    if kv_quant in FLOAT_FORMATS:
+    if cfg.kv_quant in FLOAT_FORMATS:
         out = ops.decode_attention(q, cache["k"], cache["v"], kv_len)
     else:
         out = ops.decode_attention_quant(
             q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"],
-            kv_len, fmt=kv_quant)
+            kv_len, fmt=cfg.kv_quant)
     return layers.linear(p["wo"], out.reshape(B, 1, H * hd))
-
-
-def kv_cache_write(cache: Dict, k: torch.Tensor, v: torch.Tensor,
-                   slot: torch.Tensor, *, kv_quant: str = "bf16",
-                   group: int = 32,
-                   advance: Optional[torch.Tensor] = None) -> None:
-    """Write one (B, Hkv, hd) K/V row per batch row at ring ``slot``
-    (B,), in place. Quantized caches quantize the row at the write point
-    (payload into ``k``/``v``, groupwise scales into ``k_scale`` /
-    ``v_scale``). Rows with ``advance`` False keep their old contents."""
-    B = k.shape[0]
-    if kv_quant in FLOAT_FORMATS:
-        rows = {"k": k, "v": v}
-    else:
-        kq, ks = quantize_rows(k, kv_quant, group)
-        vq, vs = quantize_rows(v, kv_quant, group)
-        rows = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
-    bidx = torch.arange(B, device=k.device)
-    for name, new in rows.items():
-        leaf = cache[name]
-        new = new.to(leaf.dtype)
-        if advance is not None:
-            new = torch.where(advance[:, None, None], new,
-                              leaf[bidx, :, slot])
-        leaf[bidx, :, slot] = new
 
 
 def kv_cache_write_prefill(cache: Dict, k: torch.Tensor, v: torch.Tensor,

@@ -2,46 +2,28 @@
 
 Counterparts of the JAX package's ``models/layers.py`` with the same
 rounding points: norms and RoPE compute in f32 and cast back, the
-logits of the unembedding are f32.
+logits of the unembedding are f32. RMSNorm and SwiGLU go through the
+fused kernels of ``kernels/fused_ops.py``, where ``apply_rope`` (the
+prefill's RoPE, and part of the plain version of the decode RoPE
+kernel) lives too.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.fused_ops import apply_rope  # noqa: F401
 from repro_torch.models.params import ParamSpec
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps)
-    return (out * weight.float()).to(x.dtype)
-
-
-def rope_freqs(head_dim: int, theta: float,
-               device=None) -> torch.Tensor:
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                        device=device) / head_dim
-    return 1.0 / (theta ** exps)
-
-
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """Half-split rotation. x (..., H, D) with positions (...)."""
-    D = x.shape[-1]
-    freqs = rope_freqs(D, theta, x.device)                   # (D/2,)
-    angles = positions[..., None].float() * freqs            # (..., D/2)
-    cos = torch.cos(angles)[..., None, :]                    # over heads
-    sin = torch.sin(angles)[..., None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    """The fused RMSNorm kernel on the card, its plain version on the
+    CPU (``kernels/fused_ops.py``)."""
+    return ops.rmsnorm(x, weight, eps)
 
 
 def embed_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -71,6 +53,7 @@ def linear(p, x: torch.Tensor) -> torch.Tensor:
     return ops.matmul(x, p["w"])
 
 
-def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
-    """silu(gate) * up, in f32 with one rounding to the input dtype."""
-    return (F.silu(gate.float()) * up.float()).to(gate.dtype)
+def swiglu(gu: torch.Tensor) -> torch.Tensor:
+    """silu(gate) * up of the fused gate-up output (..., 2 F), in f32 with
+    one rounding to the input dtype (the fused kernel on the card)."""
+    return ops.swiglu(gu)

@@ -17,5 +17,4 @@ def mlp_specs(cfg: ModelConfig) -> Dict:
 
 def mlp_forward(p, x: torch.Tensor) -> torch.Tensor:
     gu = layers.linear(p["w_gate_up"], x)
-    g, u = gu.chunk(2, dim=-1)
-    return layers.linear(p["w_down"], layers.swiglu(g, u))
+    return layers.linear(p["w_down"], layers.swiglu(gu))

@@ -30,9 +30,18 @@ serves K tokens per slot.
   nothing, turns idle at once, and its request ends with
   ``error = "nonfinite-logits"``; the other slots are untouched.
 
-The cache and the slot state are updated in place. That replaces the
-JAX package's donated megastep carries, so the port has no
-``donate_carries`` knob. Left out so far: paging and the prefix cache,
+On the card a megastep is one device program, as the JAX package's
+jitted megastep is: the admission merge and the K substeps
+(``_megastep_body``) are captured once as a CUDA graph per value of
+``all_greedy`` (at most two graphs, the second when first needed), and
+each megastep is one host→device copy of the packed admission buffer,
+one ``graph.replay()`` and one device→host copy of the block. On the
+CPU the same body runs eagerly. The cache, the slot state, the
+admission buffers, the block and the sampling generator keep their
+addresses for the engine's life (``reset()`` zeroes and reseeds them in
+place), so the graphs stay valid; that also replaces the JAX package's
+donated megastep carries, so the port has no ``donate_carries`` knob.
+Left out so far: paging and the prefix cache,
 pipelined dispatch, preemption and the resume of preempted requests,
 the EDF queue, cancellation and fault injection.
 """
@@ -47,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import WEIGHT_FORMATS
+from repro_torch.kernels import ops
 from repro_torch.models import Model
 from repro_torch.quant.quantize import (FLOAT_FORMATS, QuantizedTensor,
                                         quantize_tree)
@@ -59,6 +69,13 @@ PAD_ID = 0
 PHASE_IDLE = 0      # retired / never filled: cache frozen, no emission
 PHASE_PREFILL = 1   # consuming prompt tokens, no emission yet
 PHASE_DECODE = 2    # generating: sample + emit every substep
+
+# The packed admission buffer: one int32 row of ``slots`` per field
+# (``temp`` and ``top_p`` hold f32 bits), then the (slots, chunk) prompt
+# tokens.
+ADMIT_ROWS = ("new", "refill", "base", "prompt_len", "max_new", "eos",
+              "temp", "top_k", "top_p")
+ADMIT_F32_ROWS = ("temp", "top_p")
 
 
 class PromptTooLong(ValueError):
@@ -91,6 +108,8 @@ class EngineStats:
     prefill_batches: int = 0     # stall-path prefill calls
     chunk_refills: int = 0       # prompt chunks refreshed after the first
     poisoned: int = 0            # requests retired on nonfinite logits
+    graph_captures: int = 0      # megastep graphs captured (card only)
+    graph_replays: int = 0       # megasteps served by a graph replay
     decode_wall_s: float = 0.0   # wall time in step()
 
 
@@ -172,16 +191,39 @@ class ServingEngine:
         # megastep_k keeps a prefilling slot fed for a whole megastep
         self.prefill_chunk = max(self.megastep_k, 16)
         self.queue: Deque[Request] = collections.deque()
+        # device state, allocated once: reset() zeroes it in place
+        dev = self.device
+        on_card = dev.type == "cuda"
+        n, k = slots, self.megastep_k
+        self.generator = torch.Generator(device=dev)
+        self.cache = model.init_cache(slots, max_len)
+        self.state = _init_slot_state(slots, self.prefill_chunk, dev)
+        size = len(ADMIT_ROWS) * n + n * self.prefill_chunk
+        self._admit_host = torch.zeros((size,), dtype=torch.int32,
+                                       pin_memory=on_card)
+        self._admit_dev = torch.zeros((size,), dtype=torch.int32, device=dev)
+        self._admit = self._admit_fields(self._admit_dev)
+        self._block = torch.zeros((4, k, n), dtype=torch.int32, device=dev)
+        self._block_host = torch.zeros((4, k, n), dtype=torch.int32,
+                                       pin_memory=on_card)
+        self._graphs: Dict[bool, "torch.cuda.CUDAGraph"] = {}
+        # kernel launches one capture recorded, by graph (all_greedy)
+        self.graph_launches: Dict[bool, Dict[str, int]] = {}
+        self._capture_stream = torch.cuda.Stream(dev) if on_card else None
         self.reset()
 
     def reset(self) -> None:
-        """Drop all requests and device state (fresh cache and slots,
-        the sampling generator reseeded)."""
-        self.generator = torch.Generator(device=self.device)
+        """Drop all requests and zero the device state in place (cache,
+        lens, slot state; the sampling generator reseeded), so that the
+        captured graphs, which hold these addresses, stay valid."""
         self.generator.manual_seed(self.seed)
-        self.cache = self.model.init_cache(self.slots, self.max_len)
-        self.state = _init_slot_state(self.slots, self.prefill_chunk,
-                                      self.device)
+        for layer in self.cache["layers"]:
+            for leaf in layer.values():
+                leaf.zero_()
+        self.cache["lens"].zero_()
+        fresh = _init_slot_state(self.slots, self.prefill_chunk, self.device)
+        for f in dataclasses.fields(SlotState):
+            getattr(self.state, f.name).copy_(getattr(fresh, f.name))
         self.active: List[Optional[Request]] = [None] * self.slots
         # host mirror of each slot's prompt cursor, and the prompt it
         # was admitted with
@@ -220,10 +262,10 @@ class ServingEngine:
         """Admit what fits, run one megastep and hand its tokens to the
         requests. Returns the number of slots still occupied."""
         t0 = time.perf_counter()
-        admit = self._fill_slots()
+        self._fill_slots()
         if any(r is not None for r in self.active):
             occupants = tuple(self.active)
-            block = self._megastep(admit)
+            block = self._megastep()
             self._drain(block, occupants)
         self.stats.decode_wall_s += time.perf_counter() - t0
         return sum(r is not None for r in self.active)
@@ -243,24 +285,32 @@ class ServingEngine:
                 smp.top_k if req.top_k is None else req.top_k,
                 smp.top_p if req.top_p is None else req.top_p)
 
-    def _empty_admit(self) -> Dict[str, np.ndarray]:
-        n, c = self.slots, self.prefill_chunk
-        return {"new": np.zeros((n,), bool),
-                "refill": np.zeros((n,), bool),
-                "tokens": np.zeros((n, c), np.int32),
-                "base": np.zeros((n,), np.int32),
-                "prompt_len": np.zeros((n,), np.int32),
-                "max_new": np.zeros((n,), np.int32),
-                "eos": np.full((n,), -1, np.int32),
-                "temp": np.zeros((n,), np.float32),
-                "top_k": np.zeros((n,), np.int32),
-                "top_p": np.ones((n,), np.float32)}
+    def _admit_fields(self, buf: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Views of the packed admission buffer ``buf``, by field."""
+        n, rows = self.slots, len(ADMIT_ROWS)
+        head = buf[:rows * n].view(rows, n)
+        fields = {name: head[i] for i, name in enumerate(ADMIT_ROWS)}
+        for name in ADMIT_F32_ROWS:
+            fields[name] = fields[name].view(torch.float32)
+        fields["tokens"] = buf[rows * n:].view(n, self.prefill_chunk)
+        return fields
 
-    def _fill_slots(self) -> Dict[str, np.ndarray]:
+    def _empty_admit(self) -> Dict[str, np.ndarray]:
+        """The pinned admission buffer, cleared to "nothing admitted", as
+        numpy views by field; the next megastep copies it to the card."""
+        self._admit_host.zero_()
+        admit = {name: t.numpy() for name, t in
+                 self._admit_fields(self._admit_host).items()}
+        admit["eos"][:] = -1
+        admit["top_p"][:] = 1.0
+        return admit
+
+    def _fill_slots(self) -> None:
         if self.admission == "chunked":
-            return self._fill_slots_chunked()
-        self._fill_slots_stall()
-        return self._empty_admit()
+            self._fill_slots_chunked()
+        else:
+            self._fill_slots_stall()
+            self._empty_admit()
 
     def _bucket_len(self, prompt_len: int) -> int:
         """Padded prefill length: the next power of two (at least 8),
@@ -350,10 +400,11 @@ class ServingEngine:
             t.index_copy_(0, idx, val.to(t.dtype))
         return first.cpu().numpy()
 
-    def _fill_slots_chunked(self) -> Dict[str, np.ndarray]:
+    def _fill_slots_chunked(self) -> None:
         """Host side of admission: the next prompt chunk for slots still
         prefilling, first chunk and metadata for queued requests taken
-        into free slots. The arrays ride into the next megastep."""
+        into free slots, packed into the admission buffer that rides into
+        the next megastep."""
         admit = self._empty_admit()
         chunk = self.prefill_chunk
         for s, req in enumerate(self.active):
@@ -388,51 +439,107 @@ class ServingEngine:
             if temp > 0.0:
                 self._stochastic_slots.add(s)
             self.stats.prefills += 1
-        return admit
 
-    def _merge_admissions(self, admit: Dict[str, np.ndarray]) -> None:
-        """Fold the host's admission arrays into the device state: fresh
-        slots get their cache rows and ``lens`` zeroed and their slot
-        state rebuilt; chunk refills only swap the prompt window."""
-        new = np.flatnonzero(admit["new"])
-        upd = np.flatnonzero(admit["new"] | admit["refill"])
-        dev = self.device
+    def _merge_admissions(self) -> None:
+        """Fold the admission buffer (on the device) into the device
+        state by masked updates, inside the megastep's program as in the
+        JAX package: fresh slots get their cache rows and ``lens`` zeroed
+        and their slot state rebuilt; chunk refills only swap the prompt
+        window."""
+        a = self._admit
+        new = a["new"] != 0
+        upd = new | (a["refill"] != 0)
+        rows = new[:, None, None, None]
+        for layer in self.cache["layers"]:
+            for leaf in layer.values():
+                leaf.masked_fill_(rows, 0)
+        self.cache["lens"].masked_fill_(new, 0)
         st = self.state
-        if len(new):
-            idx = torch.as_tensor(new, device=dev)
-            for layer in self.cache["layers"]:
-                for leaf in layer.values():
-                    leaf[idx] = 0
-            self.cache["lens"][idx] = 0
-            for field, key in (("max_new", "max_new"), ("eos_id", "eos"),
-                               ("prompt_len", "prompt_len"),
-                               ("temperature", "temp"), ("top_k", "top_k"),
-                               ("top_p", "top_p")):
-                t = getattr(st, field)
-                t[idx] = torch.as_tensor(admit[key][new], device=dev,
-                                         dtype=t.dtype)
-            st.last_token[idx] = 0
-            st.gen_len[idx] = 0
-            st.prefill_pos[idx] = 0
-            st.phase[idx] = PHASE_PREFILL
-        if len(upd):
-            idx = torch.as_tensor(upd, device=dev)
-            st.chunk_base[idx] = torch.as_tensor(admit["base"][upd],
-                                                 device=dev)
-            st.prompt_buf[idx] = torch.as_tensor(admit["tokens"][upd],
-                                                 device=dev)
+        for field, key in (("max_new", "max_new"), ("eos_id", "eos"),
+                           ("prompt_len", "prompt_len"),
+                           ("temperature", "temp"), ("top_k", "top_k"),
+                           ("top_p", "top_p")):
+            t = getattr(st, field)
+            t.copy_(torch.where(new, a[key], t))
+        for field, val in (("last_token", 0), ("gen_len", 0),
+                           ("prefill_pos", 0), ("phase", PHASE_PREFILL)):
+            getattr(st, field).masked_fill_(new, val)
+        st.chunk_base.copy_(torch.where(upd, a["base"], st.chunk_base))
+        st.prompt_buf.copy_(torch.where(upd[:, None], a["tokens"],
+                                        st.prompt_buf))
 
     # -- fused K-substep decode ----------------------------------------------
-    def _megastep(self, admit: Dict[str, np.ndarray]) -> torch.Tensor:
-        """K substeps of decode_step with in-loop sampling and
-        retirement; returns the packed (4, K, slots) int32 block (tokens,
-        emitted, prefill position, nonfinite) on the device."""
-        self._merge_admissions(admit)
+    def _megastep(self) -> np.ndarray:
+        """One megastep: the admission buffer to the device, the body
+        (one graph replay on the card), and the packed (4, K, slots)
+        int32 block (tokens, emitted, prefill position, nonfinite) back
+        to the host, the megastep's one sync point."""
+        all_greedy = not self._stochastic_slots
+        if self.device.type == "cuda":
+            graph = self._graphs.get(all_greedy) or self._capture(all_greedy)
+            self._admit_dev.copy_(self._admit_host, non_blocking=True)
+            graph.replay()
+            self.stats.graph_replays += 1
+            self._block_host.copy_(self._block, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+        else:
+            self._admit_dev.copy_(self._admit_host)
+            self._megastep_body(all_greedy, self.generator)
+            self._block_host.copy_(self._block)
+        self.stats.megasteps += 1
+        self.stats.steps += self.megastep_k
+        return self._block_host.numpy()
+
+    def _capture(self, all_greedy: bool) -> "torch.cuda.CUDAGraph":
+        """Capture the megastep body as a CUDA graph on the capture
+        stream, after a warmup there (``_warm_up``) that sets the
+        kernels' one-time state outside the capture: shared-memory
+        attributes, decode attention's tickets, cuBLAS's workspace. The
+        graph that samples has the engine's generator registered, so each
+        replay draws fresh numbers from it. Records the kernel launches
+        the capture enqueued (``graph_launches``)."""
+        stream = self._capture_stream
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            self._warm_up(all_greedy)
+        stream.synchronize()
+        before = ops.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        if not all_greedy:
+            graph.register_generator_state(self.generator)
+        with torch.cuda.graph(graph, stream=stream):
+            self._megastep_body(all_greedy, self.generator)
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        after = ops.launch_counts()
+        self.graph_launches[all_greedy] = {
+            name: after[name] - before[name] for name in after}
+        self._graphs[all_greedy] = graph
+        self.stats.graph_captures += 1
+        return graph
+
+    def _warm_up(self, all_greedy: bool) -> None:
+        """One eager run of the body with every slot idle and nothing
+        admitted: it writes no cache row, advances no ``lens`` and leaves
+        the slot state as it was; it samples from a scratch generator, so
+        the engine's own is untouched. Only the block is overwritten."""
+        st = self.state
+        phase = st.phase.clone()
+        st.phase.fill_(PHASE_IDLE)
+        self._admit_dev.zero_()
+        scratch = torch.Generator(device=self.device)
+        scratch.manual_seed(self.seed)
+        self._megastep_body(all_greedy, scratch)
+        st.phase.copy_(phase)
+
+    def _megastep_body(self, all_greedy: bool,
+                       generator: torch.Generator) -> None:
+        """The device side of a megastep, with no host read: the
+        admission merge, then K substeps of decode_step with in-loop
+        sampling and retirement, each writing its row of the block."""
+        self._merge_admissions()
         st = self.state
         chunk = self.prefill_chunk
-        all_greedy = not self._stochastic_slots
-        rows = []
-        for _ in range(self.megastep_k):
+        for k in range(self.megastep_k):
             is_pre = st.phase == PHASE_PREFILL
             is_dec = st.phase == PHASE_DECODE
             off = torch.clamp(st.prefill_pos - st.chunk_base, 0, chunk - 1)
@@ -449,7 +556,7 @@ class ServingEngine:
             if all_greedy:
                 tok = torch.argmax(logits, dim=-1).to(torch.int32)
             else:
-                tok = sample_batched(logits, self.generator, st.temperature,
+                tok = sample_batched(logits, generator, st.temperature,
                                      st.top_k, st.top_p)
             finishing = feeding & (st.prefill_pos + 1 >= st.prompt_len)
             emit = (is_dec | finishing) & ~bad
@@ -462,17 +569,13 @@ class ServingEngine:
             st.phase.copy_(torch.where(bad, PHASE_IDLE, phase))
             st.last_token.copy_(torch.where(emit, tok, st.last_token))
             st.prefill_pos += feeding.to(torch.int32)
-            rows.append(torch.stack([tok, emit.to(torch.int32),
-                                     st.prefill_pos.clone(),
-                                     bad.to(torch.int32)]))
-        self.stats.megasteps += 1
-        self.stats.steps += self.megastep_k
-        return torch.stack(rows, dim=1)
+            self._block[:, k].copy_(torch.stack(
+                [tok, emit.to(torch.int32), st.prefill_pos,
+                 bad.to(torch.int32)]))
 
-    def _drain(self, block: torch.Tensor, occupants) -> None:
-        """Copy the block to the host (the megastep's one sync point)
-        and hand tokens and retirements to the requests that rode it."""
-        block = block.cpu().numpy()
+    def _drain(self, block: np.ndarray, occupants) -> None:
+        """Hand the block's tokens and retirements to the requests that
+        rode the megastep."""
         toks, emitted = block[0], block[1].astype(bool)
         last_pos = block[2][-1]
         bad = block[3].astype(bool).any(axis=0)

@@ -11,6 +11,13 @@ Counterpart of the JAX package's ``serving/sampler.py``:
 Randomness comes from an explicit ``torch.Generator``. It cannot give
 JAX's threefry bits, so stochastic rows agree with the JAX package in
 distribution only; greedy rows agree exactly.
+
+``sample_batched`` reads nothing back to the host, so the serving
+engine captures it into its CUDA graph (with the generator registered
+to the graph). The categorical draw is the one ``torch.multinomial``
+makes for a single sample, ``argmax(p / E)`` with E ~ Exp(1) drawn from
+the generator, written out: ``torch.multinomial`` first checks the
+probabilities on the host, which a captured graph cannot do.
 """
 from __future__ import annotations
 
@@ -50,8 +57,9 @@ def sample_batched(logits: torch.Tensor, generator: torch.Generator,
     cutoff = torch.gather(desc, -1, torch.clamp(cutoff_idx, 0, V - 1)[:, None])
     lf = torch.where((p < 1.0)[:, None] & (lf < cutoff), neg_inf, lf)
 
-    drawn = torch.multinomial(torch.softmax(lf, dim=-1), 1,
-                              generator=generator)[:, 0].to(torch.int32)
+    probs = torch.softmax(lf, dim=-1)
+    race = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    drawn = torch.argmax(probs / race, dim=-1).to(torch.int32)
     return torch.where(t > 0, drawn, greedy)
 
 

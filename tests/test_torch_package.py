@@ -78,7 +78,7 @@ def test_serve_cli_on_cpu_matches_reference(capsys):
     assert "tok/s" in capsys.readouterr().out
     eng = res.engine
     assert eng.kv_quant == "q4_0" and eng.quant_policy == "q8_0"
-    assert res.warmup_steps > 0
+    assert res.warmup_stats.steps > 0
     for r in res.requests:
         assert r.done and len(r.output) == 6
         assert r.output == eng.model.reference_decode(
