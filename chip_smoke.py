@@ -13,16 +13,20 @@ Phases (any failed check raises and the process exits nonzero):
    card could take (with each kernel's launch grid); check that a
    ``quant_matmul`` output
    row does not depend on M, and a decode-attention slot not on the
-   batch or the cache length (bit for bit); the fused RMSNorm, SwiGLU
-   and RoPE + cache write kernels at M 4 and 2048 and in the three
-   cache formats, with ring slots S - 1 and S and frozen rows;
+   batch or the cache length (bit for bit); the fused RMSNorm, residual
+   add + RMSNorm (h bit-equal) and SwiGLU kernels at M 4 and 2048, the
+   decode RoPE + cache write in the three cache formats, with ring slots
+   S - 1 and S and frozen rows, and the prefill RoPE + cache write at the
+   prefill buckets in the three formats (bit-equal but on .5 ties of the
+   quantized payloads);
 4. main path: llama3.2-1b at full width (seeded random weights, q8_0
    weights, bf16 cache) served by ``repro_torch.launch.serve`` with 4
    slots, max_len 1024, 8-substep megasteps and chunked admission, 8
    greedy requests of 32 new tokens; every megastep is one replay of the
    engine's captured CUDA graph; checks outputs, launch counts (the
    captures' launches times the replays, and nothing launched outside a
-   replay after the warmup), the engine's streams against
+   replay after the warmup; no plain RoPE or cache write on the card),
+   the engine's streams against
    ``Model.reference_decode``, and one decode step through the kernels
    against the plain versions (beside a planted fault the check must
    catch); then serves the same requests again under the profiler for
@@ -37,7 +41,7 @@ Phases (any failed check raises and the process exits nonzero):
    them for the device's idle share;
 6. second path: full width, 4 layers, q4_0 weights with a q8_0 and then
    a q4_0 cache (the q4 GEMV and both quantized attention loaders), then
-   the q8_0 cache again under stall admission, with the same
+   both caches again under stall admission, with the same
    launch-count and decode-step checks; then a stochastic leg
    (temperature 0.8) through the sampling graph: greedy rows exact,
    sampled tokens inside their top-k / top-p filters, the same tokens
@@ -106,6 +110,23 @@ def cuda_events(fn, args_list, calls: int) -> list:
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
+def events_per_call(fn, args_list, what: str) -> int:
+    """The most CUDA events that a traced call of fn holds, over three
+    traces that hold any. The profiler now and then returns a few empty
+    traces in a row (three in a row once stopped a run on the H100), so
+    up to eight are taken; a call that shows no event in all eight fails
+    the run."""
+    counts = []
+    for _ in range(8):
+        n = len(cuda_events(fn, args_list, 1))
+        if n:
+            counts.append(n)
+        if len(counts) == 3:
+            break
+    check(bool(counts), f"{what}: eight traced calls show no CUDA event")
+    return max(counts)
+
+
 def time_calls(fn, args_list, reps: int, per_call: int = 0):
     """(device ms, wall ms) per call of fn(*args), cycling through
     ``args_list`` (copies whose bytes together exceed the 50 MB L2, so
@@ -115,8 +136,7 @@ def time_calls(fn, args_list, reps: int, per_call: int = 0):
     torch.profiler trace of ``reps`` calls. The profiler now and then
     drops events, which would read too low, so the trace must hold
     exactly ``per_call`` CUDA events a call: the kernels a port wrapper
-    launches, from its plan; else the most that two traces of one call
-    hold. A trace that holds another count is taken again, up to four
+    launches, from its plan; else ``events_per_call``. A trace that holds another count is taken again, up to four
     times, and then fails the run; ``time_calls.attempts`` keeps how many
     traces the last call took, which each kernel row records. Wall ms:
     CUDA events around ``reps`` back-to-back calls; where the host
@@ -127,8 +147,7 @@ def time_calls(fn, args_list, reps: int, per_call: int = 0):
         fn(*a)
     torch.cuda.synchronize()
     if not per_call:
-        per_call = max(len(cuda_events(fn, args_list, 1)) for _ in range(3))
-        check(per_call > 0, "a traced call shows no CUDA event")
+        per_call = events_per_call(fn, args_list, "a timed call")
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -166,8 +185,11 @@ def bf16_tol(ref) -> float:
     return 2.0 ** -7 * float(ref.float().abs().max())
 
 
-GROUPS = ("decode_attention", "quant_matmul", "rmsnorm", "swiglu",
-          "rope_cache_write", "flash_attention", "memcpy", "other")
+# a kernel's group is the first whose name its name holds: add_rmsnorm
+# before rmsnorm, the prefill RoPE before the decode one
+GROUPS = ("decode_attention", "quant_matmul", "add_rmsnorm", "rmsnorm",
+          "swiglu", "rope_cache_write_prefill", "rope_cache_write",
+          "flash_attention", "memcpy", "other")
 
 
 def group_of(name: str) -> str:
@@ -185,7 +207,7 @@ def profile_served(engine, make_requests):
     whole run under torch.profiler tracing the card only. Every
     megastep is the same program (one copy in, one graph replay, one
     copy out), so the trace must hold exactly that many CUDA events a
-    megastep: the most that three traces of one megastep hold. A trace
+    megastep: ``events_per_call`` of one megastep. A trace
     that holds another count (the profiler now and then drops events,
     which would read too low) is taken again, up to five times, and
     then fails the run. The device's idle share is 1 - the events'
@@ -199,9 +221,7 @@ def profile_served(engine, make_requests):
     engine.reset()
     for r in make_requests():
         engine.submit(r)
-    per_megastep = max(len(cuda_events(engine.step, [()], 1))
-                       for _ in range(3))
-    check(per_megastep > 0, "a traced megastep shows no CUDA event")
+    per_megastep = events_per_call(engine.step, [()], "a megastep")
     for attempt in range(1, 6):
         engine.reset()
         requests = make_requests()
@@ -270,10 +290,10 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     from repro_torch.kernels import fused_ops
-    from repro_torch.kernels.fused_ops import (rmsnorm, rmsnorm_plain,
-                                               rope_cache_write,
-                                               rope_cache_write_plain,
-                                               swiglu, swiglu_plain)
+    from repro_torch.kernels.fused_ops import (
+        add_rmsnorm, add_rmsnorm_plain, rmsnorm, rmsnorm_plain,
+        rope_cache_write, rope_cache_write_plain, rope_cache_write_prefill,
+        rope_cache_write_prefill_plain, swiglu, swiglu_plain)
     from repro_torch.kernels.quant_matmul import (launch_grid, quant_matmul,
                                                   quant_matmul_plain)
     from repro_torch.launch import serve
@@ -331,7 +351,8 @@ def main() -> None:
         faults in the attention where ``fault``."""
         names = ("quant_matmul", "decode_attention",
                  "decode_attention_quant", "flash_attention", "rmsnorm",
-                 "swiglu", "rope_cache_write")
+                 "add_rmsnorm", "swiglu", "rope_cache_write",
+                 "rope_cache_write_prefill")
         saved = {n: getattr(ops, n) for n in names}
         wrap = off_by_one if fault else (lambda fn: fn)
         ops.quant_matmul = quant_matmul_plain
@@ -339,19 +360,46 @@ def main() -> None:
         ops.decode_attention_quant = wrap(decode_attention_quant_plain)
         ops.flash_attention = lookahead if fault else flash_attention_plain
         ops.rmsnorm = rmsnorm_plain
+        ops.add_rmsnorm = add_rmsnorm_plain
         ops.swiglu = swiglu_plain
         ops.rope_cache_write = rope_cache_write_plain
+        ops.rope_cache_write_prefill = rope_cache_write_prefill_plain
         try:
             yield
         finally:
             for n, fn in saved.items():
                 setattr(ops, n, fn)
 
+    @contextlib.contextmanager
+    def kernels_only():
+        """While a path is served, the parts of the RoPE + cache-write
+        plain versions refuse to run: every RoPE and cache write on the
+        card goes through the fused kernels."""
+        names = ("apply_rope", "kv_cache_write", "kv_cache_write_prefill")
+        saved = {n: getattr(fused_ops, n) for n in names}
+
+        def refuse(*a, **kw):
+            fail("a plain RoPE or cache write ran on the card in a served "
+                 "path")
+        for n in names:
+            setattr(fused_ops, n, refuse)
+        try:
+            yield
+        finally:
+            for n, fn in saved.items():
+                setattr(fused_ops, n, fn)
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
-    def randn(*shape, scale=1.0):
-        return torch.randn(shape, generator=gen, device=dev) * scale
+    # the inputs of the cases added after a path's weights were first
+    # drawn come from a generator of their own, so that the paths keep
+    # their weights and their readings stay comparable across versions
+    gen_added = torch.Generator(device=dev)
+    gen_added.manual_seed(1)
+
+    def randn(*shape, scale=1.0, g=None):
+        return torch.randn(shape, generator=g or gen, device=dev) * scale
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     cfg_full = get_config("llama3.2-1b")
@@ -868,6 +916,108 @@ def main() -> None:
                       a, c, ln, av, theta, fmt), copies, nbytes,
                   "src/repro/models/layers.py:51", shape, path, err, tol)
 
+    def add_rmsnorm_case(M, d, dtype, timed=False, path=None):
+        """The residual add and the norm of its sum against the plain
+        version: h bit-equal, out within one bf16 ulp at its scale (1e-5
+        of it for f32) and bit-equal to the rmsnorm kernel on h."""
+        x = (randn(M, d, g=gen_added) * 3).to(dtype)
+        z = randn(M, d, g=gen_added).to(dtype)
+        w = (1 + 0.1 * randn(d, g=gen_added)).bfloat16()
+        eps = cfg_full.norm_eps
+        shape = f"M{M} d{d} {str(dtype)[6:]}"
+        h, out = add_rmsnorm(x, z, w, eps)
+        ph, pout = add_rmsnorm_plain(x, z, w, eps)
+        alone = rmsnorm(h, w, eps)
+        torch.cuda.synchronize()
+        err = float((out.float() - pout.float()).abs().max())
+        tol = (bf16_tol(pout) if dtype == torch.bfloat16
+               else 1e-5 * float(pout.abs().max()))
+        print(f"  add_rmsnorm {shape}: h bit-equal {torch.equal(h, ph)}; out "
+              f"max_abs_err {err:.3e} (tol {tol:.3e}), "
+              f"{int((out != pout).sum())} of {out.numel()} elements differ; "
+              f"out bit-equal to rmsnorm(h) {torch.equal(out, alone)}",
+              flush=True)
+        check(torch.equal(h, ph), f"add_rmsnorm {shape}: h differs from "
+              "the plain x + delta")
+        check(err <= tol, f"add_rmsnorm {shape}: {err} > {tol}")
+        check(torch.equal(out, alone), f"add_rmsnorm {shape}: out differs "
+              "from the rmsnorm kernel on h")
+        if not timed:
+            return
+        copies = [(x, z, w)] + [(x.clone(), z.clone(), w) for _ in range(
+            n_copies(2 * x.numel() * x.element_size()) - 1)]
+        fused_row(f"add_rmsnorm[M{M} d{d}]",
+                  lambda a, b, c: add_rmsnorm(a, b, c, eps),
+                  lambda a, b, c: add_rmsnorm_plain(a, b, c, eps), copies,
+                  4 * x.numel() * x.element_size() + w.numel() * 2,
+                  "src/repro/models/layers.py:26", shape, path, err, tol)
+
+    def rope_prefill_case(fmt, b, s_len, s_cache, hq, hkv, d, timed=False,
+                          path=None):
+        """The prefill RoPE + cache write against its plain version: q,
+        k, v and the bf16 cache rows bit-equal, quantized scales
+        bit-equal and payloads one step off only on .5 ties, cache
+        positions from s_len on untouched."""
+        theta = cfg_full.rope_theta
+        qkv = randn(b, s_len, (hq + 2 * hkv) * d, g=gen_added).bfloat16()
+        old = randn(b, hkv, s_cache, d, g=gen_added).bfloat16()
+        if fmt == "bf16":
+            cache = {"k": old, "v": (old * 0.5).contiguous()}
+        else:
+            kq, ks = quantize_rows(old, fmt)
+            vq, vs = quantize_rows(old * 0.5, fmt)
+            cache = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+        ck = {n: t.clone() for n, t in cache.items()}
+        cp = {n: t.clone() for n, t in cache.items()}
+        got = rope_cache_write_prefill(qkv, ck, theta, fmt)
+        want = rope_cache_write_prefill_plain(qkv, cp, theta, fmt)
+        torch.cuda.synchronize()
+        shape = f"B{b} S{s_len} S_cache{s_cache} Hq{hq} Hkv{hkv} D{d}"
+        label = f"rope_cache_write_prefill[{fmt}] {shape}"
+        err = max(float((g_.float() - w_.float()).abs().max())
+                  for g_, w_ in zip(got, want))
+        for n, g_, w_ in zip("qkv", got, want):
+            check(g_.shape == w_.shape and torch.equal(g_, w_),
+                  f"{label}: {n} not bit-equal to the plain version's "
+                  f"({int((g_ != w_).sum())} elements differ)")
+        for n, leaf in ck.items():
+            check(torch.equal(leaf[:, :, s_len:], cache[n][:, :, s_len:]),
+                  f"{label}: {n} changed at positions from {s_len} on")
+        n_ties = 0
+        if fmt == "bf16":
+            for n in ("k", "v"):
+                check(torch.equal(ck[n], cp[n]), f"{label}: {n} cache rows "
+                      "not bit-equal to the plain version's")
+        else:
+            ng = ck["k_scale"].shape[-1]
+            for n, x in (("k", got[1]), ("v", got[2])):
+                check(torch.equal(ck[f"{n}_scale"], cp[f"{n}_scale"]),
+                      f"{label}: {n}_scale not bit-equal")
+                diff = (unpacked(ck[n][:, :, :s_len], fmt)
+                        - unpacked(cp[n][:, :, :s_len], fmt)).abs()
+                check(int(diff.max()) <= 1 and bool(
+                    ((diff == 0) | ties(x, fmt, ng)).all()),
+                    f"{label}: {n} payload off by more than one step, or "
+                    "off where the division is no .5 tie")
+                n_ties += int((diff > 0).sum())
+        print(f"  {label}: q, k, v bit-equal; cache rows as the plain "
+              f"version's ({n_ties} payload elements one step off on .5 "
+              f"ties), positions from {s_len} on untouched", flush=True)
+        if not timed:
+            return
+        row_bytes = sum(t[0, 0, 0].numel() * t.element_size()
+                        for t in ck.values())
+        nbytes = (2 * qkv.numel() + 2 * sum(t.numel() for t in got)
+                  + b * hkv * s_len * row_bytes)
+        copies = [(qkv, ck)] + [(qkv.clone(), ck) for _ in range(
+            n_copies(qkv.numel() * 2) - 1)]
+        fused_row(f"rope_cache_write_prefill[{fmt} B{b} S{s_len}]",
+                  lambda a, c: rope_cache_write_prefill(a, c, theta, fmt),
+                  lambda a, c: rope_cache_write_prefill_plain(a, c, theta,
+                                                              fmt),
+                  copies, nbytes, "src/repro/models/layers.py:51", shape,
+                  path, err, 0.0)
+
     print("fused small ops vs plain versions on the card:", flush=True)
     d_model, d_ff = cfg_full.d_model, cfg_full.d_ff
     for M, path in ((B, "main"), (2048, "prefill")):
@@ -889,6 +1039,28 @@ def main() -> None:
         rope_case(fmt, 1, Hq, Hkv, S, D, [0], [True])
         rope_case(fmt, 3, 4, 2, 16, 32, [16, 7, 15], [True, False, True])
         rope_case(fmt, 2, 32, 32, 64, 128, [100, 63], None)
+    for M, path in ((B, "main"), (2048, "prefill")):
+        add_rmsnorm_case(M, d_model, torch.bfloat16, timed=True, path=path)
+        add_rmsnorm_case(M, d_model, torch.float32)
+    for M, d in ((1, d_model), (333, d_model), (3, 128), (5, 100), (7, 1),
+                 (2, 9000), (2, 1030)):   # wider than the registers hold
+        add_rmsnorm_case(M, d, torch.bfloat16)
+    # the prefill path's buckets (4 x 512, 3 x 1024, 1 x 512) in a cache of
+    # max_len 1024; the quantized caches at 4 x 512 (the second path's
+    # stall legs); then ragged S, S at the cache length, the reduced
+    # widths (D 32, G 2), D 128 (G 1) and D 40 (no 16-byte runs)
+    for b, s_len in flash_shapes:
+        rope_prefill_case("bf16", b, s_len, S, Hq, Hkv, D, timed=True,
+                          path="prefill")
+    for fmt in ("q8_0", "q4_0"):
+        rope_prefill_case(fmt, B, 512, S, Hq, Hkv, D, timed=True,
+                          path=f"second {fmt} stall")
+    for fmt in ("bf16", "q8_0", "q4_0"):
+        rope_prefill_case(fmt, 3, 333, 512, Hq, Hkv, D)
+        rope_prefill_case(fmt, 2, 64, 64, Hq, Hkv, D)
+        rope_prefill_case(fmt, 3, 50, 64, 4, 2, 32)
+        rope_prefill_case(fmt, 2, 70, 80, 16, 16, 128)
+        rope_prefill_case(fmt, 2, 9, 16, 4, 2, 40)
 
     # -- shared checks of a served path -------------------------------------
     def clone_cache(c):
@@ -982,22 +1154,25 @@ def main() -> None:
 
     def per_megastep(engine):
         """Kernel launches of one megastep: K substeps of one attention,
-        one RoPE + cache write, four linears, two RMSNorms and one SwiGLU
-        per layer, and the final RMSNorm."""
+        one RoPE + cache write, four linears, two residual adds with the
+        RMSNorm after them and one SwiGLU per layer, and layer 0's
+        RMSNorm alone (the final norm is the last layer's second
+        add_rmsnorm)."""
         L, K = engine.cfg.num_layers, engine.megastep_k
         quant_cache = engine.kv_quant != "bf16"
         return {"decode_attention": 0 if quant_cache else L * K,
                 "decode_attention_quant": L * K if quant_cache else 0,
                 "quant_matmul": 4 * L * K, "flash_attention": 0,
-                "rmsnorm": (2 * L + 1) * K, "swiglu": L * K,
-                "rope_cache_write": L * K}
+                "rmsnorm": K, "add_rmsnorm": 2 * L * K, "swiglu": L * K,
+                "rope_cache_write": L * K, "rope_cache_write_prefill": 0}
 
     def per_prefill(engine):
         """Kernel launches of one prefill call (eager)."""
         L = engine.cfg.num_layers
         return {"decode_attention": 0, "decode_attention_quant": 0,
                 "quant_matmul": 4 * L, "flash_attention": L,
-                "rmsnorm": 2 * L + 1, "swiglu": L, "rope_cache_write": 0}
+                "rmsnorm": 1, "add_rmsnorm": 2 * L, "swiglu": L,
+                "rope_cache_write": 0, "rope_cache_write_prefill": L}
 
     def check_served(engine, requests, label, warm, after_warm):
         """Outputs complete and in range, and the launch counts under
@@ -1057,12 +1232,13 @@ def main() -> None:
           flush=True)
     zero_counts()
     torch.cuda.synchronize()
-    res = serve.main(["--arch", "llama3.2-1b", "--no-reduced",
-                      "--precision", "q8_0", "--kv-quant", "bf16",
-                      "--slots", "4", "--max-len", "1024",
-                      "--megastep-k", "8", "--requests", "8",
-                      "--max-new", "32", "--temperature", "0",
-                      "--device", "cuda"])
+    with kernels_only():
+        res = serve.main(["--arch", "llama3.2-1b", "--no-reduced",
+                          "--precision", "q8_0", "--kv-quant", "bf16",
+                          "--slots", "4", "--max-len", "1024",
+                          "--megastep-k", "8", "--requests", "8",
+                          "--max-new", "32", "--temperature", "0",
+                          "--device", "cuda"])
     torch.cuda.synchronize()
     eng = res.engine
     main_counts = check_served(eng, res.requests, "main path",
@@ -1136,7 +1312,8 @@ def main() -> None:
     torch.cuda.synchronize()
     for r in reqs:
         eng.submit(r)
-    eng.run()
+    with kernels_only():
+        eng.run()
     torch.cuda.synchronize()
     st = eng.stats
     prefill_counts = check_served(eng, reqs, "prefill path", warm,
@@ -1239,7 +1416,7 @@ def main() -> None:
     counts = {"main": main_counts, "prefill": prefill_counts}
     step_checks = {}
     for kvq, admission in (("q8_0", "chunked"), ("q4_0", "chunked"),
-                           ("q8_0", "stall")):
+                           ("q8_0", "stall"), ("q4_0", "stall")):
         key = f"second {kvq}" + (" stall" if admission == "stall" else "")
         label = (f"second path (4 layers, q4_0 weights, {kvq} cache, "
                  f"{admission} admission)")
@@ -1256,7 +1433,8 @@ def main() -> None:
         reqs = serve.make_requests(cfg4.vocab_size, 6, 16, seed=1)
         for r in reqs:
             eng.submit(r)
-        eng.run()
+        with kernels_only():
+            eng.run()
         torch.cuda.synchronize()
         counts[key] = check_served(eng, reqs, label, warm, after_warm)
         step_checks[key] = step_vs_plain(eng, label)

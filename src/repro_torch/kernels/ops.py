@@ -14,8 +14,9 @@ products (the counterpart of the JAX package's ``kernels/ops.py``).
   switch and no tile picking: the kernel takes every Sq and Skv.
 - ``decode_attention`` / ``decode_attention_quant``: the kernels'
   wrappers, which take the plain version only for CPU tensors.
-- ``rmsnorm``, ``swiglu`` and ``rope_cache_write``: the fused small ops
-  of ``fused_ops.py``, wrappers of the same kind.
+- ``rmsnorm``, ``add_rmsnorm``, ``swiglu``, ``rope_cache_write`` and
+  ``rope_cache_write_prefill``: the fused small ops of ``fused_ops.py``,
+  wrappers of the same kind.
 - ``launch_counts``: every kernel wrapper's launch count by name. A
   wrapper counts the launches it enqueues, also into a CUDA graph being
   captured; a graph's replays launch again without counting.
@@ -39,19 +40,22 @@ import torch
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.decode_attention_quant import decode_attention_quant
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.fused_ops import rmsnorm, rope_cache_write, swiglu
+from repro_torch.kernels.fused_ops import (add_rmsnorm, rmsnorm,
+                                           rope_cache_write,
+                                           rope_cache_write_prefill, swiglu)
 from repro_torch.kernels.quant_matmul import quant_matmul
 from repro_torch.quant.quantize import QuantizedTensor
 
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 KERNELS = (decode_attention, decode_attention_quant, quant_matmul,
-           flash_attention, rmsnorm, swiglu, rope_cache_write)
+           flash_attention, rmsnorm, add_rmsnorm, swiglu, rope_cache_write,
+           rope_cache_write_prefill)
 
 __all__ = ["matmul", "attention", "decode_attention",
            "decode_attention_quant", "flash_attention", "quant_matmul",
-           "rmsnorm", "swiglu", "rope_cache_write", "KERNELS",
-           "launch_counts"]
+           "rmsnorm", "add_rmsnorm", "swiglu", "rope_cache_write",
+           "rope_cache_write_prefill", "KERNELS", "launch_counts"]
 
 
 def launch_counts() -> Dict[str, int]:

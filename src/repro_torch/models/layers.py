@@ -2,20 +2,19 @@
 
 Counterparts of the JAX package's ``models/layers.py`` with the same
 rounding points: norms and RoPE compute in f32 and cast back, the
-logits of the unembedding are f32. RMSNorm and SwiGLU go through the
-fused kernels of ``kernels/fused_ops.py``, where ``apply_rope`` (the
-prefill's RoPE, and part of the plain version of the decode RoPE
-kernel) lives too.
+logits of the unembedding are f32. RMSNorm (alone, or with the residual
+add before it) and SwiGLU go through the fused kernels of
+``kernels/fused_ops.py``, where ``apply_rope`` (part of the plain
+versions of the RoPE + cache write kernels) lives too.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.kernels.fused_ops import apply_rope  # noqa: F401
 from repro_torch.models.params import ParamSpec
 
 
@@ -24,6 +23,13 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
     """The fused RMSNorm kernel on the card, its plain version on the
     CPU (``kernels/fused_ops.py``)."""
     return ops.rmsnorm(x, weight, eps)
+
+
+def add_rmsnorm(x: torch.Tensor, delta: torch.Tensor, weight: torch.Tensor,
+                eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual add and the RMSNorm of its sum, → (x + delta, the
+    norm), in one fused kernel on the card (``kernels/fused_ops.py``)."""
+    return ops.add_rmsnorm(x, delta, weight, eps)
 
 
 def embed_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:

@@ -12,6 +12,9 @@ Parameters are a nested dict like the JAX package's, except that the
 layer stack is a list of per-layer dicts instead of stacked (L, ...)
 leaves. The cache is ``{"lens": (B,) int32, "layers": [per-layer
 leaves]}``, and ``prefill`` and ``decode_step`` update it in place.
+Each residual add runs fused with the RMSNorm after it
+(``layers.add_rmsnorm``), and the decode step computes the attention's
+``kv_len`` once for all layers.
 """
 from __future__ import annotations
 
@@ -30,6 +33,16 @@ from repro_torch.quant.quantize import FLOAT_FORMATS, quantize_tree
 
 def _norm_spec(d: int) -> ParamSpec:
     return ParamSpec((d,), init="ones")
+
+
+def _norms(params) -> List:
+    """The RMSNorm weights in the order the residual stream meets them:
+    each layer's ``attn_norm``, then ``final_norm``. The first runs alone
+    (``rmsnorm``). Each later one, and each ``ffn_norm``, is fused with
+    the residual add before it (``add_rmsnorm``), as XLA fuses them in
+    the JAX package's layer body."""
+    return [p_l["attn_norm"] for p_l in params["layers"]] + \
+        [params["final_norm"]]
 
 
 class Model:
@@ -92,26 +105,22 @@ class Model:
         cfg = self.cfg
         B, S = tokens.shape
         x = layers.embed(params, tokens)
-        positions = torch.arange(S, device=tokens.device).expand(B, S)
-        for p_l, c_l in zip(params["layers"], cache["layers"]):
-            attn.check_cache_format(cfg, c_l)
-            z = layers.rmsnorm(x, p_l["attn_norm"], cfg.norm_eps)
-            z, k, v = attn.attention_forward(p_l["attn"], cfg, z,
-                                             positions=positions,
-                                             return_kv=True)
-            x = x + z
-            attn.kv_cache_write_prefill(c_l, k, v, kv_quant=cfg.kv_quant,
-                                        group=cfg.quant_group)
-            z = layers.rmsnorm(x, p_l["ffn_norm"], cfg.norm_eps)
-            x = x + mlp_mod.mlp_forward(p_l["mlp"], z)
+        norms = _norms(params)
+        z = layers.rmsnorm(x, norms[0], cfg.norm_eps)
+        for p_l, c_l, next_norm in zip(params["layers"], cache["layers"],
+                                       norms[1:]):
+            z = attn.attention_forward(p_l["attn"], cfg, z, c_l)
+            x, z = layers.add_rmsnorm(x, z, p_l["ffn_norm"], cfg.norm_eps)
+            x, z = layers.add_rmsnorm(x, mlp_mod.mlp_forward(p_l["mlp"], z),
+                                      next_norm, cfg.norm_eps)
         cache["lens"] += S if seq_lens is None else seq_lens.to(
             cache["lens"].dtype)
-        x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        # z is the final norm of every position; unembed the last real one
         if seq_lens is None:
-            last = x[:, -1:]
+            last = z[:, -1:]
         else:
-            rows = torch.arange(B, device=x.device)
-            last = x[rows, seq_lens.long() - 1][:, None]
+            rows = torch.arange(B, device=z.device)
+            last = z[rows, seq_lens.long() - 1][:, None]
         logits = layers.unembed(params, last, cfg)[:, 0]
         return logits[:, :cfg.vocab_size]
 
@@ -125,18 +134,23 @@ class Model:
         cfg = self.cfg
         x = layers.embed(params, tokens)
         lens = cache["lens"]
-        for p_l, c_l in zip(params["layers"], cache["layers"]):
-            z = layers.rmsnorm(x, p_l["attn_norm"], cfg.norm_eps)
-            x = x + attn.attention_decode(p_l["attn"], cfg, z, c_l, lens,
-                                          advance_mask)
-            z = layers.rmsnorm(x, p_l["ffn_norm"], cfg.norm_eps)
-            x = x + mlp_mod.mlp_forward(p_l["mlp"], z)
+        # the positions each layer's attention reads, the same in every
+        # layer: computed once a step
+        kv_len = torch.clamp(lens + 1, max=cache["layers"][0]["k"].shape[2])
+        norms = _norms(params)
+        z = layers.rmsnorm(x, norms[0], cfg.norm_eps)
+        for p_l, c_l, next_norm in zip(params["layers"], cache["layers"],
+                                       norms[1:]):
+            z = attn.attention_decode(p_l["attn"], cfg, z, c_l, lens, kv_len,
+                                      advance_mask)
+            x, z = layers.add_rmsnorm(x, z, p_l["ffn_norm"], cfg.norm_eps)
+            x, z = layers.add_rmsnorm(x, mlp_mod.mlp_forward(p_l["mlp"], z),
+                                      next_norm, cfg.norm_eps)
         if advance_mask is None:
             lens += 1
         else:
             lens += advance_mask.to(lens.dtype)
-        x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-        logits = layers.unembed(params, x, cfg)[:, 0]
+        logits = layers.unembed(params, z, cfg)[:, 0]
         return logits[:, :cfg.vocab_size]
 
     def reference_decode(self, params, prompt: Sequence[int],
