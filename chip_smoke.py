@@ -13,7 +13,11 @@ Phases (any failed check raises and the process exits nonzero):
    card could take (with each kernel's launch grid); check that a
    ``quant_matmul`` output
    row does not depend on M, and a decode-attention slot not on the
-   batch or the cache length (bit for bit); the fused RMSNorm, residual
+   batch or the cache length (bit for bit); the gate-up GEMM with the
+   SwiGLU folded in (``quant_matmul_swiglu``) bit-equal to
+   ``swiglu(quant_matmul(x, w))`` through its split-K merge and its
+   two-CTA clusters, rows bit-equal across M, timed beside the unfused
+   pair, with no ptxas spill; the fused RMSNorm, residual
    add + RMSNorm (h bit-equal) and SwiGLU kernels at M 4 and 2048, the
    decode RoPE + cache write in the three cache formats, with ring slots
    S - 1 and S and frozen rows, and the prefill RoPE + cache write at the
@@ -25,7 +29,8 @@ Phases (any failed check raises and the process exits nonzero):
    greedy requests of 32 new tokens; every megastep is one replay of the
    engine's captured CUDA graph; checks outputs, launch counts (the
    captures' launches times the replays, and nothing launched outside a
-   replay after the warmup; no plain RoPE or cache write on the card),
+   replay after the warmup; no plain RoPE or cache write, and no
+   standalone SwiGLU, on the card),
    the engine's streams against
    ``Model.reference_decode``, and one decode step through the kernels
    against the plain versions (beside a planted fault the check must
@@ -42,7 +47,9 @@ Phases (any failed check raises and the process exits nonzero):
 6. second path: full width, 4 layers, q4_0 weights with a q8_0 and then
    a q4_0 cache (the q4 GEMV and both quantized attention loaders), then
    both caches again under stall admission, with the same
-   launch-count and decode-step checks; then a stochastic leg
+   launch-count and decode-step checks; then the same 4 layers with
+   bf16 weights (cuBLAS linears and the standalone SwiGLU kernel); then
+   a stochastic leg
    (temperature 0.8) through the sampling graph: greedy rows exact,
    sampled tokens inside their top-k / top-p filters, the same tokens
    from two runs with one seed;
@@ -59,6 +66,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -110,17 +118,20 @@ def cuda_events(fn, args_list, calls: int) -> list:
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
-def events_per_call(fn, args_list, what: str) -> int:
+def events_per_call(fn, args_list, what: str, calls: int = 1) -> int:
     """The most CUDA events that a traced call of fn holds, over three
-    traces that hold any. The profiler now and then returns a few empty
+    traces of ``calls`` calls that hold any (a trace's count over its
+    calls, rounded up). The profiler now and then returns a few empty
     traces in a row (three in a row once stopped a run on the H100), so
     up to eight are taken; a call that shows no event in all eight fails
-    the run."""
+    the run. It also now and then loses an event of a short trace (three
+    one-call traces of SDPA in a row once held 4 of its 5 events on the
+    H100), which a trace of several calls rounds away."""
     counts = []
     for _ in range(8):
-        n = len(cuda_events(fn, args_list, 1))
+        n = len(cuda_events(fn, args_list, calls))
         if n:
-            counts.append(n)
+            counts.append(-(-n // calls))
         if len(counts) == 3:
             break
     check(bool(counts), f"{what}: eight traced calls show no CUDA event")
@@ -136,7 +147,8 @@ def time_calls(fn, args_list, reps: int, per_call: int = 0):
     torch.profiler trace of ``reps`` calls. The profiler now and then
     drops events, which would read too low, so the trace must hold
     exactly ``per_call`` CUDA events a call: the kernels a port wrapper
-    launches, from its plan; else ``events_per_call``. A trace that holds another count is taken again, up to four
+    launches, from its plan; else ``events_per_call`` over traces of four
+    calls. A trace that holds another count is taken again, up to four
     times, and then fails the run; ``time_calls.attempts`` keeps how many
     traces the last call took, which each kernel row records. Wall ms:
     CUDA events around ``reps`` back-to-back calls; where the host
@@ -147,7 +159,7 @@ def time_calls(fn, args_list, reps: int, per_call: int = 0):
         fn(*a)
     torch.cuda.synchronize()
     if not per_call:
-        per_call = events_per_call(fn, args_list, "a timed call")
+        per_call = events_per_call(fn, args_list, "a timed call", calls=4)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -186,14 +198,17 @@ def bf16_tol(ref) -> float:
 
 
 # a kernel's group is the first whose name its name holds: add_rmsnorm
-# before rmsnorm, the prefill RoPE before the decode one
-GROUPS = ("decode_attention", "quant_matmul", "add_rmsnorm", "rmsnorm",
-          "swiglu", "rope_cache_write_prefill", "rope_cache_write",
-          "flash_attention", "memcpy", "other")
+# before rmsnorm, the prefill RoPE before the decode one, the fused
+# gate-up GEMM before quant_matmul
+GROUPS = ("decode_attention", "quant_matmul_swiglu", "quant_matmul",
+          "add_rmsnorm", "rmsnorm", "swiglu", "rope_cache_write_prefill",
+          "rope_cache_write", "flash_attention", "memcpy", "other")
 
 
 def group_of(name: str) -> str:
     """The kernel group a CUDA event of a profiler trace belongs to."""
+    if "sum_splits_swiglu" in name:
+        return "quant_matmul_swiglu"
     if "sum_splits" in name:
         return "quant_matmul"
     if "Memcpy" in name or "memcpy" in name:
@@ -294,12 +309,14 @@ def main() -> None:
         add_rmsnorm, add_rmsnorm_plain, rmsnorm, rmsnorm_plain,
         rope_cache_write, rope_cache_write_plain, rope_cache_write_prefill,
         rope_cache_write_prefill_plain, swiglu, swiglu_plain)
-    from repro_torch.kernels.quant_matmul import (launch_grid, quant_matmul,
-                                                  quant_matmul_plain)
+    from repro_torch.kernels.quant_matmul import (
+        launch_grid, quant_matmul, quant_matmul_plain, quant_matmul_swiglu,
+        quant_matmul_swiglu_plain)
     from repro_torch.launch import serve
     from repro_torch.models import Model
-    from repro_torch.quant import (dequantize, dequantize_rows, quantize,
-                                   quantize_rows, unpack_int4_rows)
+    from repro_torch.quant import (QuantizedTensor, dequantize,
+                                   dequantize_rows, quantize, quantize_rows,
+                                   unpack_int4_rows)
     from repro_torch.serving.engine import Request, ServingEngine
     from repro_torch.serving.sampler import SamplingConfig, sample_batched
 
@@ -321,6 +338,16 @@ def main() -> None:
               + "".join(f"\n    {n[:200]}" for n in notes), flush=True)
         check(stem != "flash_attention" or not notes,
               "ptxas serialized flash_attention.cu's wgmma groups")
+    # the fused gate-up kernels keep quant_matmul's budget (two CTAs an
+    # SM, at most 128 registers a thread) without spilling
+    for fn, regs, st_b, ld_b in build.ptxas_usage("quant_matmul"):
+        short = re.search(r"[a-z_]*swiglu(_split)?_kernel(I\w*?EE)?", fn)
+        if not short:
+            continue
+        print(f"  ptxas on quant_matmul.cu: {short.group(0)}: {regs} "
+              f"registers, {st_b} / {ld_b} bytes spill stores / loads",
+              flush=True)
+        check(st_b == 0 and ld_b == 0, f"ptxas spilled registers in {fn}")
     # the profiler's first window starts its tracing; keep that out of
     # the timed ones
     from torch.profiler import ProfilerActivity, profile
@@ -349,13 +376,14 @@ def main() -> None:
         """Route the model's kernel calls to the plain versions (the
         reference pass of the kernel-vs-plain checks), with the planted
         faults in the attention where ``fault``."""
-        names = ("quant_matmul", "decode_attention",
+        names = ("quant_matmul", "quant_matmul_swiglu", "decode_attention",
                  "decode_attention_quant", "flash_attention", "rmsnorm",
                  "add_rmsnorm", "swiglu", "rope_cache_write",
                  "rope_cache_write_prefill")
         saved = {n: getattr(ops, n) for n in names}
         wrap = off_by_one if fault else (lambda fn: fn)
         ops.quant_matmul = quant_matmul_plain
+        ops.quant_matmul_swiglu = quant_matmul_swiglu_plain
         ops.decode_attention = wrap(decode_attention_plain)
         ops.decode_attention_quant = wrap(decode_attention_quant_plain)
         ops.flash_attention = lookahead if fault else flash_attention_plain
@@ -371,23 +399,32 @@ def main() -> None:
                 setattr(ops, n, fn)
 
     @contextlib.contextmanager
-    def kernels_only():
+    def kernels_only(quantized: bool = True):
         """While a path is served, the parts of the RoPE + cache-write
         plain versions refuse to run: every RoPE and cache write on the
-        card goes through the fused kernels."""
+        card goes through the fused kernels. With quantized weights the
+        standalone SwiGLU refuses too: the gate-up GEMM computes it."""
         names = ("apply_rope", "kv_cache_write", "kv_cache_write_prefill")
         saved = {n: getattr(fused_ops, n) for n in names}
+        saved_swiglu = ops.swiglu
 
         def refuse(*a, **kw):
             fail("a plain RoPE or cache write ran on the card in a served "
                  "path")
+
+        def refuse_swiglu(*a, **kw):
+            fail("the standalone SwiGLU ran in a served path with "
+                 "quantized weights")
         for n in names:
             setattr(fused_ops, n, refuse)
+        if quantized:
+            ops.swiglu = refuse_swiglu
         try:
             yield
         finally:
             for n, fn in saved.items():
                 setattr(fused_ops, n, fn)
+            ops.swiglu = saved_swiglu
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -397,6 +434,8 @@ def main() -> None:
     # their weights and their readings stay comparable across versions
     gen_added = torch.Generator(device=dev)
     gen_added.manual_seed(1)
+    gen_gate_up = torch.Generator(device=dev)    # quant_matmul_swiglu's cases
+    gen_gate_up.manual_seed(2)
 
     def randn(*shape, scale=1.0, g=None):
         return torch.randn(shape, generator=g or gen, device=dev) * scale
@@ -626,6 +665,103 @@ def main() -> None:
              torch.bfloat16, timed=True, path="second q8_0 stall")
     qmm_case("q4_0", "w_gate_up", 333, *linear_shapes["w_gate_up"],
              torch.bfloat16, timed=False)
+
+    def qmm_swiglu_case(fmt, M, K, Fw, timed=False, path=None):
+        """The gate-up GEMM with the SwiGLU as its last step: bit-equal to
+        the unfused kernels (quant_matmul, then swiglu) on the card,
+        within one bf16 ulp of the plain version, every row bit-equal to
+        the same row alone (M 1); timed beside the unfused pair, in turns
+        (fused, pair, pair, fused), where a path runs it."""
+        x = randn(M, K, g=gen_gate_up).bfloat16()
+        w = quantize(randn(K, 2 * Fw, scale=K ** -0.5, g=gen_gate_up), fmt)
+        h = quant_matmul_swiglu(x, w)
+        pair = swiglu(quant_matmul(x, w))
+        ref = quant_matmul_swiglu_plain(x, w)
+        torch.cuda.synchronize()
+        ctas, splits, chunks = launch_grid(M, K, 2 * Fw, w.group)
+        route = ("split-K merge" if splits > 1 else "two-CTA clusters")
+        err = float((h.float() - ref.float()).abs().max())
+        tol = bf16_tol(ref)
+        name = f"quant_matmul_swiglu[{fmt} K{K} F{Fw}" + (
+            "]" if M <= 8 else f" M{M}]")
+        print(f"  {name} M{M} ({route}, {chunks} K chunks): bit-equal to "
+              f"swiglu(quant_matmul(x, w)) {torch.equal(h, pair)}; "
+              f"max_abs_err vs plain {err:.3e} (tol {tol:.3e})", flush=True)
+        check(h.shape == (M, Fw) and torch.equal(h, pair),
+              f"{name} M{M}: {int((h != pair).sum())} elements differ from "
+              "swiglu(quant_matmul(x, w)) on the card")
+        check(err <= tol, f"{name} M{M}: {err} > {tol}")
+        if M > 1:
+            for r in (0, M // 2, M - 1):
+                alone = quant_matmul_swiglu(x[r:r + 1].contiguous(), w)
+                check(torch.equal(alone[0], h[r]),
+                      f"{name}: row {r} of the M {M} call differs from the "
+                      "same row alone (M 1)")
+            print(f"    rows 0, {M // 2}, {M - 1} bit-equal to M 1 calls",
+                  flush=True)
+        if not timed:
+            return
+        nbytes = (x.numel() * 2 + w.data.numel() + w.scales.numel() * 2
+                  + M * Fw * 2)
+        t_bound, by = bound(nbytes, 2.0 * M * K * 2 * Fw)
+        n_cp = copies_for(w.quant_nbytes)
+        copies = [(x, w)] + [(x, dataclasses.replace(
+            w, data=w.data.clone(), scales=w.scales.clone()))
+            for _ in range(n_cp - 1)]
+        reps, per = (100 if M <= 8 else 20), 1 + (splits > 1)
+        fused_runs, pair_runs, call_ms, attempts = [], [], [], []
+        for first in (True, False):
+            for is_fused in ((True, False) if first else (False, True)):
+                if is_fused:
+                    ms, c_ms = time_calls(quant_matmul_swiglu, copies, reps,
+                                          per_call=per)
+                    fused_runs.append(ms)
+                    call_ms.append(c_ms)
+                    attempts.append(time_calls.attempts)
+                else:
+                    pair_runs.append(time_calls(
+                        lambda a, b: swiglu(quant_matmul(a, b)), copies,
+                        reps, per_call=per + 1)[0])
+        ms, pair_ms = sum(fused_runs) / 2, sum(pair_runs) / 2
+        plain_ms, _ = time_calls(quant_matmul_swiglu_plain, copies, 10)
+        rows[name] = dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/quant_matmul.cu",
+            replaces="src/repro/kernels/quant_matmul.py:79",
+            fuses="src/repro/models/mlp.py:42-48",
+            shape=f"M{M} K{K} N{2 * Fw} -> h F{Fw}", path=path, launches=0,
+            max_abs_err=err, tol=tol, ms=ms, call_ms=sum(call_ms) / 2,
+            plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
+            library_ms=None, library=None, unfused_ms=pair_ms,
+            unfused="quant_matmul then swiglu, the kernels at this shape",
+            ms_runs=fused_runs, unfused_ms_runs=pair_runs,
+            grid=dict(ctas=ctas, splits=splits, k_chunks=chunks,
+                      route=route),
+            trace_attempts=attempts)
+        print(f"    device ms {ms:.4f} (runs {fused_runs[0]:.4f}, "
+              f"{fused_runs[1]:.4f}; per call back to back "
+              f"{sum(call_ms) / 2:.4f}; traces {attempts})  unfused pair "
+              f"{pair_ms:.4f} (runs {pair_runs[0]:.4f}, {pair_runs[1]:.4f})"
+              f"  plain {plain_ms:.4f}  bound {t_bound:.4f} ({by}, "
+              f"{nbytes / 1e6:.2f} MB); grid {ctas} CTAs, {splits} along K,"
+              f" {chunks} K chunks", flush=True)
+
+    # the FFN's gate-up product with its SwiGLU at the paths' shapes (the
+    # main path's decode M and the prefill's first bucket), then M 1, 9
+    # and 333, reduced widths through both routes (K 64: one chunk, two-CTA
+    # clusters; K 256: two chunks, the split-K merge; F 100 and F 8: no
+    # 16-byte-aligned up block, element copies), and one chunk at full
+    # width and decode M (K 128: clusters of 8-row CTAs)
+    K_gu, F_gu = cfg_full.d_model, cfg_full.d_ff
+    for fmt, paths in (("q8_0", ("main", "prefill")),
+                       ("q4_0", ("second q4_0", "second q8_0 stall"))):
+        qmm_swiglu_case(fmt, B, K_gu, F_gu, timed=True, path=paths[0])
+        qmm_swiglu_case(fmt, 2048, K_gu, F_gu, timed=True, path=paths[1])
+        for M in (1, 9, 333):
+            qmm_swiglu_case(fmt, M, K_gu, F_gu)
+        for M, K, Fw in ((4, 64, 100), (4, 64, 8), (333, 64, 100),
+                         (9, 256, 100), (4, 256, 8), (4, 128, F_gu)):
+            qmm_swiglu_case(fmt, M, K, Fw)
 
     def visible_pairs(sq, skv, window, q_offset):
         """(query, key) pairs the causal (and window) mask lets through:
@@ -1020,9 +1156,11 @@ def main() -> None:
 
     print("fused small ops vs plain versions on the card:", flush=True)
     d_model, d_ff = cfg_full.d_model, cfg_full.d_ff
+    # the standalone SwiGLU runs only under plain weights (the plain-weight
+    # leg of section 6): with quantized ones the gate-up GEMM computes it
     for M, path in ((B, "main"), (2048, "prefill")):
         rmsnorm_case(M, d_model, torch.bfloat16, timed=True, path=path)
-        swiglu_case(M, d_ff, torch.bfloat16, timed=True, path=path)
+        swiglu_case(M, d_ff, torch.bfloat16, timed=True, path="plain")
     for M in (1, 333):
         rmsnorm_case(M, d_model, torch.bfloat16)
         swiglu_case(M, d_ff, torch.bfloat16)
@@ -1152,26 +1290,36 @@ def main() -> None:
             worst, fault_least = max(worst, err), min(fault_least, fault)
         return dict(max_rel_err=worst, fault_least_rel_err=fault_least)
 
+    def ffn_launches(engine, n):
+        """The linears' and SwiGLU's launches over n layer passes: with
+        quantized weights three quant_matmul (wqkv, wo, w_down) and the
+        gate-up GEMM with its SwiGLU a layer; with plain weights the
+        linears are library products and the SwiGLU runs alone."""
+        quantized = engine.quant_policy in ("q8_0", "q4_0")
+        return {"quant_matmul": 3 * n if quantized else 0,
+                "quant_matmul_swiglu": n if quantized else 0,
+                "swiglu": 0 if quantized else n}
+
     def per_megastep(engine):
         """Kernel launches of one megastep: K substeps of one attention,
-        one RoPE + cache write, four linears, two residual adds with the
-        RMSNorm after them and one SwiGLU per layer, and layer 0's
+        one RoPE + cache write, the linears and SwiGLU, and two residual
+        adds with the RMSNorm after them per layer, and layer 0's
         RMSNorm alone (the final norm is the last layer's second
         add_rmsnorm)."""
         L, K = engine.cfg.num_layers, engine.megastep_k
         quant_cache = engine.kv_quant != "bf16"
         return {"decode_attention": 0 if quant_cache else L * K,
                 "decode_attention_quant": L * K if quant_cache else 0,
-                "quant_matmul": 4 * L * K, "flash_attention": 0,
-                "rmsnorm": K, "add_rmsnorm": 2 * L * K, "swiglu": L * K,
+                **ffn_launches(engine, L * K), "flash_attention": 0,
+                "rmsnorm": K, "add_rmsnorm": 2 * L * K,
                 "rope_cache_write": L * K, "rope_cache_write_prefill": 0}
 
     def per_prefill(engine):
         """Kernel launches of one prefill call (eager)."""
         L = engine.cfg.num_layers
         return {"decode_attention": 0, "decode_attention_quant": 0,
-                "quant_matmul": 4 * L, "flash_attention": L,
-                "rmsnorm": 1, "add_rmsnorm": 2 * L, "swiglu": L,
+                **ffn_launches(engine, L), "flash_attention": L,
+                "rmsnorm": 1, "add_rmsnorm": 2 * L,
                 "rope_cache_write": 0, "rope_cache_write_prefill": L}
 
     def check_served(engine, requests, label, warm, after_warm):
@@ -1440,6 +1588,33 @@ def main() -> None:
         step_checks[key] = step_vs_plain(eng, label)
         del eng
 
+    # plain (bf16) weights: the linears are cuBLAS products and the SwiGLU
+    # runs alone, the only path that still launches it
+    label = ("plain-weight leg (4 layers, bf16 weights, bf16 cache, "
+             "chunked admission)")
+    eng = ServingEngine(model4, params4, slots=4, max_len=1024,
+                        sampling=SamplingConfig(), megastep_k=8,
+                        kv_quant="bf16")
+    check(eng.quant_policy == "bf16" and not any(
+        isinstance(leaf, QuantizedTensor) for layer in params4["layers"]
+        for leaf in layer["mlp"]["w_gate_up"].values()),
+          f"{label}: the weights are quantized")
+    zero_counts()
+    for r in serve.make_requests(cfg4.vocab_size, 2, 4, seed=5):
+        eng.submit(r)
+    eng.run()
+    warm, after_warm = eng.stats, ops.launch_counts()
+    eng.reset()
+    reqs = serve.make_requests(cfg4.vocab_size, 6, 16, seed=1)
+    for r in reqs:
+        eng.submit(r)
+    with kernels_only(quantized=False):
+        eng.run()
+    torch.cuda.synchronize()
+    counts["plain"] = check_served(eng, reqs, label, warm, after_warm)
+    step_checks["plain"] = step_vs_plain(eng, label)
+    del eng
+
     # the stochastic leg: sampled requests beside greedy ones, through
     # the sampling graph
     smp = SamplingConfig(temperature=0.8, top_k=40, top_p=0.95)
@@ -1534,7 +1709,10 @@ def main() -> None:
     # -- 7. the kernel line ---------------------------------------------------
     for row in rows.values():
         kernel = row["name"].split("[")[0]
-        row["launches"] = counts[row.pop("path")][kernel]
+        path = row.pop("path")
+        row["launches"] = counts[path][kernel]
+        check(row["launches"] > 0, f"{row['name']}: no launch on the "
+              f"{path} path")
     print(json.dumps({"main_path": main_path, "prefill_path": prefill_path,
                       "second_path_step_checks": step_checks,
                       "unembed_rows_equal_across_m": unembed_rows_equal}))

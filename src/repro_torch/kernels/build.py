@@ -7,7 +7,8 @@ All sources compile at once (one ``nvcc`` process each). A library is
 named after the hash of its source and flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is. Nothing is fetched or
 prebuilt. The compiler's report (ptxas ``-v``) is kept beside each
-library; ``perf_notes`` reads its performance warnings.
+library; ``perf_notes`` reads its performance warnings, ``ptxas_usage``
+each kernel's registers and spills.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -82,6 +84,27 @@ def perf_notes(stem: str) -> list:
     log = _lib_path(CSRC / f"{stem}.cu").with_suffix(".log")
     return [line.strip() for line in log.read_text(errors="replace")
             .splitlines() if "Performance Loss" in line]
+
+
+def ptxas_usage(stem: str) -> list:
+    """(mangled entry function, registers, spill store bytes, spill load
+    bytes) of every kernel ptxas compiled from ``csrc/<stem>.cu``, from
+    its ``-v`` report."""
+    log = _lib_path(CSRC / f"{stem}.cu").with_suffix(".log")
+    usage, fn, spills = [], None, (0, 0)
+    for line in log.read_text(errors="replace").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn, spills = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            usage.append((fn, int(m.group(1))) + spills)
+            fn = None
+    return usage
 
 
 @functools.lru_cache(maxsize=None)

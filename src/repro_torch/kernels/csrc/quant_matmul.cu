@@ -56,6 +56,28 @@
 // and the product is rounded once, by fma.rn.bf16x2 with a -0 addend);
 // products accumulate in f32 on the tensor cores; the sum is cast to
 // out_dtype.
+//
+// quant_matmul_swiglu: h (M, F) = swiglu(x @ dequant(w)) for the fused
+// gate-up weight w (K, 2F) = [gate | up], the FFN's first product with
+// the SwiGLU of the JAX package's models/mlp.py:42-48 (which XLA fuses)
+// as its last step. Without it the GEMM writes gu (M, 2F) bf16 to
+// device memory and a SwiGLU kernel reads it back (67 MB and 33.5 MB
+// more at M 2048, and one launch more at decode M). The main loop, tile
+// shapes, chunk plan (from (K, 2F, group, SMs)) and chunk order are the
+// GEMM's; only the step after the last chunk changes, so each gu
+// element gets the bits it has in quant_matmul's output. Every gu
+// element is rounded to bf16 as the GEMM's epilogue rounds it, then h =
+// bf16(silu(g) * u) with the standalone SwiGLU's arithmetic
+// (fused_ops.cu, swiglu_kernel): h is bit-equal to the unfused pair.
+// With a split along K (one M tile) the GEMM writes its f32 partials as
+// for quant_matmul and sum_splits_swiglu_kernel sums the gate and up
+// partials of one h element in split order. Without a split, a cluster
+// of two CTAs along grid.z computes the gate block (rank 0, columns n0)
+// and the up block (rank 1, columns F + n0) of the same rows; after the
+// chunks each reads the other's running sums through distributed shared
+// memory and stores one of the two column pairs of every thread's four
+// columns of h. gu never reaches device memory.
+#include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the driver at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,6 +88,7 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;                     // 8 warps
@@ -256,15 +279,28 @@ __device__ __forceinline__ void load_stage(uint8_t* st, uint64_t* bar, const Map
   }
 }
 
-// grid: (ceil(M / MT), CTAs along K, ceil(N / BN)). CTA y reduces the K
-// chunks [y * cta_chunks, (y + 1) * cta_chunks), each of k_per_split
-// rows; with gridDim.y > 1 it holds one chunk and writes it to partial.
-template <int FMT, int MT, bool VEC>
-__global__ void __launch_bounds__(kThreads, 2)
-quant_matmul_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ x,
-                    const int8_t* __restrict__ w, const bf16* __restrict__ scales,
-                    void* __restrict__ out, float* __restrict__ partial, int out_f32,
-                    int M, int K, int N, int group, int k_per_split, int cta_chunks) {
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// silu(g) * u in f32, as fused_ops.cu's swiglu_kernel computes it
+__device__ __forceinline__ float silu_mul(float g, float u) {
+  const float s = __fdiv_rn(g, __fadd_rn(1.f, expf(-g)));
+  return __fmul_rn(s, u);
+}
+
+// One CTA of the GEMM: columns [n0, n0 + BN) of rows [blockIdx.x * MT,
+// + MT). CTA y reduces the K chunks [y * cta_chunks, (y + 1) *
+// cta_chunks), each of k_per_split rows; with gridDim.y > 1 it holds one
+// chunk and writes it to partial. SWIGLU: the CTA is one rank of a
+// two-CTA cluster (quant_matmul_swiglu_kernel) and out is h (M, N / 2).
+template <int FMT, int MT, bool VEC, bool SWIGLU>
+__device__ __forceinline__ void qmm_cta(const Maps& maps, const bf16* __restrict__ x,
+                                        const int8_t* __restrict__ w,
+                                        const bf16* __restrict__ scales,
+                                        void* __restrict__ out, float* __restrict__ partial,
+                                        int out_f32, int M, int K, int N, int group,
+                                        int k_per_split, int cta_chunks, int n0) {
   using T = Tile<FMT, MT>;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -276,7 +312,6 @@ quant_matmul_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ 
   const int wn0 = (warp % T::kWarpsN) * 32;       // warp's first column in the CTA
   const int wm0 = (warp / T::kWarpsN) * (MT / T::kWarpsM);
   const int m0 = blockIdx.x * MT;
-  const int n0 = blockIdx.z * T::kBN;
   const int k_begin = blockIdx.y * cta_chunks * k_per_split;
   const int k_end = min(K, k_begin + cta_chunks * k_per_split);
   const int tiles = (k_end - k_begin) / kBK;
@@ -412,6 +447,43 @@ quant_matmul_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ 
   }
   if (!VEC) cp_async_wait<0>();
 
+  if constexpr (SWIGLU) {
+    // rank 0 holds the gate sums of h's columns hj.., rank 1 the up sums
+    // of the same columns; rank r stores h for the column pair 2r, 2r + 1
+    // of the thread's four (m16 tile t = r), from its own run sums and
+    // the peer's at the same index
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = static_cast<int>(cluster.block_rank());
+    cluster.sync();                     // both CTAs' run sums are complete
+    const float4* peer = cluster.map_shared_rank(run4, rank ^ 1);
+    const float4* gate = rank ? peer : run4;
+    const float4* up = rank ? run4 : peer;
+    const int F = N / 2;
+    const int hj = (blockIdx.z >> 1) * T::kBN + wn0 + 4 * gid + 2 * rank;
+#pragma unroll
+    for (int j = 0; j < T::kN8; ++j) {
+      const int i = (rank * T::kN8 + j) * kThreads + tid;
+      const float4 g4 = gate[i], u4 = up[i];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = m0 + wm0 + 8 * j + 2 * tig + e;
+        if (m >= M) continue;
+        // columns hj and hj + 1: c fragments (gid, 2tig + e), (gid + 8, 2tig + e)
+        const float h0 = silu_mul(round_bf16(e ? g4.y : g4.x), round_bf16(e ? u4.y : u4.x));
+        const float h1 = silu_mul(round_bf16(e ? g4.w : g4.z), round_bf16(e ? u4.w : u4.z));
+        bf16* dst = static_cast<bf16*>(out) + (size_t)m * F + hj;
+        if (VEC && hj + 1 < F) {
+          *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(h0, h1);
+        } else {
+          if (hj < F) dst[0] = __float2bfloat16(h0);
+          if (hj + 1 < F) dst[1] = __float2bfloat16(h1);
+        }
+      }
+    }
+    cluster.sync();                     // the peer's reads of this CTA's sums are done
+    return;
+  }
+
   // thread's outputs: rows m = wm0 + 8j + 2tig + e, columns n .. n + 3
   const int n = n0 + wn0 + 4 * gid;
 #pragma unroll
@@ -459,6 +531,47 @@ quant_matmul_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ 
     }
 }
 
+// grid: (ceil(M / MT), CTAs along K, ceil(N / BN))
+template <int FMT, int MT, bool VEC>
+__global__ void __launch_bounds__(kThreads, 2)
+quant_matmul_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ x,
+                    const int8_t* __restrict__ w, const bf16* __restrict__ scales,
+                    void* __restrict__ out, float* __restrict__ partial, int out_f32,
+                    int M, int K, int N, int group, int k_per_split, int cta_chunks) {
+  qmm_cta<FMT, MT, VEC, false>(maps, x, w, scales, out, partial, out_f32, M, K, N, group,
+                               k_per_split, cta_chunks, blockIdx.z * Tile<FMT, MT>::kBN);
+}
+
+// quant_matmul_kernel under another name: the split-K partials of the
+// gate-up product, which sum_splits_swiglu_kernel merges (a profile then
+// counts the fused operation's time apart from quant_matmul's)
+template <int FMT, int MT, bool VEC>
+__global__ void __launch_bounds__(kThreads, 2)
+quant_matmul_swiglu_split_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ x,
+                                 const int8_t* __restrict__ w, const bf16* __restrict__ scales,
+                                 void* __restrict__ out, float* __restrict__ partial,
+                                 int out_f32, int M, int K, int N, int group, int k_per_split,
+                                 int cta_chunks) {
+  qmm_cta<FMT, MT, VEC, false>(maps, x, w, scales, out, partial, out_f32, M, K, N, group,
+                               k_per_split, cta_chunks, blockIdx.z * Tile<FMT, MT>::kBN);
+}
+
+// h (M, N / 2) = swiglu(x @ dequant(w)) without a split along K. grid:
+// (ceil(M / MT), 1, 2 * ceil(F / BN)), launched in clusters of (1, 1, 2):
+// cluster c's rank 0 computes the gate columns [c * BN, + BN), rank 1 the
+// up columns [F + c * BN, + BN). The gate block's columns past F and the
+// up block's past 2F are computed and not stored.
+template <int FMT, int MT, bool VEC>
+__global__ void __launch_bounds__(kThreads, 2)
+quant_matmul_swiglu_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ x,
+                           const int8_t* __restrict__ w, const bf16* __restrict__ scales,
+                           bf16* __restrict__ h, int M, int K, int N, int group,
+                           int k_per_split, int cta_chunks) {
+  const int n0 = (blockIdx.z & 1) * (N / 2) + (blockIdx.z >> 1) * Tile<FMT, MT>::kBN;
+  qmm_cta<FMT, MT, VEC, true>(maps, x, w, scales, h, nullptr, 0, M, K, N, group, k_per_split,
+                              cta_chunks, n0);
+}
+
 __device__ __forceinline__ void store(void* out, size_t i, float v, int out_f32) {
   if (out_f32) static_cast<float*>(out)[i] = v;
   else static_cast<bf16*>(out)[i] = __float2bfloat16(v);
@@ -472,6 +585,23 @@ __global__ void sum_splits_kernel(const float* __restrict__ partial,
   float s = 0.f;
   for (int p = 0; p < splits; ++p) s += partial[(size_t)p * MN + i];
   store(out, i, s, out_f32);
+}
+
+// h[m, j] = swiglu of the split sums of gu[m, j] and gu[m, F + j], each
+// summed in split order (as sum_splits_kernel) and rounded to bf16
+__global__ void sum_splits_swiglu_kernel(const float* __restrict__ partial,
+                                         bf16* __restrict__ h, int splits, int M, int F) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= M * F) return;
+  const int m = i / F, j = i - m * F;
+  const size_t MN = (size_t)M * 2 * F;
+  const float* p0 = partial + (size_t)m * 2 * F + j;
+  float g = 0.f, u = 0.f;
+  for (int p = 0; p < splits; ++p) {
+    g += p0[p * MN];
+    u += p0[p * MN + F];
+  }
+  h[i] = __float2bfloat16(silu_mul(round_bf16(g), round_bf16(u)));
 }
 
 constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
@@ -541,24 +671,34 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int 
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// the TMA maps of x, the payload and the scales (VEC only; zeros else)
 template <int FMT, int MT, bool VEC>
-cudaError_t launch(const void* x, const void* w, const void* scales, void* out,
-                   float* partial, int out_f32, int M, int K, int N, int group,
-                   Plan plan, cudaStream_t st) {
+bool make_maps(Maps* maps, const void* x, const void* w, const void* scales, int M, int K,
+               int N, int group) {
   using T = Tile<FMT, MT>;
-  auto kernel = quant_matmul_kernel<FMT, MT, VEC>;
+  memset(maps, 0, sizeof(*maps));
+  if (!VEC) return true;
+  const int prows = FMT == kQ8 ? K : K / 2;
+  return make_map(&maps->x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, (size_t)K * 2, kBK, MT,
+                  CU_TENSOR_MAP_SWIZZLE_64B) &&
+         make_map(&maps->w, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, prows, (size_t)N, 128,
+                  T::kWRows, CU_TENSOR_MAP_SWIZZLE_128B) &&
+         make_map(&maps->s, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, scales, N, K / group,
+                  (size_t)N * 2, T::kBN, 1, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+// the GEMM: out, or with plan.ctas > 1 the split-K partials (GATE_UP:
+// those of quant_matmul_swiglu)
+template <int FMT, int MT, bool VEC, bool GATE_UP>
+cudaError_t launch_gemm(const void* x, const void* w, const void* scales, void* out,
+                        float* partial, int out_f32, int M, int K, int N, int group,
+                        Plan plan, cudaStream_t st) {
+  using T = Tile<FMT, MT>;
+  auto kernel = GATE_UP ? quant_matmul_swiglu_split_kernel<FMT, MT, VEC>
+                        : quant_matmul_kernel<FMT, MT, VEC>;
   Maps maps;
-  memset(&maps, 0, sizeof(maps));
-  if (VEC) {
-    const int prows = FMT == kQ8 ? K : K / 2;
-    if (!make_map(&maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, (size_t)K * 2, kBK, MT,
-                  CU_TENSOR_MAP_SWIZZLE_64B) ||
-        !make_map(&maps.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, prows, (size_t)N, 128,
-                  T::kWRows, CU_TENSOR_MAP_SWIZZLE_128B) ||
-        !make_map(&maps.s, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, scales, N, K / group,
-                  (size_t)N * 2, T::kBN, 1, CU_TENSOR_MAP_SWIZZLE_NONE))
-      return cudaErrorInvalidValue;
-  }
+  if (!make_maps<FMT, MT, VEC>(&maps, x, w, scales, M, K, N, group))
+    return cudaErrorInvalidValue;
   static bool attr_set = false;        // once per instantiation (one device)
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -571,12 +711,65 @@ cudaError_t launch(const void* x, const void* w, const void* scales, void* out,
       maps, static_cast<const bf16*>(x), static_cast<const int8_t*>(w),
       static_cast<const bf16*>(scales), out, partial, out_f32, M, K, N, group,
       plan.k_per_split, plan.chunks / plan.ctas);
-  cudaError_t err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+template <int FMT, int MT, bool VEC>
+cudaError_t launch(const void* x, const void* w, const void* scales, void* out,
+                   float* partial, int out_f32, int M, int K, int N, int group,
+                   Plan plan, cudaStream_t st) {
+  cudaError_t err = launch_gemm<FMT, MT, VEC, false>(x, w, scales, out, partial, out_f32, M,
+                                                     K, N, group, plan, st);
   if (err != cudaSuccess || plan.ctas == 1) return err;
   const int MN = M * N;
   sum_splits_kernel<<<ceil_div(MN, 256), 256, 0, st>>>(partial, out, out_f32,
                                                        plan.ctas, MN);
   return cudaGetLastError();
+}
+
+// h = swiglu(x @ dequant(w)), w (K, 2F): with a split along K the GEMM's
+// partials and the fused merge; without, one launch of two-CTA clusters
+template <int FMT, int MT, bool VEC>
+cudaError_t launch_swiglu(const void* x, const void* w, const void* scales, bf16* h,
+                          float* partial, int M, int K, int F, int group, Plan plan,
+                          cudaStream_t st) {
+  using T = Tile<FMT, MT>;
+  const int N = 2 * F;
+  if (plan.ctas > 1) {
+    cudaError_t err = launch_gemm<FMT, MT, VEC, true>(x, w, scales, nullptr, partial, 0, M, K,
+                                                      N, group, plan, st);
+    if (err != cudaSuccess) return err;
+    sum_splits_swiglu_kernel<<<ceil_div(M * F, 256), 256, 0, st>>>(partial, h, plan.ctas,
+                                                                   M, F);
+    return cudaGetLastError();
+  }
+  auto kernel = quant_matmul_swiglu_kernel<FMT, MT, VEC>;
+  Maps maps;
+  if (!make_maps<FMT, MT, VEC>(&maps, x, w, scales, M, K, N, group))
+    return cudaErrorInvalidValue;
+  static bool attr_set = false;        // once per instantiation (one device)
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ceil_div(M, MT), 1, 2 * ceil_div(F, T::kBN));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = T::kSmem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 2;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, maps, static_cast<const bf16*>(x), static_cast<const int8_t*>(w),
+      static_cast<const bf16*>(scales), h, M, K, N, group, plan.k_per_split, plan.chunks);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <int FMT, bool VEC>
@@ -586,6 +779,15 @@ cudaError_t dispatch_m(const void* x, const void* w, const void* scales, void* o
   if (m_tile(M) == 8)
     return launch<FMT, 8, VEC>(x, w, scales, out, partial, out_f32, M, K, N, group, plan, st);
   return launch<FMT, kBigMT, VEC>(x, w, scales, out, partial, out_f32, M, K, N, group, plan, st);
+}
+
+template <int FMT, bool VEC>
+cudaError_t dispatch_swiglu(const void* x, const void* w, const void* scales, bf16* h,
+                            float* partial, int M, int K, int F, int group, Plan plan,
+                            cudaStream_t st) {
+  if (m_tile(M) == 8)
+    return launch_swiglu<FMT, 8, VEC>(x, w, scales, h, partial, M, K, F, group, plan, st);
+  return launch_swiglu<FMT, kBigMT, VEC>(x, w, scales, h, partial, M, K, F, group, plan, st);
 }
 
 }  // namespace
@@ -635,6 +837,36 @@ extern "C" int quant_matmul(int fmt, const void* x, const void* w,
   if (fmt == kQ4) {
     return vec ? dispatch_m<kQ4, true>(x, w, scales, out, part, out_f32, M, K, N, group, plan, st)
                : dispatch_m<kQ4, false>(x, w, scales, out, part, out_f32, M, K, N, group, plan, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// h (M, F) bf16 = swiglu(x (M, K) bf16 @ dequant(w)) with w the fused
+// gate-up weight (K, 2F) / (K/2, 2F), scales (K/group, 2F) bf16; partial:
+// f32 scratch of partial_elems >= quant_matmul_workspace(M, K, 2F,
+// group). Returns the first failing launch's cudaError_t (0 on success).
+extern "C" int quant_matmul_swiglu(int fmt, const void* x, const void* w,
+                                   const void* scales, void* h, void* partial,
+                                   int partial_elems, int M, int K, int F, int group,
+                                   void* stream) {
+  if (!takes_group(K, group) || F < 1) return cudaErrorInvalidValue;
+  const int N = 2 * F;
+  const Plan plan = split_plan(M, K, N, group);
+  if (plan.ctas > 1 && partial_elems < plan.ctas * M * N) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* part = static_cast<float*>(partial);
+  bf16* out = static_cast<bf16*>(h);
+  // as for quant_matmul, and the cluster route's up blocks start at
+  // column F: TMA faults on a box whose first column is not 16-byte
+  // aligned, so they need F % 16 == 0
+  const bool vec = plan.ctas > 1 ? N % 16 == 0 : F % 16 == 0;
+  if (fmt == kQ8) {
+    return vec ? dispatch_swiglu<kQ8, true>(x, w, scales, out, part, M, K, F, group, plan, st)
+               : dispatch_swiglu<kQ8, false>(x, w, scales, out, part, M, K, F, group, plan, st);
+  }
+  if (fmt == kQ4) {
+    return vec ? dispatch_swiglu<kQ4, true>(x, w, scales, out, part, M, K, F, group, plan, st)
+               : dispatch_swiglu<kQ4, false>(x, w, scales, out, part, M, K, F, group, plan, st);
   }
   return cudaErrorInvalidValue;
 }

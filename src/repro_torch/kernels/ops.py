@@ -14,6 +14,9 @@ products (the counterpart of the JAX package's ``kernels/ops.py``).
   switch and no tile picking: the kernel takes every Sq and Skv.
 - ``decode_attention`` / ``decode_attention_quant``: the kernels'
   wrappers, which take the plain version only for CPU tensors.
+- ``quant_matmul_swiglu``: the FFN's gate-up product with the SwiGLU as
+  its last step, for a quantized ``w_gate_up`` (``models/mlp.py``); a
+  plain ``w_gate_up`` takes ``matmul`` and then ``swiglu``.
 - ``rmsnorm``, ``add_rmsnorm``, ``swiglu``, ``rope_cache_write`` and
   ``rope_cache_write_prefill``: the fused small ops of ``fused_ops.py``,
   wrappers of the same kind.
@@ -43,19 +46,20 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_ops import (add_rmsnorm, rmsnorm,
                                            rope_cache_write,
                                            rope_cache_write_prefill, swiglu)
-from repro_torch.kernels.quant_matmul import quant_matmul
+from repro_torch.kernels.quant_matmul import quant_matmul, quant_matmul_swiglu
 from repro_torch.quant.quantize import QuantizedTensor
 
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 KERNELS = (decode_attention, decode_attention_quant, quant_matmul,
-           flash_attention, rmsnorm, add_rmsnorm, swiglu, rope_cache_write,
-           rope_cache_write_prefill)
+           quant_matmul_swiglu, flash_attention, rmsnorm, add_rmsnorm, swiglu,
+           rope_cache_write, rope_cache_write_prefill)
 
 __all__ = ["matmul", "attention", "decode_attention",
            "decode_attention_quant", "flash_attention", "quant_matmul",
-           "rmsnorm", "add_rmsnorm", "swiglu", "rope_cache_write",
-           "rope_cache_write_prefill", "KERNELS", "launch_counts"]
+           "quant_matmul_swiglu", "rmsnorm", "add_rmsnorm", "swiglu",
+           "rope_cache_write", "rope_cache_write_prefill", "KERNELS",
+           "launch_counts"]
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,5 +1,8 @@
 """SwiGLU FFN with the gate and up projections fused into one matrix
-(the counterpart of the JAX package's ``models/mlp.py``)."""
+(the counterpart of the JAX package's ``models/mlp.py``). A quantized
+``w_gate_up`` runs the product and the SwiGLU as one operation
+(``ops.quant_matmul_swiglu``); a plain one runs ``linear`` and then
+``layers.swiglu``."""
 from __future__ import annotations
 
 from typing import Dict
@@ -7,7 +10,9 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import layers
+from repro_torch.quant.quantize import QuantizedTensor
 
 
 def mlp_specs(cfg: ModelConfig) -> Dict:
@@ -16,5 +21,10 @@ def mlp_specs(cfg: ModelConfig) -> Dict:
 
 
 def mlp_forward(p, x: torch.Tensor) -> torch.Tensor:
-    gu = layers.linear(p["w_gate_up"], x)
-    return layers.linear(p["w_down"], layers.swiglu(gu))
+    w = p["w_gate_up"]["w"]
+    if isinstance(w, QuantizedTensor):
+        h = ops.quant_matmul_swiglu(x.reshape(-1, x.shape[-1]), w)
+        h = h.reshape(*x.shape[:-1], h.shape[-1])
+    else:
+        h = layers.swiglu(layers.linear(p["w_gate_up"], x))
+    return layers.linear(p["w_down"], h)
