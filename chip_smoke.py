@@ -22,7 +22,14 @@ Phases (any failed check raises and the process exits nonzero):
    decode RoPE + cache write in the three cache formats, with ring slots
    S - 1 and S and frozen rows, and the prefill RoPE + cache write at the
    prefill buckets in the three formats (bit-equal but on .5 ties of the
-   quantized payloads);
+   quantized payloads); the paged decode attention (all three loaders,
+   reading a pool through a shuffled block table) bit-equal to the dense
+   kernel over ``paged_gather``'s view at P 8, 16, 64 and 128 and kv_len
+   0, 1, P - 1, P, P + 1 and the cache length, timed at the paged path's
+   shape beside the dense kernel, SDPA on the dense view and
+   ``paged_gather`` + the dense kernel; the paged RoPE + cache write
+   bit-equal to the dense kernel at the mapped rows, with frozen rows,
+   block 0 and unmapped blocks untouched;
 4. main path: llama3.2-1b at full width (seeded random weights, q8_0
    weights, bf16 cache) served by ``repro_torch.launch.serve`` with 4
    slots, max_len 1024, 8-substep megasteps and chunked admission, 8
@@ -44,16 +51,30 @@ Phases (any failed check raises and the process exits nonzero):
    of the first bucket through the kernels against the plain versions
    (beside a planted lookahead fault); times each prefill and profiles
    them for the device's idle share;
-6. second path: full width, 4 layers, q4_0 weights with a q8_0 and then
+6. paged path: the same model at full width and depth, q8_0 weights, a
+   bf16 cache paged in blocks of 16 positions, chunked admission with
+   the prefix cache: a request with a 256-token system prompt served
+   alone (its pages registered), then 5 that share the system prompt and
+   2 unrelated ones; checks 5 prefix hits of 256 tokens, launch counts
+   equal to the main path's dense capture (no gather: ``paged_gather``
+   never runs in a served run), the streams against a dense engine's and
+   ``reference_decode``, ``audit()`` after every step of a second run,
+   the blocks in use once drained, one decode step against the plain
+   versions; times steps and the wall to the first token of the miss and
+   the hits, and profiles a replay for the device's idle share;
+7. second path: full width, 4 layers, q4_0 weights with a q8_0 and then
    a q4_0 cache (the q4 GEMV and both quantized attention loaders), then
    both caches again under stall admission, with the same
-   launch-count and decode-step checks; then the same 4 layers with
-   bf16 weights (cuBLAS linears and the standalone SwiGLU kernel); then
-   a stochastic leg
+   launch-count and decode-step checks; the same four legs through a
+   paged cache (streams equal to the dense legs', stall admission
+   through ``_paged_splice``), and a leg whose pool of 13 blocks blocks
+   admissions FIFO and evicts registry entries; then the same 4 layers
+   with bf16 weights (cuBLAS linears and the standalone SwiGLU kernel);
+   then a stochastic leg
    (temperature 0.8) through the sampling graph: greedy rows exact,
    sampled tokens inside their top-k / top-p filters, the same tokens
    from two runs with one seed;
-7. one ``{"kernels": [...]}`` line, the card line, and the last line
+8. one ``{"kernels": [...]}`` line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits nonzero without printing a result when CUDA is unavailable, or
@@ -88,6 +109,7 @@ PREFILL_PROMPTS = (300, 310, 480, 500, 700, 760, 900, 270)
 # on an H100 over 5 token batches: at most 1.72e-2 for sound kernels, at
 # least 3.21e-1 with the attention looking one key ahead (PERF.md).
 PREFILL_REL_TOL = 4e-2
+PAGE = 16                          # the paged path's and legs' page size
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
@@ -105,17 +127,43 @@ def card_line() -> str:
     return out[0]
 
 
+# A trace window opens and closes on a spin kernel (``torch.cuda._sleep``)
+# whose events are left out: on the H100 a window now and then lost the
+# two events at one of its edges (the first or the last copy of a
+# megastep), in every trace of one run.
+PAD_CYCLES = 200_000
+
+
+def pad_window() -> None:
+    """The spin kernel at a trace window's edge, run to its end."""
+    import torch
+    torch.cuda._sleep(PAD_CYCLES)
+    torch.cuda.synchronize()
+
+
+def window_events(prof) -> list:
+    """A trace window's CUDA events (kernels, copies, fills), without the
+    spin kernels at its edges (``pad_names``, read once at start-up)."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and e.name not in window_events.pad_names]
+
+
+window_events.pad_names = frozenset()
+
+
 def cuda_events(fn, args_list, calls: int) -> list:
     """The CUDA events (kernels, copies, fills) of a torch.profiler trace
     of ``calls`` calls of fn, cycling through ``args_list``."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pad_window()
         for i in range(calls):
             fn(*args_list[i % len(args_list)])
         torch.cuda.synchronize()
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        pad_window()
+    return window_events(prof)
 
 
 def events_per_call(fn, args_list, what: str, calls: int = 1) -> int:
@@ -216,10 +264,12 @@ def group_of(name: str) -> str:
     return next((g for g in GROUPS[:-2] if g in name), "other")
 
 
-def profile_served(engine, make_requests):
+def profile_served(engine, make_requests, prelude=None):
     """Where the served run's time goes: the requests of
     ``make_requests()`` served again by the same (reset) engine, the
-    whole run under torch.profiler tracing the card only. Every
+    whole run under torch.profiler tracing the card only (after
+    ``prelude(engine)``, served unprofiled, whose steps the numbers
+    leave out: a long trace loses events now and then). Every
     megastep is the same program (one copy in, one graph replay, one
     copy out), so the trace must hold exactly that many CUDA events a
     megastep: ``events_per_call`` of one megastep. A trace
@@ -230,22 +280,29 @@ def profile_served(engine, make_requests):
     the unprofiled run's is what the tracing costs. Returns the numbers
     and the requests of the accepted trace."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    engine.reset()
+    def start():
+        engine.reset()
+        if prelude is not None:
+            prelude(engine)
+            engine.stats = type(engine.stats)()
+
+    start()
     for r in make_requests():
         engine.submit(r)
     per_megastep = events_per_call(engine.step, [()], "a megastep")
     for attempt in range(1, 6):
-        engine.reset()
+        start()
         requests = make_requests()
         for r in requests:
             engine.submit(r)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pad_window()
             engine.run()
             torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            pad_window()
+        events = window_events(prof)
         want = per_megastep * engine.stats.megasteps
         print(f"  profile attempt {attempt}: {len(events)} CUDA events, "
               f"expected {want} ({per_megastep} a megastep x "
@@ -298,7 +355,8 @@ def main() -> None:
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_plain,
-                                                      num_splits)
+                                                      num_splits,
+                                                      paged_gather)
     from repro_torch.kernels.decode_attention_quant import (
         decode_attention_quant, decode_attention_quant_plain)
     from repro_torch.kernels import flash_attention as fa_mod
@@ -316,7 +374,7 @@ def main() -> None:
     from repro_torch.models import Model
     from repro_torch.quant import (QuantizedTensor, dequantize,
                                    dequantize_rows, quantize, quantize_rows,
-                                   unpack_int4_rows)
+                                   quantize_tree, unpack_int4_rows)
     from repro_torch.serving.engine import Request, ServingEngine
     from repro_torch.serving.sampler import SamplingConfig, sample_batched
 
@@ -354,6 +412,17 @@ def main() -> None:
     with profile(activities=[ProfilerActivity.CUDA]):
         torch.ones(1024, device=dev).sum()
         torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+    for _ in range(8):              # the spin kernel's event names
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pad_window()
+        names = {e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA}
+        if names:
+            break
+    check(bool(names), "eight traces of the spin kernel show no CUDA event")
+    window_events.pad_names = frozenset(names)
+    print(f"  trace windows open and close on {sorted(names)}", flush=True)
 
     def zero_counts():
         for k in ops.KERNELS:
@@ -436,6 +505,8 @@ def main() -> None:
     gen_added.manual_seed(1)
     gen_gate_up = torch.Generator(device=dev)    # quant_matmul_swiglu's cases
     gen_gate_up.manual_seed(2)
+    gen_paged = torch.Generator(device=dev)      # the paged kernel cases
+    gen_paged.manual_seed(3)
 
     def randn(*shape, scale=1.0, g=None):
         return torch.randn(shape, generator=g or gen, device=dev) * scale
@@ -576,6 +647,141 @@ def main() -> None:
         attention_alone(fmt, [255, 256, 257, 500], 0)
         attention_alone(fmt, [127, 128, 129, 300], 0)
         attention_alone(fmt, [300, 500, 257, 400], 100)
+
+    def attn_call(fmt, q, leaves, lens, table=None, plain=False):
+        """Decode attention over a cache's leaves (k, v; or k, k_scale, v,
+        v_scale), through ``table`` when it is a paged pool."""
+        if fmt == "bf16":
+            fn = decode_attention_plain if plain else decode_attention
+            return fn(q, *leaves, lens, block_table=table)
+        fn = decode_attention_quant_plain if plain else decode_attention_quant
+        return fn(q, *leaves, lens, fmt=fmt, block_table=table)
+
+    def paged_pool(fmt, n_blocks, hkv, P, d, g):
+        k = randn(n_blocks, hkv, P, d, g=g).bfloat16()
+        v = randn(n_blocks, hkv, P, d, g=g).bfloat16()
+        if fmt == "bf16":
+            return (k, v)
+        kq, ks = quantize_rows(k, fmt)
+        vq, vs = quantize_rows(v, fmt)
+        return (kq, ks, vq, vs)
+
+    def shuffled_table(b, max_pages, n_blocks):
+        """Row b maps its pages to distinct blocks >= 1 in a shuffled
+        order; the last blocks of the pool stay unmapped."""
+        perm = torch.randperm(n_blocks - 1, generator=gen_paged,
+                              device=dev) + 1
+        return perm[:b * max_pages].view(b, max_pages).int().contiguous()
+
+    def paged_attention_case(fmt, b, P, max_pages, lens, hq=Hq, hkv=Hkv,
+                             d=D, timed=False, path=None):
+        """The paged kernel, reading a pool through a shuffled block
+        table, against the dense kernel over ``paged_gather``'s view of
+        it: bit-equal (the same splits, tiles and merge order); and within
+        one bf16 ulp of the plain version. Timed at the path's shape beside
+        the dense kernel, SDPA on the dense view, and ``paged_gather`` +
+        the dense kernel (the cost the design avoids)."""
+        n_blocks = b * max_pages + 3
+        q = randn(b, hq, d, g=gen_paged).bfloat16()
+        pool = paged_pool(fmt, n_blocks, hkv, P, d, gen_paged)
+        table = shuffled_table(b, max_pages, n_blocks)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out = attn_call(fmt, q, pool, lens_t, table)
+        view = tuple(paged_gather(t, table).contiguous() for t in pool)
+        dense = attn_call(fmt, q, view, lens_t)
+        ref = attn_call(fmt, q, pool, lens_t, table, plain=True)
+        torch.cuda.synchronize()
+        kind = "decode_attention" if fmt == "bf16" else \
+            f"decode_attention_quant[{fmt}]"
+        shape = (f"B{b} Hq{hq} Hkv{hkv} D{d} P{P} x {max_pages} pages "
+                 f"kv_len{lens}")
+        check(torch.equal(out, dense), f"{kind} paged {shape}: not "
+              "bit-equal to the dense kernel over paged_gather's view")
+        err = float((out.float() - ref.float()).abs().max())
+        tol = bf16_tol(ref)
+        print(f"  {kind} paged {shape}: bit-equal to the dense kernel over "
+              f"the gathered view; max_abs_err vs plain {err:.3e} (tol "
+              f"{tol:.3e})", flush=True)
+        check(err <= tol, f"{kind} paged {shape}: {err} > {tol}")
+        if not timed:
+            return
+        row_bytes = sum(t[0, 0, 0].numel() * t.element_size() for t in pool)
+        vis = sum(min(max(l, 0), P * max_pages) for l in lens)
+        pages = sum(-(-min(max(l, 0), P * max_pages) // P) for l in lens)
+        nbytes = (vis * hkv * row_bytes + 2 * q.numel() * 2
+                  + lens_t.numel() * 4 + pages * 4)
+        t_bound, by = bound(nbytes, 4.0 * vis * hq * d)
+        n_cp = copies_for(sum(t.numel() * t.element_size() for t in pool))
+        args = [(q, table, lens_t) + pool] + [
+            (q, table, lens_t) + tuple(t.clone() for t in pool)
+            for _ in range(n_cp - 1)]
+        kern = lambda qq, tb, ll, *lv: attn_call(fmt, qq, lv, ll, tb)
+        ms, call_ms = time_calls(kern, args, 100, per_call=1)
+        attempts = time_calls.attempts
+        views = [(q, lens_t) + view] + [
+            (q, lens_t) + tuple(t.clone() for t in view)
+            for _ in range(n_cp - 1)]
+        dense_ms, _ = time_calls(
+            lambda qq, ll, *lv: attn_call(fmt, qq, lv, ll), views, 100,
+            per_call=1)
+        gather_ms, _ = time_calls(
+            lambda qq, tb, ll, *lv: attn_call(
+                fmt, qq, tuple(paged_gather(t, tb) for t in lv), ll),
+            args, 50)
+        plain_ms, _ = time_calls(
+            lambda qq, tb, ll, *lv: attn_call(fmt, qq, lv, ll, tb,
+                                              plain=True), args, 10)
+        bf16_view = view if fmt == "bf16" else (
+            dequantize_rows(view[0], view[1], fmt),
+            dequantize_rows(view[2], view[3], fmt))
+        kpos = torch.arange(P * max_pages, device=dev)[None, :]
+        mask = (kpos < lens_t[:, None])[:, None, None, :]
+        lib_args = [(q[:, :, None], bf16_view[0], bf16_view[1], mask)]
+        lib_args += [tuple(t.clone() for t in lib_args[0])
+                     for _ in range(n_cp - 1)]
+        lib_ms, _ = time_calls(
+            lambda qq, kk, vv, mm: F.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=mm, enable_gqa=True), lib_args, 50)
+        splits = num_splits(P * max_pages)
+        name = (f"decode_attention[paged P{P}]" if fmt == "bf16" else
+                f"decode_attention_quant[{fmt} paged P{P}]")
+        rows[name] = dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/decode_attention.cu",
+            replaces=("src/repro/kernels/decode_attention.py:82"
+                      if fmt == "bf16" else
+                      "src/repro/kernels/decode_attention_quant.py:119"),
+            shape=shape, path=path, launches=0, max_abs_err=err, tol=tol,
+            ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=t_bound,
+            bound_by=by, library_ms=lib_ms,
+            library="torch.nn.functional.scaled_dot_product_attention on "
+                    "the dense (gathered, bf16) view (attn_mask, "
+                    "enable_gqa)",
+            dense_kernel_ms=dense_ms, gather_plus_kernel_ms=gather_ms,
+            bit_equal_to_dense_kernel=True,
+            grid=dict(ctas=b * hkv * splits, splits=splits, k_chunks=None),
+            trace_attempts=attempts)
+        print(f"    device ms {ms:.4f} (per call back to back {call_ms:.4f};"
+              f" {attempts} trace(s))  dense kernel {dense_ms:.4f}  "
+              f"paged_gather + dense kernel {gather_ms:.4f}  plain "
+              f"{plain_ms:.4f}  sdpa on the dense view {lib_ms:.4f}  bound "
+              f"{t_bound:.4f} ({by}, {nbytes / 1e6:.2f} MB)", flush=True)
+
+    print("paged decode attention vs the dense kernel over the gathered "
+          "view:", flush=True)
+    for fmt, path in (("bf16", "paged"), ("q8_0", "second q8_0 paged"),
+                      ("q4_0", "second q4_0 paged")):
+        # the paged path's shape: 4 slots of 64 pages of 16
+        paged_attention_case(fmt, B, 16, 64, [S] * B, timed=True, path=path)
+        for P in (8, 16, 64, 128):
+            mp = S // P
+            paged_attention_case(fmt, 6, P, mp,
+                                 [0, 1, P - 1, P, P + 1, mp * P])
+        paged_attention_case(fmt, 4, 16, 64, [0, 300, 17, 1000])
+        # reduced widths (D 32, G 2) and D 128 (G 1)
+        paged_attention_case(fmt, 3, 8, 8, [0, 9, 64], hq=4, hkv=2, d=32)
+        paged_attention_case(fmt, 2, 32, 4, [33, 128], hq=16, hkv=16,
+                             d=128)
 
     linear_shapes = {
         "wqkv": (cfg_full.d_model, cfg_full.q_dim + 2 * cfg_full.kv_dim),
@@ -1177,6 +1383,94 @@ def main() -> None:
         rope_case(fmt, 1, Hq, Hkv, S, D, [0], [True])
         rope_case(fmt, 3, 4, 2, 16, 32, [16, 7, 15], [True, False, True])
         rope_case(fmt, 2, 32, 32, 64, 128, [100, 63], None)
+
+    def paged_rope_case(fmt, b, P, max_pages, lens, advance, hq=Hq,
+                        hkv=Hkv, d=D, timed=False, path=None):
+        """The decode RoPE + cache write through a shuffled block table
+        against the dense kernel on a cache holding the table's view: q
+        bit-equal, and at every written (slot, position) the pool row
+        bit-equal to the dense row; frozen rows, the garbage block and
+        the unmapped blocks untouched."""
+        theta = cfg_full.rope_theta
+        S_c = P * max_pages
+        n_blocks = b * max_pages + 3
+        qkv = randn(b, (hq + 2 * hkv) * d, g=gen_paged).bfloat16()
+        old = randn(n_blocks, hkv, P, d, g=gen_paged).bfloat16()
+        if fmt == "bf16":
+            pool = {"k": old, "v": (old * 0.5).contiguous()}
+        else:
+            kq, ks = quantize_rows(old, fmt)
+            vq, vs = quantize_rows(old * 0.5, fmt)
+            pool = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+        table = shuffled_table(b, max_pages, n_blocks)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        adv = (None if advance is None
+               else torch.tensor(advance, dtype=torch.bool, device=dev))
+        pk = {n: x.clone() for n, x in pool.items()}
+        dk = {n: paged_gather(x, table).contiguous() for n, x in pool.items()}
+        qp = rope_cache_write(qkv, pk, lens_t, adv, theta, fmt, table)
+        qd = rope_cache_write(qkv, dk, lens_t, adv, theta, fmt)
+        qpl = rope_cache_write_plain(qkv, {n: x.clone() for n, x in
+                                           pool.items()}, lens_t, adv,
+                                     theta, fmt, table)
+        torch.cuda.synchronize()
+        shape = (f"B{b} Hq{hq} Hkv{hkv} D{d} P{P} x {max_pages} pages "
+                 f"lens{lens} advance{advance}")
+        label = f"rope_cache_write[{fmt}] paged {shape}"
+        check(torch.equal(qp, qd), f"{label}: q differs from the dense "
+              "kernel's")
+        written = torch.zeros((n_blocks, P), dtype=torch.bool, device=dev)
+        tb = table.tolist()
+        for i, pos in enumerate(lens):
+            if advance is not None and not advance[i]:
+                continue
+            slot = pos % S_c
+            blk, row = tb[i][slot // P], slot % P
+            written[blk, row] = True
+            for n in pk:
+                check(torch.equal(pk[n][blk, :, row], dk[n][i, :, slot]),
+                      f"{label}: {n} row of slot {i} differs from the "
+                      "dense kernel's")
+        keep = ~written[:, None, :].expand(n_blocks, hkv, P)
+        for n in pk:
+            check(torch.equal(pk[n][keep], pool[n][keep]),
+                  f"{label}: {n} changed outside the written rows")
+        err = float((qp.float() - qpl.float()).abs().max())
+        tol = bf16_tol(qpl)
+        check(err <= tol, f"{label}: q {err} > {tol} against the plain "
+              "version")
+        print(f"  {label}: q and written rows bit-equal to the dense "
+              f"kernel's; frozen rows, block 0 and unmapped blocks untouched;"
+              f" q max_abs_err vs plain {err:.3e} (tol {tol:.3e})",
+              flush=True)
+        if not timed:
+            return
+        n_adv = b if advance is None else sum(advance)
+        row_bytes = sum(t[0, 0, 0].numel() * t.element_size()
+                        for t in pk.values())
+        nbytes = (qkv.numel() * 2 + b * 4 + (0 if adv is None else b)
+                  + b * 4 + qp.numel() * 2 + n_adv * hkv * row_bytes)
+        copies = [(qkv, pk, lens_t, adv, table)] + [
+            (qkv.clone(), pk, lens_t, adv, table)
+            for _ in range(n_copies(qkv.numel() * 2) - 1)]
+        fused_row(f"rope_cache_write[{fmt} paged P{P}]",
+                  lambda a, c, ln, av, tb_: rope_cache_write(
+                      a, c, ln, av, theta, fmt, tb_),
+                  lambda a, c, ln, av, tb_: rope_cache_write_plain(
+                      a, c, ln, av, theta, fmt, tb_), copies, nbytes,
+                  "src/repro/models/layers.py:51", shape, path, err, tol)
+
+    for fmt, path in (("bf16", "paged"), ("q8_0", "second q8_0 paged"),
+                      ("q4_0", "second q4_0 paged")):
+        paged_rope_case(fmt, B, 16, 64, ring, None, timed=True, path=path)
+        paged_rope_case(fmt, B, 16, 64, ring, [True, False, True, False])
+        for P in (8, 64, 128):
+            paged_rope_case(fmt, 3, P, S // P, [P - 1, P, 3 * P + 1],
+                            [True, True, False])
+        paged_rope_case(fmt, 3, 8, 8, [16, 7, 63], [True, False, True],
+                        hq=4, hkv=2, d=32)
+        paged_rope_case(fmt, 2, 32, 2, [100, 63], None, hq=32, hkv=32,
+                        d=128)
     for M, path in ((B, "main"), (2048, "prefill")):
         add_rmsnorm_case(M, d_model, torch.bfloat16, timed=True, path=path)
         add_rmsnorm_case(M, d_model, torch.float32)
@@ -1202,9 +1496,12 @@ def main() -> None:
 
     # -- shared checks of a served path -------------------------------------
     def clone_cache(c):
-        return {"lens": c["lens"].clone(),
-                "layers": [{k: t.clone() for k, t in layer.items()}
-                           for layer in c["layers"]]}
+        out = {"lens": c["lens"].clone(),
+               "layers": [{k: t.clone() for k, t in layer.items()}
+                          for layer in c["layers"]]}
+        if "block_table" in c:
+            out["block_table"] = c["block_table"].clone()
+        return out
 
     def judge(logits, tol, label, what):
         """Kernels vs plain versions (and the plain versions with the
@@ -1289,6 +1586,25 @@ def main() -> None:
                                f"prefill ({n} x {S}, seq_lens {lens})")
             worst, fault_least = max(worst, err), min(fault_least, fault)
         return dict(max_rel_err=worst, fault_least_rel_err=fault_least)
+
+    def step_check_mid_run(engine, requests, label, prelude=None):
+        """``step_vs_plain`` on a paged engine, from its state one
+        megastep into serving ``requests`` (after ``prelude(engine)``),
+        with every slot active: a drained engine's idle slots keep stale
+        table rows that may name one block twice, where a step that
+        writes every row would race. Then serves the requests to the
+        end."""
+        engine.reset()
+        if prelude is not None:
+            prelude(engine)
+        for r in requests:
+            engine.submit(r)
+        engine.step()
+        check(all(r is not None for r in engine.active),
+              f"{label}: a slot is idle at the decode-step check")
+        out = step_vs_plain(engine, label)
+        engine.run()
+        return out
 
     def ffn_launches(engine, n):
         """The linears' and SwiGLU's launches over n layer passes: with
@@ -1411,6 +1727,7 @@ def main() -> None:
     prof, replay = profile_served(
         eng, lambda: serve.make_requests(eng.cfg.vocab_size, 8, 32, seed=0))
     main_path.update(prof)
+    main_graph_launches = dict(eng.graph_launches)
     check([r.output for r in replay] == [r.output for r in res.requests],
           "main path: the profiled replay served other tokens")
     del eng, res
@@ -1557,12 +1874,205 @@ def main() -> None:
     del eng, model_p
     torch.cuda.empty_cache()
 
-    # -- 6. second path: q4_0 weights, quantized caches, stall admission ----
+    counts = {"main": main_counts, "prefill": prefill_counts}
+
+    # -- 6. paged path: the paged cache and the prefix cache ------------------
+    print("paged path: llama3.2-1b full width, q8_0 weights, bf16 cache, "
+          f"page_size {PAGE}, chunked admission with the prefix cache",
+          flush=True)
+    gen_pg = torch.Generator(device=dev)
+    gen_pg.manual_seed(4)
+    model_pg = Model(cfg_full, device=dev)
+    params_pg = quantize_tree(model_pg.init(gen_pg, quantize=False), "q8_0",
+                              cfg_full.quant_group)
+    prng = np.random.default_rng(3)
+    system = prng.integers(1, cfg_full.vocab_size, 256).astype(np.int32)
+    tails = [prng.integers(1, cfg_full.vocab_size, n).astype(np.int32)
+             for n in (20, 8, 16, 24, 32, 40)]
+    unrelated = [prng.integers(1, cfg_full.vocab_size, n).astype(np.int32)
+                 for n in (4, 8)]
+
+    def paged_traffic():
+        """The first request (the system prompt and a 20-token tail),
+        then 5 that share the system prompt (tails of 8-40 tokens) and 2
+        unrelated ones, in the order they are submitted; 32 new tokens
+        each."""
+        first = Request(uid=0, prompt=np.concatenate([system, tails[0]]),
+                        max_new_tokens=32)
+        hit = [Request(uid=i, prompt=np.concatenate([system, tails[i]]),
+                       max_new_tokens=32) for i in range(1, 6)]
+        other = [Request(uid=6 + i, prompt=p, max_new_tokens=32)
+                 for i, p in enumerate(unrelated)]
+        return first, [hit[0], hit[1], other[0], hit[2], hit[3], other[1],
+                       hit[4]]
+
+    def serve_stamped(engine, reqs):
+        """Submit reqs together and serve them; returns each one's wall
+        time from submission to the megastep that emits its first token
+        (megastep granularity)."""
+        t0, first_tok = time.perf_counter(), {}
+        for r in reqs:
+            engine.submit(r)
+        while engine.has_work():
+            engine.step()
+            now = time.perf_counter()
+            for r in reqs:
+                if r.output and r.uid not in first_tok:
+                    first_tok[r.uid] = now - t0
+        return first_tok
+
+    def serve_paged_traffic(engine):
+        """The first request alone to completion (its pages registered),
+        then the others; returns the requests and their times to the
+        first token."""
+        first, rest = paged_traffic()
+        ttft = serve_stamped(engine, [first])
+        ttft.update(serve_stamped(engine, rest))
+        return [first] + rest, ttft
+
+    gathers = paged_gather.calls
+    eng = ServingEngine(model_pg, params_pg, slots=4, max_len=1024,
+                        sampling=SamplingConfig(), megastep_k=8,
+                        quant_policy="q8_0", page_size=PAGE,
+                        prefix_cache=True)
+    check(eng.paged and eng.prefix_cache and eng.cache_blocks == 4 * 64 + 1,
+          "paged path: the engine is not paged with the prefix cache")
+    zero_counts()
+    eng.submit(Request(uid=-1, prompt=np.arange(1, 6, dtype=np.int32),
+                       max_new_tokens=32))       # warmup: the capture
+    eng.run()
+    warm, after_warm = eng.stats, ops.launch_counts()
+    eng.reset()
+    with kernels_only():
+        reqs_pg, ttft = serve_paged_traffic(eng)
+    torch.cuda.synchronize()
+    st = eng.stats
+    counts["paged"] = check_served(eng, reqs_pg, "paged path", warm,
+                                   after_warm)
+    check(eng.graph_launches == main_graph_launches,
+          f"paged path: the capture enqueued {eng.graph_launches}, the main "
+          f"path's dense capture {main_graph_launches}")
+    tok_s_pg = st.tokens_generated / st.decode_wall_s
+    ms_step_pg = 1e3 * st.decode_wall_s / st.steps
+    check(st.prefix_hits == 5 and st.prefix_hit_tokens == 5 * 256,
+          f"paged path: {st.prefix_hits} prefix hits of "
+          f"{st.prefix_hit_tokens} tokens, not 5 of {5 * 256}")
+    check(eng.blocks_in_use == len(eng._prefix_reg) > 0,
+          f"paged path: {eng.blocks_in_use} blocks in use once drained, "
+          f"{len(eng._prefix_reg)} registered")
+    hit_ttft = [ttft[r.uid] for r in reqs_pg if 1 <= r.uid <= 5]
+    print(f"  paged path: {st.tokens_generated} tokens, {tok_s_pg:.1f} "
+          f"tok/s, {ms_step_pg:.3f} ms per decode step ({st.steps} steps, "
+          f"{st.megasteps} megasteps; main path {tok_s:.1f} tok/s, "
+          f"{ms_step:.3f} ms); {st.prefix_hits} prefix hits of "
+          f"{st.prefix_hit_tokens} tokens, {st.blocks_recycled} blocks "
+          f"recycled, {eng.blocks_in_use} in use = registered; cache "
+          f"{eng.cache_nbytes() / 1e6:.1f} MB; wall to the first token: "
+          f"the first (missing) request {1e3 * ttft[0]:.1f} ms, the hits "
+          + ", ".join(f"{1e3 * t:.1f}" for t in hit_ttft) + " ms",
+          flush=True)
+    # the same traffic through a dense engine, and through a paged one
+    # without the prefix cache, which runs the dense engine's schedule:
+    # the two timed in turns (dense, paged, paged, dense) show what
+    # paging alone costs a step
+    def warmed(**kw):
+        e = ServingEngine(model_pg, params_pg, slots=4, max_len=1024,
+                          sampling=SamplingConfig(), megastep_k=8,
+                          quant_policy="q8_0", **kw)
+        e.submit(Request(uid=-1, prompt=np.arange(1, 6, dtype=np.int32),
+                         max_new_tokens=32))
+        e.run()
+        return e
+
+    dense, unshared = warmed(), warmed(page_size=PAGE)
+    turns = []
+    for e in (dense, unshared, unshared, dense):
+        e.reset()
+        reqs_e, ttft_e = serve_paged_traffic(e)
+        check([r.output for r in reqs_e] == [r.output for r in reqs_pg],
+              "paged path: streams differ from the "
+              + ("paged engine's without the prefix cache" if e.paged
+                 else "dense engine's"))
+        turns.append(1e3 * e.stats.decode_wall_s / e.stats.steps)
+        if not e.paged:
+            ttft_dense, steps_dense = ttft_e, e.stats.steps
+    check(unshared.stats.steps == steps_dense and unshared.blocks_in_use == 0,
+          "paged path: without the prefix cache the paged engine ran "
+          f"{unshared.stats.steps} steps, the dense one {steps_dense}")
+    dense_ms_step = (turns[0] + turns[3]) / 2
+    unshared_ms_step = (turns[1] + turns[2]) / 2
+    print(f"  paged path traffic on the dense schedule ({steps_dense} steps),"
+          f" ms per decode step in turns: dense {turns[0]:.3f}, paged "
+          f"{turns[1]:.3f}, paged {turns[2]:.3f}, dense {turns[3]:.3f}",
+          flush=True)
+    del dense, unshared
+    for r in (reqs_pg[0], reqs_pg[1], reqs_pg[3]):   # a miss, a hit, other
+        ref = eng.model.reference_decode(eng.params, r.prompt,
+                                         r.max_new_tokens, max_len=1024)
+        check(ref == r.output, f"paged path: request {r.uid} differs from "
+              "reference_decode")
+    print("  paged path: streams == the dense engine's (8 requests) and "
+          "Model.reference_decode (requests 0, 1, 6); wall to the first "
+          f"token on the dense engine: {1e3 * ttft_dense[0]:.1f} ms, then "
+          + ", ".join(f"{1e3 * ttft_dense[r.uid]:.1f}" for r in reqs_pg
+                      if 1 <= r.uid <= 5) + " ms", flush=True)
+    # the profile: the first request served unprofiled (its pages
+    # registered), the others traced
+    prof, replay = profile_served(
+        eng, lambda: paged_traffic()[1],
+        prelude=lambda e: serve_stamped(e, [paged_traffic()[0]]))
+    check([r.output for r in replay] == [r.output for r in reqs_pg[1:]],
+          "paged path: the profiled replay served other tokens")
+    check(paged_gather.calls == gathers, f"paged path: paged_gather ran "
+          f"{paged_gather.calls - gathers} times in a served run")
+    # a last run with audit() after every step, and the decode-step check
+    # one megastep after the hits were admitted
+    eng.audit_every_step = True
+    first, rest = paged_traffic()
+    step_check = step_check_mid_run(
+        eng, rest, "paged path",
+        prelude=lambda e: serve_stamped(e, [first]))
+    eng.audit_every_step = False
+    check([r.output for r in [first] + rest] == [r.output for r in reqs_pg]
+          and eng.blocks_in_use == len(eng._prefix_reg),
+          "paged path: the audited run served other tokens")
+    print("  paged path: audit() held after every step of the last run",
+          flush=True)
+    paged_path = dict(tok_s=tok_s_pg, ms_per_step=ms_step_pg,
+                      tokens=st.tokens_generated, steps=st.steps,
+                      prefix_hits=st.prefix_hits,
+                      prefix_hit_tokens=st.prefix_hit_tokens,
+                      blocks_recycled=st.blocks_recycled,
+                      cache_bytes=eng.cache_nbytes(),
+                      ttft_first_ms=1e3 * ttft[0],
+                      ttft_hits_ms=[1e3 * t for t in hit_ttft],
+                      ttft_dense_ms=[1e3 * ttft_dense[r.uid]
+                                     for r in reqs_pg],
+                      dense_schedule_steps=steps_dense,
+                      dense_schedule_ms_per_step_turns=turns,
+                      dense_engine_ms_per_step=dense_ms_step,
+                      paged_unshared_ms_per_step=unshared_ms_step)
+    paged_path.update(prof)
+    paged_path.update(step_check)
+    print(f"  paged path beside the main path (one run): "
+          f"{ms_step_pg:.3f} / {ms_step:.3f} ms per decode step, "
+          f"{tok_s_pg:.1f} / {tok_s:.1f} tok/s, "
+          f"{prof['events_per_megastep']} / "
+          f"{main_path['events_per_megastep']} CUDA events a megastep, "
+          f"device idle {prof['device_idle_share']:.3f} / "
+          f"{main_path['device_idle_share']:.3f}; on the dense schedule "
+          f"paged {unshared_ms_step:.3f} / dense {dense_ms_step:.3f} ms per "
+          f"step; wall to the first token: the miss {1e3 * ttft[0]:.1f} ms,"
+          f" the first hit {1e3 * hit_ttft[0]:.1f} ms", flush=True)
+    del eng, model_pg, params_pg
+    torch.cuda.empty_cache()
+
+    # -- 7. second path: q4_0 weights, quantized caches, stall admission ----
     cfg4 = dataclasses.replace(cfg_full, num_layers=MAIN_LAYERS_SECOND_PATH)
     model4 = Model(cfg4, device=dev)
     params4 = model4.init(gen, quantize=False)
-    counts = {"main": main_counts, "prefill": prefill_counts}
     step_checks = {}
+    second_streams = {}
     for kvq, admission in (("q8_0", "chunked"), ("q4_0", "chunked"),
                            ("q8_0", "stall"), ("q4_0", "stall")):
         key = f"second {kvq}" + (" stall" if admission == "stall" else "")
@@ -1586,7 +2096,113 @@ def main() -> None:
         torch.cuda.synchronize()
         counts[key] = check_served(eng, reqs, label, warm, after_warm)
         step_checks[key] = step_vs_plain(eng, label)
+        second_streams[(kvq, admission)] = [r.output for r in reqs]
         del eng
+
+    # the same legs through a paged cache (P 16), with the prefix cache
+    # under chunked admission; then a pool short enough that admissions
+    # wait at the head of the queue and the registry evicts
+    for kvq, admission in (("q8_0", "chunked"), ("q4_0", "chunked"),
+                           ("q8_0", "stall"), ("q4_0", "stall")):
+        key = f"second {kvq} paged" + (" stall" if admission == "stall"
+                                       else "")
+        label = (f"second path paged (4 layers, q4_0 weights, {kvq} cache, "
+                 f"page_size {PAGE}, {admission} admission)")
+        eng = ServingEngine(model4, params4, slots=4, max_len=1024,
+                            sampling=SamplingConfig(), megastep_k=8,
+                            quant_policy="q4_0", kv_quant=kvq,
+                            admission=admission, page_size=PAGE,
+                            prefix_cache=admission == "chunked")
+        gathers = paged_gather.calls
+        zero_counts()
+        for r in serve.make_requests(cfg4.vocab_size, 2, 4, seed=5):
+            eng.submit(r)
+        eng.run()
+        warm, after_warm = eng.stats, ops.launch_counts()
+        eng.reset()
+        eng.audit_every_step = True
+        reqs = serve.make_requests(cfg4.vocab_size, 6, 16, seed=1)
+        for r in reqs:
+            eng.submit(r)
+        with kernels_only():
+            eng.run()
+        torch.cuda.synchronize()
+        counts[key] = check_served(eng, reqs, label, warm, after_warm)
+        check([r.output for r in reqs] == second_streams[(kvq, admission)],
+              f"{label}: streams differ from the dense leg's")
+        check(eng.blocks_in_use == len(eng._prefix_reg),
+              f"{label}: {eng.blocks_in_use} blocks in use once drained")
+        check(paged_gather.calls == gathers, f"{label}: paged_gather ran "
+              f"{paged_gather.calls - gathers} times in a served run")
+        print(f"  {label}: streams == the dense leg's; audit() held after "
+              f"every step; {eng.blocks_in_use} blocks in use once drained "
+              f"= registered", flush=True)
+        step_checks[key] = step_check_mid_run(
+            eng, serve.make_requests(cfg4.vocab_size, 6, 16, seed=1), label)
+        del eng
+    label = ("short-pool leg (4 layers, q4_0 weights, q8_0 cache, page_size "
+             f"{PAGE}, 13 blocks, prefix cache)")
+
+    def short_pool_traffic():
+        """6 requests opened by one 48-token prompt (3 pages, 5 pages a
+        request) and an unrelated 100-token one (8 pages)."""
+        reqs = serve.make_requests(cfg4.vocab_size, 6, 24, seed=6,
+                                   shared_prefix=48)
+        reqs.insert(3, Request(uid=6, prompt=np.random.default_rng(
+            7).integers(1, cfg4.vocab_size, 100).astype(np.int32),
+            max_new_tokens=24))
+        return reqs
+
+    eng = ServingEngine(model4, params4, slots=4, max_len=1024,
+                        sampling=SamplingConfig(), megastep_k=8,
+                        quant_policy="q4_0", kv_quant="q8_0", page_size=PAGE,
+                        cache_blocks=13, prefix_cache=True)
+    eng.audit_every_step = True
+    gathers = paged_gather.calls
+    pool_events = dict(blocked=0, evicted=0)
+    admit_paged, reserve = eng._admit_paged, eng._reserve_blocks
+
+    def counted_admit(s, r):
+        start = admit_paged(s, r)
+        pool_events["blocked"] += start is None
+        return start
+
+    def counted_reserve(n):
+        before = len(eng._prefix_reg)
+        ok = reserve(n)
+        pool_events["evicted"] += before - len(eng._prefix_reg)
+        return ok
+    eng._admit_paged, eng._reserve_blocks = counted_admit, counted_reserve
+    reqs = short_pool_traffic()
+    for r in reqs:
+        eng.submit(r)
+    with kernels_only():
+        eng.run()
+    dense = ServingEngine(model4, params4, slots=4, max_len=1024,
+                          sampling=SamplingConfig(), megastep_k=8,
+                          quant_policy="q4_0", kv_quant="q8_0")
+    reqs_dense = short_pool_traffic()
+    for r in reqs_dense:
+        dense.submit(r)
+    dense.run()
+    check([r.output for r in reqs] == [r.output for r in reqs_dense],
+          f"{label}: streams differ from the dense engine's")
+    check(pool_events["blocked"] > 0 and pool_events["evicted"] > 0
+          and eng.stats.prefix_hits > 0,
+          f"{label}: {pool_events} and {eng.stats.prefix_hits} hits: the "
+          "pool never blocked an admission or evicted a registry entry")
+    check(eng.blocks_in_use == len(eng._prefix_reg),
+          f"{label}: {eng.blocks_in_use} blocks in use once drained")
+    check(paged_gather.calls == gathers, f"{label}: paged_gather ran "
+          f"{paged_gather.calls - gathers} times in a served run")
+    print(f"  {label}: streams == the dense engine's; {pool_events['blocked']}"
+          f" admissions blocked at the head of the queue, "
+          f"{pool_events['evicted']} registry entries evicted, "
+          f"{eng.stats.prefix_hits} prefix hits, audit() held after every "
+          "step", flush=True)
+    step_checks["short pool"] = dict(pool_events,
+                                     prefix_hits=eng.stats.prefix_hits)
+    del eng, dense
 
     # plain (bf16) weights: the linears are cuBLAS products and the SwiGLU
     # runs alone, the only path that still launches it
@@ -1706,7 +2322,7 @@ def main() -> None:
     del eng, params4
     torch.cuda.empty_cache()
 
-    # -- 7. the kernel line ---------------------------------------------------
+    # -- 8. the kernel line ---------------------------------------------------
     for row in rows.values():
         kernel = row["name"].split("[")[0]
         path = row.pop("path")
@@ -1714,6 +2330,7 @@ def main() -> None:
         check(row["launches"] > 0, f"{row['name']}: no launch on the "
               f"{path} path")
     print(json.dumps({"main_path": main_path, "prefill_path": prefill_path,
+                      "paged_path": paged_path,
                       "second_path_step_checks": step_checks,
                       "unembed_rows_equal_across_m": unembed_rows_equal}))
     print(json.dumps({"kernels": list(rows.values())}))

@@ -35,6 +35,19 @@
 // a slot's output has the same bits whether it decodes alone or among
 // other slots, in a cache of any length.
 //
+// Paged caches (the serving engine's block pool): K/V and scale leaves
+// are pools (n_blocks, Hkv, P, .), and row b of a block table (B,
+// max_pages) names the pool block of each page of P positions, so
+// position pos of (b, kv head h) is row (table[b][pos / P] * Hkv + h) *
+// P + pos % P. The loaders read through the table themselves: each
+// tile's rows are copied row by row (16-byte vectors) from the blocks the
+// table names, and the scales page run by page run, since they are
+// contiguous only inside a page. Nothing is gathered into a dense view
+// first (that would read and write the visible cache once more in every
+// layer). Splits, tiles and merge order are those of the dense kernel
+// over S = max_pages * P, so a paged slot has the bits of the dense
+// kernel over the gathered view.
+//
 // Numerics follow the Pallas kernels: q * scale is rounded to bf16,
 // dequantized K/V values are rounded to bf16 (bf16(float(q) * scale)),
 // scores and the PV product accumulate in f32, p is rounded to bf16
@@ -137,6 +150,44 @@ __device__ __forceinline__ void copy_tile(uint8_t* dst, const uint8_t* src,
   }
 }
 
+// Pool row of position pos of kv head h, through the slot's block-table
+// row tbl (max_pages entries of P positions).
+__device__ __forceinline__ size_t paged_row(const int* tbl, int Hkv, int h, int P, int pos) {
+  return ((size_t)__ldg(tbl + pos / P) * Hkv + h) * P + pos % P;
+}
+
+// copy_tile for a paged cache: rows [t0, t0 + n) of kv head h, each from
+// the pool block its page maps to; src and scales point at the pools.
+// The quantized scales (2 * ng bytes a row) are contiguous only inside a
+// page: the caller guarantees that every page run of a tile starts on a
+// 16-byte boundary (t0 a multiple of 64 and gcd(64, P) * 2 * ng a
+// multiple of 16), so no 16-byte vector straddles two pages and the tile's
+// scales land at raw + kPayload + j * 2 * ng, as the dense copy with an
+// aligned start puts them.
+template <int LOADER, int D, int G>
+__device__ __forceinline__ void copy_tile_paged(uint8_t* dst, const uint8_t* src,
+                                                const bf16* scales, const int* tbl,
+                                                int Hkv, int h, int P, int ng, int t0,
+                                                int n, int tid) {
+  using L = Layout<LOADER, D, G>;
+  constexpr int kVec = L::kRowBytes / 16;            // 16-byte vectors a row
+  constexpr int kDstRow = LOADER == kLoadBf16 ? L::kRow * 2 : L::kRowBytes;
+  for (int i = tid; i < n * kVec; i += kThreads) {
+    const int j = i / kVec, c = i % kVec;
+    const size_t r = paged_row(tbl, Hkv, h, P, t0 + j);
+    cp_async16(dst + j * kDstRow + 16 * c, src + r * L::kRowBytes + 16 * c, 16);
+  }
+  if (LOADER != kLoadBf16) {
+    const int sbytes = 2 * ng;
+    const uint8_t* sb = reinterpret_cast<const uint8_t*>(scales);
+    for (int i = tid; i < (n * sbytes + 15) / 16; i += kThreads) {
+      const int j = 16 * i / sbytes;                 // first row of the vector
+      const size_t r = paged_row(tbl, Hkv, h, P, t0 + j);
+      cp_async16(dst + L::kPayload + 16 * i, sb + r * sbytes + (16 * i - j * sbytes), 16);
+    }
+  }
+}
+
 // Dequantize raw rows [0, n) of one stage into a bf16 tile of padded rows.
 template <int LOADER, int D, int G>
 __device__ __forceinline__ void dequant_tile(bf16* dst, const uint8_t* raw,
@@ -193,6 +244,7 @@ decode_attention_split_kernel(const bf16* __restrict__ q, const void* __restrict
                               const bf16* __restrict__ v_scale,
                               const int* __restrict__ kv_len, bf16* __restrict__ out,
                               float* __restrict__ part, unsigned* __restrict__ tickets,
+                              const int* __restrict__ table, int max_pages, int P,
                               int Hkv, int S, int ng, int window, int split,
                               float scale) {
   using L = Layout<LOADER, D, G>;
@@ -223,9 +275,13 @@ decode_attention_split_kernel(const bf16* __restrict__ q, const void* __restrict
   const int t_lo = max(lo, sp * split);
   const int t_hi = min(len, sp * split + split);
 
-  const uint8_t* kb = static_cast<const uint8_t*>(k) + (size_t)bh * S * L::kRowBytes;
-  const uint8_t* vb = static_cast<const uint8_t*>(v) + (size_t)bh * S * L::kRowBytes;
-  const size_t sc_row0 = (size_t)bh * S;
+  // paged: the pools and the slot's table row; dense: the (b, h) slice
+  const int* tbl = table == nullptr ? nullptr : table + (size_t)b * max_pages;
+  const int h = bh - b * Hkv;
+  const size_t slice = tbl == nullptr ? (size_t)bh * S : 0;
+  const uint8_t* kb = static_cast<const uint8_t*>(k) + slice * L::kRowBytes;
+  const uint8_t* vb = static_cast<const uint8_t*>(v) + slice * L::kRowBytes;
+  const size_t sc_row0 = slice;
   const size_t sc_total = (size_t)gridDim.x * S * ng * 2;
   uint8_t* tiles = smem + L::kTiles;
   uint8_t* raw = smem + L::kRaw;
@@ -233,13 +289,25 @@ decode_attention_split_kernel(const bf16* __restrict__ q, const void* __restrict
     const int t0 = t_lo + i * kTile, n = min(kTile, t_hi - t0);
     if (LOADER == kLoadBf16) {
       uint8_t* st = tiles + (i & 1) * 2 * L::kTileBytes;
-      copy_tile<LOADER, D, G>(st, kb, nullptr, 0, 0, 0, t0, n, tid);
-      copy_tile<LOADER, D, G>(st + L::kTileBytes, vb, nullptr, 0, 0, 0, t0, n, tid);
+      if (tbl != nullptr) {
+        copy_tile_paged<LOADER, D, G>(st, kb, nullptr, tbl, Hkv, h, P, 0, t0, n, tid);
+        copy_tile_paged<LOADER, D, G>(st + L::kTileBytes, vb, nullptr, tbl, Hkv, h, P, 0,
+                                      t0, n, tid);
+      } else {
+        copy_tile<LOADER, D, G>(st, kb, nullptr, 0, 0, 0, t0, n, tid);
+        copy_tile<LOADER, D, G>(st + L::kTileBytes, vb, nullptr, 0, 0, 0, t0, n, tid);
+      }
     } else {
       uint8_t* st = raw + (i & 1) * 2 * L::raw_bytes(ng);
-      copy_tile<LOADER, D, G>(st, kb, k_scale, sc_row0, sc_total, ng, t0, n, tid);
-      copy_tile<LOADER, D, G>(st + L::raw_bytes(ng), vb, v_scale, sc_row0, sc_total,
-                               ng, t0, n, tid);
+      if (tbl != nullptr) {
+        copy_tile_paged<LOADER, D, G>(st, kb, k_scale, tbl, Hkv, h, P, ng, t0, n, tid);
+        copy_tile_paged<LOADER, D, G>(st + L::raw_bytes(ng), vb, v_scale, tbl, Hkv, h, P,
+                                      ng, t0, n, tid);
+      } else {
+        copy_tile<LOADER, D, G>(st, kb, k_scale, sc_row0, sc_total, ng, t0, n, tid);
+        copy_tile<LOADER, D, G>(st + L::raw_bytes(ng), vb, v_scale, sc_row0, sc_total,
+                                 ng, t0, n, tid);
+      }
     }
     cp_async_commit();
   };
@@ -277,7 +345,8 @@ decode_attention_split_kernel(const bf16* __restrict__ q, const void* __restrict
       bf16* kd = reinterpret_cast<bf16*>(tiles);
       bf16* vd = kd + kTile * kRow;
       const uint8_t* st = raw + (it & 1) * 2 * L::raw_bytes(ng);
-      const size_t b0 = 2 * (sc_row0 + (size_t)t0) * ng;
+      // the paged copy puts the tile's first scale at the stage's start
+      const size_t b0 = tbl == nullptr ? 2 * (sc_row0 + (size_t)t0) * ng : 0;
       dequant_tile<LOADER, D, G>(kd, st, b0, ng, n, tid);
       dequant_tile<LOADER, D, G>(vd, st + L::raw_bytes(ng), b0, ng, n, tid);
       __syncthreads();
@@ -410,8 +479,9 @@ decode_attention_split_kernel(const bf16* __restrict__ q, const void* __restrict
 template <int LOADER, int D, int G>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* ks,
                    const void* vs, const int* kv_len, void* out, float* part,
-                   unsigned* tickets, int B, int Hkv, int S, int ng, int window,
-                   int split, float scale, cudaStream_t stream) {
+                   unsigned* tickets, const int* table, int max_pages, int P, int B,
+                   int Hkv, int S, int ng, int window, int split, float scale,
+                   cudaStream_t stream) {
   using L = Layout<LOADER, D, G>;
   auto kernel = decode_attention_split_kernel<LOADER, D, G>;
   const int smem = L::total(ng);
@@ -425,8 +495,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* ks,
   const int splits = (S + split - 1) / split;
   kernel<<<dim3(B * Hkv, splits), kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), k, v, static_cast<const bf16*>(ks),
-      static_cast<const bf16*>(vs), kv_len, static_cast<bf16*>(out), part, tickets, Hkv,
-      S, ng, window, split, scale);
+      static_cast<const bf16*>(vs), kv_len, static_cast<bf16*>(out), part, tickets, table,
+      max_pages, P, Hkv, S, ng, window, split, scale);
   return cudaGetLastError();
 }
 
@@ -436,14 +506,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* ks,
 template <int LOADER>
 int dispatch(int D, int G, const void* q, const void* k, const void* v,
              const void* ks, const void* vs, const int* kv_len, void* out, float* part,
-             unsigned* tk, int B, int Hkv, int S, int ng, int window, int split,
-             float scale, cudaStream_t st) {
+             unsigned* tk, const int* tb, int mp, int P, int B, int Hkv, int S, int ng,
+             int window, int split, float scale, cudaStream_t st) {
   if (D == 64 && G == 4)
-    return launch<LOADER, 64, 4>(q, k, v, ks, vs, kv_len, out, part, tk, B, Hkv, S, ng, window, split, scale, st);
+    return launch<LOADER, 64, 4>(q, k, v, ks, vs, kv_len, out, part, tk, tb, mp, P, B, Hkv, S, ng, window, split, scale, st);
   if (D == 128 && G == 1)
-    return launch<LOADER, 128, 1>(q, k, v, ks, vs, kv_len, out, part, tk, B, Hkv, S, ng, window, split, scale, st);
+    return launch<LOADER, 128, 1>(q, k, v, ks, vs, kv_len, out, part, tk, tb, mp, P, B, Hkv, S, ng, window, split, scale, st);
   if (D == 32 && G == 2)
-    return launch<LOADER, 32, 2>(q, k, v, ks, vs, kv_len, out, part, tk, B, Hkv, S, ng, window, split, scale, st);
+    return launch<LOADER, 32, 2>(q, k, v, ks, vs, kv_len, out, part, tk, tb, mp, P, B, Hkv, S, ng, window, split, scale, st);
   return kNotInstantiated;
 }
 
@@ -456,17 +526,29 @@ int dispatch(int D, int G, const void* q, const void* k, const void* v,
 // part_elems >= B * Hkv * ceil(S / split) * G * (D + 2); tickets: int32
 // counts of ticket_elems >= B * Hkv, all 0 before the launch and left 0
 // after it (launches that share them must not overlap); split: cache
-// positions per split, a positive multiple of 64. Returns the first
+// positions per split, a positive multiple of 64. A paged cache passes
+// its block table (B, max_pages) int32 as table, with k, v (n_blocks,
+// Hkv, P, .) and the scales (n_blocks, Hkv, P, ng) as pools, S =
+// max_pages * P, window 0, and under q8_0 / q4_0 gcd(64, P) * 2 * ng a
+// multiple of 16; table null means a dense cache. Returns the first
 // failing launch's cudaError_t (0 on success), or -1 when no kernel is
 // instantiated for (D, G).
 extern "C" int decode_attention(int loader, const void* q, const void* k,
                                 const void* v, const void* k_scale,
                                 const void* v_scale, const void* kv_len, void* out,
                                 void* part, long long part_elems, void* tickets,
-                                int ticket_elems, int B, int Hkv, int G, int S, int D,
-                                int ng, int window, int split, float scale,
-                                void* stream) {
+                                int ticket_elems, const void* table, int max_pages,
+                                int P, int B, int Hkv, int G, int S, int D, int ng,
+                                int window, int split, float scale, void* stream) {
   if (split <= 0 || split % kTile) return cudaErrorInvalidValue;
+  const int* tb = static_cast<const int*>(table);
+  if (tb != nullptr) {
+    if (window != 0 || P <= 0 || max_pages <= 0 || S != max_pages * P)
+      return cudaErrorInvalidValue;
+    int gcd = P & -P;                              // gcd(64, P): P's lowest set bit,
+    if (gcd > kTile) gcd = kTile;                  // capped at 64
+    if (loader != kLoadBf16 && gcd * 2 * ng % 16) return cudaErrorInvalidValue;
+  }
   const long long need = (long long)B * Hkv * ((S + split - 1) / split) * G * (D + 2);
   if (part_elems < need || ticket_elems < B * Hkv) return cudaErrorInvalidValue;
   unsigned* tk = static_cast<unsigned*>(tickets);
@@ -474,9 +556,9 @@ extern "C" int decode_attention(int loader, const void* q, const void* k,
   const int* lens = static_cast<const int*>(kv_len);
   float* p = static_cast<float*>(part);
   switch (loader) {
-    case kLoadBf16: return dispatch<kLoadBf16>(D, G, q, k, v, k_scale, v_scale, lens, out, p, tk, B, Hkv, S, ng, window, split, scale, st);
-    case kLoadQ8: return dispatch<kLoadQ8>(D, G, q, k, v, k_scale, v_scale, lens, out, p, tk, B, Hkv, S, ng, window, split, scale, st);
-    case kLoadQ4: return dispatch<kLoadQ4>(D, G, q, k, v, k_scale, v_scale, lens, out, p, tk, B, Hkv, S, ng, window, split, scale, st);
+    case kLoadBf16: return dispatch<kLoadBf16>(D, G, q, k, v, k_scale, v_scale, lens, out, p, tk, tb, max_pages, P, B, Hkv, S, ng, window, split, scale, st);
+    case kLoadQ8: return dispatch<kLoadQ8>(D, G, q, k, v, k_scale, v_scale, lens, out, p, tk, tb, max_pages, P, B, Hkv, S, ng, window, split, scale, st);
+    case kLoadQ4: return dispatch<kLoadQ4>(D, G, q, k, v, k_scale, v_scale, lens, out, p, tk, tb, max_pages, P, B, Hkv, S, ng, window, split, scale, st);
   }
   return cudaErrorInvalidValue;
 }

@@ -229,7 +229,11 @@ __global__ void __launch_bounds__(kThreads)
 // K head h at position lens[b] (half-split rotation, cos/sin of pos *
 // freq, freq = 1 / theta^(2i * (1/D))), and writes K and V into ring slot
 // lens[b] % S of (b, h) when advance[b] (always when advance is null);
-// other rows' cache is not touched. The quantized formats stage the bf16
+// other rows' cache is not touched. A paged cache (table non-null: K/V
+// and scale pools (n_blocks, Hkv, P, .), S = max_pages * P) takes ring
+// slot pos = lens[b] % S to row pos % P of the pool block
+// table[b][pos / P]; a frozen row writes nothing there either. The
+// quantized formats stage the bf16
 // K and V rows in shared memory, take one scale per group of g = D / ng
 // features, and write the int8 payload (q4_0: nibble pairs, low nibble =
 // even feature).
@@ -239,15 +243,19 @@ __global__ void __launch_bounds__(kRopeThreads)
                             void* __restrict__ k_cache, void* __restrict__ v_cache,
                             bf16* __restrict__ k_scale, bf16* __restrict__ v_scale,
                             const int* __restrict__ lens,
-                            const unsigned char* __restrict__ advance, int G, int S, int D,
-                            int ng, float theta) {
+                            const unsigned char* __restrict__ advance,
+                            const int* __restrict__ table, int max_pages, int P, int G,
+                            int S, int D, int ng, float theta) {
   extern __shared__ float rows[];  // quantized formats: K row, V row (D each), 2 * ng scales
   const int h = blockIdx.x, b = blockIdx.y, Hkv = gridDim.x;
   const int half = D / 2, Hq = Hkv * G;
   const bf16* src = qkv + (size_t)b * (Hq + 2 * Hkv) * D;
   const int pos = lens[b];
   const bool adv = advance == nullptr || advance[b] != 0;
-  const size_t cache_row = ((size_t)b * Hkv + h) * S + pos % S;
+  const int slot = pos % S;
+  const size_t cache_row =
+      table == nullptr ? ((size_t)b * Hkv + h) * S + slot
+                       : ((size_t)table[(size_t)b * max_pages + slot / P] * Hkv + h) * P + slot % P;
   const float inv_d = __fdiv_rn(1.f, (float)D);
   for (int idx = threadIdx.x; idx < (G + 1) * half; idx += kRopeThreads) {
     const int hh = idx / half, i = idx - hh * half;
@@ -526,13 +534,19 @@ extern "C" int swiglu(int f32, const void* gu, void* out, int M, int F, void* st
 // bf16; q_out (B, Hkv*G, D) bf16; k, v (B, Hkv, S, D) bf16, or int8
 // payload (B, Hkv, S, D) [q8_0] / (B, Hkv, S, D/2) [q4_0] with k_scale,
 // v_scale (B, Hkv, S, ng) bf16 (null for bf16); lens (B,) int32 >= 0;
-// advance (B,) bool or null (every row). Returns the launch's
-// cudaError_t.
+// advance (B,) bool or null (every row). A paged cache passes its block
+// table (B, max_pages) int32, its leaves as pools (n_blocks, Hkv, P, .)
+// and S = max_pages * P; table null means a dense cache. Returns the
+// launch's cudaError_t.
 extern "C" int rope_cache_write(int fmt, const void* qkv, void* q_out, void* k, void* v,
                                 void* k_scale, void* v_scale, const void* lens,
-                                const void* advance, int B, int Hkv, int G, int S, int D,
-                                int ng, float theta, void* stream) {
+                                const void* advance, const void* table, int max_pages,
+                                int P, int B, int Hkv, int G, int S, int D, int ng,
+                                float theta, void* stream) {
   if (B <= 0 || Hkv <= 0 || G <= 0 || S <= 0 || D <= 0 || D % 2) return cudaErrorInvalidValue;
+  if (table != nullptr && (P <= 0 || max_pages <= 0 || S != max_pages * P))
+    return cudaErrorInvalidValue;
+  const int* tb = static_cast<const int*>(table);
   if (fmt != kBf16 && (ng <= 0 || D % ng)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(Hkv, B);
@@ -545,13 +559,13 @@ extern "C" int rope_cache_write(int fmt, const void* qkv, void* q_out, void* k, 
   const unsigned char* adv = static_cast<const unsigned char*>(advance);
   switch (fmt) {
     case kBf16:
-      rope_cache_write_kernel<kBf16><<<grid, kRopeThreads, smem, st>>>(src, qo, k, v, ks, vs, ln, adv, G, S, D, ng, theta);
+      rope_cache_write_kernel<kBf16><<<grid, kRopeThreads, smem, st>>>(src, qo, k, v, ks, vs, ln, adv, tb, max_pages, P, G, S, D, ng, theta);
       break;
     case kQ8:
-      rope_cache_write_kernel<kQ8><<<grid, kRopeThreads, smem, st>>>(src, qo, k, v, ks, vs, ln, adv, G, S, D, ng, theta);
+      rope_cache_write_kernel<kQ8><<<grid, kRopeThreads, smem, st>>>(src, qo, k, v, ks, vs, ln, adv, tb, max_pages, P, G, S, D, ng, theta);
       break;
     case kQ4:
-      rope_cache_write_kernel<kQ4><<<grid, kRopeThreads, smem, st>>>(src, qo, k, v, ks, vs, ln, adv, G, S, D, ng, theta);
+      rope_cache_write_kernel<kQ4><<<grid, kRopeThreads, smem, st>>>(src, qo, k, v, ks, vs, ln, adv, tb, max_pages, P, G, S, D, ng, theta);
       break;
     default:
       return cudaErrorInvalidValue;

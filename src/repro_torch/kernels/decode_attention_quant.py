@@ -16,14 +16,20 @@ package's XLA path: dequantize the rows to a bf16 view, then
 ``decode_attention_plain``.
 
 Layouts: q8_0 payload (B, Hkv, S, D) int8; q4_0 (B, Hkv, S, D // 2);
-scales (B, Hkv, S, D // g) bf16 with g = ``kv_group_size``.
+scales (B, Hkv, S, D // g) bf16 with g = ``kv_group_size``. A paged
+cache passes pools (n_blocks, Hkv, P, ·) and its ``block_table``
+(B, max_pages), which the kernel reads through (``decode_attention``'s
+module doc); the plain version dequantizes ``paged_gather``'s view.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels.decode_attention import (decode_attention_plain,
-                                                  launch_decode_kernel)
+                                                  launch_decode_kernel,
+                                                  paged_gather)
 from repro_torch.quant.quantize import dequantize_rows
 
 FORMATS = ("q8_0", "q4_0")
@@ -36,8 +42,12 @@ def _check_fmt(fmt: str) -> None:
 
 
 def decode_attention_quant_plain(q, k_q, k_scale, v_q, v_scale, kv_len, *,
-                                 fmt: str, window: int = 0):
+                                 fmt: str, window: int = 0,
+                                 block_table: Optional[torch.Tensor] = None):
     _check_fmt(fmt)
+    if block_table is not None:
+        k_q, k_scale, v_q, v_scale = (paged_gather(t, block_table) for t in
+                                      (k_q, k_scale, v_q, v_scale))
     k = dequantize_rows(k_q, k_scale, fmt)
     v = dequantize_rows(v_q, v_scale, fmt)
     return decode_attention_plain(q, k, v, kv_len, window=window)
@@ -46,7 +56,9 @@ def decode_attention_quant_plain(q, k_q, k_scale, v_q, v_scale, kv_len, *,
 def decode_attention_quant(q: torch.Tensor, k_q: torch.Tensor,
                            k_scale: torch.Tensor, v_q: torch.Tensor,
                            v_scale: torch.Tensor, kv_len, *, fmt: str,
-                           window: int = 0) -> torch.Tensor:
+                           window: int = 0,
+                           block_table: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """q (B, Hq, D) bf16 → (B, Hq, D); see the module doc for the cache
     layouts. CPU tensors take the plain version."""
     _check_fmt(fmt)
@@ -56,9 +68,10 @@ def decode_attention_quant(q: torch.Tensor, k_q: torch.Tensor,
                          f"head dim {D} under {fmt}")
     if q.device.type == "cpu":
         return decode_attention_quant_plain(
-            q, k_q, k_scale, v_q, v_scale, kv_len, fmt=fmt, window=window)
+            q, k_q, k_scale, v_q, v_scale, kv_len, fmt=fmt, window=window,
+            block_table=block_table)
     out = launch_decode_kernel(fmt, q, k_q, v_q, k_scale, v_scale, kv_len,
-                               window=window)
+                               window=window, block_table=block_table)
     decode_attention_quant.launches += 1
     return out
 

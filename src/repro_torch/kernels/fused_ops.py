@@ -18,11 +18,14 @@ intermediate in device memory) is described in the source.
   PyTorch's add rounds it, and out = ``rmsnorm(h, w, eps)``.
 - ``swiglu(gu)``: the fused gate-up output (..., 2 F) → (..., F),
   ``silu(g) * u`` in f32 with one rounding, read in place.
-- ``rope_cache_write(qkv, cache, lens, advance, theta, fmt)``: one
-  token's fused-QKV rows (B, q_dim + 2 kv_dim) bf16 → the roped q
-  (B, Hq, D); the roped K and the V row go into ring slot ``lens % S``
-  of one layer's cache (bf16, or q8_0 / q4_0 quantized at the write
-  point) for the rows where ``advance`` is True.
+- ``rope_cache_write(qkv, cache, lens, advance, theta, fmt,
+  block_table)``: one token's fused-QKV rows (B, q_dim + 2 kv_dim) bf16
+  → the roped q (B, Hq, D); the roped K and the V row go into ring slot
+  ``lens % S`` of one layer's cache (bf16, or q8_0 / q4_0 quantized at
+  the write point) for the rows where ``advance`` is True. A paged
+  cache (pools (n_blocks, Hkv, P, ·) and its ``block_table``
+  (B, max_pages), S = max_pages × P) takes ring slot pos to row
+  pos % P of block ``block_table[b, pos // P]``.
 - ``rope_cache_write_prefill(qkv, cache, theta, fmt)``: a prefill's
   fused-QKV rows (B, S, q_dim + 2 kv_dim) bf16 → q (B, Hq, S, D) and
   k, v (B, Hkv, S, D), roped at positions 0..S-1 of every row, in the
@@ -52,8 +55,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _RMSNORM_ARGS = (_I, _I, _P, _P, _P, _I, _I, _F, _P)
 _ADD_RMSNORM_ARGS = (_I, _I, _P, _P, _P, _P, _P, _I, _I, _F, _P)
 _SWIGLU_ARGS = (_I, _P, _P, _I, _I, _P)
-_ROPE_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-              _F, _P)
+_ROPE_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+              _I, _I, _I, _F, _P)
 _ROPE_PREFILL_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _I, _F, _P)
 
@@ -209,11 +212,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def kv_cache_write(cache: Dict, k: torch.Tensor, v: torch.Tensor,
                    slot: torch.Tensor, *, kv_quant: str = "bf16",
                    group: int = 32,
-                   advance: Optional[torch.Tensor] = None) -> None:
+                   advance: Optional[torch.Tensor] = None,
+                   block_table: Optional[torch.Tensor] = None) -> None:
     """Write one (B, Hkv, hd) K/V row per batch row at ring ``slot``
     (B,), in place. Quantized caches quantize the row at the write point
     (payload into ``k``/``v``, groupwise scales into ``k_scale`` /
-    ``v_scale``). Rows with ``advance`` False keep their old contents."""
+    ``v_scale``). Rows with ``advance`` False keep their old contents.
+
+    A paged cache (pools (n_blocks, Hkv, P, ·) and ``block_table``
+    (B, max_pages)) puts position ``slot`` at row ``slot % P`` of block
+    ``block_table[b, slot // P]``. A frozen row's write goes to the
+    garbage block 0, as in the JAX package (its slot's blocks keep their
+    contents; the kernel writes nothing at all for it)."""
     B = k.shape[0]
     if kv_quant in FLOAT_FORMATS:
         rows = {"k": k, "v": v}
@@ -222,6 +232,14 @@ def kv_cache_write(cache: Dict, k: torch.Tensor, v: torch.Tensor,
         vq, vs = quantize_rows(v, kv_quant, group)
         rows = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
     bidx = torch.arange(B, device=k.device)
+    if block_table is not None:
+        P = cache["k"].shape[2]
+        blk = block_table[bidx, slot // P].long()
+        if advance is not None:
+            blk = torch.where(advance, blk, torch.zeros_like(blk))
+        for name, new in rows.items():
+            cache[name][blk, :, slot % P] = new.to(cache[name].dtype)
+        return
     for name, new in rows.items():
         leaf = cache[name]
         new = new.to(leaf.dtype)
@@ -257,14 +275,25 @@ def kv_cache_write_prefill(cache: Dict, k: torch.Tensor, v: torch.Tensor,
         cache[name][:, :, :S] = new.to(cache[name].dtype)
 
 
-def _qkv_layout(what: str, qkv: torch.Tensor, cache: Dict, fmt: str):
+def _qkv_layout(what: str, qkv: torch.Tensor, cache: Dict, fmt: str,
+                block_table: Optional[torch.Tensor] = None):
     """(B, Hq, Hkv, S_cache, D, ng) of fused-QKV rows (B, [S,] width) and
-    one layer's cache."""
+    one layer's cache (a paged one: S_cache = max_pages × P)."""
     B, W = qkv.shape[0], qkv.shape[-1]
-    _require(cache["k"].ndim == 4 and cache["k"].shape[0] == B,
-             f"{what}: cache {tuple(cache['k'].shape)} is not "
-             f"(B={B}, Hkv, S, D')")
+    if block_table is None:
+        _require(cache["k"].ndim == 4 and cache["k"].shape[0] == B,
+                 f"{what}: cache {tuple(cache['k'].shape)} is not "
+                 f"(B={B}, Hkv, S, D')")
+    else:
+        _require(cache["k"].ndim == 4 and block_table.ndim == 2
+                 and block_table.shape[0] == B
+                 and block_table.dtype == torch.int32,
+                 f"{what}: pool {tuple(cache['k'].shape)} and block table "
+                 f"{tuple(block_table.shape)} are not (n_blocks, Hkv, P, "
+                 f"D') and int32 (B={B}, max_pages)")
     _, Hkv, S, Dp = cache["k"].shape
+    if block_table is not None:
+        S *= block_table.shape[1]
     D = 2 * Dp if fmt == "q4_0" else Dp
     _require(D % 2 == 0 and W % D == 0 and (W // D - 2 * Hkv) % Hkv == 0
              and W // D > 2 * Hkv,
@@ -284,7 +313,8 @@ def _cache_format(what: str, fmt: str) -> str:
 def _cache_leaves(what: str, qkv: torch.Tensor, cache: Dict, fmt: str,
                   B: int, Hkv: int, S: int, D: int, ng: int) -> list:
     """One layer's cache leaves in the order the kernels take them,
-    checked against the kernels' types and shapes."""
+    checked against the kernels' types and shapes (B and S are the
+    pool's blocks and page size for a paged cache)."""
     names = ("k", "v") if fmt == "bf16" else ("k", "v", "k_scale", "v_scale")
     leaves = [cache[n] for n in names]
     want = torch.bfloat16 if fmt == "bf16" else torch.int8
@@ -304,36 +334,47 @@ def _cache_leaves(what: str, qkv: torch.Tensor, cache: Dict, fmt: str,
 def rope_cache_write_plain(qkv: torch.Tensor, cache: Dict,
                            lens: torch.Tensor,
                            advance: Optional[torch.Tensor], theta: float,
-                           fmt: str) -> torch.Tensor:
+                           fmt: str,
+                           block_table: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """``apply_rope`` of q and k at ``lens``, then ``kv_cache_write`` at
-    ring slot ``lens % S``; returns q (B, Hq, D)."""
+    ring slot ``lens % S`` (through ``block_table`` for a paged cache);
+    returns q (B, Hq, D)."""
     _require(qkv.ndim == 2, f"rope_cache_write: qkv must be (B, width), got "
              f"{tuple(qkv.shape)}")
-    B, Hq, Hkv, S, D, ng = _qkv_layout("rope_cache_write", qkv, cache, fmt)
+    B, Hq, Hkv, S, D, ng = _qkv_layout("rope_cache_write", qkv, cache, fmt,
+                                       block_table)
     q = qkv[:, :Hq * D].reshape(B, Hq, D)
     k = qkv[:, Hq * D:(Hq + Hkv) * D].reshape(B, Hkv, D)
     v = qkv[:, (Hq + Hkv) * D:].reshape(B, Hkv, D)
     q = apply_rope(q, lens, theta)
     k = apply_rope(k, lens, theta)
     kv_cache_write(cache, k, v, lens % S, kv_quant=fmt,
-                   group=D // ng if ng else 32, advance=advance)
+                   group=D // ng if ng else 32, advance=advance,
+                   block_table=block_table)
     return q
 
 
 def rope_cache_write(qkv: torch.Tensor, cache: Dict, lens: torch.Tensor,
                      advance: Optional[torch.Tensor], theta: float,
-                     fmt: str) -> torch.Tensor:
+                     fmt: str, block_table: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """qkv (B, q_dim + 2 kv_dim) bf16, one layer's cache leaves
-    (B, Hkv, S, ·) in ``fmt``, lens (B,) int32, advance (B,) bool or
-    None → q (B, Hq, D) bf16; the cache is written in place."""
+    (B, Hkv, S, ·) in ``fmt``, or pools (n_blocks, Hkv, P, ·) with their
+    ``block_table`` (B, max_pages) int32, lens (B,) int32, advance (B,)
+    bool or None → q (B, Hq, D) bf16; the cache is written in place."""
     fmt = _cache_format("rope_cache_write", fmt)
     if qkv.device.type == "cpu":
-        return rope_cache_write_plain(qkv, cache, lens, advance, theta, fmt)
+        return rope_cache_write_plain(qkv, cache, lens, advance, theta, fmt,
+                                      block_table)
     _require(qkv.ndim == 2, f"rope_cache_write: qkv must be (B, width), got "
              f"{tuple(qkv.shape)}")
-    B, Hq, Hkv, S, D, ng = _qkv_layout("rope_cache_write", qkv, cache, fmt)
-    leaves = _cache_leaves("rope_cache_write", qkv, cache, fmt, B, Hkv, S, D,
-                           ng)
+    B, Hq, Hkv, S, D, ng = _qkv_layout("rope_cache_write", qkv, cache, fmt,
+                                       block_table)
+    rows, per_row = (B, S) if block_table is None else \
+        (cache["k"].shape[0], cache["k"].shape[2])
+    leaves = _cache_leaves("rope_cache_write", qkv, cache, fmt, rows, Hkv,
+                           per_row, D, ng)
     _require(lens.dtype == torch.int32 and lens.shape == (B,),
              "rope_cache_write: lens must be int32 (B,)")
     extra = [lens]
@@ -341,6 +382,8 @@ def rope_cache_write(qkv: torch.Tensor, cache: Dict, lens: torch.Tensor,
         _require(advance.dtype == torch.bool and advance.shape == (B,),
                  "rope_cache_write: advance must be bool (B,)")
         extra.append(advance)
+    if block_table is not None:
+        extra.append(block_table)
     _check_cuda("rope_cache_write", qkv, *leaves, *extra)
     q = torch.empty((B, Hq, D), dtype=torch.bfloat16, device=qkv.device)
     if B == 0:
@@ -351,6 +394,9 @@ def rope_cache_write(qkv: torch.Tensor, cache: Dict, lens: torch.Tensor,
              leaves[2].data_ptr() if ng else None,
              leaves[3].data_ptr() if ng else None, lens.data_ptr(),
              advance.data_ptr() if advance is not None else None,
+             block_table.data_ptr() if block_table is not None else None,
+             0 if block_table is None else block_table.shape[1],
+             0 if block_table is None else per_row,
              B, Hkv, Hq // Hkv, S, D, ng, float(theta), _stream(qkv))
     build.check(err, f"rope_cache_write[{fmt}]")
     rope_cache_write.launches += 1

@@ -7,7 +7,12 @@ print throughput.
 
 Runs on the card by default (``--device cpu`` for a CPU run). On the
 card the warmup request also captures the engine's megastep graph, so
-every megastep of the timed run is one graph replay. The
+every megastep of the timed run is one graph replay. ``--page-size``
+pages the KV cache (``--cache-blocks`` sizes its pool), and
+``--prefix-cache`` shares whole prompt pages across requests: every
+prompt then opens with the same seeded "system prompt" of two pages and
+one token, so that the shared pages hit. ``--audit`` checks the
+engine's invariants after every step. The
 counterpart of the JAX package's synchronous ``launch/serve.py`` path;
 the asyncio front-end is not ported yet, and there is no ``--kernels``
 switch: CUDA tensors always run the hand-written kernels.
@@ -61,6 +66,19 @@ def build_parser() -> argparse.ArgumentParser:
                     help="prompt admission: ride inside the megastep "
                          "(chunked) or batched prefill calls between "
                          "megasteps (stall)")
+    ap.add_argument("--page-size", type=int, default=0,
+                    help="KV-cache page size in tokens; 0 = dense cache")
+    ap.add_argument("--cache-blocks", type=int, default=0,
+                    help="pool blocks of a paged cache (default: one a "
+                         "page a slot, plus the garbage block)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="reuse whole prompt-prefix pages across "
+                         "requests (needs --page-size > 0 and chunked "
+                         "admission)")
+    ap.add_argument("--audit", action="store_true",
+                    help="run engine.audit() after every step (block "
+                         "pool partition, refcounts, slot and queue "
+                         "invariants)")
     ap.add_argument("--temperature", type=float, default=0.8,
                     help="sampling temperature (0 = greedy); top-k 40")
     ap.add_argument("--seed", type=int, default=0,
@@ -71,11 +89,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def make_requests(vocab_size: int, n: int, max_new: int,
-                  seed: int = 0) -> List[Request]:
+                  seed: int = 0, shared_prefix: int = 0) -> List[Request]:
+    """n requests of 4-8 seeded prompt tokens, each opened by the same
+    ``shared_prefix`` tokens (drawn from seed + 1, so that the tails do
+    not depend on it)."""
     rng = np.random.default_rng(seed)
+    shared = np.random.default_rng(seed + 1).integers(
+        1, vocab_size, size=shared_prefix).astype(np.int32)
     return [Request(uid=i,
-                    prompt=rng.integers(1, vocab_size,
-                                        size=4 + i % 5).astype(np.int32),
+                    prompt=np.concatenate([shared, rng.integers(
+                        1, vocab_size, size=4 + i % 5).astype(np.int32)]),
                     max_new_tokens=max_new)
             for i in range(n)]
 
@@ -95,7 +118,10 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
         model, params, slots=args.slots, max_len=args.max_len,
         sampling=SamplingConfig(temperature=args.temperature, top_k=40),
         seed=args.seed, megastep_k=args.megastep_k,
-        quant_policy=args.precision, admission=args.admission)
+        quant_policy=args.precision, admission=args.admission,
+        page_size=args.page_size, cache_blocks=args.cache_blocks,
+        prefix_cache=args.prefix_cache)
+    engine.audit_every_step = args.audit
 
     # warmup: first-use costs (kernel build and load, library handles,
     # the megastep graph's capture) stay out of the timed run
@@ -108,8 +134,9 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
     launches_after_warmup = ops.launch_counts()
     engine.reset()
 
+    shared = 2 * engine.page_size + 1 if engine.prefix_cache else 0
     requests = make_requests(cfg.vocab_size, args.requests, args.max_new,
-                             args.seed)
+                             args.seed, shared_prefix=shared)
     for r in requests:
         engine.submit(r)
     engine.run()
@@ -130,6 +157,14 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
           f"{st.graph_replays} graph replays, "
           f"{warmup_stats.graph_captures + st.graph_captures} graph "
           f"captures; warmup {warmup_s:.2f}s excluded)")
+    if engine.paged:
+        print(f"paged cache: page_size={engine.page_size}, "
+              f"{engine.cache_blocks} blocks ({engine.cache_nbytes()} "
+              f"bytes), prefix_cache={engine.prefix_cache}: "
+              f"prefix_hits={st.prefix_hits} "
+              f"prefix_hit_tokens={st.prefix_hit_tokens} "
+              f"blocks_in_use={engine.blocks_in_use} "
+              f"blocks_recycled={st.blocks_recycled}")
     return ServeResult(engine, requests, warmup_stats, launches_after_warmup)
 
 

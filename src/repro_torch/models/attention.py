@@ -1,5 +1,5 @@
 """GQA attention: the prefill's causal self-attention and one decode
-token over a dense KV cache.
+token over a dense or a paged KV cache.
 
 Counterpart of the JAX package's ``models/attention.py``:
 ``attention_forward`` (the self-attention branch at positions 0..S-1,
@@ -11,8 +11,16 @@ plain versions, with ``kv_cache_write`` and ``kv_cache_write_prefill``,
 live in ``kernels/fused_ops.py``; ``chunked_attention`` is in
 ``repro_torch.kernels.flash_attention``: it is the plain version of the
 prefill attention kernel there, and ``attention_forward`` reaches it
-through ``ops.attention``. Paging, cross-attention and ``kv_override``
-are not ported yet.
+through ``ops.attention``. Cross-attention and ``kv_override`` are not
+ported yet.
+
+A paged cache (``init_kv_cache(page_size=)``) holds each layer's K/V
+(and scales) as a pool of blocks of ``page_size`` positions; a block
+table (slots, max_pages) names each slot's blocks. The decode step's
+kernels read and write the pool through the table themselves;
+``paged_gather`` (kept in ``kernels/decode_attention.py`` beside the
+plain version that uses it) builds the dense view only for the plain
+versions on the CPU and for ``kv_cache_read``.
 
 The cache is updated in place. A row whose ``advance`` flag is False
 (a frozen slot of the serving engine) keeps its old cache contents:
@@ -27,6 +35,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attention import paged_gather
 from repro_torch.models import layers
 from repro_torch.quant.quantize import (FLOAT_FORMATS, dequantize_rows,
                                         kv_group_size)
@@ -65,33 +74,42 @@ def check_cache_format(cfg: ModelConfig, cache: Dict) -> None:
 
 def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
                      lens: torch.Tensor, kv_len: torch.Tensor,
-                     advance: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x (B, 1, D); cache one layer's leaves (B, Hkv, S, ·); lens (B,)
-    tokens already cached per row; kv_len (B,) = ``min(lens + 1, S)``,
-    the positions attention reads (the caller computes it once for every
-    layer). The new token's K/V go to ring slot ``lens % S``. RoPE of q
-    and k and the K/V write are one fused kernel
-    (``ops.rope_cache_write``; its plain version is ``apply_rope`` twice
-    and ``kv_cache_write``)."""
+                     advance: Optional[torch.Tensor] = None,
+                     block_table: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """x (B, 1, D); cache one layer's leaves (B, Hkv, S, ·), or its pools
+    (n_blocks, Hkv, P, ·) with the slots' ``block_table`` (B, max_pages)
+    and S = max_pages × P; lens (B,) tokens already cached per row;
+    kv_len (B,) = ``min(lens + 1, S)``, the positions attention reads
+    (the caller computes it once for every layer). The new token's K/V
+    go to ring slot ``lens % S``. RoPE of q and k and the K/V write are
+    one fused kernel (``ops.rope_cache_write``; its plain version is
+    ``apply_rope`` twice and ``kv_cache_write``); both kernels take the
+    table."""
     B = x.shape[0]
     qkv = layers.linear(p["wqkv"], x).reshape(B, -1)
     check_cache_format(cfg, cache)
     q = ops.rope_cache_write(qkv, cache, lens, advance, cfg.rope_theta,
-                             cfg.kv_quant)
+                             cfg.kv_quant, block_table)
     if cfg.kv_quant in FLOAT_FORMATS:
-        out = ops.decode_attention(q, cache["k"], cache["v"], kv_len)
+        out = ops.decode_attention(q, cache["k"], cache["v"], kv_len,
+                                   block_table=block_table)
     else:
         out = ops.decode_attention_quant(
             q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"],
-            kv_len, fmt=cfg.kv_quant)
+            kv_len, fmt=cfg.kv_quant, block_table=block_table)
     return layers.linear(p["wo"], out.reshape(B, 1, cfg.q_dim))
 
 
 def kv_cache_read(cache: Dict, *, kv_quant: str = "bf16",
-                  dtype: torch.dtype = torch.bfloat16
+                  dtype: torch.dtype = torch.bfloat16,
+                  block_table: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The attention-visible (B, Hkv, S, hd) K/V view of one layer's
-    cache (dequantized for q8_0/q4_0 caches)."""
+    cache (dequantized for q8_0/q4_0 caches); a paged cache's pools are
+    gathered through ``block_table`` first."""
+    if block_table is not None:
+        cache = {n: paged_gather(t, block_table) for n, t in cache.items()}
     if kv_quant in FLOAT_FORMATS:
         return cache["k"], cache["v"]
     return (dequantize_rows(cache["k"], cache["k_scale"], kv_quant, dtype),
@@ -100,12 +118,26 @@ def kv_cache_read(cache: Dict, *, kv_quant: str = "bf16",
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                   kv_quant: str = "bf16", device: torch.device,
-                  dtype: torch.dtype = torch.bfloat16) -> Dict:
+                  dtype: torch.dtype = torch.bfloat16, page_size: int = 0,
+                  num_blocks: int = 0) -> Dict:
     """One layer's zeroed cache leaves: bf16 K/V (B, Hkv, S, hd), or an
     int8 payload (hd, or hd // 2 for q4_0) plus bf16 scales
-    (B, Hkv, S, hd // g)."""
+    (B, Hkv, S, hd // g).
+
+    ``page_size`` P > 0 pages the cache: every leaf becomes a pool
+    (n_blocks, Hkv, P, ·) with no batch axis, ``num_blocks`` defaulting
+    to ``batch × max_len / P + 1`` (one block a page a slot, plus block
+    0, the garbage block that unmapped table entries name). P must divide
+    ``max_len``. The block table is the model cache's (``Model.init_cache``),
+    not a layer's."""
     Hkv, hd = cfg.num_kv_heads, cfg.head_dim
     shape = (batch, Hkv, max_len)
+    if page_size:
+        if max_len % page_size:
+            raise ValueError(f"page_size {page_size} must divide the cache "
+                             f"length {max_len}")
+        shape = (num_blocks or batch * (max_len // page_size) + 1, Hkv,
+                 page_size)
     if kv_quant in FLOAT_FORMATS:
         return {"k": torch.zeros(shape + (hd,), dtype=dtype, device=device),
                 "v": torch.zeros(shape + (hd,), dtype=dtype, device=device)}

@@ -11,7 +11,11 @@ attends over its whole cache (window 0).
 Parameters are a nested dict like the JAX package's, except that the
 layer stack is a list of per-layer dicts instead of stacked (L, ...)
 leaves. The cache is ``{"lens": (B,) int32, "layers": [per-layer
-leaves]}``, and ``prefill`` and ``decode_step`` update it in place.
+leaves]}``, and ``prefill`` and ``decode_step`` update it in place. A
+paged cache (``init_cache(page_size=)``) adds one ``"block_table"``
+(B, max_pages) int32 beside ``lens``, shared by every layer, whose
+leaves are block pools: the JAX package stacks an identical table and
+``lens`` into every layer, the port keeps one of each.
 Each residual add runs fused with the RMSNorm after it
 (``layers.add_rmsnorm``), and the decode step computes the attention's
 ``kv_len`` once for all layers.
@@ -81,16 +85,43 @@ class Model:
                                    self.cfg.quant_group)
         return params
 
-    def init_cache(self, batch: int, max_len: int) -> Dict:
-        """A zeroed cache in ``cfg.kv_quant``'s format."""
-        return {
+    def paging_effective(self, max_len: int, page_size: int) -> int:
+        """Page size actually served, or 0 when the cache stays dense.
+        Paging virtualizes growing full-attention caches; the JAX package
+        keeps recurrent and sliding-window families dense. The port
+        carries only the dense family, whose every config attends over
+        its whole cache, so this is ``page_size`` itself."""
+        return int(page_size)
+
+    def init_cache(self, batch: int, max_len: int, page_size: int = 0,
+                   cache_blocks: int = 0) -> Dict:
+        """A zeroed cache in ``cfg.kv_quant``'s format; paged (block pools
+        of ``cache_blocks`` blocks, default one a page a slot plus the
+        garbage block, and a zeroed block table) when ``page_size`` > 0."""
+        page_size = self.paging_effective(max_len, page_size)
+        cache = {
             "lens": torch.zeros((batch,), dtype=torch.int32,
                                 device=self.device),
             "layers": [attn.init_kv_cache(self.cfg, batch, max_len,
                                           kv_quant=self.cfg.kv_quant,
-                                          device=self.device)
+                                          device=self.device,
+                                          page_size=page_size,
+                                          num_blocks=cache_blocks)
                        for _ in range(self.cfg.num_layers)],
         }
+        if page_size:
+            cache["block_table"] = torch.zeros(
+                (batch, max_len // page_size), dtype=torch.int32,
+                device=self.device)
+        return cache
+
+    @staticmethod
+    def cache_len(cache: Dict) -> int:
+        """Positions a slot's cache holds: S, or max_pages × P paged."""
+        S = cache["layers"][0]["k"].shape[2]
+        if "block_table" in cache:
+            S *= cache["block_table"].shape[1]
+        return S
 
     def prefill(self, params, tokens: torch.Tensor, cache: Dict,
                 seq_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -104,6 +135,10 @@ class Model:
         ``{"tokens", "seq_lens"}`` and returns a new cache."""
         cfg = self.cfg
         B, S = tokens.shape
+        if "block_table" in cache:
+            raise ValueError("prefill writes a dense cache; the serving "
+                             "engine prefills into a dense scratch cache "
+                             "and splices its pages into the pool")
         x = layers.embed(params, tokens)
         norms = _norms(params)
         z = layers.rmsnorm(x, norms[0], cfg.norm_eps)
@@ -130,19 +165,21 @@ class Model:
         """tokens (B, 1) → logits (B, vocab) f32; the cache is updated
         in place. Rows where ``advance_mask`` (B,) is False keep their
         cache frozen: no K/V write and no ``lens`` advance (the serving
-        engine's retired and waiting slots)."""
+        engine's retired and waiting slots). A paged cache is read and
+        written through its block table."""
         cfg = self.cfg
         x = layers.embed(params, tokens)
         lens = cache["lens"]
+        table = cache.get("block_table")
         # the positions each layer's attention reads, the same in every
         # layer: computed once a step
-        kv_len = torch.clamp(lens + 1, max=cache["layers"][0]["k"].shape[2])
+        kv_len = torch.clamp(lens + 1, max=self.cache_len(cache))
         norms = _norms(params)
         z = layers.rmsnorm(x, norms[0], cfg.norm_eps)
         for p_l, c_l, next_norm in zip(params["layers"], cache["layers"],
                                        norms[1:]):
             z = attn.attention_decode(p_l["attn"], cfg, z, c_l, lens, kv_len,
-                                      advance_mask)
+                                      advance_mask, table)
             x, z = layers.add_rmsnorm(x, z, p_l["ffn_norm"], cfg.norm_eps)
             x, z = layers.add_rmsnorm(x, mlp_mod.mlp_forward(p_l["mlp"], z),
                                       next_norm, cfg.norm_eps)

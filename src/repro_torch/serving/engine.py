@@ -29,6 +29,22 @@ serves K tokens per slot.
 - **Nonfinite logits**: a slot whose logits hold a NaN or inf emits
   nothing, turns idle at once, and its request ends with
   ``error = "nonfinite-logits"``; the other slots are untouched.
+- **Paged cache** (``page_size`` > 0): every layer's K/V is a pool of
+  ``cache_blocks`` blocks of ``page_size`` positions, and a block table
+  (slots, max_pages) maps each slot's pages onto blocks, so the cache's
+  memory follows the live tokens rather than ``slots × max_len``. A host
+  allocator hands out blocks at admission (a request whose pages the
+  pool cannot supply waits at the head of the queue, FIFO) and takes
+  them back when the request ends. The decode kernels read and write
+  the pool through the table; stall admission prefills into a dense
+  scratch cache and scatters its pages into the slots' blocks
+  (``_paged_splice``).
+- **Prefix cache** (``prefix_cache``, paged and chunked admission only):
+  once a prompt's pages are written, each whole page is registered
+  under the prompt prefix it ends (an LRU registry that holds its own
+  reference); a later prompt with the same prefix maps those blocks into
+  its table copy-on-write and feeds only its tail. Decode writes land
+  past the prompt, so shared pages are never written again.
 
 On the card a megastep is one device program, as the JAX package's
 jitted megastep is: the admission merge and the K substeps
@@ -41,15 +57,19 @@ admission buffers, the block and the sampling generator keep their
 addresses for the engine's life (``reset()`` zeroes and reseeds them in
 place), so the graphs stay valid; that also replaces the JAX package's
 donated megastep carries, so the port has no ``donate_carries`` knob.
-Left out so far: paging and the prefix cache,
-pipelined dispatch, preemption and the resume of preempted requests,
-the EDF queue, cancellation and fault injection.
+``audit()`` checks the allocator's and the slots' invariants between
+steps (``audit_every_step`` runs it after each).
+Left out so far: pipelined dispatch, preemption and the resume of
+preempted requests (a short pool therefore always blocks FIFO, as the
+JAX engine does when no request has a deadline), the EDF queue, the
+typed overload rejects, cancellation and fault injection.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import time
+import warnings
 from typing import Deque, Dict, List, Optional
 
 import numpy as np
@@ -71,16 +91,23 @@ PHASE_PREFILL = 1   # consuming prompt tokens, no emission yet
 PHASE_DECODE = 2    # generating: sample + emit every substep
 
 # The packed admission buffer: one int32 row of ``slots`` per field
-# (``temp`` and ``top_p`` hold f32 bits), then the (slots, chunk) prompt
-# tokens.
+# (``temp`` and ``top_p`` hold f32 bits; a paged engine adds
+# ``start_pos``, the cached-prefix length a fresh slot starts at), then
+# the (slots, chunk) prompt tokens, then (paged) the fresh slots'
+# (slots, max_pages) block-table rows.
 ADMIT_ROWS = ("new", "refill", "base", "prompt_len", "max_new", "eos",
               "temp", "top_k", "top_p")
+ADMIT_PAGED_ROWS = ("start_pos",)
 ADMIT_F32_ROWS = ("temp", "top_p")
 
 
 class PromptTooLong(ValueError):
     """The prompt can never fit this engine's cache: admitting it would
     write past the slot's rows and corrupt its own stream."""
+
+
+class EngineAuditError(AssertionError):
+    """An allocator or scheduler invariant does not hold (``audit()``)."""
 
 
 @dataclasses.dataclass
@@ -110,6 +137,9 @@ class EngineStats:
     poisoned: int = 0            # requests retired on nonfinite logits
     graph_captures: int = 0      # megastep graphs captured (card only)
     graph_replays: int = 0       # megasteps served by a graph replay
+    prefix_hits: int = 0         # admissions that reused cached blocks
+    prefix_hit_tokens: int = 0   # prompt tokens skipped via shared pages
+    blocks_recycled: int = 0     # pool blocks returned to the free list
     decode_wall_s: float = 0.0   # wall time in step()
 
 
@@ -152,7 +182,9 @@ class ServingEngine:
                  megastep_k: Optional[int] = None,
                  quant_policy: Optional[str] = None,
                  kv_quant: Optional[str] = None,
-                 admission: str = "chunked"):
+                 admission: str = "chunked",
+                 page_size: int = 0, cache_blocks: int = 0,
+                 prefix_cache: bool = False):
         if admission not in ADMISSIONS:
             raise ValueError(f"admission must be 'chunked' or 'stall' "
                              f"(got {admission!r})")
@@ -191,14 +223,47 @@ class ServingEngine:
         # megastep_k keeps a prefilling slot fed for a whole megastep
         self.prefill_chunk = max(self.megastep_k, 16)
         self.queue: Deque[Request] = collections.deque()
+        self.audit_every_step = False     # audit() after every step()
+        if int(page_size) < 0:
+            raise ValueError(f"page_size must be >= 0 (got {page_size})")
+        self.page_size = model.paging_effective(max_len, int(page_size))
+        self.paged = bool(self.page_size)
+        if self.paged and max_len % self.page_size:
+            raise ValueError(
+                f"page_size {self.page_size} must divide the cache length "
+                f"{max_len} so the gathered paged view stays "
+                "shape-identical to the dense cache")
+        self.max_pages = max_len // self.page_size if self.paged else 0
+        if self.paged:
+            self.cache_blocks = (int(cache_blocks) if cache_blocks
+                                 else slots * self.max_pages + 1)
+            if self.cache_blocks < 2:
+                raise ValueError(
+                    f"cache_blocks must be >= 2 (got {cache_blocks}): "
+                    "block 0 is the reserved garbage block")
+        else:
+            self.cache_blocks = 0
+        # prefix reuse needs chunked admission: only then are a prompt's
+        # pages written by the decode step that every admission of that
+        # prompt runs, so shared pages hold what the slot would write
+        self.prefix_cache = bool(prefix_cache and self.paged
+                                 and admission == "chunked")
+        if prefix_cache and not self.prefix_cache:
+            warnings.warn("prefix_cache requires a paged cache and chunked "
+                          "admission; disabled for this engine",
+                          RuntimeWarning, stacklevel=2)
         # device state, allocated once: reset() zeroes it in place
         dev = self.device
         on_card = dev.type == "cuda"
         n, k = slots, self.megastep_k
         self.generator = torch.Generator(device=dev)
-        self.cache = model.init_cache(slots, max_len)
+        self.cache = model.init_cache(slots, max_len, self.page_size,
+                                      self.cache_blocks)
         self.state = _init_slot_state(slots, self.prefill_chunk, dev)
-        size = len(ADMIT_ROWS) * n + n * self.prefill_chunk
+        self._admit_rows = ADMIT_ROWS + (ADMIT_PAGED_ROWS if self.paged
+                                         else ())
+        size = (len(self._admit_rows) * n + n * self.prefill_chunk
+                + n * self.max_pages)
         self._admit_host = torch.zeros((size,), dtype=torch.int32,
                                        pin_memory=on_card)
         self._admit_dev = torch.zeros((size,), dtype=torch.int32, device=dev)
@@ -213,14 +278,30 @@ class ServingEngine:
         self.reset()
 
     def reset(self) -> None:
-        """Drop all requests and zero the device state in place (cache,
-        lens, slot state; the sampling generator reseeded), so that the
-        captured graphs, which hold these addresses, stay valid."""
+        """Drop all requests and zero the device state in place (cache or
+        pools, lens, block table, slot state; the sampling generator
+        reseeded), so that the captured graphs, which hold these
+        addresses, stay valid. The block allocator starts empty."""
         self.generator.manual_seed(self.seed)
         for layer in self.cache["layers"]:
             for leaf in layer.values():
                 leaf.zero_()
         self.cache["lens"].zero_()
+        if self.paged:
+            self.cache["block_table"].zero_()
+        # the block allocator: a free list and refcounts. Block 0 is the
+        # garbage block and never handed out. ``_prefix_reg`` maps a
+        # prompt prefix (its tokens' bytes, whole pages) to the pool
+        # block of its last page, LRU first; the registry holds its own
+        # reference, so a cached page outlives its request.
+        self._free: List[int] = list(range(self.cache_blocks - 1, 0, -1))
+        self._ref = np.zeros((self.cache_blocks,), np.int64)
+        self._slot_blocks: List[List[int]] = [[] for _ in range(self.slots)]
+        self._slot_reg_done: List[bool] = [False] * self.slots
+        self._prefix_reg: "collections.OrderedDict[bytes, int]" = \
+            collections.OrderedDict()
+        # blocks withheld from the allocator: an owner class of their own
+        self._quarantined: List[int] = []
         fresh = _init_slot_state(self.slots, self.prefill_chunk, self.device)
         for f in dataclasses.fields(SlotState):
             getattr(self.state, f.name).copy_(getattr(fresh, f.name))
@@ -233,11 +314,200 @@ class ServingEngine:
         self.queue.clear()
         self.stats = EngineStats()
 
+    def cache_nbytes(self) -> int:
+        """Device bytes of the live cache: every layer's leaves (pools
+        when paged), ``lens`` and the block table."""
+        leaves = [self.cache["lens"]] + [
+            t for layer in self.cache["layers"] for t in layer.values()]
+        if self.paged:
+            leaves.append(self.cache["block_table"])
+        return sum(t.numel() * t.element_size() for t in leaves)
+
+    # -- block allocator (paged cache) ---------------------------------------
+    @property
+    def blocks_in_use(self) -> int:
+        """Pool blocks currently referenced (block 0 excluded)."""
+        if not self.paged:
+            return 0
+        return self.cache_blocks - 1 - len(self._free)
+
+    def _decref(self, blk: int) -> None:
+        self._ref[blk] -= 1
+        assert self._ref[blk] >= 0, f"block {blk} refcount underflow"
+        if self._ref[blk] == 0:
+            self._free.append(blk)
+            self.stats.blocks_recycled += 1
+
+    def _release_slot_blocks(self, s: int) -> None:
+        """Drop a finished slot's references. Blocks the prefix registry
+        (or another slot) still references survive: only a refcount that
+        reaches zero recycles a block."""
+        for blk in self._slot_blocks[s]:
+            self._decref(blk)
+        self._slot_blocks[s] = []
+        self._slot_reg_done[s] = False
+
+    def _reserve_blocks(self, n: int) -> bool:
+        """Ensure ``n`` free blocks, evicting LRU prefix-registry entries
+        if needed (an evicted page that a slot still references is only
+        unhooked from the registry, not recycled)."""
+        while len(self._free) < n and self._prefix_reg:
+            _, blk = self._prefix_reg.popitem(last=False)
+            self._decref(blk)
+        return len(self._free) >= n
+
+    def _admit_paged(self, s: int, req: Request) -> Optional[int]:
+        """Allocate slot s's blocks for ``req``. Returns the position its
+        admission starts at (> 0 on a prefix hit: that many prompt tokens
+        are already cached in shared pages), or None when the pool cannot
+        supply the blocks even after registry eviction (the caller puts
+        the request back at the head of the queue)."""
+        P = self.page_size
+        prompt = np.asarray(req.prompt, np.int32)
+        need = min(len(prompt) + req.max_new_tokens, self.max_len)
+        n_pages = -(-need // P)
+        # a request that outgrows the cache wraps its ring cursor back
+        # over its own first pages, which must then be its own: it
+        # neither shares nor registers
+        wraps = len(prompt) + req.max_new_tokens > self.max_len
+        shared = []
+        if self.prefix_cache and not wraps:
+            # the longest cached prefix, capped so that at least one
+            # prompt token is left to feed (the slot emits its first
+            # token in the substep that feeds its last prompt token)
+            for i in range((len(prompt) - 1) // P):
+                key = prompt[:(i + 1) * P].tobytes()
+                blk = self._prefix_reg.get(key)
+                if blk is None:
+                    break
+                shared.append((key, blk))
+        # the shared blocks are pinned before any eviction, so that
+        # evicting their registry entries cannot recycle them
+        for _, blk in shared:
+            self._ref[blk] += 1
+        if not self._reserve_blocks(n_pages - len(shared)):
+            for _, blk in shared:
+                self._decref(blk)
+            return None
+        blocks = []
+        for key, blk in shared:
+            if key in self._prefix_reg:
+                self._prefix_reg.move_to_end(key)
+            blocks.append(blk)
+        for _ in range(n_pages - len(shared)):
+            blk = self._free.pop()
+            self._ref[blk] = 1
+            blocks.append(blk)
+        self._slot_blocks[s] = blocks
+        self._slot_reg_done[s] = wraps or not self.prefix_cache
+        start = len(shared) * P
+        if start:
+            self.stats.prefix_hits += 1
+            self.stats.prefix_hit_tokens += start
+        return start
+
+    def _register_prefix(self, s: int, prompt: np.ndarray) -> None:
+        """Publish slot s's whole prompt pages to the prefix registry, once
+        its drained prompt cursor has passed the prompt (the pages'
+        contents then exist on the device). Decode writes land at
+        positions past the prompt, so published pages are never written
+        again: copy-on-write without a copy."""
+        self._slot_reg_done[s] = True
+        P = self.page_size
+        blocks = self._slot_blocks[s]
+        for i in range(len(prompt) // P):
+            key = prompt[:(i + 1) * P].tobytes()
+            if key in self._prefix_reg:
+                self._prefix_reg.move_to_end(key)
+                continue
+            self._ref[blocks[i]] += 1       # the registry's reference
+            self._prefix_reg[key] = blocks[i]
+
+    def _slot_table_row(self, s: int) -> np.ndarray:
+        row = np.zeros((self.max_pages,), np.int32)
+        blocks = self._slot_blocks[s]
+        row[:len(blocks)] = blocks
+        return row
+
+    def quarantine_blocks(self, n: int) -> int:
+        """Withhold up to ``n`` free blocks from the allocator (returns how
+        many were taken): admissions cannot use them, ``audit()``
+        accounts for them as an owner class of their own, and
+        ``release_quarantined`` returns them."""
+        if not self.paged:
+            return 0
+        n = min(int(n), len(self._free))
+        for _ in range(n):
+            self._quarantined.append(self._free.pop())
+        return n
+
+    def release_quarantined(self, n: Optional[int] = None) -> int:
+        """Return up to ``n`` quarantined blocks (all when None) to the
+        free list; returns how many were released."""
+        k = len(self._quarantined) if n is None else \
+            min(int(n), len(self._quarantined))
+        for _ in range(k):
+            self._free.append(self._quarantined.pop())
+        return k
+
+    def audit(self) -> None:
+        """Check the invariants between steps (raises
+        ``EngineAuditError``): no request is both active and done or
+        queued; the free list, the quarantine and the referenced blocks
+        partition the pool; every refcount equals the live references to
+        its block (slot tables and the prefix registry); block 0 is never
+        handed out; an empty slot holds no block. Reads host state only."""
+        for s, r in enumerate(self.active):
+            if r is None:
+                continue
+            if r.done:
+                raise EngineAuditError(
+                    f"slot {s}: active request {r.uid} is already done")
+            if any(q is r for q in self.queue):
+                raise EngineAuditError(
+                    f"request {r.uid} is both active (slot {s}) and queued")
+        if not self.paged:
+            return
+        refs = np.zeros((self.cache_blocks,), np.int64)
+        for s, blocks in enumerate(self._slot_blocks):
+            if blocks and self.active[s] is None:
+                raise EngineAuditError(
+                    f"slot {s}: empty slot still holds blocks {blocks}")
+            for b in blocks:
+                if not 1 <= b < self.cache_blocks:
+                    raise EngineAuditError(
+                        f"slot {s}: table maps block {b} (0 is the "
+                        "reserved garbage block)")
+                refs[b] += 1
+        for b in self._prefix_reg.values():
+            refs[b] += 1
+        free, quar = set(self._free), set(self._quarantined)
+        if len(free) != len(self._free):
+            raise EngineAuditError("duplicate block in the free list")
+        if len(quar) != len(self._quarantined):
+            raise EngineAuditError("duplicate block in quarantine")
+        if 0 in free or 0 in quar or refs[0] or self._ref[0]:
+            raise EngineAuditError("block 0 escaped the garbage role")
+        for b in range(1, self.cache_blocks):
+            if self._ref[b] != refs[b]:
+                raise EngineAuditError(
+                    f"block {b}: refcount {int(self._ref[b])} != "
+                    f"{int(refs[b])} live references")
+            owners = (b in free) + (b in quar) + bool(refs[b] > 0)
+            if owners != 1:
+                raise EngineAuditError(
+                    f"block {b}: {owners} owners (free={b in free}, "
+                    f"quarantined={b in quar}, refs={int(refs[b])})")
+
     # -- public API --------------------------------------------------------
     def submit(self, req: Request) -> None:
         """Queue a request. An empty prompt or a negative budget is
         rejected, a zero budget completes at once with no output, and a
-        prompt longer than the cache raises ``PromptTooLong``."""
+        request that can never fit the cache raises ``PromptTooLong``: a
+        prompt longer than a dense cache (or than the scratch cache of a
+        paged engine's stall prefill), or more pages than a paged pool
+        holds (a chunked prompt longer than the cache rings over its own
+        pages)."""
         prompt_len = len(np.asarray(req.prompt))
         if prompt_len == 0:
             raise ValueError(
@@ -249,7 +519,16 @@ class ServingEngine:
         if req.max_new_tokens == 0:
             req.done = True
             return
-        if prompt_len > self.max_len:
+        if self.paged:
+            need = min(prompt_len + req.max_new_tokens, self.max_len)
+            pages = -(-need // self.page_size)
+            if pages > self.cache_blocks - 1:
+                raise PromptTooLong(
+                    f"request {req.uid}: needs {pages} cache pages but the "
+                    f"pool holds {self.cache_blocks - 1}: it can never be "
+                    "admitted (raise cache_blocks or shrink the request)")
+        if prompt_len > self.max_len and (not self.paged
+                                          or self.admission == "stall"):
             raise PromptTooLong(
                 f"request {req.uid}: prompt of {prompt_len} tokens exceeds "
                 f"the cache capacity {self.max_len}")
@@ -268,6 +547,8 @@ class ServingEngine:
             block = self._megastep()
             self._drain(block, occupants)
         self.stats.decode_wall_s += time.perf_counter() - t0
+        if self.audit_every_step:
+            self.audit()
         return sum(r is not None for r in self.active)
 
     def run(self, max_steps: int = 10000) -> None:
@@ -287,12 +568,15 @@ class ServingEngine:
 
     def _admit_fields(self, buf: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Views of the packed admission buffer ``buf``, by field."""
-        n, rows = self.slots, len(ADMIT_ROWS)
+        n, rows = self.slots, len(self._admit_rows)
         head = buf[:rows * n].view(rows, n)
-        fields = {name: head[i] for i, name in enumerate(ADMIT_ROWS)}
+        fields = {name: head[i] for i, name in enumerate(self._admit_rows)}
         for name in ADMIT_F32_ROWS:
             fields[name] = fields[name].view(torch.float32)
-        fields["tokens"] = buf[rows * n:].view(n, self.prefill_chunk)
+        at = rows * n + n * self.prefill_chunk
+        fields["tokens"] = buf[rows * n:at].view(n, self.prefill_chunk)
+        if self.paged:
+            fields["block_table"] = buf[at:].view(n, self.max_pages)
         return fields
 
     def _empty_admit(self) -> Dict[str, np.ndarray]:
@@ -317,22 +601,44 @@ class ServingEngine:
         capped at ``max_len`` (``submit`` rejects longer prompts)."""
         return min(max(8, 1 << (prompt_len - 1).bit_length()), self.max_len)
 
+    def _take_free(self) -> List:
+        """Pair free slots with queued requests, in order. A paged
+        engine allocates each one's blocks; a request the pool cannot
+        serve goes back to the head of the queue with every request
+        behind it (FIFO blocking: a later request must not jump an
+        admission-starved head)."""
+        free = [s for s in range(self.slots) if self.active[s] is None]
+        taken, putback = [], []
+        while free and self.queue:
+            s, req = free.pop(0), self.queue.popleft()
+            if self.paged:
+                start = None if putback else self._admit_paged(s, req)
+                if start is None:
+                    putback.append(req)
+                    continue
+            else:
+                start = 0
+            taken.append((s, req, start))
+        self.queue.extendleft(reversed(putback))
+        return taken
+
     def _fill_slots_stall(self) -> None:
         """Stall admission: length-bucketed prefill calls into the free
         slots, run between megasteps while decoding slots wait."""
-        free = [s for s in range(self.slots) if self.active[s] is None]
         buckets: Dict[int, List] = {}
-        while free and self.queue:
-            req = self.queue.popleft()
+        for s, req, _ in self._take_free():
             p = np.asarray(req.prompt, np.int32)
             buckets.setdefault(self._bucket_len(len(p)), []).append(
-                (free.pop(0), req, p))
+                (s, req, p))
         for blen, group in buckets.items():
             n = len(group)
             toks = np.full((n, blen), PAD_ID, np.int32)
             for i, (_, _, p) in enumerate(group):
                 toks[i, :len(p)] = p
             smp = [self._req_sampling(r) for _, r, _ in group]
+            table_rows = (np.stack([self._slot_table_row(s)
+                                    for s, _, _ in group])
+                          if self.paged else None)
             first = self._prefill_impl(
                 toks, np.asarray([len(p) for _, _, p in group], np.int32),
                 np.asarray([s for s, _, _ in group], np.int64),
@@ -340,7 +646,7 @@ class ServingEngine:
                 np.asarray([r.eos_id for _, r, _ in group], np.int32),
                 np.asarray([v[0] for v in smp], np.float32),
                 np.asarray([v[1] for v in smp], np.int32),
-                np.asarray([v[2] for v in smp], np.float32))
+                np.asarray([v[2] for v in smp], np.float32), table_rows)
             self.stats.prefill_batches += 1
             for i, (s, req, p) in enumerate(group):
                 tok = int(first[i])
@@ -350,6 +656,8 @@ class ServingEngine:
                 self._prefill_pos[s] = len(p)
                 if tok == req.eos_id or len(req.output) >= req.max_new_tokens:
                     req.done = True       # the first token already ends it
+                    if self.paged:
+                        self._release_slot_blocks(s)
                     continue
                 self.active[s] = req
                 self._slot_prompt[s] = p
@@ -359,11 +667,15 @@ class ServingEngine:
     def _prefill_impl(self, tokens: np.ndarray, seq_lens: np.ndarray,
                       slot_idx: np.ndarray, max_new: np.ndarray,
                       eos_id: np.ndarray, temp: np.ndarray,
-                      top_k: np.ndarray, top_p: np.ndarray) -> np.ndarray:
+                      top_k: np.ndarray, top_p: np.ndarray,
+                      table_rows: Optional[np.ndarray] = None
+                      ) -> np.ndarray:
         """Prefill one length bucket (n, S) into a scratch cache, copy
-        its rows into the live cache at ``slot_idx`` (n,), sample the
-        first tokens and set the slots' state for decoding. Returns the
-        first tokens on the host (the call's one sync)."""
+        its rows into the live cache at ``slot_idx`` (n,) (a paged
+        engine scatters its pages into the blocks ``table_rows``
+        (n, max_pages) name: ``_paged_splice``), sample the first tokens
+        and set the slots' state for decoding. Returns the first tokens
+        on the host (the call's one sync)."""
         dev = self.device
         n = tokens.shape[0]
         lens = torch.as_tensor(seq_lens, device=dev)
@@ -372,9 +684,14 @@ class ServingEngine:
         logits = self.model.prefill(
             self.params, torch.as_tensor(tokens, device=dev).long(), one,
             seq_lens=lens)
-        for live, scratch in zip(self.cache["layers"], one["layers"]):
-            for name, leaf in live.items():
-                leaf.index_copy_(0, idx, scratch[name])
+        if self.paged:
+            self._paged_splice(one, seq_lens, table_rows)
+            self.cache["block_table"].index_copy_(
+                0, idx, torch.as_tensor(table_rows, device=dev))
+        else:
+            for live, scratch in zip(self.cache["layers"], one["layers"]):
+                for name, leaf in live.items():
+                    leaf.index_copy_(0, idx, scratch[name])
         self.cache["lens"].index_copy_(0, idx, one["lens"])
         st = self.state
         t_temp = torch.as_tensor(temp, device=dev)
@@ -400,6 +717,33 @@ class ServingEngine:
             t.index_copy_(0, idx, val.to(t.dtype))
         return first.cpu().numpy()
 
+    def _paged_splice(self, one: Dict, seq_lens: np.ndarray,
+                      table_rows: np.ndarray) -> None:
+        """Scatter a dense scratch cache's rows into the pools, page by
+        page: page j of scratch row i goes to block ``table_rows[i, j]``.
+        Only the pages that hold a prompt's positions are written, all
+        of them the slot's own blocks (a page past them would name the
+        garbage block, and two rows landing on one block in one scatter
+        would race); the padding's junk inside the last page lies past
+        ``lens``, where decode overwrites it before reading it."""
+        P = self.page_size
+        src_row, src_page, dst = [], [], []
+        for i, n in enumerate(seq_lens):
+            for j in range(-(-int(n) // P)):
+                src_row.append(i)
+                src_page.append(j)
+                dst.append(int(table_rows[i, j]))
+        dev = self.device
+        src_row = torch.as_tensor(src_row, device=dev)
+        src_page = torch.as_tensor(src_page, device=dev)
+        dst = torch.as_tensor(dst, device=dev)
+        for live, scratch in zip(self.cache["layers"], one["layers"]):
+            for name, pool in live.items():
+                rows = scratch[name]               # (n, Hkv, S, d)
+                n, Hkv, S, d = rows.shape
+                pages = rows.view(n, Hkv, S // P, P, d)[src_row, :, src_page]
+                pool.index_copy_(0, dst, pages)
+
     def _fill_slots_chunked(self) -> None:
         """Host side of admission: the next prompt chunk for slots still
         prefilling, first chunk and metadata for queued requests taken
@@ -418,13 +762,14 @@ class ServingEngine:
             admit["tokens"][s, :len(seg)] = seg
             if pos > 0:
                 self.stats.chunk_refills += 1
-        for s in range(self.slots):
-            if self.active[s] is not None or not self.queue:
-                continue
-            req = self.queue.popleft()
+        for s, req, start in self._take_free():
             prompt = np.asarray(req.prompt, np.int32)
+            if self.paged:
+                admit["start_pos"][s] = start
+                admit["block_table"][s] = self._slot_table_row(s)
             admit["new"][s] = True
-            seg = prompt[:chunk]
+            admit["base"][s] = start
+            seg = prompt[start:start + chunk]
             admit["tokens"][s, :len(seg)] = seg
             admit["prompt_len"][s] = len(prompt)
             admit["max_new"][s] = req.max_new_tokens
@@ -435,7 +780,7 @@ class ServingEngine:
             admit["top_p"][s] = topp
             self.active[s] = req
             self._slot_prompt[s] = prompt
-            self._prefill_pos[s] = 0
+            self._prefill_pos[s] = start
             if temp > 0.0:
                 self._stochastic_slots.add(s)
             self.stats.prefills += 1
@@ -445,16 +790,27 @@ class ServingEngine:
         state by masked updates, inside the megastep's program as in the
         JAX package: fresh slots get their cache rows and ``lens`` zeroed
         and their slot state rebuilt; chunk refills only swap the prompt
-        window."""
+        window. Under paging a fresh slot's ``lens`` and prompt cursor
+        start at its cached-prefix length and its table row is mapped in;
+        the pools are not zeroed (junk past ``lens`` is never read)."""
         a = self._admit
         new = a["new"] != 0
         upd = new | (a["refill"] != 0)
-        rows = new[:, None, None, None]
-        for layer in self.cache["layers"]:
-            for leaf in layer.values():
-                leaf.masked_fill_(rows, 0)
-        self.cache["lens"].masked_fill_(new, 0)
         st = self.state
+        lens = self.cache["lens"]
+        if self.paged:
+            table = self.cache["block_table"]
+            table.copy_(torch.where(new[:, None], a["block_table"], table))
+            lens.copy_(torch.where(new, a["start_pos"], lens))
+            st.prefill_pos.copy_(torch.where(new, a["start_pos"],
+                                             st.prefill_pos))
+        else:
+            rows = new[:, None, None, None]
+            for layer in self.cache["layers"]:
+                for leaf in layer.values():
+                    leaf.masked_fill_(rows, 0)
+            lens.masked_fill_(new, 0)
+            st.prefill_pos.masked_fill_(new, 0)
         for field, key in (("max_new", "max_new"), ("eos_id", "eos"),
                            ("prompt_len", "prompt_len"),
                            ("temperature", "temp"), ("top_k", "top_k"),
@@ -462,7 +818,7 @@ class ServingEngine:
             t = getattr(st, field)
             t.copy_(torch.where(new, a[key], t))
         for field, val in (("last_token", 0), ("gen_len", 0),
-                           ("prefill_pos", 0), ("phase", PHASE_PREFILL)):
+                           ("phase", PHASE_PREFILL)):
             getattr(st, field).masked_fill_(new, val)
         st.chunk_base.copy_(torch.where(upd, a["base"], st.chunk_base))
         st.prompt_buf.copy_(torch.where(upd[:, None], a["tokens"],
@@ -582,6 +938,12 @@ class ServingEngine:
         for s in range(self.slots):
             if occupants[s] is not None and not bad[s]:
                 self._prefill_pos[s] = int(last_pos[s])
+                # the prompt is consumed, so its pages exist on the
+                # device: publish them (a nonfinite slot publishes none)
+                prompt = self._slot_prompt[s]
+                if (self.prefix_cache and not self._slot_reg_done[s]
+                        and self._prefill_pos[s] >= len(prompt)):
+                    self._register_prefix(s, prompt)
         for k in range(toks.shape[0]):
             for s in range(self.slots):
                 req = occupants[s]
@@ -605,6 +967,8 @@ class ServingEngine:
         self.active[s] = None
         self._stochastic_slots.discard(s)
         self._slot_prompt[s] = None
+        if self.paged:
+            self._release_slot_blocks(s)
 
 
 def _quantized_formats(params) -> set:

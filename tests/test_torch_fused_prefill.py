@@ -333,9 +333,9 @@ def test_decode_step_folds_every_residual_add_and_takes_kv_len_once(
     seen = []
     decode = attn.attention_decode
 
-    def spy(p, cfg, x, c, lens, kv_len, advance=None):
+    def spy(p, cfg, x, c, lens, kv_len, *rest):
         seen.append(kv_len)
-        return decode(p, cfg, x, c, lens, kv_len, advance)
+        return decode(p, cfg, x, c, lens, kv_len, *rest)
 
     monkeypatch.setattr(attn, "attention_decode", spy)
     model.decode_step(params, torch.ones((2, 1), dtype=torch.long), cache)

@@ -194,3 +194,70 @@ def test_in_program_merge_gives_the_jax_streams(pair, monkeypatch, case):
     if case == "nonfinite":
         assert treqs[1].error == "nonfinite-logits"
         assert teng.stats.poisoned == 1
+
+
+def _paged_engine(small, kv, admission, stochastic):
+    return _engine(small, kv, admission, stochastic, page_size=8,
+                   prefix_cache=admission == "chunked")
+
+
+@pytest.mark.parametrize("kv", ["bf16", "q8_0", "q4_0"])
+@pytest.mark.parametrize("admission", ["chunked", "stall"])
+def test_paged_megastep_body_reads_nothing_back(small, monkeypatch, kv,
+                                                admission):
+    """Under paging the body (the admission merge with its start
+    positions and table rows, and K substeps through the block table)
+    reads nothing back either, and a prefix hit is merged in it."""
+    eng = _paged_engine(small, kv, admission, False)
+    shared = np.arange(1, 18, dtype=np.int32)
+    prompts = [np.concatenate([shared, p]) for p in _prompts(5)]
+    eng.submit(Request(uid=0, prompt=prompts[0], max_new_tokens=2))
+    eng.run()                        # registers its pages (chunked)
+    for i, p in enumerate(prompts[1:], 1):
+        eng.submit(Request(uid=i, prompt=p, max_new_tokens=6))
+    eng._fill_slots()
+    eng._admit_dev.copy_(eng._admit_host)
+    if admission == "chunked":
+        assert eng.stats.prefix_hits == eng.slots
+        assert (eng._admit["start_pos"] == 16).all()
+    table = eng.cache["block_table"].clone()
+
+    def refuse(*a, **k):
+        raise AssertionError("host read inside the megastep body")
+    with monkeypatch.context() as m:
+        for name in HOST_READS:
+            m.setattr(torch.Tensor, name, refuse)
+        m.setattr(torch, "nonzero", refuse)
+        eng._megastep_body(True, eng.generator)
+    if admission == "chunked":      # the hits' tails are still feeding
+        assert not torch.equal(table, eng.cache["block_table"])
+        assert (eng.cache["lens"] == 16 + eng.megastep_k).all()
+    else:
+        assert any(int(v) for v in eng._block[1].flatten())
+
+
+@pytest.mark.parametrize("kv", ["bf16", "q4_0"])
+def test_paged_reset_keeps_the_pool_and_table_addresses(small, kv):
+    eng = _paged_engine(small, kv, "chunked", True)
+    bufs = dict(_device_state(eng), table=eng.cache["block_table"],
+                admit_dev=eng._admit_dev, admit_host=eng._admit_host)
+    ptrs = {n: t.data_ptr() for n, t in bufs.items()}
+    first = [Request(uid=i, prompt=p, max_new_tokens=5)
+             for i, p in enumerate(_prompts(4))]
+    for r in first:
+        eng.submit(r)
+    eng.run()
+    assert eng.cache["block_table"].any() and eng.stats.blocks_recycled
+    eng.reset()
+    now = dict(_device_state(eng), table=eng.cache["block_table"],
+               admit_dev=eng._admit_dev, admit_host=eng._admit_host)
+    assert {n: t.data_ptr() for n, t in now.items()} == ptrs
+    assert not eng.cache["block_table"].any()
+    assert eng.blocks_in_use == 0 and not eng._prefix_reg
+    assert eng.stats.blocks_recycled == 0
+    again = [Request(uid=i, prompt=p, max_new_tokens=5)
+             for i, p in enumerate(_prompts(4))]
+    for r in again:
+        eng.submit(r)
+    eng.run()
+    assert [r.output for r in again] == [r.output for r in first]

@@ -97,3 +97,27 @@ def test_chip_smoke_refuses_without_a_card(tmp_path, alone):
                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_serve_cli_paged_with_prefix_cache_on_cpu(capsys):
+    """``--page-size 8 --prefix-cache``: every prompt opens with the same
+    17 tokens, so every request after the first two (admitted together)
+    hits two cached pages; streams equal the reference, the audit holds
+    after every step, and the pool holds only the registry's blocks
+    after."""
+    res = serve.main(["--device", "cpu", "--requests", "5", "--max-new",
+                      "6", "--slots", "2", "--megastep-k", "4",
+                      "--precision", "q8_0", "--kv-quant", "q8_0",
+                      "--temperature", "0", "--max-len", "48",
+                      "--page-size", "8", "--prefix-cache", "--audit"])
+    out = capsys.readouterr().out
+    assert "prefix_hits=" in out and "blocks_in_use=" in out
+    eng = res.engine
+    assert eng.paged and eng.prefix_cache and eng.audit_every_step
+    assert eng.stats.prefix_hits >= 3
+    assert eng.stats.prefix_hit_tokens == 16 * eng.stats.prefix_hits
+    assert eng.blocks_in_use == len(eng._prefix_reg)
+    for r in res.requests:
+        assert r.done and len(r.output) == 6 and len(r.prompt) > 17
+        assert r.output == eng.model.reference_decode(
+            eng.params, r.prompt, 6, max_len=48)
