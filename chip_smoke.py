@@ -44,14 +44,27 @@ Phases (any failed check raises and the process exits nonzero):
    catch); then serves the same requests again under the profiler for
    the device's idle share, from a trace that holds exactly the
    expected events;
-5. prefill path: the same model at full width and depth with stall
+5. serving under load: the main path again through ``launch.serve
+   --pipeline-depth 2`` (streams equal to depth 1's, the same launch
+   counts, no stream-wide or device-wide synchronize inside a served
+   step; depth 1 and 2 timed in turns; a profiled depth-2 run for the
+   device's idle share); cancel on the paged prefix-cache engine at depth
+   2 (one request while it prefills, one while it decodes: prefixes of
+   their reference streams, shared pages live, survivors unchanged);
+   the asyncio front-end (streams, a deadline, ``Backpressure`` at
+   ``max_queue`` 2); seeded fault schedules on 4 layers (dense and
+   paged, depth 1 and 2, one leg over a q8_0 cache: survivors equal
+   ``reference_decode``, poisoned requests clean prefixes, the pool
+   recovered); preemption with resume under chunked and stall admission
+   on a 4-block pool, with ``QueueFull`` and ``InfeasibleDeadline``;
+6. prefill path: the same model at full width and depth with stall
    admission, 8 requests with prompts of 270-900 tokens (buckets of 512
    and 1024 positions); checks launch counts, the streams against
    ``reference_decode(stepwise_prefill=False)``, and one fused prefill
    of the first bucket through the kernels against the plain versions
    (beside a planted lookahead fault); times each prefill and profiles
    them for the device's idle share;
-6. paged path: the same model at full width and depth, q8_0 weights, a
+7. paged path: the same model at full width and depth, q8_0 weights, a
    bf16 cache paged in blocks of 16 positions, chunked admission with
    the prefix cache: a request with a 256-token system prompt served
    alone (its pages registered), then 5 that share the system prompt and
@@ -62,7 +75,7 @@ Phases (any failed check raises and the process exits nonzero):
    the blocks in use once drained, one decode step against the plain
    versions; times steps and the wall to the first token of the miss and
    the hits, and profiles a replay for the device's idle share;
-7. second path: full width, 4 layers, q4_0 weights with a q8_0 and then
+8. second path: full width, 4 layers, q4_0 weights with a q8_0 and then
    a q4_0 cache (the q4 GEMV and both quantized attention loaders), then
    both caches again under stall admission, with the same
    launch-count and decode-step checks; the same four legs through a
@@ -74,7 +87,7 @@ Phases (any failed check raises and the process exits nonzero):
    (temperature 0.8) through the sampling graph: greedy rows exact,
    sampled tokens inside their top-k / top-p filters, the same tokens
    from two runs with one seed;
-8. one ``{"kernels": [...]}`` line, the card line, and the last line
+9. one ``{"kernels": [...]}`` line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits nonzero without printing a result when CUDA is unavailable, or
@@ -82,6 +95,7 @@ when run outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import dataclasses
 import json
@@ -127,17 +141,21 @@ def card_line() -> str:
     return out[0]
 
 
-# A trace window opens and closes on a spin kernel (``torch.cuda._sleep``)
-# whose events are left out: on the H100 a window now and then lost the
-# two events at one of its edges (the first or the last copy of a
-# megastep), in every trace of one run.
-PAD_CYCLES = 200_000
+# A trace window opens and closes on spin kernels (``torch.cuda._sleep``)
+# whose events are left out: on the H100 a window now and then loses the
+# first or the last two events it holds, in every trace of one run (the
+# first or the last copy of a megastep went with a spin; late in some
+# runs every trace lost its first host-to-device copy). So each edge is
+# four spins, which any such loss takes first.
+PAD_CYCLES = 500_000
+PAD_SPINS = 4
 
 
 def pad_window() -> None:
-    """The spin kernel at a trace window's edge, run to its end."""
+    """The spin kernels at a trace window's edge, run to their end."""
     import torch
-    torch.cuda._sleep(PAD_CYCLES)
+    for _ in range(PAD_SPINS):
+        torch.cuda._sleep(PAD_CYCLES)
     torch.cuda.synchronize()
 
 
@@ -272,7 +290,11 @@ def profile_served(engine, make_requests, prelude=None):
     leave out: a long trace loses events now and then). Every
     megastep is the same program (one copy in, one graph replay, one
     copy out), so the trace must hold exactly that many CUDA events a
-    megastep: ``events_per_call`` of one megastep. A trace
+    dispatched megastep (``graph_replays``; at pipeline depth 2 a step
+    may dispatch without draining, and the run ends with a step that
+    only drains): ``events_per_call`` over traces of four dispatching
+    steps, rounded up (in one H100 run every depth-2 trace of that
+    run's late phase lost one event). A trace
     that holds another count (the profiler now and then drops events,
     which would read too low) is taken again, up to five times, and
     then fails the run. The device's idle share is 1 - the events'
@@ -288,10 +310,22 @@ def profile_served(engine, make_requests, prelude=None):
             prelude(engine)
             engine.stats = type(engine.stats)()
 
+    def dispatch():
+        """One step that dispatches exactly one megastep (at depth 2 a
+        step may also drain the one before, which adds no CUDA event),
+        with the requests submitted again once the engine runs dry."""
+        if not engine.queue and all(r is None for r in engine.active):
+            for r in make_requests():
+                engine.submit(r)
+        replays = engine.stats.graph_replays
+        engine.step()
+        check(engine.stats.graph_replays == replays + 1,
+              "a profiled step dispatched no megastep")
+
     start()
     for r in make_requests():
         engine.submit(r)
-    per_megastep = events_per_call(engine.step, [()], "a megastep")
+    per_megastep = events_per_call(dispatch, [()], "a megastep", calls=4)
     for attempt in range(1, 6):
         start()
         requests = make_requests()
@@ -303,12 +337,24 @@ def profile_served(engine, make_requests, prelude=None):
             torch.cuda.synchronize()
             pad_window()
         events = window_events(prof)
-        want = per_megastep * engine.stats.megasteps
+        want = per_megastep * engine.stats.graph_replays
         print(f"  profile attempt {attempt}: {len(events)} CUDA events, "
               f"expected {want} ({per_megastep} a megastep x "
-              f"{engine.stats.megasteps})", flush=True)
+              f"{engine.stats.graph_replays} dispatched)", flush=True)
         if len(events) == want:
             break
+        # every megastep holds the same events, so a name whose count is
+        # not a multiple of the megasteps is what the trace lost (or
+        # gained), and where in the window it sits tells an edge loss
+        by_time = sorted(events, key=lambda e: e.time_range.start)
+        tally = {}
+        for e in events:
+            tally[e.name] = tally.get(e.name, 0) + 1
+        odd = {n[:70]: c for n, c in tally.items()
+               if c % engine.stats.graph_replays}
+        print(f"    names off a multiple of {engine.stats.graph_replays}: "
+              f"{odd}; first {[e.name[:40] for e in by_time[:3]]}, last "
+              f"{[e.name[:40] for e in by_time[-3:]]}", flush=True)
     check(len(events) == want, f"the served run's trace holds {len(events)} "
           f"CUDA events, not {want}, after {attempt} attempts")
     st = engine.stats
@@ -338,6 +384,388 @@ def profile_served(engine, make_requests, prelude=None):
                 device_ms_per_step_by_group=groups,
                 events_per_megastep=per_megastep,
                 profile_attempts=attempt), requests
+
+
+# -- serving under load: the legs of phase 5, on whatever device the engine
+# is on (they take no CUDA-only step of their own) --------------------------
+@contextlib.contextmanager
+def no_stream_sync():
+    """While served steps run, a whole-stream or device-wide synchronize
+    fails the run: a pipelined step may wait on one megastep's event
+    (``torch.cuda.Event.synchronize``), never on the stream, which would
+    wait for the megastep behind it too."""
+    import torch
+
+    def refuse(*a, **kw):
+        fail("a stream-wide or device-wide synchronize inside step()")
+    saved = torch.cuda.synchronize, torch.cuda.Stream.synchronize
+    torch.cuda.synchronize = torch.cuda.Stream.synchronize = refuse
+    try:
+        yield
+    finally:
+        torch.cuda.synchronize, torch.cuda.Stream.synchronize = saved
+
+
+def cancel_leg(eng, Request, system, reference):
+    """Cancel on a paged prefix-cache engine: a request opened by
+    ``system`` served alone registers its pages; then three requests that
+    share it: one cancelled while it is still prefilling (a 200-token
+    tail), one cancelled while it decodes, one that runs to its end;
+    ``audit()`` after every step. The shared blocks stay live through
+    both cancels, the cancelled outputs are prefixes of their reference
+    streams, and the survivors' streams are those of the same traffic
+    served without the cancels. ``reference(prompt, n)`` is the greedy
+    reference stream. Returns the leg's numbers."""
+    import numpy as np
+    rng = np.random.default_rng(8)
+    vocab = eng.cfg.vocab_size
+    tails = [rng.integers(1, vocab, n).astype(np.int32)
+             for n in (12, 200, 8, 16)]
+
+    def traffic():
+        first = Request(uid=0, prompt=np.concatenate([system, tails[0]]),
+                        max_new_tokens=16)
+        rest = [Request(uid=i, prompt=np.concatenate([system, tails[i]]),
+                        max_new_tokens=24) for i in (1, 2, 3)]
+        return first, rest
+
+    def serve(cancels):
+        eng.reset()
+        eng.audit_every_step = True
+        first, rest = traffic()
+        eng.submit(first)
+        eng.run()
+        reg = dict(eng._prefix_reg)
+        check(len(reg) == len(system) // eng.page_size,
+              f"cancel leg: {len(reg)} registered pages")
+        prefilling, decoding, _ = rest
+        for r in rest:
+            eng.submit(r)
+        if cancels:
+            eng.step()
+            check(not prefilling.output and not prefilling.done,
+                  "cancel leg: the long request is no longer prefilling")
+            check(eng.cancel(prefilling), "cancel leg: cancel refused")
+            while not decoding.output:
+                eng.step()
+            check(len(decoding.output) < decoding.max_new_tokens,
+                  "cancel leg: the decoding request already finished")
+            check(eng.cancel(decoding), "cancel leg: cancel refused")
+            eng.audit()
+            check(all(eng._prefix_reg.get(k) == b and eng._ref[b] >= 1
+                      for k, b in reg.items()),
+                  "cancel leg: a shared prefix block was dropped")
+        eng.run()
+        eng.audit_every_step = False
+        check(eng.blocks_in_use == len(eng._prefix_reg) and not eng.has_work(),
+              f"cancel leg: {eng.blocks_in_use} blocks in use once drained")
+        return [first] + rest
+
+    plain = serve(cancels=False)
+    got = serve(cancels=True)
+    st = eng.stats
+    check(st.cancelled == 2 and got[1].cancelled and got[2].cancelled,
+          f"cancel leg: {st.cancelled} cancels")
+    check(got[1].output == [], "cancel leg: the prefilling request emitted")
+    ref = reference(got[2].prompt, got[2].max_new_tokens)
+    check(got[2].output == ref[:len(got[2].output)],
+          "cancel leg: the cancelled decode is not a prefix of "
+          "reference_decode")
+    check(ref == plain[2].output, "cancel leg: the uncancelled run differs "
+          "from reference_decode")
+    for i in (0, 3):
+        check(got[i].output == plain[i].output and got[i].error is None,
+              f"cancel leg: survivor {i} differs from the run without "
+              "cancels")
+    print(f"  cancel leg (paged, prefix cache, depth "
+          f"{eng.pipeline_depth}): one request cancelled while "
+          f"prefilling, one after {len(got[2].output)} tokens (a prefix of "
+          f"reference_decode); shared pages live, audit() held after every "
+          f"step; survivors == the run without cancels; "
+          f"{st.prefix_hits} prefix hits", flush=True)
+    return dict(cancelled=st.cancelled, decoded_before_cancel=len(
+        got[2].output), prefix_hits=st.prefix_hits)
+
+
+def preemption_leg(eng, Request, QueueFull, InfeasibleDeadline, reference):
+    """Preemption and resume on a paged engine whose pool (4 blocks of
+    16) backs one request of 44 positions at a time: a request with a
+    later deadline is preempted by an earlier-deadline arrival and
+    resumes from its prompt and generated tokens, at pipeline depth 1 and
+    2. Under chunked admission the resume feeds those tokens through the
+    decode step, so both streams must equal the requests served alone.
+    Under stall admission it prefills them (``flash_attention``), whose
+    logits are not a decode step's: the victim's tokens before the resume
+    must equal its stream served alone, and those after it
+    ``reference(prompt + tokens so far, n, stepwise_prefill=False)``;
+    where the stream leaves the one served alone is printed. Then, with a
+    measured step, ``QueueFull`` with a retry hint at ``max_queue`` 1 and
+    ``InfeasibleDeadline`` for a deadline below one substep."""
+    import numpy as np
+    rng = np.random.default_rng(9)
+    vocab = eng.cfg.vocab_size
+    prompts = [rng.integers(1, vocab, 20).astype(np.int32) for _ in range(2)]
+
+    def req(i, deadline=None):
+        return Request(uid=i, prompt=prompts[i], max_new_tokens=24,
+                       deadline_s=deadline)
+
+    alone = []
+    for i in (0, 1):
+        eng.reset()
+        eng.pipeline_depth = 1
+        r = req(i)
+        eng.submit(r)
+        eng.run()
+        alone.append(r.output)
+    out = {}
+    stall = eng.admission == "stall"
+    admitted_at = []                    # the victim's tokens at each admission
+    eff_prompt = eng._eff_prompt
+
+    def logged(r):
+        if r.uid == 0:
+            admitted_at.append(len(r.output))
+        return eff_prompt(r)
+    eng._eff_prompt = logged
+    for depth in (1, 2):
+        eng.reset()
+        eng.pipeline_depth = depth
+        eng.audit_every_step = True
+        admitted_at.clear()
+        victim, urgent = req(0, 120.0), req(1, 30.0)
+        eng.submit(victim)
+        while not victim.output:
+            eng.step()
+        eng.submit(urgent)
+        eng.step()
+        check(victim.preemptions >= 1, f"preemption leg ({eng.admission}, "
+              f"depth {depth}): the urgent admission preempted nobody")
+        eng.run()
+        eng.audit_every_step = False
+        label = f"preemption leg ({eng.admission}, depth {depth})"
+        check(urgent.output == alone[1], f"{label}: the urgent stream "
+              "differs from the request served alone")
+        k = max(admitted_at)            # tokens the last resume started from
+        check(0 < k < 24, f"{label}: resumed after {k} tokens")
+        if stall:
+            check(victim.output[:k] == alone[0][:k], f"{label}: the tokens "
+                  "before the resume differ from the request served alone")
+            ref = reference(np.concatenate([prompts[0], np.asarray(
+                victim.output[:k], np.int32)]), 24 - k,
+                stepwise_prefill=False)
+            check(victim.output[k:] == ref, f"{label}: the tokens after the "
+                  "resume differ from reference_decode(stepwise_prefill="
+                  "False) of the prompt and the tokens before it")
+        else:
+            check(victim.output == alone[0], f"{label}: the resumed stream "
+                  "differs from the request served alone")
+        same = next((i for i, (a, b) in enumerate(zip(victim.output,
+                                                      alone[0])) if a != b),
+                    len(alone[0]))
+        check(eng.blocks_in_use == 0, "preemption leg: blocks leaked")
+        out[f"depth{depth}"] = dict(preemptions=eng.stats.preemptions,
+                                    victim_preemptions=victim.preemptions,
+                                    resumed_after=k, equal_to_alone=same)
+    sub = eng.stats.decode_wall_s / eng.stats.steps
+    eng.max_queue = 1
+    try:
+        waiting = req(0)
+        eng.submit(waiting)
+        try:
+            eng.submit(req(1))
+        except QueueFull as e:
+            hint = e.retry_after_s
+        else:
+            fail("preemption leg: max_queue 1 took a second request")
+        check(hint is not None and hint > 0,
+              f"preemption leg: QueueFull hint {hint}")
+        eng.cancel(waiting)
+    finally:
+        eng.max_queue = 0
+    try:
+        eng.submit(req(1, deadline=sub / 2))
+    except InfeasibleDeadline:
+        pass
+    else:
+        fail("preemption leg: a deadline below one substep was admitted")
+    del eng._eff_prompt
+    check(not eng.has_work(), "preemption leg: work left")
+    d1, d2 = out["depth1"], out["depth2"]
+    print(f"  preemption leg ({eng.admission} admission, 4 blocks of "
+          f"{eng.page_size}): the later-deadline request preempted "
+          f"{d1['victim_preemptions']} / {d2['victim_preemptions']} time(s) "
+          f"at depth 1 / 2, resumed after {d1['resumed_after']} / "
+          f"{d2['resumed_after']} tokens; "
+          + ("tokens before the resume == the request served alone, after "
+             "it == reference_decode(stepwise_prefill=False) of the prompt "
+             "and those tokens; equal to the stream served alone for the "
+             f"first {d1['equal_to_alone']} / {d2['equal_to_alone']} of 24"
+             if stall else "streams == each request served alone")
+          + f"; QueueFull retry hint {hint:.4f} s; InfeasibleDeadline "
+          f"below {sub * 1e3:.3f} ms", flush=True)
+    out.update(queue_full_retry_after_s=hint, substep_s=sub)
+    return out
+
+
+def fault_leg(eng, Request, FaultInjector, FaultSchedule, seed, reference):
+    """One seeded storm (``FaultSchedule.seeded``: pool exhaustion,
+    preemption, poisoned logits, host stalls, transient exceptions) on a
+    reset engine at its current depth, ``audit()`` after every step:
+    survivors equal ``reference(prompt, n)``, a poisoned request ends with
+    "nonfinite-logits" and a clean prefix of its reference, and the pool
+    is whole again. Returns the counts it saw."""
+    import numpy as np
+    eng.reset()
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(2, 6))
+    reqs = [Request(uid=i, prompt=rng.integers(
+        1, eng.cfg.vocab_size, size=int(rng.integers(2, 14))).astype(
+            np.int32), max_new_tokens=int(rng.integers(1, 12)))
+        for i in range(n)]
+    sched = FaultSchedule.seeded(seed, n_requests=n, paged=eng.paged)
+    for r in reqs:
+        eng.submit(r)
+    inj = FaultInjector(eng, sched, audit=True, backoff_s=0.0)
+    inj.run(reqs)
+    label = (f"fault leg (seed {seed}, {'paged' if eng.paged else 'dense'}, "
+             f"{eng.kv_quant} cache, depth {eng.pipeline_depth})")
+    check(not eng.has_work() and not eng._quarantined
+          and eng.blocks_in_use == 0, f"{label}: the pool was not recovered")
+    poisoned = 0
+    for r in reqs:
+        ref = reference(r.prompt, r.max_new_tokens)
+        check(r.done, f"{label}: request {r.uid} not done")
+        if r.error is not None:
+            check(r.error == "nonfinite-logits" and
+                  r.output == ref[:len(r.output)],
+                  f"{label}: request {r.uid} failed with {r.error} after "
+                  "tokens off its reference")
+            poisoned += 1
+        else:
+            check(r.output == ref, f"{label}: survivor {r.uid} differs from "
+                  "reference_decode")
+    kinds = sorted({e.kind for e in sched.events})
+    return dict(requests=n, poisoned=poisoned,
+                preemptions=eng.stats.preemptions, retries=inj.retries,
+                kinds=kinds, label=label)
+
+
+def capture_in_flight_leg(eng, Request, reference):
+    """At pipeline depth 2 a sampled request arrives while a greedy replay
+    is in flight, so the sampling graph is first captured then: the
+    capture stream waits for the engine's stream, so the capture's
+    warmup cannot overwrite the block before the replay in flight has
+    copied it out. The greedy stream equals ``reference(prompt, n)``, and
+    the sampled one is the same in a second run with the same seed."""
+    import numpy as np
+    check(False not in eng.graph_launches,
+          "capture leg: the engine already has a sampling graph")
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(1, eng.cfg.vocab_size, 6).astype(np.int32)
+               for _ in range(2)]
+
+    def serve():
+        eng.reset()
+        eng.pipeline_depth = 2
+        greedy = Request(uid=0, prompt=prompts[0], max_new_tokens=16)
+        hot = Request(uid=1, prompt=prompts[1], max_new_tokens=16,
+                      temperature=0.8, top_k=40)
+        eng.submit(greedy)
+        eng.step()
+        eng.step()
+        eng.submit(hot)
+        eng.run()
+        return greedy.output, hot.output
+
+    captured_at = []
+    capture = eng._capture
+
+    def watched(all_greedy):
+        captured_at.append((all_greedy, len(eng._inflight)))
+        return capture(all_greedy)
+    eng._capture = watched
+    try:
+        first = serve()
+    finally:
+        del eng._capture
+    check(captured_at == [(False, 1)], f"capture leg: captures (all_greedy,"
+          f" megasteps in flight) {captured_at}, not one sampling capture "
+          "with a greedy replay in flight")
+    again = serve()
+    check(first[0] == again[0] == reference(prompts[0], 16),
+          "capture leg: the greedy stream differs from reference_decode")
+    check(first[1] == again[1] and len(first[1]) == 16,
+          "capture leg: two runs with one seed sampled other tokens")
+    print("  capture leg (depth 2): the sampling graph captured with a greedy"
+          " replay in flight; greedy stream == reference_decode, sampled "
+          "tokens equal in two runs with one seed", flush=True)
+    return dict(captured_with_in_flight=captured_at[0][1])
+
+
+async def frontend_leg(eng, AsyncServingFrontend, DeadlineExceeded,
+                       Backpressure, prompts, streams):
+    """The asyncio front-end over ``eng``: the ``prompts`` arriving one
+    every 2 ms stream tokens equal to their futures' results and to
+    ``streams`` (engine.run's); a deadline that expires mid-decode raises
+    DeadlineExceeded with a prefix of the stream, and the next request is
+    served; at ``max_queue`` 2 a burst is partly shed with Backpressure.
+    ``step`` must run in the executor's thread."""
+    import asyncio
+    import threading
+    main_thread = threading.get_ident()
+    threads = set()
+    step = eng.step
+
+    def watched_step():
+        threads.add(threading.get_ident())
+        return step()
+    eng.step = watched_step
+    try:
+        fe = AsyncServingFrontend(eng, max_pending=16)
+        streamed = [[] for _ in prompts]
+        tasks = []
+        for i, p in enumerate(prompts):
+            tasks.append(asyncio.ensure_future(fe.generate(
+                p, max_new_tokens=len(streams[i]),
+                on_token=streamed[i].append)))
+            await asyncio.sleep(0.002)
+        outs = await asyncio.gather(*tasks)
+        check(outs == streamed == streams, "front-end: streamed tokens, "
+              "futures and engine.run's streams differ")
+        try:
+            await fe.generate(prompts[0], max_new_tokens=900,
+                              deadline_s=0.1)
+        except DeadlineExceeded as e:
+            partial = e.tokens
+        else:
+            fail("front-end: a 0.1 s deadline on 900 tokens did not expire")
+        k = min(len(partial), len(streams[0]))
+        check(0 < len(partial) < 900 and partial[:k] == streams[0][:k],
+              f"front-end: {len(partial)} partial tokens off the stream")
+        after = await fe.generate(prompts[1], max_new_tokens=len(streams[1]))
+        check(after == streams[1], "front-end: the request after the "
+              "deadline was served other tokens")
+        eng.max_queue = 2
+        try:
+            burst = await asyncio.gather(*[
+                fe.generate(p, max_new_tokens=len(s))
+                for p, s in zip(prompts, streams)], return_exceptions=True)
+        finally:
+            eng.max_queue = 0
+        shed = sum(isinstance(b, Backpressure) for b in burst)
+        served = [(b, s) for b, s in zip(burst, streams)
+                  if isinstance(b, list)]
+        check(shed > 0 and all(b == s for b, s in served) and
+              shed + len(served) == len(prompts),
+              f"front-end: burst at max_queue 2 gave {burst}")
+        await fe.close()
+    finally:
+        del eng.step
+    check(threads and main_thread not in threads,
+          "front-end: engine.step ran on the event loop's thread")
+    return dict(partial_tokens=len(partial), burst_shed=shed,
+                burst_served=len(served))
 
 
 def main() -> None:
@@ -1728,12 +2156,184 @@ def main() -> None:
         eng, lambda: serve.make_requests(eng.cfg.vocab_size, 8, 32, seed=0))
     main_path.update(prof)
     main_graph_launches = dict(eng.graph_launches)
-    check([r.output for r in replay] == [r.output for r in res.requests],
+    main_streams = [r.output for r in res.requests]
+    check([r.output for r in replay] == main_streams,
           "main path: the profiled replay served other tokens")
     del eng, res
     torch.cuda.empty_cache()
 
-    # -- 5. prefill path: stall admission through the fused prefill -------
+    def serving_under_load():
+        """Phase 5: the pipelined main path, cancel, preemption with
+        resume, seeded fault schedules and the asyncio front-end."""
+        from repro_torch.launch.serve import (AsyncServingFrontend,
+                                              Backpressure, DeadlineExceeded)
+        from repro_torch.serving import (FaultInjector, FaultSchedule,
+                                         InfeasibleDeadline, QueueFull)
+        print("serving under load: llama3.2-1b full width, q8_0 weights, "
+              "bf16 cache, pipeline depth 2", flush=True)
+        out = {}
+        zero_counts()
+        with kernels_only():
+            res2 = serve.main(["--arch", "llama3.2-1b", "--no-reduced",
+                               "--precision", "q8_0", "--kv-quant", "bf16",
+                               "--slots", "4", "--max-len", "1024",
+                               "--megastep-k", "8", "--requests", "8",
+                               "--max-new", "32", "--temperature", "0",
+                               "--device", "cuda", "--pipeline-depth", "2"])
+        torch.cuda.synchronize()
+        eng = res2.engine
+        out["launches"] = check_served(
+            eng, res2.requests, "pipelined main path", res2.warmup_stats,
+            res2.launches_after_warmup)
+        check(eng.graph_launches == main_graph_launches,
+              f"pipelined main path: the capture enqueued "
+              f"{eng.graph_launches}, the main path's {main_graph_launches}")
+        # the depth-1 streams were held to reference_decode above
+        check([r.output for r in res2.requests] == main_streams,
+              "pipelined main path: depth-2 streams differ from depth 1's")
+        print("  pipelined main path: streams == the depth-1 run's (8 "
+              "requests) and so reference_decode's (requests 0, 1)",
+              flush=True)
+
+        def timed_run(depth):
+            eng.reset()
+            eng.pipeline_depth = depth
+            reqs = serve.make_requests(eng.cfg.vocab_size, 8, 32, seed=0)
+            for r in reqs:
+                eng.submit(r)
+            with kernels_only(), no_stream_sync():
+                eng.run()
+            torch.cuda.synchronize()
+            check([r.output for r in reqs] == main_streams,
+                  f"depth {depth}: streams differ from the main path's")
+            st = eng.stats
+            return dict(depth=depth, ms_per_step=1e3 * st.decode_wall_s
+                        / st.steps, tok_s=st.tokens_generated
+                        / st.decode_wall_s, decode_wall_s=st.decode_wall_s,
+                        drain_wait_s=st.drain_wait_s,
+                        stage_wall_s=st.stage_wall_s,
+                        megasteps=st.megasteps, steps=st.steps)
+
+        turns = [timed_run(d) for d in (1, 2, 2, 1)]
+        for t in turns:
+            print(f"  depth {t['depth']}: {t['ms_per_step']:.4f} ms per "
+                  f"decode step, {t['tok_s']:.1f} tok/s, {t['megasteps']} "
+                  f"megasteps, drain_wait_s {t['drain_wait_s']:.6f}, "
+                  f"stage_wall_s {t['stage_wall_s']:.6f} of "
+                  f"{t['decode_wall_s']:.6f} s in step()", flush=True)
+        print("  no stream-wide or device-wide synchronize in any served "
+              "step (depth 1 and 2)", flush=True)
+        out["turns"] = turns
+        eng.pipeline_depth = 2
+        prof, replay = profile_served(
+            eng, lambda: serve.make_requests(eng.cfg.vocab_size, 8, 32,
+                                             seed=0))
+        check([r.output for r in replay] == main_streams,
+              "pipelined main path: the profiled run served other tokens")
+        out["profile_depth2"] = prof
+        print(f"  device idle share: depth 2 {prof['device_idle_share']:.4f}"
+              f", depth 1 {main_path['device_idle_share']:.4f} (main path, "
+              "this run)", flush=True)
+        model, params = eng.model, eng.params
+
+        def reference(prompt, n):
+            return model.reference_decode(params, prompt, n, max_len=1024)
+
+        # cancel, on the paged path's prefix-cache engine at depth 2
+        cancel_eng = ServingEngine(model, params, slots=4, max_len=1024,
+                                   sampling=SamplingConfig(), megastep_k=8,
+                                   quant_policy="q8_0", page_size=PAGE,
+                                   prefix_cache=True, pipeline_depth=2)
+        system = np.random.default_rng(3).integers(
+            1, cfg_full.vocab_size, 256).astype(np.int32)
+        with kernels_only():
+            out["cancel"] = cancel_leg(cancel_eng, Request, system,
+                                       reference)
+        del cancel_eng
+        # the front-end, on the pipelined engine
+        eng.reset()
+        eng.pipeline_depth = 2
+        prompts = [r.prompt for r in serve.make_requests(
+            eng.cfg.vocab_size, 8, 32, seed=0)]
+        with kernels_only():
+            out["frontend"] = asyncio.run(frontend_leg(
+                eng, AsyncServingFrontend, DeadlineExceeded, Backpressure,
+                prompts, main_streams))
+        print(f"  front-end (depth 2, step in the executor thread): 8 "
+              f"staggered requests streamed == futures == engine.run's; a "
+              f"0.1 s deadline raised DeadlineExceeded after "
+              f"{out['frontend']['partial_tokens']} tokens (a prefix of the "
+              f"stream) and the next request was served; a burst at "
+              f"max_queue 2 shed {out['frontend']['burst_shed']} with "
+              f"Backpressure", flush=True)
+        # seeded fault schedules, 4 layers: dense and paged bf16 caches and
+        # a dense q8_0 cache, at depth 1 and 2
+        cfg4 = dataclasses.replace(cfg_full,
+                                   num_layers=MAIN_LAYERS_SECOND_PATH)
+        model4f = Model(cfg4, device=dev)
+        gen_load = torch.Generator(device=dev)     # leaves `gen` alone
+        gen_load.manual_seed(5)
+        params4q = quantize_tree(model4f.init(gen_load, quantize=False),
+                                 "q4_0", cfg4.quant_group)
+
+        def reference4(prompt, n):
+            return model4f.reference_decode(params4q, prompt, n,
+                                            max_len=1024)
+        legs = []
+        for kvq, paged, seeds, depths in (
+                ("bf16", False, (58, 31, 62), (1, 2)),
+                ("bf16", True, (58, 31, 62), (1, 2)),
+                ("q8_0", False, (58,), (2,))):
+            fe = ServingEngine(model4f, params4q, slots=3, max_len=1024,
+                               sampling=SamplingConfig(), megastep_k=8,
+                               quant_policy="q4_0", kv_quant=kvq,
+                               page_size=PAGE if paged else 0,
+                               cache_blocks=7 if paged else 0)
+            for seed in seeds:
+                for depth in depths:
+                    fe.pipeline_depth = depth
+                    with kernels_only():
+                        legs.append(fault_leg(fe, Request, FaultInjector,
+                                              FaultSchedule, seed,
+                                              reference4))
+            if not paged and kvq == "bf16":
+                with kernels_only():
+                    out["capture_in_flight"] = capture_in_flight_leg(
+                        fe, Request, reference4)
+            del fe
+        poisoned = sum(leg["poisoned"] for leg in legs)
+        preempted = sum(leg["preemptions"] for leg in legs)
+        check(poisoned > 0 and preempted > 0,
+              f"fault legs: {poisoned} poisoned, {preempted} preemptions")
+        for leg in legs:
+            print(f"  {leg['label']}: {leg['requests']} requests, "
+                  f"{leg['kinds']}: {leg['poisoned']} poisoned (clean "
+                  f"prefixes), {leg['preemptions']} preemptions, "
+                  f"{leg['retries']} retries; survivors == reference_decode,"
+                  " audit() after every step, pool recovered", flush=True)
+        out["faults"] = dict(legs=len(legs), poisoned=poisoned,
+                             preemptions=preempted)
+        del model4f, params4q
+        # preemption and resume, chunked and stall
+        for admission in ("chunked", "stall"):
+            pre = ServingEngine(model, params, slots=2, max_len=1024,
+                                sampling=SamplingConfig(), megastep_k=8,
+                                quant_policy="q8_0", page_size=PAGE,
+                                cache_blocks=5, admission=admission)
+            with kernels_only():
+                out[f"preemption_{admission}"] = preemption_leg(
+                    pre, Request, QueueFull, InfeasibleDeadline,
+                    lambda p, n, **kw: model.reference_decode(
+                        params, p, n, max_len=1024, **kw))
+            del pre
+        del eng, res2, model, params
+        return out
+
+    # -- 5. serving under load ------------------------------------------------
+    load = serving_under_load()
+    torch.cuda.empty_cache()
+
+    # -- 6. prefill path: stall admission through the fused prefill -------
     print("prefill path: llama3.2-1b full width, q8_0 weights, bf16 cache, "
           "stall admission", flush=True)
     model_p = Model(cfg_full, device=dev)
@@ -1876,7 +2476,7 @@ def main() -> None:
 
     counts = {"main": main_counts, "prefill": prefill_counts}
 
-    # -- 6. paged path: the paged cache and the prefix cache ------------------
+    # -- 7. paged path: the paged cache and the prefix cache ------------------
     print("paged path: llama3.2-1b full width, q8_0 weights, bf16 cache, "
           f"page_size {PAGE}, chunked admission with the prefix cache",
           flush=True)
@@ -2067,7 +2667,7 @@ def main() -> None:
     del eng, model_pg, params_pg
     torch.cuda.empty_cache()
 
-    # -- 7. second path: q4_0 weights, quantized caches, stall admission ----
+    # -- 8. second path: q4_0 weights, quantized caches, stall admission ----
     cfg4 = dataclasses.replace(cfg_full, num_layers=MAIN_LAYERS_SECOND_PATH)
     model4 = Model(cfg4, device=dev)
     params4 = model4.init(gen, quantize=False)
@@ -2322,7 +2922,7 @@ def main() -> None:
     del eng, params4
     torch.cuda.empty_cache()
 
-    # -- 8. the kernel line ---------------------------------------------------
+    # -- 9. the kernel line ---------------------------------------------------
     for row in rows.values():
         kernel = row["name"].split("[")[0]
         path = row.pop("path")
@@ -2330,7 +2930,7 @@ def main() -> None:
         check(row["launches"] > 0, f"{row['name']}: no launch on the "
               f"{path} path")
     print(json.dumps({"main_path": main_path, "prefill_path": prefill_path,
-                      "paged_path": paged_path,
+                      "paged_path": paged_path, "under_load": load,
                       "second_path_step_checks": step_checks,
                       "unembed_rows_equal_across_m": unembed_rows_equal}))
     print(json.dumps({"kernels": list(rows.values())}))

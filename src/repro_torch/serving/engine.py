@@ -46,27 +46,59 @@ serves K tokens per slot.
   its table copy-on-write and feeds only its tail. Decode writes land
   past the prompt, so shared pages are never written again.
 
+- **Pipelined dispatch and drain** (``pipeline_depth``): ``step()``
+  stages the admissions from the host's view of the slots and dispatches
+  a megastep, then drains the oldest megastep in flight once
+  ``pipeline_depth`` are outstanding. At depth 1 that is the megastep
+  just dispatched (the serial loop); at depth 2 the previous one, so the
+  host's drain and the next staging overlap the megastep on the device.
+  Each megastep in flight carries a snapshot of its slots' occupants,
+  and its drain hands tokens to those requests, advancing the prompt
+  cursor and registering prefix pages only while the slot still serves
+  that request. Greedy streams are the depth-1 engine's; only latency
+  moves (a freed slot is refilled one megastep later, and one all-idle
+  megastep runs per queue drain).
+- **Overload** (the JAX package's failure semantics): ``submit`` sheds
+  with a typed ``SubmitReject`` before the request holds anything
+  (``QueueFull`` at the ``max_queue`` bound, with a ``retry_after_s``
+  hint from the measured substep time; ``InfeasibleDeadline`` when
+  ``Request.deadline_s`` cannot be met by an empty engine;
+  ``PromptTooLong``). The queue is ordered earliest deadline first,
+  FIFO among requests without one. A pool-starved paged admission
+  preempts a victim whose deadline key is strictly later (``_pick_victim``),
+  else blocks FIFO; a preempted request is requeued and resumes from its
+  prompt plus the tokens it already generated, so a greedy stream is the
+  uninterrupted one. ``cancel`` retires a queued or active request, and
+  ``inject_logit_poison`` turns a request's logits to NaN inside the
+  megastep, so that it ends with ``error = "nonfinite-logits"``.
+
 On the card a megastep is one device program, as the JAX package's
 jitted megastep is: the admission merge and the K substeps
 (``_megastep_body``) are captured once as a CUDA graph per value of
 ``all_greedy`` (at most two graphs, the second when first needed), and
 each megastep is one host→device copy of the packed admission buffer,
-one ``graph.replay()`` and one device→host copy of the block. On the
-CPU the same body runs eagerly. The cache, the slot state, the
-admission buffers, the block and the sampling generator keep their
-addresses for the engine's life (``reset()`` zeroes and reseeds them in
-place), so the graphs stay valid; that also replaces the JAX package's
-donated megastep carries, so the port has no ``donate_carries`` knob.
-``audit()`` checks the allocator's and the slots' invariants between
-steps (``audit_every_step`` runs it after each).
-Left out so far: pipelined dispatch, preemption and the resume of
-preempted requests (a short pool therefore always blocks FIFO, as the
-JAX engine does when no request has a deadline), the EDF queue, the
-typed overload rejects, cancellation and fault injection.
+one ``graph.replay()`` and one device→host copy of the block, after
+which it records a CUDA event; its drain waits on that event alone, never
+on the stream. The pinned host buffers are rings with one entry per
+megastep in flight (the device buffers, whose addresses the graphs hold,
+stay single). Every device write of the engine (the megasteps, the stall
+prefill, ``cancel``, ``preempt``, ``reset``, the captures) is issued on
+one stream the engine owns, so it lands between two replays in the order
+the host issued it, whichever thread calls (the asyncio front-end steps
+the engine in an executor thread and cancels from its event loop's). On
+the CPU the same body runs eagerly and synchronously. The cache, the
+slot state, the admission buffers, the block and the sampling generator
+keep their addresses for the engine's life (``reset()`` zeroes and
+reseeds them in place), so the graphs stay valid; that also replaces the
+JAX package's donated megastep carries, so the port has no
+``donate_carries`` knob. ``audit()`` checks the allocator's and the
+slots' invariants between steps (``audit_every_step`` runs it after
+each).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 import warnings
@@ -90,20 +122,50 @@ PHASE_IDLE = 0      # retired / never filled: cache frozen, no emission
 PHASE_PREFILL = 1   # consuming prompt tokens, no emission yet
 PHASE_DECODE = 2    # generating: sample + emit every substep
 
+_INF = float("inf")
+
 # The packed admission buffer: one int32 row of ``slots`` per field
-# (``temp`` and ``top_p`` hold f32 bits; a paged engine adds
-# ``start_pos``, the cached-prefix length a fresh slot starts at), then
-# the (slots, chunk) prompt tokens, then (paged) the fresh slots'
-# (slots, max_pages) block-table rows.
+# (``temp`` and ``top_p`` hold f32 bits; ``poison`` marks the slots whose
+# logits the megastep turns to NaN; a paged engine adds ``start_pos``,
+# the cached-prefix length a fresh slot starts at), then the (slots,
+# chunk) prompt tokens, then (paged) the fresh slots' (slots, max_pages)
+# block-table rows.
 ADMIT_ROWS = ("new", "refill", "base", "prompt_len", "max_new", "eos",
-              "temp", "top_k", "top_p")
+              "temp", "top_k", "top_p", "poison")
 ADMIT_PAGED_ROWS = ("start_pos",)
 ADMIT_F32_ROWS = ("temp", "top_p")
 
 
-class PromptTooLong(ValueError):
+class SubmitReject(ValueError):
+    """A typed reject at ``submit()``: the request was refused before it
+    held any engine resource. ``retry_after_s`` is a hint (None while the
+    engine has measured no step); ``reason`` names the class."""
+    reason = "rejected"
+
+    def __init__(self, msg: str, *, uid: Optional[int] = None,
+                 retry_after_s: Optional[float] = None,
+                 queue_depth: int = 0):
+        super().__init__(msg)
+        self.uid = uid
+        self.retry_after_s = retry_after_s
+        self.queue_depth = queue_depth
+
+
+class QueueFull(SubmitReject):
+    """Load shed: the bounded queue (``max_queue``) is full."""
+    reason = "queue_full"
+
+
+class InfeasibleDeadline(SubmitReject):
+    """Load shed: ``Request.deadline_s`` cannot be met even if the
+    request were admitted at once (measured substep time)."""
+    reason = "infeasible_deadline"
+
+
+class PromptTooLong(SubmitReject):
     """The prompt can never fit this engine's cache: admitting it would
     write past the slot's rows and corrupt its own stream."""
+    reason = "prompt_too_long"
 
 
 class EngineAuditError(AssertionError):
@@ -120,10 +182,20 @@ class Request:
     temperature: Optional[float] = None
     top_k: Optional[int] = None
     top_p: Optional[float] = None
+    # completion deadline in seconds from submit: orders the queue (EDF)
+    # and arms the infeasibility shed; the engine never cancels on expiry
+    # itself (the front-end's deadline sweep does)
+    deadline_s: Optional[float] = None
     # filled by the engine:
     output: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    cancelled: bool = False          # retired by ServingEngine.cancel()
     error: Optional[str] = None      # e.g. "nonfinite-logits"
+    preemptions: int = 0             # times evicted and requeued
+    # the scheduler's: submission order and absolute deadline
+    _seq: int = dataclasses.field(default=0, repr=False)
+    _deadline_abs: Optional[float] = dataclasses.field(default=None,
+                                                       repr=False)
 
 
 @dataclasses.dataclass
@@ -133,7 +205,11 @@ class EngineStats:
     tokens_generated: int = 0
     prefills: int = 0            # requests admitted
     prefill_batches: int = 0     # stall-path prefill calls
+    inscan_admissions: int = 0   # requests admitted inside the megastep
     chunk_refills: int = 0       # prompt chunks refreshed after the first
+    cancelled: int = 0           # requests retired by cancel()
+    preemptions: int = 0         # slots evicted and requeued
+    shed: int = 0                # submits rejected (queue full, deadline)
     poisoned: int = 0            # requests retired on nonfinite logits
     graph_captures: int = 0      # megastep graphs captured (card only)
     graph_replays: int = 0       # megasteps served by a graph replay
@@ -141,6 +217,8 @@ class EngineStats:
     prefix_hit_tokens: int = 0   # prompt tokens skipped via shared pages
     blocks_recycled: int = 0     # pool blocks returned to the free list
     decode_wall_s: float = 0.0   # wall time in step()
+    stage_wall_s: float = 0.0    # host time staging admissions
+    drain_wait_s: float = 0.0    # host time waiting for a megastep's block
 
 
 @dataclasses.dataclass
@@ -184,7 +262,8 @@ class ServingEngine:
                  kv_quant: Optional[str] = None,
                  admission: str = "chunked",
                  page_size: int = 0, cache_blocks: int = 0,
-                 prefix_cache: bool = False):
+                 prefix_cache: bool = False, pipeline_depth: int = 1,
+                 max_queue: int = 0):
         if admission not in ADMISSIONS:
             raise ValueError(f"admission must be 'chunked' or 'stall' "
                              f"(got {admission!r})")
@@ -222,6 +301,19 @@ class ServingEngine:
         # prompt tokens staged on the device per slot; any value >=
         # megastep_k keeps a prefilling slot fed for a whole megastep
         self.prefill_chunk = max(self.megastep_k, 16)
+        # megasteps dispatched and not yet drained that step() keeps: 1
+        # is the serial loop, 2 drains megastep N while N+1 runs. Host
+        # orchestration only, so it may be reassigned between steps.
+        if int(pipeline_depth) < 1:
+            raise ValueError(
+                f"pipeline_depth must be >= 1 (got {pipeline_depth}); "
+                "1 is the serial loop, 2 keeps one megastep in flight")
+        self.pipeline_depth = int(pipeline_depth)
+        # the EDF queue; ``max_queue`` bounds it (0 = unbounded), and
+        # submit() sheds with QueueFull at the bound
+        if int(max_queue) < 0:
+            raise ValueError(f"max_queue must be >= 0 (got {max_queue})")
+        self.max_queue = int(max_queue)
         self.queue: Deque[Request] = collections.deque()
         self.audit_every_step = False     # audit() after every step()
         if int(page_size) < 0:
@@ -254,7 +346,7 @@ class ServingEngine:
                           RuntimeWarning, stacklevel=2)
         # device state, allocated once: reset() zeroes it in place
         dev = self.device
-        on_card = dev.type == "cuda"
+        self._on_card = on_card = dev.type == "cuda"
         n, k = slots, self.megastep_k
         self.generator = torch.Generator(device=dev)
         self.cache = model.init_cache(slots, max_len, self.page_size,
@@ -262,33 +354,93 @@ class ServingEngine:
         self.state = _init_slot_state(slots, self.prefill_chunk, dev)
         self._admit_rows = ADMIT_ROWS + (ADMIT_PAGED_ROWS if self.paged
                                          else ())
-        size = (len(self._admit_rows) * n + n * self.prefill_chunk
-                + n * self.max_pages)
-        self._admit_host = torch.zeros((size,), dtype=torch.int32,
-                                       pin_memory=on_card)
-        self._admit_dev = torch.zeros((size,), dtype=torch.int32, device=dev)
+        self._admit_size = (len(self._admit_rows) * n + n * self.prefill_chunk
+                            + n * self.max_pages)
+        self._admit_dev = torch.zeros((self._admit_size,), dtype=torch.int32,
+                                      device=dev)
         self._admit = self._admit_fields(self._admit_dev)
         self._block = torch.zeros((4, k, n), dtype=torch.int32, device=dev)
-        self._block_host = torch.zeros((4, k, n), dtype=torch.int32,
-                                       pin_memory=on_card)
+        # pinned host rings, one entry per megastep in flight (grown by
+        # _grow_rings when pipeline_depth rises); ``_stage`` is the entry
+        # the next megastep stages into and copies its block out to
+        self._admit_ring: List[torch.Tensor] = []
+        self._block_ring: List[torch.Tensor] = []
+        self._stage = 0
+        self._grow_rings()
         self._graphs: Dict[bool, "torch.cuda.CUDAGraph"] = {}
         # kernel launches one capture recorded, by graph (all_greedy)
         self.graph_launches: Dict[bool, Dict[str, int]] = {}
         self._capture_stream = torch.cuda.Stream(dev) if on_card else None
+        # every later device write of the engine goes to its own stream
+        # (_on_stream), whichever thread calls
+        self._stream = torch.cuda.Stream(dev) if on_card else None
+        # (ring entry, CUDA event or None, slot-occupant snapshot) per
+        # megastep dispatched and not yet drained, oldest first
+        self._inflight: Deque = collections.deque()
         self.reset()
+
+    @contextlib.contextmanager
+    def _on_stream(self):
+        """Issue the device work of the block on the engine's stream and
+        device (on the card), after the caller's stream's work so far;
+        the caller's stream then orders its later work after the
+        engine's, on the device, without the host waiting."""
+        if not self._on_card:
+            yield
+            return
+        with torch.cuda.device(self.device):
+            caller = torch.cuda.current_stream()
+            self._stream.wait_stream(caller)
+            with torch.cuda.stream(self._stream):
+                yield
+            caller.wait_stream(self._stream)
+
+    def _grow_rings(self) -> None:
+        """One pinned admission and block entry per megastep in flight:
+        ``pipeline_depth`` entries (never fewer than before)."""
+        while len(self._admit_ring) < max(self.pipeline_depth, 1):
+            self._admit_ring.append(torch.zeros(
+                (self._admit_size,), dtype=torch.int32,
+                pin_memory=self._on_card))
+            self._block_ring.append(torch.zeros(
+                (4, self.megastep_k, self.slots), dtype=torch.int32,
+                pin_memory=self._on_card))
+
+    @property
+    def _admit_host(self) -> torch.Tensor:
+        """The pinned admission entry the next megastep stages into."""
+        return self._admit_ring[self._stage]
+
+    @property
+    def _block_host(self) -> torch.Tensor:
+        """The pinned block entry the next megastep copies out to."""
+        return self._block_ring[self._stage]
 
     def reset(self) -> None:
         """Drop all requests and zero the device state in place (cache or
         pools, lens, block table, slot state; the sampling generator
         reseeded), so that the captured graphs, which hold these
-        addresses, stay valid. The block allocator starts empty."""
-        self.generator.manual_seed(self.seed)
-        for layer in self.cache["layers"]:
-            for leaf in layer.values():
-                leaf.zero_()
-        self.cache["lens"].zero_()
-        if self.paged:
-            self.cache["block_table"].zero_()
+        addresses, stay valid. Waits first for every megastep in flight
+        (its copies and replay must not land on the zeroed state or a
+        reused ring entry) and drops their blocks. The block allocator
+        starts empty."""
+        while self._inflight:
+            _, event, _ = self._inflight.popleft()
+            if event is not None:
+                event.synchronize()
+        self._stage = 0
+        with self._on_stream():
+            self.generator.manual_seed(self.seed)
+            for layer in self.cache["layers"]:
+                for leaf in layer.values():
+                    leaf.zero_()
+            self.cache["lens"].zero_()
+            if self.paged:
+                self.cache["block_table"].zero_()
+            fresh = _init_slot_state(self.slots, self.prefill_chunk,
+                                     self.device)
+            for f in dataclasses.fields(SlotState):
+                getattr(self.state, f.name).copy_(getattr(fresh, f.name))
         # the block allocator: a free list and refcounts. Block 0 is the
         # garbage block and never handed out. ``_prefix_reg`` maps a
         # prompt prefix (its tokens' bytes, whole pages) to the pool
@@ -297,20 +449,24 @@ class ServingEngine:
         self._free: List[int] = list(range(self.cache_blocks - 1, 0, -1))
         self._ref = np.zeros((self.cache_blocks,), np.int64)
         self._slot_blocks: List[List[int]] = [[] for _ in range(self.slots)]
+        # per slot: how many of its blocks are mapped shared prefix pages
+        # (_pick_victim prefers slots without any)
+        self._slot_shared: List[int] = [0] * self.slots
         self._slot_reg_done: List[bool] = [False] * self.slots
         self._prefix_reg: "collections.OrderedDict[bytes, int]" = \
             collections.OrderedDict()
         # blocks withheld from the allocator: an owner class of their own
         self._quarantined: List[int] = []
-        fresh = _init_slot_state(self.slots, self.prefill_chunk, self.device)
-        for f in dataclasses.fields(SlotState):
-            getattr(self.state, f.name).copy_(getattr(fresh, f.name))
         self.active: List[Optional[Request]] = [None] * self.slots
         # host mirror of each slot's prompt cursor, and the prompt it
-        # was admitted with
+        # was admitted with (a resumed request's: its prompt and the
+        # tokens it generated before its preemption)
         self._prefill_pos: List[int] = [0] * self.slots
         self._slot_prompt: List[Optional[np.ndarray]] = [None] * self.slots
         self._stochastic_slots: set = set()
+        # uids whose logits the megastep turns to NaN (fault injection)
+        self._poison_uids: set = set()
+        self._submit_seq = 0
         self.queue.clear()
         self.stats = EngineStats()
 
@@ -345,6 +501,7 @@ class ServingEngine:
         for blk in self._slot_blocks[s]:
             self._decref(blk)
         self._slot_blocks[s] = []
+        self._slot_shared[s] = 0
         self._slot_reg_done[s] = False
 
     def _reserve_blocks(self, n: int) -> bool:
@@ -360,16 +517,19 @@ class ServingEngine:
         """Allocate slot s's blocks for ``req``. Returns the position its
         admission starts at (> 0 on a prefix hit: that many prompt tokens
         are already cached in shared pages), or None when the pool cannot
-        supply the blocks even after registry eviction (the caller puts
-        the request back at the head of the queue)."""
+        supply the blocks even after registry eviction (the caller
+        preempts a victim or puts the request back at the head of the
+        queue). A resumed request allocates for its prompt and generated
+        tokens and its remaining budget."""
         P = self.page_size
-        prompt = np.asarray(req.prompt, np.int32)
-        need = min(len(prompt) + req.max_new_tokens, self.max_len)
+        prompt = self._eff_prompt(req)
+        max_new = self._eff_max_new(req)
+        need = min(len(prompt) + max_new, self.max_len)
         n_pages = -(-need // P)
         # a request that outgrows the cache wraps its ring cursor back
         # over its own first pages, which must then be its own: it
         # neither shares nor registers
-        wraps = len(prompt) + req.max_new_tokens > self.max_len
+        wraps = len(prompt) + max_new > self.max_len
         shared = []
         if self.prefix_cache and not wraps:
             # the longest cached prefix, capped so that at least one
@@ -399,6 +559,7 @@ class ServingEngine:
             self._ref[blk] = 1
             blocks.append(blk)
         self._slot_blocks[s] = blocks
+        self._slot_shared[s] = len(shared)
         self._slot_reg_done[s] = wraps or not self.prefix_cache
         start = len(shared) * P
         if start:
@@ -460,7 +621,7 @@ class ServingEngine:
         for s, r in enumerate(self.active):
             if r is None:
                 continue
-            if r.done:
+            if r.done or r.cancelled:
                 raise EngineAuditError(
                     f"slot {s}: active request {r.uid} is already done")
             if any(q is r for q in self.queue):
@@ -499,15 +660,136 @@ class ServingEngine:
                     f"block {b}: {owners} owners (free={b in free}, "
                     f"quarantined={b in quar}, refs={int(refs[b])})")
 
+    # -- preemption and resume ----------------------------------------------
+    def _eff_prompt(self, req: Request) -> np.ndarray:
+        """The prompt a request is admitted with: its own, then the tokens
+        it generated before a preemption. Feeding them through the same
+        decode path rebuilds its cache, so a resumed greedy request goes
+        on as an uninterrupted run would."""
+        prompt = np.asarray(req.prompt, np.int32)
+        if not req.output:
+            return prompt
+        return np.concatenate([prompt, np.asarray(req.output, np.int32)])
+
+    def _eff_max_new(self, req: Request) -> int:
+        """The budget left in the slot: the total minus what it emitted."""
+        return req.max_new_tokens - len(req.output)
+
+    def _edf_key(self, req: Request):
+        d = req._deadline_abs if req._deadline_abs is not None else _INF
+        return (d, req._seq)
+
+    def _enqueue(self, req: Request) -> None:
+        """Insert keeping the queue sorted by (deadline, submission
+        order): plain FIFO when no request has a deadline."""
+        key = self._edf_key(req)
+        if not self.queue or self._edf_key(self.queue[-1]) <= key:
+            self.queue.append(req)
+            return
+        for i, r in enumerate(self.queue):
+            if self._edf_key(r) > key:
+                self.queue.insert(i, req)
+                return
+        self.queue.append(req)
+
+    def _measured_substep_s(self) -> Optional[float]:
+        """Measured wall seconds per decode substep (None before any
+        megastep ran): the basis of the retry-after hints and the
+        infeasible-deadline shed."""
+        if self.stats.steps == 0 or self.stats.decode_wall_s == 0.0:
+            return None
+        return self.stats.decode_wall_s / self.stats.steps
+
+    def _service_substeps(self, req: Request) -> int:
+        """Substeps a request holds a slot for: chunked admission feeds
+        the prompt one token a substep, stall admission prefills it in
+        one call."""
+        gen = max(self._eff_max_new(req), 1)
+        if self.admission == "chunked":
+            return len(self._eff_prompt(req)) + gen
+        return gen
+
+    def _pick_victim(self, incoming: Request) -> Optional[int]:
+        """The slot a pool-starved admission of ``incoming`` may preempt:
+        only one whose EDF key is strictly later (a later deadline, or
+        none and a later submission), so that a requeued request can
+        never preempt the one that displaced it (no livelock). Among
+        those, a slot without shared prefix pages first (it frees more
+        blocks and loses no registry value), then the least progress
+        (the least to recompute)."""
+        key = self._edf_key(incoming)
+        cands = [s for s, r in enumerate(self.active)
+                 if r is not None and not r.done
+                 and self._edf_key(r) > key]
+        if not cands:
+            return None
+        return min(cands, key=lambda s: (
+            self._slot_shared[s] > 0,
+            len(self.active[s].output) + self._prefill_pos[s]))
+
+    def _retire_on_device(self, s: int) -> None:
+        """Set slot s idle on the device, on the engine's stream: the
+        frozen-write retirement EOS takes, landing after the megastep in
+        flight and before the next one."""
+        with self._on_stream():
+            self.state.phase[s] = PHASE_IDLE
+
+    def _preempt_slot(self, s: int,
+                      admit: Optional[Dict[str, np.ndarray]] = None
+                      ) -> Request:
+        """Evict slot s: retire it on the device (a megastep in flight
+        still emits its tokens, which its drain appends before the
+        request can be readmitted), recycle its blocks (shared ones
+        survive through their refcount), clear its staged chunk refill
+        when the admission buffer is already built, and requeue the
+        request to resume from its prompt and generated tokens."""
+        req = self.active[s]
+        self._retire_on_device(s)
+        self.active[s] = None
+        self._stochastic_slots.discard(s)
+        self._prefill_pos[s] = 0
+        self._slot_prompt[s] = None
+        if self.paged:
+            self._release_slot_blocks(s)
+        if admit is not None:
+            admit["refill"][s] = 0
+            admit["tokens"][s, :] = 0
+            admit["base"][s] = 0
+        req.preemptions += 1
+        self.stats.preemptions += 1
+        self._enqueue(req)
+        return req
+
+    def preempt(self, req: Request) -> bool:
+        """Preempt an active request (what a pool-starved admission does;
+        also the fault injector's ``preempt`` event). Returns False when
+        the request holds no slot. It resumes through the queue, with the
+        same greedy tokens."""
+        if req.done or req.cancelled:
+            return False
+        for s, r in enumerate(self.active):
+            if r is req:
+                self._preempt_slot(s)
+                return True
+        return False
+
+    def inject_logit_poison(self, req: Request) -> None:
+        """Fault injection: the megastep turns this request's logits to
+        NaN while it holds a slot, so that the finiteness check retires
+        it (the path a real nonfinite output takes)."""
+        self._poison_uids.add(req.uid)
+
     # -- public API --------------------------------------------------------
     def submit(self, req: Request) -> None:
-        """Queue a request. An empty prompt or a negative budget is
-        rejected, a zero budget completes at once with no output, and a
-        request that can never fit the cache raises ``PromptTooLong``: a
-        prompt longer than a dense cache (or than the scratch cache of a
-        paged engine's stall prefill), or more pages than a paged pool
-        holds (a chunked prompt longer than the cache rings over its own
-        pages)."""
+        """Queue a request, in EDF order. An empty prompt or a negative
+        budget is rejected, and a zero budget completes at once with no
+        output. Typed rejects (``SubmitReject``): ``PromptTooLong`` for a
+        request that can never fit the cache (a prompt longer than a
+        dense cache, or than the scratch cache of a paged engine's stall
+        prefill, or more pages than a paged pool holds; a chunked prompt
+        longer than a paged cache rings over its own pages),
+        ``QueueFull`` at the ``max_queue`` bound, ``InfeasibleDeadline``
+        when ``req.deadline_s`` cannot be met by an empty engine."""
         prompt_len = len(np.asarray(req.prompt))
         if prompt_len == 0:
             raise ValueError(
@@ -526,34 +808,105 @@ class ServingEngine:
                 raise PromptTooLong(
                     f"request {req.uid}: needs {pages} cache pages but the "
                     f"pool holds {self.cache_blocks - 1}: it can never be "
-                    "admitted (raise cache_blocks or shrink the request)")
+                    "admitted (raise cache_blocks or shrink the request)",
+                    uid=req.uid)
         if prompt_len > self.max_len and (not self.paged
                                           or self.admission == "stall"):
             raise PromptTooLong(
                 f"request {req.uid}: prompt of {prompt_len} tokens exceeds "
-                f"the cache capacity {self.max_len}")
-        self.queue.append(req)
+                f"the cache capacity {self.max_len}", uid=req.uid)
+        if self.max_queue and len(self.queue) >= self.max_queue:
+            self.stats.shed += 1
+            sub = self._measured_substep_s()
+            hint = None
+            if sub is not None:
+                backlog = sum(self._service_substeps(r) for r in self.queue)
+                hint = sub * backlog / max(self.slots, 1)
+            raise QueueFull(
+                f"request {req.uid}: queue at its bound ({self.max_queue});"
+                f" retry after "
+                f"{'%.3fs' % hint if hint is not None else 'a drain'}",
+                uid=req.uid, retry_after_s=hint,
+                queue_depth=len(self.queue))
+        if req.deadline_s is not None:
+            est = (self._measured_substep_s() or 0.0) * \
+                self._service_substeps(req)
+            if req.deadline_s <= 0 or est > req.deadline_s:
+                self.stats.shed += 1
+                raise InfeasibleDeadline(
+                    f"request {req.uid}: deadline {req.deadline_s:.3f}s < "
+                    f"estimated service {est:.3f}s even unqueued",
+                    uid=req.uid, queue_depth=len(self.queue))
+            req._deadline_abs = time.monotonic() + req.deadline_s
+        req._seq = self._submit_seq
+        self._submit_seq += 1
+        self._enqueue(req)
+
+    def cancel(self, req: Request) -> bool:
+        """Retire a request at once. A queued one leaves the queue; an
+        active one has its slot set idle on the device (the frozen-write
+        retirement EOS takes, so a megastep in flight leaves its cache
+        alone, and its late tokens are dropped at the drain) and its
+        blocks recycled (shared prefix pages survive through their
+        refcount). The slot is refilled at the next admission. Returns
+        True if the request was live. A preempted request is in the
+        queue, so its cancel takes the queue path: its slot and blocks
+        were released at the preemption."""
+        if req.done:
+            return False
+        self._poison_uids.discard(req.uid)
+        try:
+            self.queue.remove(req)
+        except ValueError:
+            pass
+        else:
+            req.done = req.cancelled = True
+            self.stats.cancelled += 1
+            return True
+        for s, r in enumerate(self.active):
+            if r is req:
+                self._retire_on_device(s)
+                self._free_slot(s)
+                req.done = req.cancelled = True
+                self.stats.cancelled += 1
+                return True
+        return False
+
+    @property
+    def in_flight(self) -> int:
+        """Megasteps dispatched and not yet drained (< pipeline_depth
+        between steps)."""
+        return len(self._inflight)
 
     def has_work(self) -> bool:
-        return bool(self.queue) or any(r is not None for r in self.active)
+        """True while anything is queued, holds a slot, or rides a
+        megastep not yet drained."""
+        return bool(self.queue) or bool(self._inflight) or \
+            any(r is not None for r in self.active)
 
     def step(self) -> int:
-        """Admit what fits, run one megastep and hand its tokens to the
-        requests. Returns the number of slots still occupied."""
+        """Admit what fits, dispatch one megastep, and drain the oldest
+        in flight once ``pipeline_depth`` are outstanding: at depth 1 the
+        one just dispatched, at depth 2 the previous one, so its drain
+        and the next staging overlap the megastep on the device. With no
+        slot occupied in the host's view it dispatches nothing and drains
+        every megastep in flight. Returns the number of slots occupied."""
         t0 = time.perf_counter()
-        self._fill_slots()
-        if any(r is not None for r in self.active):
-            occupants = tuple(self.active)
-            block = self._megastep()
-            self._drain(block, occupants)
+        with self._on_stream():
+            if self._dispatch_megastep():
+                while len(self._inflight) >= max(self.pipeline_depth, 1):
+                    self._drain_oldest()
+            else:
+                while self._inflight:
+                    self._drain_oldest()
         self.stats.decode_wall_s += time.perf_counter() - t0
         if self.audit_every_step:
             self.audit()
         return sum(r is not None for r in self.active)
 
     def run(self, max_steps: int = 10000) -> None:
-        """Serve until the queue and the slots are empty (at most
-        ``max_steps`` megasteps)."""
+        """Serve until the queue, the slots and the pipeline are empty
+        (at most ``max_steps`` steps)."""
         for _ in range(max_steps):
             if not self.has_work():
                 return
@@ -580,8 +933,14 @@ class ServingEngine:
         return fields
 
     def _empty_admit(self) -> Dict[str, np.ndarray]:
-        """The pinned admission buffer, cleared to "nothing admitted", as
-        numpy views by field; the next megastep copies it to the card."""
+        """The ring entry the next megastep stages into, cleared to
+        "nothing admitted", as numpy views by field. The entry is one no
+        megastep in flight uses: its host→device copy has run, so it may
+        be written."""
+        busy = {entry for entry, _, _ in self._inflight}
+        self._grow_rings()
+        self._stage = next(i for i in range(len(self._admit_ring))
+                           if i not in busy)
         self._admit_host.zero_()
         admit = {name: t.numpy() for name, t in
                  self._admit_fields(self._admit_host).items()}
@@ -589,45 +948,77 @@ class ServingEngine:
         admit["top_p"][:] = 1.0
         return admit
 
-    def _fill_slots(self) -> None:
+    def _fill_slots(self) -> Dict[str, np.ndarray]:
+        """Stage the next megastep's admissions (and, under stall
+        admission, run the prefill calls); returns the staged buffer."""
         if self.admission == "chunked":
-            self._fill_slots_chunked()
+            admit = self._fill_slots_chunked()
         else:
             self._fill_slots_stall()
-            self._empty_admit()
+            admit = self._empty_admit()
+        if self._poison_uids:
+            for s, r in enumerate(self.active):
+                if r is not None and r.uid in self._poison_uids:
+                    admit["poison"][s] = 1
+        return admit
 
     def _bucket_len(self, prompt_len: int) -> int:
         """Padded prefill length: the next power of two (at least 8),
         capped at ``max_len`` (``submit`` rejects longer prompts)."""
         return min(max(8, 1 << (prompt_len - 1).bit_length()), self.max_len)
 
-    def _take_free(self) -> List:
-        """Pair free slots with queued requests, in order. A paged
-        engine allocates each one's blocks; a request the pool cannot
-        serve goes back to the head of the queue with every request
+    def _take_free(self, admit: Optional[Dict[str, np.ndarray]] = None
+                   ) -> List:
+        """Pair free slots with queued requests, in EDF order; returns
+        (slot, request, start position) triples. A request that still
+        rides the occupant snapshot of a megastep in flight (preempted
+        since) waits: that drain appends its pre-preemption tokens, and a
+        resume before it would generate them again. A paged engine
+        allocates each one's blocks; a request the pool cannot serve
+        preempts an eligible victim (``_pick_victim``; ``admit`` is the
+        staged buffer whose refill entry the victim's preemption clears)
+        or goes back to the head of the queue with every request taken
         behind it (FIFO blocking: a later request must not jump an
         admission-starved head)."""
         free = [s for s in range(self.slots) if self.active[s] is None]
-        taken, putback = [], []
+        pending = {id(r) for _, _, occ in self._inflight
+                   for r in occ if r is not None}
+        taken, held = [], []
         while free and self.queue:
-            s, req = free.pop(0), self.queue.popleft()
-            if self.paged:
-                start = None if putback else self._admit_paged(s, req)
-                if start is None:
-                    putback.append(req)
-                    continue
+            req = self.queue.popleft()
+            # a request cancelled or finished while requeued: drop it
+            if req.done or req.cancelled:
+                continue
+            if id(req) in pending:
+                held.append(req)
+                continue
+            taken.append((free.pop(0), req))
+        # held requests came off the head: back at the head, in order
+        self.queue.extendleft(reversed(held))
+        if not self.paged:
+            return [(s, req, 0) for s, req in taken]
+        admitted, putback = [], []
+        for s, req in taken:
+            start = None if putback else self._admit_paged(s, req)
+            while start is None and not putback:
+                v = self._pick_victim(req)
+                if v is None:
+                    break
+                self._preempt_slot(v, admit)
+                start = self._admit_paged(s, req)
+            if start is None:
+                putback.append(req)
             else:
-                start = 0
-            taken.append((s, req, start))
+                admitted.append((s, req, start))
         self.queue.extendleft(reversed(putback))
-        return taken
+        return admitted
 
     def _fill_slots_stall(self) -> None:
         """Stall admission: length-bucketed prefill calls into the free
         slots, run between megasteps while decoding slots wait."""
         buckets: Dict[int, List] = {}
         for s, req, _ in self._take_free():
-            p = np.asarray(req.prompt, np.int32)
+            p = self._eff_prompt(req)
             buckets.setdefault(self._bucket_len(len(p)), []).append(
                 (s, req, p))
         for blen, group in buckets.items():
@@ -642,7 +1033,8 @@ class ServingEngine:
             first = self._prefill_impl(
                 toks, np.asarray([len(p) for _, _, p in group], np.int32),
                 np.asarray([s for s, _, _ in group], np.int64),
-                np.asarray([r.max_new_tokens for _, r, _ in group], np.int32),
+                np.asarray([self._eff_max_new(r) for _, r, _ in group],
+                           np.int32),
                 np.asarray([r.eos_id for _, r, _ in group], np.int32),
                 np.asarray([v[0] for v in smp], np.float32),
                 np.asarray([v[1] for v in smp], np.int32),
@@ -715,6 +1107,10 @@ class ServingEngine:
                 ("top_p", t_topp)):
             t = getattr(st, field)
             t.index_copy_(0, idx, val.to(t.dtype))
+        # the call's one sync. On the engine's stream it also waits for a
+        # megastep still in flight, which is issued before this prefill:
+        # its slots were idle in it, so the order is right, and the wait
+        # is the stall that stall admission is
         return first.cpu().numpy()
 
     def _paged_splice(self, one: Dict, seq_lens: np.ndarray,
@@ -744,11 +1140,12 @@ class ServingEngine:
                 pages = rows.view(n, Hkv, S // P, P, d)[src_row, :, src_page]
                 pool.index_copy_(0, dst, pages)
 
-    def _fill_slots_chunked(self) -> None:
+    def _fill_slots_chunked(self) -> Dict[str, np.ndarray]:
         """Host side of admission: the next prompt chunk for slots still
         prefilling, first chunk and metadata for queued requests taken
-        into free slots, packed into the admission buffer that rides into
-        the next megastep."""
+        into free slots (a resumed request's prompt is its own and the
+        tokens it generated), packed into the admission buffer that rides
+        into the next megastep."""
         admit = self._empty_admit()
         chunk = self.prefill_chunk
         for s, req in enumerate(self.active):
@@ -756,23 +1153,23 @@ class ServingEngine:
             pos = self._prefill_pos[s]
             if req is None or prompt is None or pos >= len(prompt):
                 continue
-            admit["refill"][s] = True
+            admit["refill"][s] = 1
             admit["base"][s] = pos
             seg = prompt[pos:pos + chunk]
             admit["tokens"][s, :len(seg)] = seg
             if pos > 0:
                 self.stats.chunk_refills += 1
-        for s, req, start in self._take_free():
-            prompt = np.asarray(req.prompt, np.int32)
+        for s, req, start in self._take_free(admit):
+            prompt = self._eff_prompt(req)
             if self.paged:
                 admit["start_pos"][s] = start
                 admit["block_table"][s] = self._slot_table_row(s)
-            admit["new"][s] = True
+            admit["new"][s] = 1
             admit["base"][s] = start
             seg = prompt[start:start + chunk]
             admit["tokens"][s, :len(seg)] = seg
             admit["prompt_len"][s] = len(prompt)
-            admit["max_new"][s] = req.max_new_tokens
+            admit["max_new"][s] = self._eff_max_new(req)
             admit["eos"][s] = req.eos_id
             temp, topk, topp = self._req_sampling(req)
             admit["temp"][s] = temp
@@ -784,6 +1181,8 @@ class ServingEngine:
             if temp > 0.0:
                 self._stochastic_slots.add(s)
             self.stats.prefills += 1
+            self.stats.inscan_admissions += 1
+        return admit
 
     def _merge_admissions(self) -> None:
         """Fold the admission buffer (on the device) into the device
@@ -825,26 +1224,38 @@ class ServingEngine:
                                         st.prompt_buf))
 
     # -- fused K-substep decode ----------------------------------------------
-    def _megastep(self) -> np.ndarray:
-        """One megastep: the admission buffer to the device, the body
-        (one graph replay on the card), and the packed (4, K, slots)
-        int32 block (tokens, emitted, prefill position, nonfinite) back
-        to the host, the megastep's one sync point."""
+    def _dispatch_megastep(self) -> bool:
+        """Dispatch half of a step: stage the admissions from the host's
+        view of the slots and issue one megastep: the staged ring entry
+        to the device, the body (one graph replay on the card), the
+        packed (4, K, slots) int32 block (tokens, emitted, prefill
+        position, nonfinite) back to the same ring entry, and a CUDA
+        event after that copy. It rides ``_inflight`` with a snapshot of
+        the slots' occupants until ``_drain_oldest``. Returns False when
+        no slot is occupied in the host's view (nothing is issued)."""
+        t0 = time.perf_counter()
+        self._fill_slots()
+        self.stats.stage_wall_s += time.perf_counter() - t0
+        if not any(r is not None for r in self.active):
+            return False
         all_greedy = not self._stochastic_slots
-        if self.device.type == "cuda":
+        event = None
+        if self._on_card:
             graph = self._graphs.get(all_greedy) or self._capture(all_greedy)
             self._admit_dev.copy_(self._admit_host, non_blocking=True)
             graph.replay()
             self.stats.graph_replays += 1
             self._block_host.copy_(self._block, non_blocking=True)
-            torch.cuda.current_stream(self.device).synchronize()
+            event = torch.cuda.Event()
+            event.record()
         else:
             self._admit_dev.copy_(self._admit_host)
             self._megastep_body(all_greedy, self.generator)
             self._block_host.copy_(self._block)
+        self._inflight.append((self._stage, event, tuple(self.active)))
         self.stats.megasteps += 1
         self.stats.steps += self.megastep_k
-        return self._block_host.numpy()
+        return True
 
     def _capture(self, all_greedy: bool) -> "torch.cuda.CUDAGraph":
         """Capture the megastep body as a CUDA graph on the capture
@@ -893,6 +1304,7 @@ class ServingEngine:
         admission merge, then K substeps of decode_step with in-loop
         sampling and retirement, each writing its row of the block."""
         self._merge_admissions()
+        poison = self._admit["poison"] != 0
         st = self.state
         chunk = self.prefill_chunk
         for k in range(self.megastep_k):
@@ -908,6 +1320,9 @@ class ServingEngine:
             logits = self.model.decode_step(
                 self.params, in_tok[:, None].long(), self.cache,
                 advance_mask=feeding | is_dec)
+            # a poisoned slot's logits turn NaN here, so that the
+            # finiteness check below retires it (fault injection)
+            logits = torch.where(poison[:, None], float("nan"), logits)
             bad = (is_pre | is_dec) & ~torch.isfinite(logits).all(dim=-1)
             if all_greedy:
                 tok = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -929,38 +1344,59 @@ class ServingEngine:
                 [tok, emit.to(torch.int32), st.prefill_pos,
                  bad.to(torch.int32)]))
 
-    def _drain(self, block: np.ndarray, occupants) -> None:
-        """Hand the block's tokens and retirements to the requests that
-        rode the megastep."""
+    def _drain_oldest(self) -> None:
+        """Drain half: wait for the oldest megastep in flight (its event;
+        never the whole stream, which would wait for the next megastep
+        too) and hand its block's tokens and retirements to the requests
+        that rode it: its occupant snapshot, not the host's view, which
+        may have moved on (a slot freed by an earlier drain can already
+        hold a newer request, idle throughout this block)."""
+        entry, event, occupants = self._inflight.popleft()
+        t0 = time.perf_counter()
+        if event is not None:
+            event.synchronize()
+        self.stats.drain_wait_s += time.perf_counter() - t0
+        block = self._block_ring[entry].numpy()
         toks, emitted = block[0], block[1].astype(bool)
         last_pos = block[2][-1]
         bad = block[3].astype(bool).any(axis=0)
         for s in range(self.slots):
-            if occupants[s] is not None and not bad[s]:
-                self._prefill_pos[s] = int(last_pos[s])
-                # the prompt is consumed, so its pages exist on the
-                # device: publish them (a nonfinite slot publishes none)
-                prompt = self._slot_prompt[s]
-                if (self.prefix_cache and not self._slot_reg_done[s]
-                        and self._prefill_pos[s] >= len(prompt)):
-                    self._register_prefix(s, prompt)
+            # the prompt cursor mirror moves only while the slot still
+            # serves this block's request: a retired occupant's position
+            # must not become a newer request's refill base. A nonfinite
+            # slot is about to be retired: no move, no published page.
+            req = occupants[s]
+            if req is None or bad[s] or self.active[s] is not req:
+                continue
+            self._prefill_pos[s] = int(last_pos[s])
+            # its own prompt is consumed, so its pages exist on the
+            # device: publish them
+            if (self.prefix_cache and not self._slot_reg_done[s]
+                    and self._prefill_pos[s] >= len(req.prompt)):
+                self._register_prefix(s, np.asarray(req.prompt, np.int32))
         for k in range(toks.shape[0]):
             for s in range(self.slots):
                 req = occupants[s]
-                if req is None or not emitted[k, s]:
+                if req is None or req.cancelled or not emitted[k, s]:
                     continue
                 tok = int(toks[k, s])
                 req.output.append(tok)
                 self.stats.tokens_generated += 1
                 if tok == req.eos_id or len(req.output) >= req.max_new_tokens:
                     req.done = True        # the device already froze it
-                    self._free_slot(s)
+                    if self.active[s] is req:
+                        self._free_slot(s)
+        # a slot the device flagged nonfinite is frozen already; its
+        # request fails with the tokens it emitted before
         for s in range(self.slots):
             req = occupants[s]
-            if bad[s] and req is not None and not req.done:
-                req.error = "nonfinite-logits"
-                req.done = True
-                self.stats.poisoned += 1
+            if not bad[s] or req is None or req.done or req.cancelled:
+                continue
+            req.error = "nonfinite-logits"
+            req.done = True
+            self.stats.poisoned += 1
+            self._poison_uids.discard(req.uid)
+            if self.active[s] is req:
                 self._free_slot(s)
 
     def _free_slot(self, s: int) -> None:
