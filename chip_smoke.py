@@ -29,7 +29,16 @@ Phases (any failed check raises and the process exits nonzero):
    shape beside the dense kernel, SDPA on the dense view and
    ``paged_gather`` + the dense kernel; the paged RoPE + cache write
    bit-equal to the dense kernel at the mapped rows, with frozen rows,
-   block 0 and unmapped blocks untouched;
+   block 0 and unmapped blocks untouched; the (head_dim, G) instances of
+   the paper's other models, (64, 7), (128, 6), (128, 3) and (128, 4), in
+   both attention kernels (the decode kernel's three loaders), timed at
+   their models' decode (4 slots, kv_len 1024) and prefill (4 x 512)
+   shapes, flash attention with mistral-7b's window of 4096 at S 4500, a
+   pair that is not instantiated raising in both; ``quant_matmul`` and
+   the gate-up GEMM at every new linear shape at M 4 and 2048 and at the
+   untied heads (N 128256 and 32000, f32 logits); both RoPE + cache
+   writes with the fused-QKV bias, and the prefill one with S past the
+   cache (the ring write) in the three cache formats;
 4. main path: llama3.2-1b at full width (seeded random weights, q8_0
    weights, bf16 cache) served by ``repro_torch.launch.serve`` with 4
    slots, max_len 1024, 8-substep megasteps and chunked admission, 8
@@ -56,7 +65,9 @@ Phases (any failed check raises and the process exits nonzero):
    paged, depth 1 and 2, one leg over a q8_0 cache: survivors equal
    ``reference_decode``, poisoned requests clean prefixes, the pool
    recovered); preemption with resume under chunked and stall admission
-   on a 4-block pool, with ``QueueFull`` and ``InfeasibleDeadline``;
+   on a 4-block pool, with ``QueueFull`` and ``InfeasibleDeadline``; a
+   stall-admission resume whose prompt and generated tokens outgrow
+   ``max_len`` (the ring write), dense and paged;
 6. prefill path: the same model at full width and depth with stall
    admission, 8 requests with prompts of 270-900 tokens (buckets of 512
    and 1024 positions); checks launch counts, the streams against
@@ -87,7 +98,22 @@ Phases (any failed check raises and the process exits nonzero):
    (temperature 0.8) through the sampling graph: greedy rows exact,
    sampled tokens inside their top-k / top-p filters, the same tokens
    from two runs with one seed;
-9. one ``{"kernels": [...]}`` line, the card line, and the last line
+9. paper models: the paper's six models (its Fig. 4) at full width and
+   depth, each under bf16, q8_0 and q4_0 weights with a bf16 cache,
+   served by ``launch.serve`` through the main path's traffic (4 slots,
+   8 requests of 32 new tokens) and one request alone on a 1-slot engine
+   (the paper's single user): launch counts from each config's depth and
+   head, no plain RoPE, cache write or bias add on the card, streams
+   against ``reference_decode``, one decode step against the plain
+   versions beside the planted fault; ms a step and tok/s beside the
+   weight-streaming floor; a stall leg of each model (q8_0, 4 x 512
+   prompts); then mistral-7b's window (q8_0, stall, max_len 8192, a
+   4096-position ring): a 4500-token prompt through the ring write and
+   the windowed prefill attention, a 4080-token one whose decode crosses
+   the ring's edge, both against ``reference_decode(stepwise_prefill=
+   False)``; (phase 5 also resumes a stall-admitted request past
+   ``max_len``, dense and paged);
+10. one ``{"kernels": [...]}`` line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits nonzero without printing a result when CUDA is unavailable, or
@@ -124,6 +150,9 @@ PREFILL_PROMPTS = (300, 310, 480, 500, 700, 760, 900, 270)
 # least 3.21e-1 with the attention looking one key ahead (PERF.md).
 PREFILL_REL_TOL = 4e-2
 PAGE = 16                          # the paged path's and legs' page size
+# the paper's six models (its Fig. 4), smallest first
+PAPER_ORDER = ("qwen2-0.5b", "qwen2-1.5b", "llama3.2-1b", "llama3.2-3b",
+               "llama3.2-8b", "mistral-7b-v0.1")
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
@@ -608,6 +637,61 @@ def preemption_leg(eng, Request, QueueFull, InfeasibleDeadline, reference):
     return out
 
 
+def resume_past_max_len_leg(eng, Request, reference):
+    """A stall-admission resume whose prompt and generated tokens outgrow
+    ``max_len``: a 40-token prompt with a budget of 40 on a cache of 64
+    positions, preempted once it has 33 tokens, resumes from 73, which
+    the engine prefills at their exact length through the ring write (a
+    paged engine splices the scratch cache's ring into its pages). The
+    stream ends with 40 tokens; those before the resume equal the request
+    served alone, those after it ``reference(prompt + tokens so far, n,
+    stepwise_prefill=False)``; the request served alone equals
+    ``reference(prompt, 40, stepwise_prefill=False)`` (its decode wraps
+    the cache's ring too)."""
+    import numpy as np
+    prompt = np.random.default_rng(5).integers(
+        1, eng.cfg.vocab_size, 40).astype(np.int32)
+    label = (f"resume past max_len ({'paged' if eng.paged else 'dense'}, "
+             f"max_len {eng.max_len})")
+    eng.reset()
+    alone = Request(uid=0, prompt=prompt, max_new_tokens=40)
+    eng.submit(alone)
+    eng.run()
+    check(alone.output == reference(prompt, 40, stepwise_prefill=False),
+          f"{label}: the request served alone differs from reference_decode")
+    eng.reset()
+    eng.audit_every_step = True
+    r = Request(uid=0, prompt=prompt, max_new_tokens=40)
+    eng.submit(r)
+    while len(r.output) < 33:
+        eng.step()
+    k = len(r.output)
+    check(k < 40 and eng.preempt(r), f"{label}: preempt after {k} tokens")
+    eng.run()
+    eng.audit_every_step = False
+    check(r.done and len(r.output) == 40 and r.preemptions == 1,
+          f"{label}: {len(r.output)} tokens, {r.preemptions} preemptions")
+    check(len(prompt) + k > eng.max_len, f"{label}: the resume fits the cache")
+    check(r.output[:k] == alone.output[:k], f"{label}: the tokens before "
+          "the resume differ from the request served alone")
+    ref = reference(np.concatenate([prompt, np.asarray(r.output[:k],
+                                                       np.int32)]),
+                    40 - k, stepwise_prefill=False)
+    check(r.output[k:] == ref, f"{label}: the tokens after the resume "
+          "differ from reference_decode(stepwise_prefill=False) of the "
+          "prompt and the tokens before it")
+    check(not eng.has_work() and eng.blocks_in_use == 0,
+          f"{label}: work or blocks left")
+    same = next((i for i, (a, b) in enumerate(zip(r.output, alone.output))
+                 if a != b), 40)
+    print(f"  {label}: resumed from {len(prompt) + k} tokens (prompt and "
+          f"{k} generated) through the ring write; before the resume == "
+          "the request served alone, after it == reference_decode("
+          "stepwise_prefill=False); equal to the stream served alone for "
+          f"the first {same} of 40", flush=True)
+    return dict(resumed_from=len(prompt) + k, equal_to_alone=same)
+
+
 def fault_leg(eng, Request, FaultInjector, FaultSchedule, seed, reference):
     """One seeded storm (``FaultSchedule.seeded``: pool exhaustion,
     preemption, poisoned logits, host stalls, transient exceptions) on a
@@ -834,6 +918,26 @@ def main() -> None:
               f"registers, {st_b} / {ld_b} bytes spill stores / loads",
               flush=True)
         check(st_b == 0 and ld_b == 0, f"ptxas spilled registers in {fn}")
+    # both attention kernels' instances at the (head_dim, G) pairs of the
+    # paper's other models keep their registers too (every loader)
+    new_pairs_ptx = {(64, 7), (128, 6), (128, 3), (128, 4)}
+    for stem, pat in (
+            ("decode_attention",
+             r"decode_attention_split_kernelILi(\d)ELi(\d+)ELi(\d+)EE"),
+            ("flash_attention",
+             r"flash_attention_kernelILi(\d+)ELi(\d+)ELi(\d+)EE")):
+        for fn, regs, st_b, ld_b in build.ptxas_usage(stem):
+            m = re.search(pat, fn)
+            if not m:
+                continue
+            a, b_, c = (int(x) for x in m.groups())
+            pair = (b_, c) if stem == "decode_attention" else (a, b_)
+            print(f"  ptxas on {stem}.cu: " + (
+                f"loader {a}, D {b_}, G {c}" if stem == "decode_attention"
+                else f"D {a}, G {b_}, BK {c}") + f": {regs} registers, "
+                f"{st_b} / {ld_b} bytes spill stores / loads", flush=True)
+            check(pair not in new_pairs_ptx or (st_b == 0 and ld_b == 0),
+                  f"ptxas spilled registers in {fn}")
     # the profiler's first window starts its tracing; keep that out of
     # the timed ones
     from torch.profiler import ProfilerActivity, profile
@@ -898,16 +1002,18 @@ def main() -> None:
     @contextlib.contextmanager
     def kernels_only(quantized: bool = True):
         """While a path is served, the parts of the RoPE + cache-write
-        plain versions refuse to run: every RoPE and cache write on the
-        card goes through the fused kernels. With quantized weights the
-        standalone SwiGLU refuses too: the gate-up GEMM computes it."""
-        names = ("apply_rope", "kv_cache_write", "kv_cache_write_prefill")
+        plain versions refuse to run: every RoPE, cache write and
+        fused-QKV bias add on the card goes through the fused kernels.
+        With quantized weights the standalone SwiGLU refuses too: the
+        gate-up GEMM computes it."""
+        names = ("apply_rope", "kv_cache_write", "kv_cache_write_prefill",
+                 "_with_bias")
         saved = {n: getattr(fused_ops, n) for n in names}
         saved_swiglu = ops.swiglu
 
         def refuse(*a, **kw):
-            fail("a plain RoPE or cache write ran on the card in a served "
-                 "path")
+            fail("a plain RoPE, cache write or bias add ran on the card in "
+                 "a served path")
 
         def refuse_swiglu(*a, **kw):
             fail("the standalone SwiGLU ran in a served path with "
@@ -936,8 +1042,24 @@ def main() -> None:
     gen_paged = torch.Generator(device=dev)      # the paged kernel cases
     gen_paged.manual_seed(3)
 
+    gen_paper = torch.Generator(device=dev)      # the paper models' cases
+    gen_paper.manual_seed(6)
+    draw_from = [gen]          # the generator randn takes by default
+
     def randn(*shape, scale=1.0, g=None):
-        return torch.randn(shape, generator=g or gen, device=dev) * scale
+        return torch.randn(shape, generator=g or draw_from[0],
+                           device=dev) * scale
+
+    @contextlib.contextmanager
+    def drawing_from(g):
+        """randn's default generator is ``g`` inside, so that cases added
+        later leave ``gen``'s draws (and so the paths' weights) as they
+        were."""
+        draw_from[0] = g
+        try:
+            yield
+        finally:
+            draw_from[0] = gen
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     cfg_full = get_config("llama3.2-1b")
@@ -946,7 +1068,11 @@ def main() -> None:
     rows = {}          # kernel-table rows by name
 
     # -- 3. kernels against their plain versions ---------------------------
-    def attention_case(fmt, b, hq, hkv, s, d, lens, window, timed):
+    def attention_case(fmt, b, hq, hkv, s, d, lens, window, timed,
+                       instance=None, path=None):
+        """``instance`` names a (head_dim, G) instance of a paper model
+        in the row's name, ``path`` the served run whose launches the row
+        reports (the main path's and the second path's by default)."""
         q = randn(b, hq, d).bfloat16()
         k = randn(b, hkv, s, d).bfloat16()
         v = randn(b, hkv, s, d).bfloat16()
@@ -975,6 +1101,9 @@ def main() -> None:
         tol = bf16_tol(ref)
         name = "decode_attention" if fmt == "bf16" else \
             f"decode_attention_quant[{fmt}]"
+        if instance:
+            name = (f"decode_attention[{instance}]" if fmt == "bf16" else
+                    f"decode_attention_quant[{fmt} {instance}]")
         shape = f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} kv_len{lens} window{window}"
         print(f"  {name} {shape}: max_abs_err {err:.3e} (tol {tol:.3e})",
               flush=True)
@@ -1017,7 +1146,8 @@ def main() -> None:
             replaces=("src/repro/kernels/decode_attention.py:82"
                       if fmt == "bf16" else
                       "src/repro/kernels/decode_attention_quant.py:119"),
-            shape=shape, path="main" if fmt == "bf16" else f"second {fmt}",
+            shape=shape, path=path or ("main" if fmt == "bf16"
+                                       else f"second {fmt}"),
             launches=0, max_abs_err=err, tol=tol, ms=ms,
             call_ms=call_ms, plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
             library_ms=lib_ms,
@@ -1407,13 +1537,31 @@ def main() -> None:
             n += max(0, min(skv - 1, pos) - lo + 1)
         return n
 
-    def flash_case(b, hq, hkv, sq, skv, d, window, q_offset, timed):
+    def padded_plain(q, k, v, **kw):
+        """The plain version, over the inputs padded with zero positions
+        to a multiple of its 512-position block where Sq = Skv is not one
+        (its blocks halve until they divide S: at S 4500 they would be 4
+        positions, a loop of a million steps); the causal rows of the
+        first Sq positions see no padded key."""
+        sq = q.shape[2]
+        pad = -sq % 512 if sq == k.shape[2] and sq > 512 else 0
+        if not pad:
+            return flash_attention_plain(q, k, v, **kw)
+        grow = lambda t: F.pad(t, (0, 0, 0, pad))
+        return flash_attention_plain(grow(q), grow(k), grow(v),
+                                     **kw)[:, :, :sq]
+
+    def flash_case(b, hq, hkv, sq, skv, d, window, q_offset, timed,
+                   instance=None, path="prefill"):
+        """``instance`` names a (head_dim, G) instance of a paper model
+        (and the window) in the row's name; ``path`` is the served run
+        whose launches the row reports."""
         q = randn(b, hq, sq, d).bfloat16()
         k = randn(b, hkv, skv, d).bfloat16()
         v = randn(b, hkv, skv, d).bfloat16()
         kw = dict(causal=True, window=window, q_offset=q_offset)
         out = flash_attention(q, k, v, **kw)
-        ref = flash_attention_plain(q, k, v, **kw)
+        ref = padded_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
         tol = bf16_tol(ref)
@@ -1439,7 +1587,21 @@ def main() -> None:
         copies = [(q, k, v)] + [tuple(t.clone() for t in (q, k, v))
                                 for _ in range(n_cp - 1)]
         # the kernel and SDPA in turn, three times: the medians go in the
-        # row, the spreads beside them
+        # row, the spreads beside them. SDPA takes a window as a boolean
+        # mask of the visible (query, key) pairs
+        if window:
+            qpos = torch.arange(sq, device=dev)[:, None] + q_offset
+            kpos = torch.arange(skv, device=dev)[None, :]
+            band = (kpos <= qpos) & (kpos > qpos - window)
+            lib = lambda qq, kk, vv: F.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=band, enable_gqa=True)
+            lib_name = ("torch.nn.functional.scaled_dot_product_attention"
+                        " (attn_mask: the causal window, enable_gqa)")
+        else:
+            lib = lambda qq, kk, vv: F.scaled_dot_product_attention(
+                qq, kk, vv, is_causal=True, enable_gqa=True)
+            lib_name = ("torch.nn.functional.scaled_dot_product_attention"
+                        " (is_causal, enable_gqa)")
         kern_ms, lib_ms_all, call_ms_all, attempts = [], [], [], []
         for _ in range(3):
             ms, call_ms = time_calls(lambda *a: flash_attention(*a, **kw),
@@ -1447,24 +1609,23 @@ def main() -> None:
             kern_ms.append(ms)
             call_ms_all.append(call_ms)
             attempts.append(time_calls.attempts)
-            lib_ms_all.append(time_calls(
-                lambda qq, kk, vv: F.scaled_dot_product_attention(
-                    qq, kk, vv, is_causal=True, enable_gqa=True),
-                copies, 50)[0])
+            lib_ms_all.append(time_calls(lib, copies, 50)[0])
         ms, call_ms, lib_ms = (sorted(x)[1] for x in
                                (kern_ms, call_ms_all, lib_ms_all))
-        plain_ms, _ = time_calls(lambda *a: flash_attention_plain(*a, **kw),
+        plain_ms, _ = time_calls(lambda *a: padded_plain(*a, **kw),
                                  copies, 5)
         pl = fa_mod.plan(b, hq, hkv, sq, skv, d, **kw, sms=sms)
-        rows[f"flash_attention[B{b} S{sq}]"] = dict(
-            name=f"flash_attention[B{b} S{sq}]", route="cuda",
+        name = (f"flash_attention[{instance} B{b} S{sq}"
+                + (f" window{window}]" if window else "]")
+                if instance else f"flash_attention[B{b} S{sq}]")
+        rows[name] = dict(
+            name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:87",
-            shape=shape, path="prefill", launches=0, max_abs_err=err,
+            shape=shape, path=path, launches=0, max_abs_err=err,
             tol=tol, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
             bound_ms=t_bound, bound_by=by, library_ms=lib_ms,
-            library="torch.nn.functional.scaled_dot_product_attention"
-                    " (is_causal, enable_gqa)",
+            library=lib_name,
             grid=dict(ctas=pl.ctas, splits=None, k_chunks=None,
                       work_items=pl.items, block_q=pl.block_q,
                       block_k=pl.block_k),
@@ -1606,9 +1767,13 @@ def main() -> None:
         return ((r - r.floor()) == 0.5).reshape(x.shape)
 
     def rope_case(fmt, b, hq, hkv, s_len, d, lens, advance, timed=False,
-                  path=None):
+                  path=None, with_bias=False):
+        """``with_bias``: the fused-QKV bias (qwen2's), drawn from
+        ``gen_added``, added by the kernel."""
         theta = cfg_full.rope_theta
         qkv = randn(b, (hq + 2 * hkv) * d).bfloat16()
+        bias = (randn((hq + 2 * hkv) * d, g=gen_added).bfloat16()
+                if with_bias else None)
         old = randn(b, hkv, s_len, d).bfloat16()
         if fmt == "bf16":
             cache = {"k": old, "v": (old * 0.5).contiguous()}
@@ -1621,13 +1786,14 @@ def main() -> None:
                else torch.tensor(advance, dtype=torch.bool, device=dev))
         ck = {n: t.clone() for n, t in cache.items()}
         cp = {n: t.clone() for n, t in cache.items()}
-        q = rope_cache_write(qkv, ck, lens_t, adv, theta, fmt)
-        qp = rope_cache_write_plain(qkv, cp, lens_t, adv, theta, fmt)
+        q = rope_cache_write(qkv, ck, lens_t, adv, theta, fmt, bias=bias)
+        qp = rope_cache_write_plain(qkv, cp, lens_t, adv, theta, fmt,
+                                    bias=bias)
         torch.cuda.synchronize()
         err = float((q.float() - qp.float()).abs().max())
         tol = bf16_tol(qp)
         shape = (f"B{b} Hq{hq} Hkv{hkv} S{s_len} D{d} lens{lens} "
-                 f"advance{advance}")
+                 f"advance{advance}" + (" bias" if with_bias else ""))
         label = f"rope_cache_write[{fmt}] {shape}"
         check(err <= tol, f"{label}: q {err} > {tol}")
         written = torch.zeros((b, s_len), dtype=torch.bool, device=dev)
@@ -1637,9 +1803,11 @@ def main() -> None:
         for n, leaf in ck.items():
             check(torch.equal(leaf[frozen], cache[n][frozen]),
                   f"{label}: {n} changed outside the written ring slots")
+        biased = qkv if bias is None else qkv + bias
         kr = fused_ops.apply_rope(
-            qkv[:, hq * d:(hq + hkv) * d].reshape(b, hkv, d), lens_t, theta)
-        vr = qkv[:, (hq + hkv) * d:].reshape(b, hkv, d)
+            biased[:, hq * d:(hq + hkv) * d].reshape(b, hkv, d), lens_t,
+            theta)
+        vr = biased[:, (hq + hkv) * d:].reshape(b, hkv, d)
         n_ties = 0
         for i, pos in enumerate(lens):
             if not (advance is None or advance[i]):
@@ -1679,11 +1847,14 @@ def main() -> None:
         copies = [(qkv, ck, lens_t, adv)] + [
             (qkv.clone(), ck, lens_t, adv)
             for _ in range(n_copies(qkv.numel() * 2) - 1)]
-        fused_row(f"rope_cache_write[{fmt}]",
+        if bias is not None:
+            nbytes += bias.numel() * 2
+        fused_row(f"rope_cache_write[{fmt}" + (" bias]" if with_bias
+                                               else "]"),
                   lambda a, c, ln, av: rope_cache_write(a, c, ln, av, theta,
-                                                        fmt),
+                                                        fmt, bias=bias),
                   lambda a, c, ln, av: rope_cache_write_plain(
-                      a, c, ln, av, theta, fmt), copies, nbytes,
+                      a, c, ln, av, theta, fmt, bias=bias), copies, nbytes,
                   "src/repro/models/layers.py:51", shape, path, err, tol)
 
     def add_rmsnorm_case(M, d, dtype, timed=False, path=None):
@@ -1723,13 +1894,17 @@ def main() -> None:
                   "src/repro/models/layers.py:26", shape, path, err, tol)
 
     def rope_prefill_case(fmt, b, s_len, s_cache, hq, hkv, d, timed=False,
-                          path=None):
+                          path=None, with_bias=False):
         """The prefill RoPE + cache write against its plain version: q,
         k, v and the bf16 cache rows bit-equal, quantized scales
         bit-equal and payloads one step off only on .5 ties, cache
-        positions from s_len on untouched."""
+        positions from s_len on untouched (s_len > s_cache: the ring
+        write, every position written). ``with_bias``: the fused-QKV
+        bias, added by the kernel."""
         theta = cfg_full.rope_theta
         qkv = randn(b, s_len, (hq + 2 * hkv) * d, g=gen_added).bfloat16()
+        bias = (randn((hq + 2 * hkv) * d, g=gen_added).bfloat16()
+                if with_bias else None)
         old = randn(b, hkv, s_cache, d, g=gen_added).bfloat16()
         if fmt == "bf16":
             cache = {"k": old, "v": (old * 0.5).contiguous()}
@@ -1739,10 +1914,13 @@ def main() -> None:
             cache = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
         ck = {n: t.clone() for n, t in cache.items()}
         cp = {n: t.clone() for n, t in cache.items()}
-        got = rope_cache_write_prefill(qkv, ck, theta, fmt)
-        want = rope_cache_write_prefill_plain(qkv, cp, theta, fmt)
+        got = rope_cache_write_prefill(qkv, ck, theta, fmt, bias=bias)
+        want = rope_cache_write_prefill_plain(qkv, cp, theta, fmt,
+                                              bias=bias)
         torch.cuda.synchronize()
-        shape = f"B{b} S{s_len} S_cache{s_cache} Hq{hq} Hkv{hkv} D{d}"
+        shape = (f"B{b} S{s_len} S_cache{s_cache} Hq{hq} Hkv{hkv} D{d}"
+                 + (" bias" if with_bias else ""))
+        kept = min(s_len, s_cache)           # cache rows the call writes
         label = f"rope_cache_write_prefill[{fmt}] {shape}"
         err = max(float((g_.float() - w_.float()).abs().max())
                   for g_, w_ in zip(got, want))
@@ -1763,8 +1941,12 @@ def main() -> None:
             for n, x in (("k", got[1]), ("v", got[2])):
                 check(torch.equal(ck[f"{n}_scale"], cp[f"{n}_scale"]),
                       f"{label}: {n}_scale not bit-equal")
-                diff = (unpacked(ck[n][:, :, :s_len], fmt)
-                        - unpacked(cp[n][:, :, :s_len], fmt)).abs()
+                if s_len > s_cache:          # ring slot j: its position
+                    x = x[:, :, s_len - s_cache
+                          + (torch.arange(s_cache, device=dev) - s_len)
+                          % s_cache]
+                diff = (unpacked(ck[n][:, :, :kept], fmt)
+                        - unpacked(cp[n][:, :, :kept], fmt)).abs()
                 check(int(diff.max()) <= 1 and bool(
                     ((diff == 0) | ties(x, fmt, ng)).all()),
                     f"{label}: {n} payload off by more than one step, or "
@@ -1772,19 +1954,27 @@ def main() -> None:
                 n_ties += int((diff > 0).sum())
         print(f"  {label}: q, k, v bit-equal; cache rows as the plain "
               f"version's ({n_ties} payload elements one step off on .5 "
-              f"ties), positions from {s_len} on untouched", flush=True)
+              f"ties), " + (f"positions from {s_len} on untouched"
+                            if s_len < s_cache else
+                            f"the last {s_cache} positions at their ring "
+                            "slots" if s_len > s_cache else
+                            "every position written"), flush=True)
         if not timed:
             return
         row_bytes = sum(t[0, 0, 0].numel() * t.element_size()
                         for t in ck.values())
         nbytes = (2 * qkv.numel() + 2 * sum(t.numel() for t in got)
-                  + b * hkv * s_len * row_bytes)
+                  + b * hkv * kept * row_bytes
+                  + (0 if bias is None else bias.numel() * 2))
         copies = [(qkv, ck)] + [(qkv.clone(), ck) for _ in range(
             n_copies(qkv.numel() * 2) - 1)]
-        fused_row(f"rope_cache_write_prefill[{fmt} B{b} S{s_len}]",
-                  lambda a, c: rope_cache_write_prefill(a, c, theta, fmt),
-                  lambda a, c: rope_cache_write_prefill_plain(a, c, theta,
-                                                              fmt),
+        form = (" ring" if s_len > s_cache else "") + (
+            " bias" if with_bias else "")
+        fused_row(f"rope_cache_write_prefill[{fmt}{form} B{b} S{s_len}]",
+                  lambda a, c: rope_cache_write_prefill(a, c, theta, fmt,
+                                                        bias=bias),
+                  lambda a, c: rope_cache_write_prefill_plain(
+                      a, c, theta, fmt, bias=bias),
                   copies, nbytes, "src/repro/models/layers.py:51", shape,
                   path, err, 0.0)
 
@@ -1922,6 +2112,105 @@ def main() -> None:
         rope_prefill_case(fmt, 2, 70, 80, 16, 16, 128)
         rope_prefill_case(fmt, 2, 9, 16, 4, 2, 40)
 
+    # -- the paper's other models: their kernel instances and shapes --------
+    # the (head_dim, G) instance each adds to both attention kernels, with
+    # the model whose served runs launch it (llama3.2-8b's also serves
+    # mistral-7b): decode at 4 slots of kv_len 1024, prefill at 4 x 512
+    new_pairs = {(64, 7): "qwen2-0.5b", (128, 6): "qwen2-1.5b",
+                 (128, 3): "llama3.2-3b", (128, 4): "llama3.2-8b"}
+    mis = get_config("mistral-7b-v0.1")
+    qwen = get_config("qwen2-0.5b")
+    print("the paper's other models: their kernel instances and shapes vs "
+          "the plain versions:", flush=True)
+    with drawing_from(gen_paper):
+        for (d, g_), arch in new_pairs.items():
+            pc = get_config(arch)
+            inst = f"D{d} G{g_}"
+            hq, hkv = pc.num_heads, pc.num_kv_heads
+            attention_case("bf16", B, hq, hkv, S, d, [S] * B, 0, timed=True,
+                           instance=inst, path=f"paper {arch} bf16")
+            for fmt in ("bf16", "q8_0", "q4_0"):
+                if fmt != "bf16":
+                    attention_case(fmt, B, hq, hkv, S, d, [S] * B, 0,
+                                   timed=False, instance=inst)
+                attention_case(fmt, B, hq, hkv, S, d, [0, 1, 37, S], 0,
+                               timed=False, instance=inst)
+                attention_case(fmt, B, hq, hkv, S, d, [0, 5, 700, S], 100,
+                               timed=False, instance=inst)
+            flash_case(B, hq, hkv, 512, 512, d, 0, 0, timed=True,
+                       instance=inst, path=f"paper {arch} stall")
+            flash_case(2, hq, hkv, 333, 333, d, 0, 0, timed=False)
+            flash_case(2, hq, hkv, 512, 512, d, 100, 0, timed=False)
+        # mistral-7b's window at the window leg's longest prompt
+        flash_case(1, mis.num_heads, mis.num_kv_heads, 4500, 4500,
+                   mis.head_dim, mis.sliding_window, 0, timed=True,
+                   instance="D128 G4", path="window")
+        # no fallback: a (head_dim, G) no config serves raises in both
+        for what, call in (
+                ("decode_attention", lambda: decode_attention(
+                    randn(1, 6, 64).bfloat16(), randn(1, 2, 64, 64).bfloat16(),
+                    randn(1, 2, 64, 64).bfloat16(),
+                    torch.tensor([5], dtype=torch.int32, device=dev))),
+                ("flash_attention", lambda: flash_attention(
+                    randn(1, 6, 64, 64).bfloat16(),
+                    randn(1, 2, 64, 64).bfloat16(),
+                    randn(1, 2, 64, 64).bfloat16()))):
+            try:
+                call()
+            except ValueError as e:
+                check("has no kernel for head_dim 64 with 3" in str(e),
+                      f"{what} (64, 3): {e}")
+            else:
+                fail(f"{what} ran (head_dim 64, G 3), which no config "
+                     "serves and no kernel instantiates")
+        print("  decode_attention and flash_attention at (head_dim 64, G 3):"
+              " raise, no kernel instantiated (no fallback)", flush=True)
+        # every new linear at decode M (q8_0 timed, q4_0 checked) and the
+        # prefill's M 2048; the gate-up GEMM with its SwiGLU (the cluster
+        # route at M 2048: F 4864 and 8960 are no multiple of 128); the
+        # untied heads at f32 logits
+        for arch in ("qwen2-0.5b", "qwen2-1.5b", "llama3.2-3b",
+                     "llama3.2-8b"):
+            pc = get_config(arch)
+            for label, (K, N) in (
+                    ("wqkv", (pc.d_model, pc.q_dim + 2 * pc.kv_dim)),
+                    ("wo", (pc.q_dim, pc.d_model)),
+                    ("w_down", (pc.d_ff, pc.d_model))):
+                qmm_case("q8_0", label, B, K, N, torch.bfloat16, timed=True,
+                         path=f"paper {arch} q8_0")
+                qmm_case("q4_0", label, B, K, N, torch.bfloat16, timed=False)
+                qmm_case("q8_0", label, 2048, K, N, torch.bfloat16,
+                         timed=True, path=f"paper {arch} stall")
+            qmm_swiglu_case("q8_0", B, pc.d_model, pc.d_ff, timed=True,
+                            path=f"paper {arch} q8_0")
+            qmm_swiglu_case("q4_0", B, pc.d_model, pc.d_ff)
+            qmm_swiglu_case("q8_0", 2048, pc.d_model, pc.d_ff, timed=True,
+                            path=f"paper {arch} stall")
+        for arch in ("llama3.2-8b", "mistral-7b-v0.1"):
+            pc = get_config(arch)
+            qmm_case("q8_0", "lm_head", B, pc.d_model, pc.padded_vocab,
+                     torch.float32, timed=True, path=f"paper {arch} q8_0")
+            qmm_case("q4_0", "lm_head", B, pc.d_model, pc.padded_vocab,
+                     torch.float32, timed=False)
+        # the RoPE + cache writes with qwen2's bias, and the prefill one
+        # past the cache (the ring write): mistral-7b's 4500 positions
+        # into its 4096-position ring, ragged rings at D 32 and 128
+        for fmt in ("bf16", "q8_0", "q4_0"):
+            rope_case(fmt, B, qwen.num_heads, qwen.num_kv_heads, S,
+                      qwen.head_dim, ring, None, timed=fmt == "bf16",
+                      path="paper qwen2-0.5b bf16", with_bias=True)
+            rope_case(fmt, 3, 12, 2, 64, 128, [64, 7, 63],
+                      [True, False, True], with_bias=True)
+            rope_prefill_case(fmt, B, 512, S, qwen.num_heads,
+                              qwen.num_kv_heads, qwen.head_dim,
+                              timed=fmt == "bf16",
+                              path="paper qwen2-0.5b stall", with_bias=True)
+            rope_prefill_case(fmt, 1, 4500, 4096, mis.num_heads,
+                              mis.num_kv_heads, mis.head_dim,
+                              timed=fmt == "bf16", path="window")
+            rope_prefill_case(fmt, 2, 40, 16, 4, 2, 32, with_bias=True)
+            rope_prefill_case(fmt, 2, 70, 64, 12, 2, 128, with_bias=True)
+
     # -- shared checks of a served path -------------------------------------
     def clone_cache(c):
         out = {"lens": c["lens"].clone(),
@@ -1977,12 +2266,12 @@ def main() -> None:
         torch.cuda.synchronize()
         return out
 
-    def step_vs_plain(engine, label):
+    def step_vs_plain(engine, label, seeds=STEP_SEEDS):
         """One decode step from the engine's current cache, for a few
         seeded token batches, judged against STEP_REL_TOL (the planted
         fault: the attention one position short)."""
         worst, fault_least = 0.0, math.inf
-        for seed in range(STEP_SEEDS):
+        for seed in range(seeds):
             g = torch.Generator(device=dev)
             g.manual_seed(seed)
             toks = torch.randint(1, engine.cfg.vocab_size,
@@ -1994,14 +2283,14 @@ def main() -> None:
             worst, fault_least = max(worst, err), min(fault_least, fault)
         return dict(max_rel_err=worst, fault_least_rel_err=fault_least)
 
-    def prefill_vs_plain(engine, lens, label):
+    def prefill_vs_plain(engine, lens, label, seeds=PREFILL_SEEDS):
         """One fused prefill of a bucket with these true lengths, for a
         few seeded token batches, judged against PREFILL_REL_TOL (the
         planted fault: each query also sees the next key)."""
         n, S = len(lens), engine._bucket_len(max(lens))
         seq_lens = torch.tensor(lens, device=dev)
         worst, fault_least = 0.0, math.inf
-        for seed in range(PREFILL_SEEDS):
+        for seed in range(seeds):
             g = torch.Generator(device=dev)
             g.manual_seed(seed)
             toks = torch.randint(1, engine.cfg.vocab_size, (n, S),
@@ -2034,13 +2323,17 @@ def main() -> None:
         engine.run()
         return out
 
-    def ffn_launches(engine, n):
-        """The linears' and SwiGLU's launches over n layer passes: with
-        quantized weights three quant_matmul (wqkv, wo, w_down) and the
-        gate-up GEMM with its SwiGLU a layer; with plain weights the
-        linears are library products and the SwiGLU runs alone."""
+    def ffn_launches(engine, n, heads):
+        """The linears' and SwiGLU's launches over n layer passes and
+        ``heads`` unembeddings: with quantized weights three quant_matmul
+        (wqkv, wo, w_down) and the gate-up GEMM with its SwiGLU a layer,
+        and one quant_matmul an unembedding by an untied (quantized)
+        ``lm_head``; with plain weights the linears and the head are
+        library products and the SwiGLU runs alone. A tied head is the
+        embedding table's transpose, always a library product."""
         quantized = engine.quant_policy in ("q8_0", "q4_0")
-        return {"quant_matmul": 3 * n if quantized else 0,
+        head = heads * (not engine.cfg.tie_embeddings)
+        return {"quant_matmul": 3 * n + head if quantized else 0,
                 "quant_matmul_swiglu": n if quantized else 0,
                 "swiglu": 0 if quantized else n}
 
@@ -2049,12 +2342,12 @@ def main() -> None:
         one RoPE + cache write, the linears and SwiGLU, and two residual
         adds with the RMSNorm after them per layer, and layer 0's
         RMSNorm alone (the final norm is the last layer's second
-        add_rmsnorm)."""
+        add_rmsnorm), from the config's depth and head."""
         L, K = engine.cfg.num_layers, engine.megastep_k
         quant_cache = engine.kv_quant != "bf16"
         return {"decode_attention": 0 if quant_cache else L * K,
                 "decode_attention_quant": L * K if quant_cache else 0,
-                **ffn_launches(engine, L * K), "flash_attention": 0,
+                **ffn_launches(engine, L * K, K), "flash_attention": 0,
                 "rmsnorm": K, "add_rmsnorm": 2 * L * K,
                 "rope_cache_write": L * K, "rope_cache_write_prefill": 0}
 
@@ -2062,7 +2355,7 @@ def main() -> None:
         """Kernel launches of one prefill call (eager)."""
         L = engine.cfg.num_layers
         return {"decode_attention": 0, "decode_attention_quant": 0,
-                **ffn_launches(engine, L), "flash_attention": L,
+                **ffn_launches(engine, L, 1), "flash_attention": L,
                 "rmsnorm": 1, "add_rmsnorm": 2 * L,
                 "rope_cache_write": 0, "rope_cache_write_prefill": L}
 
@@ -2326,6 +2619,18 @@ def main() -> None:
                     lambda p, n, **kw: model.reference_decode(
                         params, p, n, max_len=1024, **kw))
             del pre
+        # a stall resume past max_len (the ring write), dense and paged
+        for page in (0, PAGE):
+            rp = ServingEngine(model, params, slots=2, max_len=64,
+                               sampling=SamplingConfig(), megastep_k=8,
+                               quant_policy="q8_0", page_size=page,
+                               admission="stall")
+            with kernels_only():
+                out[f"resume_past_max_len_{'paged' if page else 'dense'}"] = \
+                    resume_past_max_len_leg(
+                        rp, Request, lambda p, n, **kw: model.reference_decode(
+                            params, p, n, max_len=64, **kw))
+            del rp
         del eng, res2, model, params
         return out
 
@@ -2922,7 +3227,202 @@ def main() -> None:
     del eng, params4
     torch.cuda.empty_cache()
 
-    # -- 9. the kernel line ---------------------------------------------------
+    # -- 9. paper models: the paper's Fig. 4 grid on the card ----------------
+    def weight_floor(engine):
+        """(ms, bytes) of the weight-streaming floor of one decode step:
+        every layer weight as stored (a quantized one's payload and
+        scales) and the unembedding (a tied table whole at bf16, an
+        untied head as stored) read once at the card's memory rate."""
+        def nbytes(node):
+            if isinstance(node, QuantizedTensor):
+                return sum(t.numel() * t.element_size()
+                           for t in (node.data, node.scales))
+            if isinstance(node, dict):
+                return sum(nbytes(v) for v in node.values())
+            if isinstance(node, list):
+                return sum(nbytes(v) for v in node)
+            return node.numel() * node.element_size()
+        p = engine.params
+        head = p["embedding"] if engine.cfg.tie_embeddings else p["lm_head"]
+        total = nbytes(p["layers"]) + nbytes(head) + nbytes(p["final_norm"])
+        return total / HBM_BYTES_PER_S * 1e3, total
+
+    def paper_cell(name, fmt):
+        """One cell of the grid: the model at full width and depth under
+        ``fmt`` weights and a bf16 cache, served by ``launch.serve``
+        through the main path's traffic on 4 slots, then its first
+        request alone on a 1-slot engine (the paper's single user). Each
+        run: launch counts, every stream against ``reference_decode``;
+        the 4-slot run also one decode step against the plain versions
+        beside the planted fault, and the weight-streaming floor."""
+        cell = {}
+        for slots in (4, 1):
+            zero_counts()
+            with kernels_only(quantized=fmt != "bf16"):
+                res = serve.main([
+                    "--arch", name, "--no-reduced", "--precision", fmt,
+                    "--kv-quant", "bf16", "--slots", str(slots),
+                    "--max-len", "1024", "--megastep-k", "8",
+                    "--requests", "8" if slots == 4 else "1",
+                    "--max-new", "32", "--temperature", "0",
+                    "--device", "cuda"])
+            torch.cuda.synchronize()
+            eng = res.engine
+            label = f"{name} ({fmt} weights, {slots} slot(s))"
+            counts[f"paper {name} {fmt}" + ("" if slots == 4 else
+                                            " alone")] = check_served(
+                eng, res.requests, label, res.warmup_stats,
+                res.launches_after_warmup)
+            for r in res.requests:
+                check(r.output == eng.model.reference_decode(
+                    eng.params, r.prompt, r.max_new_tokens, max_len=1024),
+                    f"{label}: request {r.uid} stream differs from "
+                    "reference_decode")
+            st = eng.stats
+            cell[f"slots{slots}"] = dict(
+                ms_per_step=1e3 * st.decode_wall_s / st.steps,
+                tok_s=st.tokens_generated / st.decode_wall_s,
+                steps=st.steps, tokens=st.tokens_generated)
+            if slots == 4:
+                cell.update(step_vs_plain(eng, label, seeds=1))
+                floor_ms, floor_bytes = weight_floor(eng)
+                cell.update(floor_ms=floor_ms, weight_bytes=floor_bytes,
+                            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            del eng, res
+            torch.cuda.empty_cache()
+        s4, s1 = cell["slots4"], cell["slots1"]
+        print(f"  {name} {fmt}: {s4['ms_per_step']:.3f} ms a step, "
+              f"{s4['tok_s']:.1f} tok/s at 4 slots; {s1['ms_per_step']:.3f}"
+              f" ms a step, {s1['tok_s']:.1f} tok/s alone; weight-streaming "
+              f"floor {cell['floor_ms']:.3f} ms "
+              f"({cell['weight_bytes'] / 1e9:.3f} GB); streams == "
+              "reference_decode (8 requests and the "
+              "one alone)", flush=True)
+        return cell
+
+    def paper_stall_leg(name):
+        """The model at full width and depth, q8_0 weights, under stall
+        admission: prompts of 300, 310, 480 and 500 tokens share one
+        4 x 512 prefill (flash_attention at the model's (head_dim, G),
+        the prefill RoPE + cache write with its bias); launch counts,
+        streams against ``reference_decode(stepwise_prefill=False)``, one
+        fused prefill against the plain versions beside the planted
+        lookahead fault."""
+        model = Model(get_config(name), device=dev)
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        eng = ServingEngine(model, model.init(g, quantize=False), slots=4,
+                            max_len=1024, sampling=SamplingConfig(),
+                            megastep_k=8, quant_policy="q8_0",
+                            admission="stall")
+        rng = np.random.default_rng(2)
+        prompts = [rng.integers(1, model.cfg.vocab_size, n).astype(np.int32)
+                   for n in PREFILL_PROMPTS[:4]]
+        zero_counts()
+        eng.submit(Request(uid=-1, prompt=prompts[0], max_new_tokens=2))
+        eng.run()
+        warm, after_warm = eng.stats, ops.launch_counts()
+        eng.reset()
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=8)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        with kernels_only():
+            eng.run()
+        torch.cuda.synchronize()
+        label = f"{name} (q8_0 weights, stall admission)"
+        counts[f"paper {name} stall"] = check_served(eng, reqs, label, warm,
+                                                     after_warm)
+        check(eng.stats.prefill_batches == 1, f"{label}: "
+              f"{eng.stats.prefill_batches} prefill calls, not one bucket")
+        for r in (reqs[0], reqs[3]):
+            check(r.output == eng.model.reference_decode(
+                eng.params, r.prompt, 8, max_len=1024,
+                stepwise_prefill=False), f"{label}: request {r.uid} "
+                "differs from reference_decode(stepwise_prefill=False)")
+        out = prefill_vs_plain(eng, list(PREFILL_PROMPTS[:4]), label,
+                               seeds=1)
+        print(f"  {label}: one 4 x 512 prefill; streams == reference_decode"
+              "(stepwise_prefill=False) (requests 0, 3)", flush=True)
+        del eng, model
+        torch.cuda.empty_cache()
+        return out
+
+    def window_leg():
+        """mistral-7b at full width and depth, q8_0 weights, stall
+        admission, max_len 8192: every slot's cache is a ring of 4096
+        positions. A 4500-token prompt (an exact-length bucket: the ring
+        write, and flash_attention with window 4096 over its 4500
+        positions) and a 4080-token one (a 4096 bucket) whose 32 new
+        tokens cross the ring's edge; launch counts, both streams against
+        ``reference_decode(stepwise_prefill=False, max_len=8192)``."""
+        model = Model(mis, device=dev)
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        eng = ServingEngine(model, model.init(g, quantize=False), slots=2,
+                            max_len=8192, sampling=SamplingConfig(),
+                            megastep_k=8, quant_policy="q8_0",
+                            admission="stall", page_size=PAGE)
+        label = ("window leg (mistral-7b, q8_0 weights, stall admission, "
+                 "max_len 8192)")
+        check(not eng.paged and eng._cache_seq == mis.sliding_window
+              and Model.cache_len(eng.cache) == mis.sliding_window,
+              f"{label}: the cache is not a dense ring of the window")
+        rng = np.random.default_rng(12)
+        long_p, edge_p = (rng.integers(1, mis.vocab_size, n).astype(np.int32)
+                          for n in (4500, 4080))
+        zero_counts()
+        eng.submit(Request(uid=-1, prompt=edge_p[:9], max_new_tokens=2))
+        eng.run()
+        warm, after_warm = eng.stats, ops.launch_counts()
+        eng.reset()
+        reqs = [Request(uid=0, prompt=long_p, max_new_tokens=16),
+                Request(uid=1, prompt=edge_p, max_new_tokens=32)]
+        for r in reqs:
+            eng.submit(r)
+        t0 = time.perf_counter()
+        with kernels_only():
+            eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts["window"] = check_served(eng, reqs, label, warm, after_warm)
+        check(eng._bucket_len(4500) == 4500 and eng._bucket_len(4080) == 4096
+              and eng.stats.prefill_batches == 2,
+              f"{label}: buckets {eng._bucket_len(4500)}, "
+              f"{eng._bucket_len(4080)}; {eng.stats.prefill_batches} calls")
+        for r in reqs:
+            check(r.output == eng.model.reference_decode(
+                eng.params, r.prompt, r.max_new_tokens, max_len=8192,
+                stepwise_prefill=False), f"{label}: request {r.uid} differs "
+                "from reference_decode(stepwise_prefill=False)")
+        print(f"  {label}: a 4500-token prompt through the ring write and "
+              "the windowed prefill attention, a 4080-token one whose decode"
+              " crosses ring slot 4096; both streams == reference_decode("
+              f"stepwise_prefill=False); {wall:.3f} s served", flush=True)
+        del eng, model
+        torch.cuda.empty_cache()
+        return dict(served_s=wall, prefill_batches=2)
+
+    print("paper models: the paper's six models at full width and depth, "
+          "bf16 / q8_0 / q4_0 weights, bf16 cache", flush=True)
+    paper = {}
+    for name in PAPER_ORDER:
+        for fmt in ("bf16", "q8_0", "q4_0"):
+            paper[f"{name} {fmt}"] = paper_cell(name, fmt)
+        if name != "llama3.2-1b":
+            paper[f"{name} stall"] = paper_stall_leg(name)
+    paper["window"] = window_leg()
+    print("Fig. 4 on the H100 (ms a step at 4 slots / alone, tok/s at 4 "
+          "slots / alone, weight-streaming floor ms):", flush=True)
+    for name in PAPER_ORDER:
+        for fmt in ("bf16", "q8_0", "q4_0"):
+            c = paper[f"{name} {fmt}"]
+            print(f"  {name:16s} {fmt:5s} {c['slots4']['ms_per_step']:7.3f} "
+                  f"/ {c['slots1']['ms_per_step']:7.3f} ms  "
+                  f"{c['slots4']['tok_s']:8.1f} / {c['slots1']['tok_s']:7.1f}"
+                  f" tok/s  floor {c['floor_ms']:.3f} ms", flush=True)
+
+    # -- 10. the kernel line --------------------------------------------------
     for row in rows.values():
         kernel = row["name"].split("[")[0]
         path = row.pop("path")
@@ -2932,6 +3432,7 @@ def main() -> None:
     print(json.dumps({"main_path": main_path, "prefill_path": prefill_path,
                       "paged_path": paged_path, "under_load": load,
                       "second_path_step_checks": step_checks,
+                      "paper_models": paper,
                       "unembed_rows_equal_across_m": unembed_rows_equal}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)

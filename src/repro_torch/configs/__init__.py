@@ -1,13 +1,17 @@
-"""Config registry: ``get_config("<arch-id>")`` / ``--arch <id>``."""
+"""Config registry: ``get_config("<arch-id>")`` / ``--arch <id>``: the
+paper's six models under the JAX package's names, and deepseek-7b."""
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.configs.base import ModelConfig, reduced
 from repro_torch.configs.deepseek_7b import CONFIG as DEEPSEEK_7B
-from repro_torch.configs.paper_models import LLAMA32_1B
+from repro_torch.configs.paper_models import (LLAMA31_8B, LLAMA32_1B,
+                                              LLAMA32_3B, MISTRAL_7B,
+                                              PAPER_MODELS, QWEN2_0_5B,
+                                              QWEN2_1_5B)
 
-CONFIGS = {c.name: c for c in (LLAMA32_1B, DEEPSEEK_7B)}
+CONFIGS = {**PAPER_MODELS, DEEPSEEK_7B.name: DEEPSEEK_7B}
 
 
 def get_config(name: str, **overrides) -> ModelConfig:
@@ -17,5 +21,6 @@ def get_config(name: str, **overrides) -> ModelConfig:
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 
-__all__ = ["ModelConfig", "reduced", "get_config", "CONFIGS",
-           "LLAMA32_1B", "DEEPSEEK_7B"]
+__all__ = ["ModelConfig", "reduced", "get_config", "CONFIGS", "PAPER_MODELS",
+           "LLAMA32_1B", "LLAMA32_3B", "LLAMA31_8B", "QWEN2_0_5B",
+           "QWEN2_1_5B", "MISTRAL_7B", "DEEPSEEK_7B"]

@@ -1,7 +1,11 @@
 """Model configuration for the dense decoder the port serves.
 
 A copy of the fields of the JAX package's ``ModelConfig`` that the
-dense decode path reads, plus ``reduced`` for the CPU tests. Execution
+dense family reads, with the JAX defaults, plus ``reduced`` for the CPU
+tests: the backbone, the QKV bias (``qkv_bias``, the qwen2 models) and
+the attention window (``sliding_window``, mistral-7b; and
+``window_long_ctx`` past ``max_full_attn`` positions, the long-context
+fallback of ``Model.window_for``). Execution
 knobs that the port does not have (a kernel-backend switch, scan
 unrolling, remat, sharding) are left out: on a CUDA tensor the
 hand-written kernels always run, on a CPU tensor their plain versions.
@@ -26,9 +30,15 @@ class ModelConfig:
     head_dim: int = 0              # 0 → d_model // num_heads
     d_ff: int = 1024               # SwiGLU hidden width
     vocab_size: int = 1024
+    max_seq_len: int = 131072
+    qkv_bias: bool = False         # a bias on the fused QKV projection
     tie_embeddings: bool = False   # unembed with embedding.T
     norm_eps: float = 1e-6
     rope_theta: float = 10000.0
+
+    sliding_window: int = 0        # 0 → full attention; >0 → window size
+    window_long_ctx: int = 4096    # the window past max_full_attn positions
+    max_full_attn: int = 131072    # beyond this, the dense family windows
 
     quant_policy: str = "bf16"     # weight format: bf16|q8_0|q4_0
     quant_group: int = 32          # group size along the reduction dim
@@ -75,6 +85,7 @@ def reduced(cfg: ModelConfig, **over) -> ModelConfig:
         head_dim=32,
         d_ff=min(cfg.d_ff, 256),
         vocab_size=min(cfg.vocab_size, 512),
+        max_seq_len=512,
     )
     if base["num_heads"] % base["num_kv_heads"]:
         base["num_kv_heads"] = 1

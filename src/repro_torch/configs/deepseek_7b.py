@@ -12,4 +12,5 @@ CONFIG = ModelConfig(
     head_dim=128,
     d_ff=11008,
     vocab_size=102400,
+    max_seq_len=16384,
 )

@@ -10,6 +10,9 @@
 //   src/repro/models/layers.py:51      apply_rope, with
 //   src/repro/models/attention.py:297  kv_cache_write (decode) and
 //   src/repro/models/model.py:722      _write_prefill_kv (prefill)
+// inside the jitted megastep and prefill, and the RoPE kernels also take
+//   src/repro/models/layers.py:101     linear's bias add (the fused QKV
+//                                      projection's, qwen2)
 // inside the jitted megastep and prefill. Eagerly, each op above is a
 // handful of PyTorch launches of a few microseconds apiece; one decode
 // step ran some 80 of them a layer. Each kernel here is one launch.
@@ -225,6 +228,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // RoPE of one token's fused-QKV row, and its K/V write into the cache.
+// With a bias (non-null, one bf16 value a fused-QKV column) each element
+// read is first x + bias rounded to bf16, as the bf16 add after the
+// projection rounds it; then as without.
 // CTA (kv head h, slot b): ropes the G query heads of h (out to q_out) and
 // K head h at position lens[b] (half-split rotation, cos/sin of pos *
 // freq, freq = 1 / theta^(2i * (1/D))), and writes K and V into ring slot
@@ -239,7 +245,8 @@ __global__ void __launch_bounds__(kThreads)
 // even feature).
 template <int FMT>
 __global__ void __launch_bounds__(kRopeThreads)
-    rope_cache_write_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ q_out,
+    rope_cache_write_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
+                            bf16* __restrict__ q_out,
                             void* __restrict__ k_cache, void* __restrict__ v_cache,
                             bf16* __restrict__ k_scale, bf16* __restrict__ v_scale,
                             const int* __restrict__ lens,
@@ -262,8 +269,12 @@ __global__ void __launch_bounds__(kRopeThreads)
     const float freq = __fdiv_rn(1.f, powf(theta, __fmul_rn((float)(2 * i), inv_d)));
     const float ang = __fmul_rn((float)pos, freq);
     const float c = cosf(ang), s = sinf(ang);
-    const bf16* xs = src + (hh < G ? (h * G + hh) * D : (Hq + h) * D);
-    const float x1 = to_f(xs[i]), x2 = to_f(xs[i + half]);
+    const int col = (hh < G ? h * G + hh : Hq + h) * D;  // the head's first column
+    float x1 = to_f(src[col + i]), x2 = to_f(src[col + i + half]);
+    if (bias != nullptr) {
+      x1 = rounded<bf16>(__fadd_rn(x1, to_f(bias[col + i])));
+      x2 = rounded<bf16>(__fadd_rn(x2, to_f(bias[col + i + half])));
+    }
     const bf16 o1 = __float2bfloat16(__fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, s)));
     const bf16 o2 = __float2bfloat16(__fadd_rn(__fmul_rn(x1, s), __fmul_rn(x2, c)));
     if (hh < G) {
@@ -281,15 +292,19 @@ __global__ void __launch_bounds__(kRopeThreads)
       rows[i + half] = to_f(o2);
     }
   }
-  const bf16* vs = src + (Hq + Hkv + h) * D;
+  const int vcol = (Hq + Hkv + h) * D;
+  auto v_at = [&](int i) {  // element i of V head h, with its bias
+    return bias == nullptr ? to_f(src[vcol + i])
+                           : rounded<bf16>(__fadd_rn(to_f(src[vcol + i]), to_f(bias[vcol + i])));
+  };
   if (FMT == kBf16) {
     if (adv)
       for (int i = threadIdx.x; i < D; i += kRopeThreads)
-        static_cast<bf16*>(v_cache)[cache_row * D + i] = vs[i];
+        static_cast<bf16*>(v_cache)[cache_row * D + i] = __float2bfloat16(v_at(i));
     return;
   }
   if (!adv) return;  // uniform over the CTA: no thread reaches a barrier
-  for (int i = threadIdx.x; i < D; i += kRopeThreads) rows[D + i] = to_f(vs[i]);
+  for (int i = threadIdx.x; i < D; i += kRopeThreads) rows[D + i] = v_at(i);
   __syncthreads();
   // groups 0 .. ng-1 of K, then ng .. 2ng-1 of V: rows[j * g ...]
   const int g = D / ng;
@@ -325,6 +340,12 @@ __global__ void __launch_bounds__(kRopeThreads)
 
 // RoPE of a prefill's fused-QKV rows at positions 0..S-1, and their K/V
 // written into cache positions [0, S) of every row (padding rows too).
+// A prefill longer than the cache (S > S_cache, the ring branch of the JAX
+// _write_prefill_kv) keeps its last S_cache positions, position s at ring
+// slot s % S_cache; q, k and v out hold all S positions either way (the
+// prefill attention reads them, not the cache), and RoPE stays at the
+// absolute positions. A bias (non-null) is added first, rounded to bf16,
+// as in the decode kernel.
 // CTA (run of P positions, kv head h, batch row b). A thread takes one
 // (position s, run of VEC frequencies from i0): it forms cos/sin of s *
 // freq once, as the decode kernel does, and rotates with them the G query
@@ -336,7 +357,8 @@ __global__ void __launch_bounds__(kRopeThreads)
 // rows in shared memory and quantize them as the decode kernel does.
 template <int FMT, int VEC>
 __global__ void __launch_bounds__(kRopeThreads)
-    rope_cache_write_prefill_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ q_out,
+    rope_cache_write_prefill_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
+                                    bf16* __restrict__ q_out,
                                     bf16* __restrict__ k_out, bf16* __restrict__ v_out,
                                     void* __restrict__ k_cache, void* __restrict__ v_cache,
                                     bf16* __restrict__ k_scale, bf16* __restrict__ v_scale,
@@ -346,7 +368,11 @@ __global__ void __launch_bounds__(kRopeThreads)
   const int h = blockIdx.y, b = blockIdx.z, Hkv = gridDim.y;
   const int half = D / 2, runs = half / VEC, Hq = Hkv * G;
   const int s0 = blockIdx.x * P, np = min(P, S - s0);
-  const size_t cache0 = ((size_t)b * Hkv + h) * S_cache + s0;  // cache row of position s0
+  const size_t slice = ((size_t)b * Hkv + h) * S_cache;  // cache row 0 of (b, h)
+  const int first = S > S_cache ? S - S_cache : 0;       // the first position kept
+  // cache row of position s0 + p >= first: its ring slot (s0 + p itself
+  // when the prefill fits the cache)
+  auto cache_row = [&](int p) { return slice + (size_t)((s0 + p) % S_cache); };
   const size_t out0 = ((size_t)b * Hkv + h) * S + s0;          // k_out / v_out row of s0
   const float inv_d = __fdiv_rn(1.f, (float)D);
   for (int idx = threadIdx.x; idx < np * runs; idx += kRopeThreads) {
@@ -354,7 +380,8 @@ __global__ void __launch_bounds__(kRopeThreads)
     // the K (kv 0) or V (kv 1) elements of this run into the cache
     auto keep = [&](int kv, const float(&a)[VEC], const float(&z)[VEC]) {
       if constexpr (FMT == kBf16) {
-        bf16* row = static_cast<bf16*>(kv ? v_cache : k_cache) + (cache0 + p) * D;
+        if (s < first) return;
+        bf16* row = static_cast<bf16*>(kv ? v_cache : k_cache) + cache_row(p) * D;
         store<VEC>(row + i0, a);
         store<VEC>(row + i0 + half, z);
       } else {
@@ -376,10 +403,23 @@ __global__ void __launch_bounds__(kRopeThreads)
     }
     const bf16* src = qkv + ((size_t)b * S + s) * (Hq + 2 * Hkv) * D;
     float x1[VEC], x2[VEC];
+    // the run and its partner of the head whose first column is col
+    auto take = [&](int col) {
+      load<VEC>(src + col + i0, x1);
+      load<VEC>(src + col + i0 + half, x2);
+      if (bias != nullptr) {
+        float b1[VEC], b2[VEC];
+        load<VEC>(bias + col + i0, b1);
+        load<VEC>(bias + col + i0 + half, b2);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          x1[j] = rounded<bf16>(__fadd_rn(x1[j], b1[j]));
+          x2[j] = rounded<bf16>(__fadd_rn(x2[j], b2[j]));
+        }
+      }
+    };
     for (int hh = 0; hh <= G; ++hh) {  // the G query heads, then K
-      const bf16* xs = src + (size_t)(hh < G ? h * G + hh : Hq + h) * D;
-      load<VEC>(xs + i0, x1);
-      load<VEC>(xs + i0 + half, x2);
+      take((hh < G ? h * G + hh : Hq + h) * D);
 #pragma unroll
       for (int j = 0; j < VEC; ++j) {
         const float o1 = __fsub_rn(__fmul_rn(x1[j], c[j]), __fmul_rn(x2[j], sn[j]));
@@ -393,14 +433,13 @@ __global__ void __launch_bounds__(kRopeThreads)
       store<VEC>(dst + i0 + half, x2);
     }
     keep(0, x1, x2);
-    const bf16* vs = src + (size_t)(Hq + Hkv + h) * D;
-    load<VEC>(vs + i0, x1);
-    load<VEC>(vs + i0 + half, x2);
+    take((Hq + Hkv + h) * D);
     store<VEC>(v_out + (out0 + p) * D + i0, x1);
     store<VEC>(v_out + (out0 + p) * D + i0 + half, x2);
     keep(1, x1, x2);
   }
   if constexpr (FMT != kBf16) {
+    if (s0 + np <= first) return;  // no position of this CTA is kept: uniform, before any barrier
     __syncthreads();
     // one scale a (K | V, position, group of g = D / ng features). Thread
     // j's group starts j * g floats in (for whole runs of P positions), so
@@ -412,6 +451,7 @@ __global__ void __launch_bounds__(kRopeThreads)
     float* scales = rows + 2 * P * D;
     for (int j = threadIdx.x; j < 2 * np * ng; j += kRopeThreads) {
       const int kv = j / (np * ng), p = (j / ng) % np, grp = j % ng;
+      if (s0 + p < first) continue;
       const float* xr = rows + (kv * P + p) * D + grp * g;
       float amax = 0.f;
       for (int t = 0, u = j % g; t < g; ++t, u = u + 1 == g ? 0 : u + 1)
@@ -419,7 +459,7 @@ __global__ void __launch_bounds__(kRopeThreads)
       float sc = __fmul_rn(amax, __fdiv_rn(1.f, qmax));
       if (sc == 0.f) sc = 1.f;
       scales[(kv * P + p) * ng + grp] = sc;
-      (kv ? v_scale : k_scale)[(cache0 + p) * ng + grp] = __float2bfloat16(sc);
+      (kv ? v_scale : k_scale)[cache_row(p) * ng + grp] = __float2bfloat16(sc);
     }
     __syncthreads();
     auto quant = [&](int kv, int p, int i) {  // element i of staged row (kv, p)
@@ -430,14 +470,16 @@ __global__ void __launch_bounds__(kRopeThreads)
     if constexpr (FMT == kQ8) {
       for (int e = threadIdx.x; e < 2 * np * D; e += kRopeThreads) {
         const int kv = e / (np * D), p = (e / D) % np, i = e % D;
-        static_cast<int8_t*>(kv ? v_cache : k_cache)[(cache0 + p) * D + i] =
+        if (s0 + p < first) continue;
+        static_cast<int8_t*>(kv ? v_cache : k_cache)[cache_row(p) * D + i] =
             (int8_t)quant(kv, p, i);
       }
     } else {
       for (int e = threadIdx.x; e < np * D; e += kRopeThreads) {  // np * D/2 pairs of K, then V
         const int kv = e / (np * half), p = (e / half) % np, i = 2 * (e % half);
+        if (s0 + p < first) continue;
         const int packed = (quant(kv, p, i) & 0xF) | ((quant(kv, p, i + 1) & 0xF) << 4);
-        static_cast<int8_t*>(kv ? v_cache : k_cache)[(cache0 + p) * half + i / 2] = (int8_t)packed;
+        static_cast<int8_t*>(kv ? v_cache : k_cache)[cache_row(p) * half + i / 2] = (int8_t)packed;
       }
     }
   }
@@ -534,11 +576,13 @@ extern "C" int swiglu(int f32, const void* gu, void* out, int M, int F, void* st
 // bf16; q_out (B, Hkv*G, D) bf16; k, v (B, Hkv, S, D) bf16, or int8
 // payload (B, Hkv, S, D) [q8_0] / (B, Hkv, S, D/2) [q4_0] with k_scale,
 // v_scale (B, Hkv, S, ng) bf16 (null for bf16); lens (B,) int32 >= 0;
-// advance (B,) bool or null (every row). A paged cache passes its block
+// advance (B,) bool or null (every row); bias (width,) bf16 or null (no
+// bias), the fused-QKV projection's. A paged cache passes its block
 // table (B, max_pages) int32, its leaves as pools (n_blocks, Hkv, P, .)
 // and S = max_pages * P; table null means a dense cache. Returns the
 // launch's cudaError_t.
-extern "C" int rope_cache_write(int fmt, const void* qkv, void* q_out, void* k, void* v,
+extern "C" int rope_cache_write(int fmt, const void* qkv, const void* bias, void* q_out,
+                                void* k, void* v,
                                 void* k_scale, void* v_scale, const void* lens,
                                 const void* advance, const void* table, int max_pages,
                                 int P, int B, int Hkv, int G, int S, int D, int ng,
@@ -552,6 +596,7 @@ extern "C" int rope_cache_write(int fmt, const void* qkv, void* q_out, void* k, 
   const dim3 grid(Hkv, B);
   const size_t smem = fmt == kBf16 ? 0 : (size_t)(2 * D + 2 * ng) * sizeof(float);
   const bf16* src = static_cast<const bf16*>(qkv);
+  const bf16* bs = static_cast<const bf16*>(bias);
   bf16* qo = static_cast<bf16*>(q_out);
   bf16* ks = static_cast<bf16*>(k_scale);
   bf16* vs = static_cast<bf16*>(v_scale);
@@ -559,13 +604,13 @@ extern "C" int rope_cache_write(int fmt, const void* qkv, void* q_out, void* k, 
   const unsigned char* adv = static_cast<const unsigned char*>(advance);
   switch (fmt) {
     case kBf16:
-      rope_cache_write_kernel<kBf16><<<grid, kRopeThreads, smem, st>>>(src, qo, k, v, ks, vs, ln, adv, tb, max_pages, P, G, S, D, ng, theta);
+      rope_cache_write_kernel<kBf16><<<grid, kRopeThreads, smem, st>>>(src, bs, qo, k, v, ks, vs, ln, adv, tb, max_pages, P, G, S, D, ng, theta);
       break;
     case kQ8:
-      rope_cache_write_kernel<kQ8><<<grid, kRopeThreads, smem, st>>>(src, qo, k, v, ks, vs, ln, adv, tb, max_pages, P, G, S, D, ng, theta);
+      rope_cache_write_kernel<kQ8><<<grid, kRopeThreads, smem, st>>>(src, bs, qo, k, v, ks, vs, ln, adv, tb, max_pages, P, G, S, D, ng, theta);
       break;
     case kQ4:
-      rope_cache_write_kernel<kQ4><<<grid, kRopeThreads, smem, st>>>(src, qo, k, v, ks, vs, ln, adv, tb, max_pages, P, G, S, D, ng, theta);
+      rope_cache_write_kernel<kQ4><<<grid, kRopeThreads, smem, st>>>(src, bs, qo, k, v, ks, vs, ln, adv, tb, max_pages, P, G, S, D, ng, theta);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -575,31 +620,36 @@ extern "C" int rope_cache_write(int fmt, const void* qkv, void* q_out, void* k, 
 
 
 template <int FMT, int VEC>
-void enqueue_rope_prefill(dim3 grid, size_t smem, cudaStream_t st, const void* qkv, void* q_out,
+void enqueue_rope_prefill(dim3 grid, size_t smem, cudaStream_t st, const void* qkv,
+                          const void* bias, void* q_out,
                           void* k_out, void* v_out, void* k, void* v, void* k_scale,
                           void* v_scale, int S, int S_cache, int G, int D, int ng, int P,
                           float theta) {
   rope_cache_write_prefill_kernel<FMT, VEC><<<grid, kRopeThreads, smem, st>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(q_out), static_cast<bf16*>(k_out),
+      static_cast<const bf16*>(qkv), static_cast<const bf16*>(bias), static_cast<bf16*>(q_out),
+      static_cast<bf16*>(k_out),
       static_cast<bf16*>(v_out), k, v, static_cast<bf16*>(k_scale),
       static_cast<bf16*>(v_scale), S, S_cache, G, D, ng, P, theta);
 }
 
-// fmt as rope_cache_write's. qkv (B, S, (Hkv*G + 2*Hkv) * D) bf16; q_out
-// (B, Hkv*G, S, D), k_out and v_out (B, Hkv, S, D) bf16; k, v, k_scale,
-// v_scale one layer's cache as rope_cache_write's with S_cache >= S
-// positions, of which [0, S) are written. Returns the launch's cudaError_t.
-extern "C" int rope_cache_write_prefill(int fmt, const void* qkv, void* q_out, void* k_out,
+// fmt as rope_cache_write's. qkv (B, S, (Hkv*G + 2*Hkv) * D) bf16; bias
+// as rope_cache_write's; q_out (B, Hkv*G, S, D), k_out and v_out (B, Hkv,
+// S, D) bf16; k, v, k_scale, v_scale one layer's cache as
+// rope_cache_write's with S_cache positions, of which [0, S) are written
+// when S <= S_cache, else the last S_cache positions at their ring slots
+// s % S_cache. Returns the launch's cudaError_t.
+extern "C" int rope_cache_write_prefill(int fmt, const void* qkv, const void* bias, void* q_out,
+                                        void* k_out,
                                         void* v_out, void* k, void* v, void* k_scale,
                                         void* v_scale, int B, int Hkv, int G, int S,
                                         int S_cache, int D, int ng, float theta, void* stream) {
-  if (B <= 0 || Hkv <= 0 || G <= 0 || S <= 0 || S > S_cache || D <= 0 || D % 2)
+  if (B <= 0 || Hkv <= 0 || G <= 0 || S <= 0 || S_cache <= 0 || D <= 0 || D % 2)
     return cudaErrorInvalidValue;
   if (fmt != kBf16 && (ng <= 0 || D % ng)) return cudaErrorInvalidValue;
   if (B > 65535 || Hkv > 65535) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool vec = (D / 2) % kVec == 0 && aligned16(qkv) && aligned16(q_out) &&
-                   aligned16(k_out) && aligned16(v_out) &&
+                   aligned16(k_out) && aligned16(v_out) && (!bias || aligned16(bias)) &&
                    (fmt != kBf16 || (aligned16(k) && aligned16(v)));
   const int runs = D / 2 / (vec ? kVec : 1);
   const int P = runs >= kRopeThreads ? 1 : kRopeThreads / runs;  // positions a CTA
@@ -607,22 +657,22 @@ extern "C" int rope_cache_write_prefill(int fmt, const void* qkv, void* q_out, v
   const size_t smem = fmt == kBf16 ? 0 : (size_t)(2 * P * D + 2 * P * ng) * sizeof(float);
   switch (fmt * 2 + vec) {
     case kBf16 * 2 + 1:
-      enqueue_rope_prefill<kBf16, kVec>(grid, smem, st, qkv, q_out, k_out, v_out, k, v, k_scale, v_scale, S, S_cache, G, D, ng, P, theta);
+      enqueue_rope_prefill<kBf16, kVec>(grid, smem, st, qkv, bias, q_out, k_out, v_out, k, v, k_scale, v_scale, S, S_cache, G, D, ng, P, theta);
       break;
     case kBf16 * 2:
-      enqueue_rope_prefill<kBf16, 1>(grid, smem, st, qkv, q_out, k_out, v_out, k, v, k_scale, v_scale, S, S_cache, G, D, ng, P, theta);
+      enqueue_rope_prefill<kBf16, 1>(grid, smem, st, qkv, bias, q_out, k_out, v_out, k, v, k_scale, v_scale, S, S_cache, G, D, ng, P, theta);
       break;
     case kQ8 * 2 + 1:
-      enqueue_rope_prefill<kQ8, kVec>(grid, smem, st, qkv, q_out, k_out, v_out, k, v, k_scale, v_scale, S, S_cache, G, D, ng, P, theta);
+      enqueue_rope_prefill<kQ8, kVec>(grid, smem, st, qkv, bias, q_out, k_out, v_out, k, v, k_scale, v_scale, S, S_cache, G, D, ng, P, theta);
       break;
     case kQ8 * 2:
-      enqueue_rope_prefill<kQ8, 1>(grid, smem, st, qkv, q_out, k_out, v_out, k, v, k_scale, v_scale, S, S_cache, G, D, ng, P, theta);
+      enqueue_rope_prefill<kQ8, 1>(grid, smem, st, qkv, bias, q_out, k_out, v_out, k, v, k_scale, v_scale, S, S_cache, G, D, ng, P, theta);
       break;
     case kQ4 * 2 + 1:
-      enqueue_rope_prefill<kQ4, kVec>(grid, smem, st, qkv, q_out, k_out, v_out, k, v, k_scale, v_scale, S, S_cache, G, D, ng, P, theta);
+      enqueue_rope_prefill<kQ4, kVec>(grid, smem, st, qkv, bias, q_out, k_out, v_out, k, v, k_scale, v_scale, S, S_cache, G, D, ng, P, theta);
       break;
     case kQ4 * 2:
-      enqueue_rope_prefill<kQ4, 1>(grid, smem, st, qkv, q_out, k_out, v_out, k, v, k_scale, v_scale, S, S_cache, G, D, ng, P, theta);
+      enqueue_rope_prefill<kQ4, 1>(grid, smem, st, qkv, bias, q_out, k_out, v_out, k, v, k_scale, v_scale, S, S_cache, G, D, ng, P, theta);
       break;
     default:
       return cudaErrorInvalidValue;

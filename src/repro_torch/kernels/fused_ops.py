@@ -19,18 +19,28 @@ intermediate in device memory) is described in the source.
 - ``swiglu(gu)``: the fused gate-up output (..., 2 F) → (..., F),
   ``silu(g) * u`` in f32 with one rounding, read in place.
 - ``rope_cache_write(qkv, cache, lens, advance, theta, fmt,
-  block_table)``: one token's fused-QKV rows (B, q_dim + 2 kv_dim) bf16
-  → the roped q (B, Hq, D); the roped K and the V row go into ring slot
+  block_table, bias)``: one token's fused-QKV rows (B, q_dim + 2 kv_dim)
+  bf16 → the roped q (B, Hq, D); the roped K and the V row go into ring slot
   ``lens % S`` of one layer's cache (bf16, or q8_0 / q4_0 quantized at
   the write point) for the rows where ``advance`` is True. A paged
   cache (pools (n_blocks, Hkv, P, ·) and its ``block_table``
   (B, max_pages), S = max_pages × P) takes ring slot pos to row
   pos % P of block ``block_table[b, pos // P]``.
-- ``rope_cache_write_prefill(qkv, cache, theta, fmt)``: a prefill's
-  fused-QKV rows (B, S, q_dim + 2 kv_dim) bf16 → q (B, Hq, S, D) and
-  k, v (B, Hkv, S, D), roped at positions 0..S-1 of every row, in the
-  layout the prefill attention takes; K and V go into cache positions
-  [0, S) of every row in the cache's format.
+- ``rope_cache_write_prefill(qkv, cache, theta, fmt, bias)``: a
+  prefill's fused-QKV rows (B, S, q_dim + 2 kv_dim) bf16 → q (B, Hq, S,
+  D) and k, v (B, Hkv, S, D), roped at positions 0..S-1 of every row, in
+  the layout the prefill attention takes; K and V go into cache
+  positions [0, S) of every row in the cache's format, or, for a prefill
+  longer than the cache (S > S_cache), its last S_cache positions at
+  ring slots ``pos % S_cache`` (the ring branch of the JAX
+  ``_write_prefill_kv``; the windowed family, and a resumed request past
+  ``max_len``).
+
+Both RoPE kernels take the fused QKV projection's bias (``bias``, one
+value a column, or None): each element is ``qkv + bias`` rounded to
+qkv's dtype, the JAX ``layers.linear``'s add, before RoPE and the cache
+write. The kernels read every qkv element once anyway, so the add costs
+no launch of its own.
 
 Each ``*_plain`` function is the plain PyTorch version, with the same
 rounding points. ``apply_rope``, ``kv_cache_write`` and
@@ -55,10 +65,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _RMSNORM_ARGS = (_I, _I, _P, _P, _P, _I, _I, _F, _P)
 _ADD_RMSNORM_ARGS = (_I, _I, _P, _P, _P, _P, _P, _I, _I, _F, _P)
 _SWIGLU_ARGS = (_I, _P, _P, _I, _I, _P)
-_ROPE_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-              _I, _I, _I, _F, _P)
-_ROPE_PREFILL_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                      _I, _I, _F, _P)
+_ROPE_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+              _I, _I, _I, _I, _F, _P)
+_ROPE_PREFILL_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                      _I, _I, _I, _I, _F, _P)
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -252,19 +262,18 @@ def kv_cache_write(cache: Dict, k: torch.Tensor, v: torch.Tensor,
 def kv_cache_write_prefill(cache: Dict, k: torch.Tensor, v: torch.Tensor,
                            *, kv_quant: str = "bf16",
                            group: int = 32) -> None:
-    """Write prefill K/V (B, Hkv, S, hd) into positions [0, S) of every
-    row of one layer's cache, in place (the ``S <= S_cache`` branch of
-    the JAX package's ``_write_prefill_kv``). Quantized caches quantize
-    the rows at the write point, per position, so they equal what the
-    stepwise decode path writes one at a time. Rows past a prompt's true
-    length are the padding's junk, as in the JAX package: decode reads
-    only ``lens + 1`` rows and overwrites the junk in order before it is
-    ever visible. A prompt longer than the cache (the ring branch) is
-    for the windowed family, which the port does not carry yet."""
+    """Write prefill K/V (B, Hkv, S, hd) into one layer's cache, in place
+    (the JAX package's ``_write_prefill_kv``): positions [0, S) of every
+    row, or, when S is longer than the cache (S_cache positions: a
+    windowed model's ring, or a resumed request past ``max_len``), the
+    last S_cache positions, position pos at ring slot ``pos % S_cache``.
+    Quantized caches quantize the rows at the write point, per position,
+    so they equal what the stepwise decode path writes one at a time.
+    Rows past a prompt's true length are the padding's junk, as in the
+    JAX package: decode reads only ``lens + 1`` rows and overwrites the
+    junk in order before it is ever visible (the ring branch takes no
+    padding: its prompts are bucketed at their exact length)."""
     S, S_cache = k.shape[2], cache["k"].shape[2]
-    _require(S <= S_cache, f"prefill of {S} positions into a {S_cache}-row "
-             "cache needs the ring write of the windowed family, which the "
-             "port does not carry yet")
     if kv_quant in FLOAT_FORMATS:
         rows = {"k": k, "v": v}
     else:
@@ -272,7 +281,12 @@ def kv_cache_write_prefill(cache: Dict, k: torch.Tensor, v: torch.Tensor,
         vq, vs = quantize_rows(v, kv_quant, group)
         rows = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
     for name, new in rows.items():
-        cache[name][:, :, :S] = new.to(cache[name].dtype)
+        new = new.to(cache[name].dtype)
+        if S <= S_cache:
+            cache[name][:, :, :S] = new
+        else:
+            cache[name].copy_(torch.roll(new[:, :, S - S_cache:],
+                                         S % S_cache, dims=2))
 
 
 def _qkv_layout(what: str, qkv: torch.Tensor, cache: Dict, fmt: str,
@@ -331,19 +345,28 @@ def _cache_leaves(what: str, qkv: torch.Tensor, cache: Dict, fmt: str,
     return leaves
 
 
+def _with_bias(qkv: torch.Tensor,
+               bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """qkv + bias rounded to qkv's dtype: the JAX ``layers.linear``'s
+    add after the projection."""
+    return qkv if bias is None else qkv + bias.to(qkv.dtype)
+
+
 def rope_cache_write_plain(qkv: torch.Tensor, cache: Dict,
                            lens: torch.Tensor,
                            advance: Optional[torch.Tensor], theta: float,
                            fmt: str,
-                           block_table: Optional[torch.Tensor] = None
+                           block_table: Optional[torch.Tensor] = None,
+                           bias: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
-    """``apply_rope`` of q and k at ``lens``, then ``kv_cache_write`` at
-    ring slot ``lens % S`` (through ``block_table`` for a paged cache);
-    returns q (B, Hq, D)."""
+    """The bias add, ``apply_rope`` of q and k at ``lens``, then
+    ``kv_cache_write`` at ring slot ``lens % S`` (through ``block_table``
+    for a paged cache); returns q (B, Hq, D)."""
     _require(qkv.ndim == 2, f"rope_cache_write: qkv must be (B, width), got "
              f"{tuple(qkv.shape)}")
     B, Hq, Hkv, S, D, ng = _qkv_layout("rope_cache_write", qkv, cache, fmt,
                                        block_table)
+    qkv = _with_bias(qkv, bias)
     q = qkv[:, :Hq * D].reshape(B, Hq, D)
     k = qkv[:, Hq * D:(Hq + Hkv) * D].reshape(B, Hkv, D)
     v = qkv[:, (Hq + Hkv) * D:].reshape(B, Hkv, D)
@@ -355,18 +378,37 @@ def rope_cache_write_plain(qkv: torch.Tensor, cache: Dict,
     return q
 
 
+def _check_bias(what: str, qkv: torch.Tensor,
+                bias: Optional[torch.Tensor]) -> None:
+    if bias is not None:
+        _require(bias.shape == qkv.shape[-1:],
+                 f"{what}: bias {tuple(bias.shape)} is not one value a qkv "
+                 f"column ({qkv.shape[-1]},)")
+
+
+def _kernel_bias(what: str, bias: Optional[torch.Tensor]) -> list:
+    """[bias] for the kernel's device checks, or [] without one."""
+    if bias is None:
+        return []
+    _require(bias.dtype == torch.bfloat16,
+             f"{what}: the kernel takes a bf16 bias, got {bias.dtype}")
+    return [bias]
+
+
 def rope_cache_write(qkv: torch.Tensor, cache: Dict, lens: torch.Tensor,
                      advance: Optional[torch.Tensor], theta: float,
-                     fmt: str, block_table: Optional[torch.Tensor] = None
-                     ) -> torch.Tensor:
+                     fmt: str, block_table: Optional[torch.Tensor] = None,
+                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """qkv (B, q_dim + 2 kv_dim) bf16, one layer's cache leaves
     (B, Hkv, S, ·) in ``fmt``, or pools (n_blocks, Hkv, P, ·) with their
     ``block_table`` (B, max_pages) int32, lens (B,) int32, advance (B,)
-    bool or None → q (B, Hq, D) bf16; the cache is written in place."""
+    bool or None, bias (q_dim + 2 kv_dim,) bf16 or None → q (B, Hq, D)
+    bf16; the cache is written in place."""
     fmt = _cache_format("rope_cache_write", fmt)
+    _check_bias("rope_cache_write", qkv, bias)
     if qkv.device.type == "cpu":
         return rope_cache_write_plain(qkv, cache, lens, advance, theta, fmt,
-                                      block_table)
+                                      block_table, bias)
     _require(qkv.ndim == 2, f"rope_cache_write: qkv must be (B, width), got "
              f"{tuple(qkv.shape)}")
     B, Hq, Hkv, S, D, ng = _qkv_layout("rope_cache_write", qkv, cache, fmt,
@@ -384,12 +426,14 @@ def rope_cache_write(qkv: torch.Tensor, cache: Dict, lens: torch.Tensor,
         extra.append(advance)
     if block_table is not None:
         extra.append(block_table)
+    extra += _kernel_bias("rope_cache_write", bias)
     _check_cuda("rope_cache_write", qkv, *leaves, *extra)
     q = torch.empty((B, Hq, D), dtype=torch.bfloat16, device=qkv.device)
     if B == 0:
         return q
     fn = build.function("fused_ops", "rope_cache_write", _ROPE_ARGS)
-    err = fn(CACHE_FORMATS[fmt], qkv.data_ptr(), q.data_ptr(),
+    err = fn(CACHE_FORMATS[fmt], qkv.data_ptr(),
+             bias.data_ptr() if bias is not None else None, q.data_ptr(),
              leaves[0].data_ptr(), leaves[1].data_ptr(),
              leaves[2].data_ptr() if ng else None,
              leaves[3].data_ptr() if ng else None, lens.data_ptr(),
@@ -408,16 +452,19 @@ rope_cache_write.launches = 0
 
 # -- RoPE and the prefill cache write -----------------------------------------
 def rope_cache_write_prefill_plain(qkv: torch.Tensor, cache: Dict,
-                                   theta: float, fmt: str
+                                   theta: float, fmt: str,
+                                   bias: Optional[torch.Tensor] = None
                                    ) -> Tuple[torch.Tensor, torch.Tensor,
                                               torch.Tensor]:
-    """``apply_rope`` of q and k at positions 0..S-1 of every row, the
-    (B, H, S, D) transposes, and ``kv_cache_write_prefill``; returns q, k,
-    v in qkv's dtype."""
+    """The bias add, ``apply_rope`` of q and k at positions 0..S-1 of
+    every row, the (B, H, S, D) transposes, and ``kv_cache_write_prefill``
+    (its ring branch when S is longer than the cache); returns q, k, v in
+    qkv's dtype, all S positions."""
     _require(qkv.ndim == 3, f"rope_cache_write_prefill: qkv must be "
              f"(B, S, width), got {tuple(qkv.shape)}")
     B, Hq, Hkv, _, D, ng = _qkv_layout("rope_cache_write_prefill", qkv,
                                        cache, fmt)
+    qkv = _with_bias(qkv, bias)
     S = qkv.shape[1]
     q = qkv[..., :Hq * D].reshape(B, S, Hq, D)
     k = qkv[..., Hq * D:(Hq + Hkv) * D].reshape(B, S, Hkv, D)
@@ -432,26 +479,27 @@ def rope_cache_write_prefill_plain(qkv: torch.Tensor, cache: Dict,
 
 
 def rope_cache_write_prefill(qkv: torch.Tensor, cache: Dict, theta: float,
-                             fmt: str) -> Tuple[torch.Tensor, torch.Tensor,
-                                                torch.Tensor]:
-    """qkv (B, S, q_dim + 2 kv_dim) bf16 and one layer's cache leaves
-    (B, Hkv, S_cache >= S, ·) in ``fmt`` → q (B, Hq, S, D), k and v
-    (B, Hkv, S, D), bf16 and contiguous; cache positions [0, S) of every
-    row are written in place."""
+                             fmt: str, bias: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """qkv (B, S, q_dim + 2 kv_dim) bf16, one layer's cache leaves
+    (B, Hkv, S_cache, ·) in ``fmt`` and bias (q_dim + 2 kv_dim,) bf16 or
+    None → q (B, Hq, S, D), k and v (B, Hkv, S, D), bf16 and contiguous;
+    cache positions [0, S) of every row are written in place, or the
+    last S_cache positions at their ring slots when S > S_cache."""
     fmt = _cache_format("rope_cache_write_prefill", fmt)
+    _check_bias("rope_cache_write_prefill", qkv, bias)
     if qkv.device.type == "cpu":
-        return rope_cache_write_prefill_plain(qkv, cache, theta, fmt)
+        return rope_cache_write_prefill_plain(qkv, cache, theta, fmt, bias)
     _require(qkv.ndim == 3, f"rope_cache_write_prefill: qkv must be "
              f"(B, S, width), got {tuple(qkv.shape)}")
     B, Hq, Hkv, S_cache, D, ng = _qkv_layout("rope_cache_write_prefill",
                                              qkv, cache, fmt)
     S = qkv.shape[1]
-    _require(S <= S_cache, f"rope_cache_write_prefill: prefill of {S} "
-             f"positions into a {S_cache}-row cache needs the ring write of "
-             "the windowed family, which the port does not carry yet")
     leaves = _cache_leaves("rope_cache_write_prefill", qkv, cache, fmt, B,
                            Hkv, S_cache, D, ng)
-    _check_cuda("rope_cache_write_prefill", qkv, *leaves)
+    _check_cuda("rope_cache_write_prefill", qkv, *leaves,
+                *_kernel_bias("rope_cache_write_prefill", bias))
     q = torch.empty((B, Hq, S, D), dtype=torch.bfloat16, device=qkv.device)
     k, v = (torch.empty((B, Hkv, S, D), dtype=torch.bfloat16,
                         device=qkv.device) for _ in range(2))
@@ -459,8 +507,9 @@ def rope_cache_write_prefill(qkv: torch.Tensor, cache: Dict, theta: float,
         return q, k, v
     fn = build.function("fused_ops", "rope_cache_write_prefill",
                         _ROPE_PREFILL_ARGS)
-    err = fn(CACHE_FORMATS[fmt], qkv.data_ptr(), q.data_ptr(), k.data_ptr(),
-             v.data_ptr(), leaves[0].data_ptr(), leaves[1].data_ptr(),
+    err = fn(CACHE_FORMATS[fmt], qkv.data_ptr(),
+             bias.data_ptr() if bias is not None else None, q.data_ptr(),
+             k.data_ptr(), v.data_ptr(), leaves[0].data_ptr(), leaves[1].data_ptr(),
              leaves[2].data_ptr() if ng else None,
              leaves[3].data_ptr() if ng else None,
              B, Hkv, Hq // Hkv, S, S_cache, D, ng, float(theta), _stream(qkv))

@@ -1,5 +1,5 @@
-"""GQA attention: the prefill's causal self-attention and one decode
-token over a dense or a paged KV cache.
+"""GQA attention: the prefill's causal (or windowed) self-attention and
+one decode token over a dense, ring or paged KV cache.
 
 Counterpart of the JAX package's ``models/attention.py``:
 ``attention_forward`` (the self-attention branch at positions 0..S-1,
@@ -13,6 +13,18 @@ live in ``kernels/fused_ops.py``; ``chunked_attention`` is in
 prefill attention kernel there, and ``attention_forward`` reaches it
 through ``ops.attention``. Cross-attention and ``kv_override`` are not
 ported yet.
+
+The fused QKV projection may carry a bias (``cfg.qkv_bias``, the qwen2
+models). It is not added after the product: the RoPE + cache-write
+kernels add it as they read each qkv element (``bias=``), so a layer
+launches no kernel more for it.
+
+A windowed config (``cfg.sliding_window``, mistral-7b) keeps a ring of
+``min(max_len, window)`` positions a slot: the prefill attends within
+the window over all its positions and writes its last ring-length
+positions into the ring; a decode step writes slot ``lens % S`` and
+attends over the whole ring (``kv_len = min(lens + 1, S)``), as the JAX
+``decode_step`` does: the ring's length is the window.
 
 A paged cache (``init_kv_cache(page_size=)``) holds each layer's K/V
 (and scales) as a pool of blocks of ``page_size`` positions; a block
@@ -43,24 +55,34 @@ from repro_torch.quant.quantize import (FLOAT_FORMATS, dequantize_rows,
 
 def attention_specs(cfg: ModelConfig) -> Dict:
     return {"wqkv": layers.linear_spec(cfg.d_model,
-                                       cfg.q_dim + 2 * cfg.kv_dim),
+                                       cfg.q_dim + 2 * cfg.kv_dim,
+                                       bias=cfg.qkv_bias),
             "wo": layers.linear_spec(cfg.q_dim, cfg.d_model)}
 
 
-def attention_forward(p, cfg: ModelConfig, x: torch.Tensor,
-                      cache: Dict) -> torch.Tensor:
+def _qkv(p, x: torch.Tensor):
+    """The fused QKV product x @ wqkv, and its bias (None without one),
+    which the RoPE + cache-write kernels add."""
+    return ops.matmul(x, p["wqkv"]["w"]), p["wqkv"].get("b")
+
+
+def attention_forward(p, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
+                      window: int = 0) -> torch.Tensor:
     """Causal self-attention of a prefill: x (B, S, D_model) at positions
-    0..S-1 of every row. The roped K and the V go into positions [0, S)
-    of one layer's cache, in place; RoPE of q and k and that write are
-    one fused kernel (``ops.rope_cache_write_prefill``; its plain version
-    is ``apply_rope`` twice, the transposes and
-    ``kv_cache_write_prefill``)."""
+    0..S-1 of every row, each query seeing its last ``window`` keys (0:
+    all of them). The roped K and the V go into positions [0, S) of one
+    layer's cache, in place, or into its ring when S is longer than the
+    cache; RoPE of q and k and that write are one fused kernel
+    (``ops.rope_cache_write_prefill``; its plain version is the bias add,
+    ``apply_rope`` twice, the transposes and ``kv_cache_write_prefill``).
+    The attention reads the kernel's q, k and v of all S positions, never
+    the cache."""
     B, S, _ = x.shape
     check_cache_format(cfg, cache)
-    qkv = layers.linear(p["wqkv"], x)
+    qkv, bias = _qkv(p, x)
     q, k, v = ops.rope_cache_write_prefill(qkv, cache, cfg.rope_theta,
-                                           cfg.kv_quant)
-    out = ops.attention(q, k, v, causal=True, window=0)
+                                           cfg.kv_quant, bias=bias)
+    out = ops.attention(q, k, v, causal=True, window=window)
     out = out.transpose(1, 2).reshape(B, S, cfg.q_dim)
     return layers.linear(p["wo"], out)
 
@@ -82,15 +104,16 @@ def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
     and S = max_pages × P; lens (B,) tokens already cached per row;
     kv_len (B,) = ``min(lens + 1, S)``, the positions attention reads
     (the caller computes it once for every layer). The new token's K/V
-    go to ring slot ``lens % S``. RoPE of q and k and the K/V write are
-    one fused kernel (``ops.rope_cache_write``; its plain version is
-    ``apply_rope`` twice and ``kv_cache_write``); both kernels take the
-    table."""
+    go to ring slot ``lens % S``. The bias add, RoPE of q and k and the
+    K/V write are one fused kernel (``ops.rope_cache_write``; its plain
+    version is the add, ``apply_rope`` twice and ``kv_cache_write``);
+    both kernels take the table."""
     B = x.shape[0]
-    qkv = layers.linear(p["wqkv"], x).reshape(B, -1)
+    qkv, bias = _qkv(p, x)
+    qkv = qkv.reshape(B, -1)
     check_cache_format(cfg, cache)
     q = ops.rope_cache_write(qkv, cache, lens, advance, cfg.rope_theta,
-                             cfg.kv_quant, block_table)
+                             cfg.kv_quant, block_table, bias=bias)
     if cfg.kv_quant in FLOAT_FORMATS:
         out = ops.decode_attention(q, cache["k"], cache["v"], kv_len,
                                    block_table=block_table)
@@ -116,23 +139,28 @@ def kv_cache_read(cache: Dict, *, kv_quant: str = "bf16",
             dequantize_rows(cache["v"], cache["v_scale"], kv_quant, dtype))
 
 
-def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-                  kv_quant: str = "bf16", device: torch.device,
-                  dtype: torch.dtype = torch.bfloat16, page_size: int = 0,
-                  num_blocks: int = 0) -> Dict:
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  window: int = 0, *, kv_quant: str = "bf16",
+                  device: torch.device, dtype: torch.dtype = torch.bfloat16,
+                  page_size: int = 0, num_blocks: int = 0) -> Dict:
     """One layer's zeroed cache leaves: bf16 K/V (B, Hkv, S, hd), or an
     int8 payload (hd, or hd // 2 for q4_0) plus bf16 scales
-    (B, Hkv, S, hd // g).
+    (B, Hkv, S, hd // g), with S = ``max_len``, or ``min(max_len,
+    window)`` for a window > 0 (a ring).
 
     ``page_size`` P > 0 pages the cache: every leaf becomes a pool
     (n_blocks, Hkv, P, ·) with no batch axis, ``num_blocks`` defaulting
     to ``batch × max_len / P + 1`` (one block a page a slot, plus block
     0, the garbage block that unmapped table entries name). P must divide
     ``max_len``. The block table is the model cache's (``Model.init_cache``),
-    not a layer's."""
+    not a layer's; a ring is never paged."""
     Hkv, hd = cfg.num_kv_heads, cfg.head_dim
-    shape = (batch, Hkv, max_len)
+    S = min(max_len, window) if window else max_len
+    shape = (batch, Hkv, S)
     if page_size:
+        if window:
+            raise ValueError("a paged cache needs full attention (window "
+                             f"0); got window {window}")
         if max_len % page_size:
             raise ValueError(f"page_size {page_size} must divide the cache "
                              f"length {max_len}")

@@ -51,11 +51,17 @@ def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return ops.matmul(x, w, out_dtype=torch.float32)
 
 
-def linear_spec(d_in: int, d_out: int) -> Dict[str, ParamSpec]:
-    return {"w": ParamSpec((d_in, d_out))}
+def linear_spec(d_in: int, d_out: int,
+                bias: bool = False) -> Dict[str, ParamSpec]:
+    out = {"w": ParamSpec((d_in, d_out))}
+    if bias:
+        out["b"] = ParamSpec((d_out,), init="zeros")
+    return out
 
 
 def linear(p, x: torch.Tensor) -> torch.Tensor:
+    """x @ w. The one layer with a bias, the fused QKV projection, adds it
+    inside the RoPE + cache-write kernels (``models/attention.py``)."""
     return ops.matmul(x, p["w"])
 
 

@@ -4,9 +4,17 @@ step.
 Counterpart of the dense family of the JAX package's ``models/model.py``
 (``init``, ``init_cache``, ``prefill`` with ``seq_lens``, ``decode_step``
 with ``advance_mask``, ``reference_decode`` with stepwise or fused
-prefill). The other families, ``cache_axes`` and the windowed configs'
-``window_for`` are not ported yet: every config the port carries
-attends over its whole cache (window 0).
+prefill, and ``window_for``). The other families and ``cache_axes`` are
+not ported yet.
+
+A windowed config (``sliding_window`` > 0, mistral-7b; or any dense
+config past ``max_full_attn`` positions) keeps a ring of ``min(max_len,
+window)`` positions a slot, never paged. A prefill longer than its cache
+(a windowed prompt past the ring, or a resumed request past
+``max_len``) writes its last ring-length positions into the ring, each
+at slot ``pos % S``, as the JAX ``_write_prefill_kv`` does; its
+attention reads all its own positions within the window. A decode step
+attends over the whole ring, which is the window.
 
 Parameters are a nested dict like the JAX package's, except that the
 layer stack is a list of per-layer dicts instead of stacked (L, ...)
@@ -85,24 +93,39 @@ class Model:
                                    self.cfg.quant_group)
         return params
 
+    def window_for(self, total_len: int) -> int:
+        """The attention window of a sequence of ``total_len`` positions
+        (0: full attention): the config's sliding window, else the
+        long-context fallback past ``max_full_attn``."""
+        cfg = self.cfg
+        if cfg.sliding_window:
+            return cfg.sliding_window
+        if total_len > cfg.max_full_attn:
+            return cfg.window_long_ctx
+        return 0
+
     def paging_effective(self, max_len: int, page_size: int) -> int:
         """Page size actually served, or 0 when the cache stays dense.
-        Paging virtualizes growing full-attention caches; the JAX package
-        keeps recurrent and sliding-window families dense. The port
-        carries only the dense family, whose every config attends over
-        its whole cache, so this is ``page_size`` itself."""
+        Paging virtualizes growing full-attention caches; a windowed
+        cache is a ring already capped at the window, which the JAX
+        package keeps dense (as it does recurrent state)."""
+        if not page_size or self.window_for(max_len):
+            return 0
         return int(page_size)
 
     def init_cache(self, batch: int, max_len: int, page_size: int = 0,
                    cache_blocks: int = 0) -> Dict:
-        """A zeroed cache in ``cfg.kv_quant``'s format; paged (block pools
-        of ``cache_blocks`` blocks, default one a page a slot plus the
-        garbage block, and a zeroed block table) when ``page_size`` > 0."""
+        """A zeroed cache in ``cfg.kv_quant``'s format, of ``max_len``
+        positions a slot (a ring of ``min(max_len, window)`` for a
+        windowed config); paged (block pools of ``cache_blocks`` blocks,
+        default one a page a slot plus the garbage block, and a zeroed
+        block table) when ``page_size`` > 0 and paging is effective."""
         page_size = self.paging_effective(max_len, page_size)
         cache = {
             "lens": torch.zeros((batch,), dtype=torch.int32,
                                 device=self.device),
             "layers": [attn.init_kv_cache(self.cfg, batch, max_len,
+                                          self.window_for(max_len),
                                           kv_quant=self.cfg.kv_quant,
                                           device=self.device,
                                           page_size=page_size,
@@ -117,7 +140,8 @@ class Model:
 
     @staticmethod
     def cache_len(cache: Dict) -> int:
-        """Positions a slot's cache holds: S, or max_pages × P paged."""
+        """Positions a slot's cache holds: S (a windowed config's ring
+        length), or max_pages × P paged."""
         S = cache["layers"][0]["k"].shape[2]
         if "block_table" in cache:
             S *= cache["block_table"].shape[1]
@@ -131,7 +155,11 @@ class Model:
         lengths (the engine prefills a length bucket in one call); the
         padding writes junk K/V past ``lens``, which decode never reads
         before overwriting it. ``lens`` advances by ``seq_lens``, or by
-        S without it. The JAX package's ``prefill`` takes
+        S without it. Prompts longer than the cache take the ring write
+        (their last S_cache positions, at slots ``pos % S_cache``); that
+        branch is uniform-length by contract, so ``seq_lens`` is ignored
+        there and ``lens`` advances by S. The attention runs within
+        ``window_for(S)``. The JAX package's ``prefill`` takes
         ``{"tokens", "seq_lens"}`` and returns a new cache."""
         cfg = self.cfg
         B, S = tokens.shape
@@ -139,12 +167,15 @@ class Model:
             raise ValueError("prefill writes a dense cache; the serving "
                              "engine prefills into a dense scratch cache "
                              "and splices its pages into the pool")
+        if S > self.cache_len(cache):
+            seq_lens = None        # the ring branch: uniform-length
+        window = self.window_for(S)
         x = layers.embed(params, tokens)
         norms = _norms(params)
         z = layers.rmsnorm(x, norms[0], cfg.norm_eps)
         for p_l, c_l, next_norm in zip(params["layers"], cache["layers"],
                                        norms[1:]):
-            z = attn.attention_forward(p_l["attn"], cfg, z, c_l)
+            z = attn.attention_forward(p_l["attn"], cfg, z, c_l, window)
             x, z = layers.add_rmsnorm(x, z, p_l["ffn_norm"], cfg.norm_eps)
             x, z = layers.add_rmsnorm(x, mlp_mod.mlp_forward(p_l["mlp"], z),
                                       next_norm, cfg.norm_eps)
@@ -199,7 +230,9 @@ class Model:
         time through ``decode_step`` (the engine's chunked-admission
         path); False runs it through the fused ``prefill``, alone and
         unpadded (the stall-admission path). Returns the generated
-        tokens (stops at EOS or ``max_new_tokens``)."""
+        tokens (stops at EOS or ``max_new_tokens``). A fused prompt longer
+        than ``max_len`` (or than a windowed config's ring) is written
+        into the cache's ring, as in the JAX package."""
         if max_new_tokens <= 0:
             return []
         if len(prompt) == 0:

@@ -4,9 +4,10 @@ Each model builds a nested dict (and, for the layer stack, a list) of
 :class:`ParamSpec`; ``init_params`` turns it into tensors drawn from an
 explicit ``torch.Generator``, with the JAX package's std rules
 (``models/params.py``): ``fan_out`` for the embedding, ``fan_in`` for
-the other matrices, ones for norms. A ``torch.Generator`` does not give
-JAX's random bits, so tests that compare the two packages draw the
-JAX parameters and carry them over with ``repro_torch.bridge``.
+the other matrices, ones for norms, zeros for biases. A
+``torch.Generator`` does not give JAX's random bits, so tests that
+compare the two packages draw the JAX parameters and carry them over
+with ``repro_torch.bridge``.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from repro_torch.device import resolve_device
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
-    init: str = "normal"              # normal | ones | fan_out
+    init: str = "normal"              # normal | ones | zeros | fan_out
 
 
 def init_params(specs, generator: torch.Generator, *,
@@ -37,6 +38,8 @@ def init_params(specs, generator: torch.Generator, *,
     def make(spec: ParamSpec) -> torch.Tensor:
         if spec.init == "ones":
             return torch.ones(spec.shape, dtype=dtype, device=dev)
+        if spec.init == "zeros":
+            return torch.zeros(spec.shape, dtype=dtype, device=dev)
         if spec.init == "fan_out":
             # embeddings: std 1/sqrt(d_model) so the tied unembedding
             # gives O(1) logits

@@ -18,11 +18,13 @@ serves K tokens per slot.
   its last prompt token; decoding neighbours never stall.
 - **Stall admission** (``admission="stall"``): between megasteps, the
   queued requests that fit into free slots are grouped by padded
-  length (the next power of two, at least 8, capped at ``max_len``) and
-  each group is prefilled in one ``Model.prefill`` call into a scratch
-  cache, whose rows are copied into the live cache at the slots. The
-  first token is sampled from the prefill's logits; decoding slots
-  stall meanwhile.
+  length (the next power of two, at least 8, capped at the cache's
+  length; a prompt longer than the cache, such as a windowed model's
+  past its ring or a resumed request past ``max_len``, at its exact
+  length, which the prefill writes into the ring) and each group is
+  prefilled in one ``Model.prefill`` call into a scratch cache, whose
+  rows are copied into the live cache at the slots. The first token is
+  sampled from the prefill's logits; decoding slots stall meanwhile.
 - **Retirement**: a slot that emits EOS or reaches its budget turns
   idle; idle and waiting slots ride the fixed-shape batch with
   ``advance_mask`` False, so their cache rows are never written.
@@ -318,6 +320,10 @@ class ServingEngine:
         self.audit_every_step = False     # audit() after every step()
         if int(page_size) < 0:
             raise ValueError(f"page_size must be >= 0 (got {page_size})")
+        # a windowed model's cache is a ring of the window's length
+        window = model.window_for(max_len)
+        self._has_window = bool(window)
+        self._cache_seq = min(max_len, window) if window else max_len
         self.page_size = model.paging_effective(max_len, int(page_size))
         self.paged = bool(self.page_size)
         if self.paged and max_len % self.page_size:
@@ -784,10 +790,11 @@ class ServingEngine:
         """Queue a request, in EDF order. An empty prompt or a negative
         budget is rejected, and a zero budget completes at once with no
         output. Typed rejects (``SubmitReject``): ``PromptTooLong`` for a
-        request that can never fit the cache (a prompt longer than a
-        dense cache, or than the scratch cache of a paged engine's stall
-        prefill, or more pages than a paged pool holds; a chunked prompt
-        longer than a paged cache rings over its own pages),
+        request that can never fit the cache (more pages than a paged
+        pool holds, or a prompt longer than a dense full-attention
+        cache, whose prefill write would corrupt the slot; a windowed
+        ring, or a paged cache, takes a longer prompt over its own
+        positions), as the JAX ``submit`` rejects,
         ``QueueFull`` at the ``max_queue`` bound, ``InfeasibleDeadline``
         when ``req.deadline_s`` cannot be met by an empty engine."""
         prompt_len = len(np.asarray(req.prompt))
@@ -810,11 +817,10 @@ class ServingEngine:
                     f"pool holds {self.cache_blocks - 1}: it can never be "
                     "admitted (raise cache_blocks or shrink the request)",
                     uid=req.uid)
-        if prompt_len > self.max_len and (not self.paged
-                                          or self.admission == "stall"):
+        elif not self._has_window and prompt_len > self._cache_seq:
             raise PromptTooLong(
                 f"request {req.uid}: prompt of {prompt_len} tokens exceeds "
-                f"the cache capacity {self.max_len}", uid=req.uid)
+                f"the cache capacity {self._cache_seq}", uid=req.uid)
         if self.max_queue and len(self.queue) >= self.max_queue:
             self.stats.shed += 1
             sub = self._measured_substep_s()
@@ -964,8 +970,13 @@ class ServingEngine:
 
     def _bucket_len(self, prompt_len: int) -> int:
         """Padded prefill length: the next power of two (at least 8),
-        capped at ``max_len`` (``submit`` rejects longer prompts)."""
-        return min(max(8, 1 << (prompt_len - 1).bit_length()), self.max_len)
+        capped at the cache's length, so that a padded prefill never
+        takes the ring write; a prompt longer than the cache (which only
+        the ring takes) at its exact length."""
+        if prompt_len > self._cache_seq:
+            return prompt_len
+        return min(max(8, 1 << (prompt_len - 1).bit_length()),
+                   self._cache_seq)
 
     def _take_free(self, admit: Optional[Dict[str, np.ndarray]] = None
                    ) -> List:
@@ -1121,11 +1132,14 @@ class ServingEngine:
         of them the slot's own blocks (a page past them would name the
         garbage block, and two rows landing on one block in one scatter
         would race); the padding's junk inside the last page lies past
-        ``lens``, where decode overwrites it before reading it."""
+        ``lens``, where decode overwrites it before reading it. A prompt
+        longer than the cache was written into the scratch cache's ring,
+        whose ``max_pages`` pages are then all copied: position pos sits
+        at ring slot ``pos % max_len``, where decode reads it."""
         P = self.page_size
         src_row, src_page, dst = [], [], []
         for i, n in enumerate(seq_lens):
-            for j in range(-(-int(n) // P)):
+            for j in range(min(-(-int(n) // P), self.max_pages)):
                 src_row.append(i)
                 src_page.append(j)
                 dst.append(int(table_rows[i, j]))

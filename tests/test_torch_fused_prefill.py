@@ -213,10 +213,10 @@ def test_prefill_wrappers_reject_bad_inputs():
     cache = {"k": torch.zeros(2, 2, 8, 32, dtype=torch.bfloat16),
              "v": torch.zeros(2, 2, 8, 32, dtype=torch.bfloat16)}
     qkv = torch.zeros(2, 4, 256, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="ring"):      # S > the cache
+    with pytest.raises(ValueError, match="bias"):      # not one a column
         fused_ops.rope_cache_write_prefill(
-            torch.zeros(2, 9, 256, dtype=torch.bfloat16), cache, THETA,
-            "bf16")
+            qkv, cache, THETA, "bf16",
+            bias=torch.zeros(255, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="width"):
         fused_ops.rope_cache_write_prefill(
             torch.zeros(2, 4, 100, dtype=torch.bfloat16), cache, THETA,

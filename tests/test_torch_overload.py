@@ -190,6 +190,33 @@ def test_preempt_resume_token_identical(admission, depth):
             12 - k, max_len=64, stepwise_prefill=False)
 
 
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("depth", [1, 2])
+def test_stall_resume_past_max_len_matches_jax(depth, paged):
+    """A stall-admission resume whose prompt and generated tokens (73)
+    outgrow the cache (64): the resumed prompt is prefilled at its exact
+    length through the ring write (the scratch cache's ring spliced into
+    the slot's 8 pages when paged) and the stream ends as the JAX
+    engine's. It used to raise at the prefill bucket's copy."""
+    def scenario(eng, req_cls):
+        r = req_cls(uid=0, prompt=np.random.default_rng(5).integers(
+            1, 256, 40).astype(np.int32), max_new_tokens=40)
+        eng.submit(r)
+        while len(r.output) < 33:
+            eng.step()
+        assert eng.preempt(r)
+        eng.audit()
+        eng.run()
+        eng.audit()
+        return r.output, r.preemptions, eng.blocks_in_use
+
+    kw = dict(PAGED9) if paged else dict(slots=2, megastep_k=4)
+    want, got = on_both(scenario, depth, admission="stall", **kw)
+    assert got == want and len(got[0]) == 40 and got[1:] == (1, 0)
+    if depth == 1:
+        assert got[0][-5:] == [99, 159, 205, 10, 31]
+
+
 @pytest.mark.parametrize("depth", [1, 2])
 @pytest.mark.parametrize("admission", ["chunked", "stall"])
 def test_pool_starved_admission_preempts_a_later_deadline_victim(admission,

@@ -435,6 +435,45 @@ def test_prefix_cache_engine_matches_jax(P, K):
     assert [r.output for r in treqs] == [r.output for r in dense]
 
 
+def test_prefix_hit_pins_its_shared_blocks_before_evicting():
+    """A known difference from the JAX engine, pinned: the port takes a
+    reference on a prefix hit's shared blocks before it evicts registry
+    entries for the rest of the request, so an eviction cannot recycle
+    one of the hit's own pages. On the tiny pair with 5 usable blocks of
+    8: a 17-token prompt on a 16-token system prompt registers its two
+    pages, an unrelated 9-token prompt runs beside it, and a second
+    17-token prompt on the same system prompt then needs the registry's
+    LRU entries evicted for its 3 pages. The JAX engine's
+    ``_admit_paged`` raises KeyError there (its ``move_to_end`` meets a
+    key the eviction just removed); the port serves the stream of
+    ``reference_decode`` with one 16-token hit, and ``audit()`` holds
+    after every step."""
+    from _torch_serving import pair, reference
+    _, _, model, params = pair()
+    rng = np.random.default_rng(0)
+    system = rng.integers(1, 256, 16).astype(np.int32)
+    first = np.concatenate([system, rng.integers(1, 256, 1).astype(np.int32)])
+    other = rng.integers(1, 256, 9).astype(np.int32)
+    again = np.concatenate([system, rng.integers(1, 256, 1).astype(np.int32)])
+    eng = ServingEngine(model, params, slots=2, max_len=64, page_size=8,
+                        cache_blocks=6, prefix_cache=True)
+    eng.audit_every_step = True
+    reqs = [Request(uid=0, prompt=first, max_new_tokens=8),
+            Request(uid=1, prompt=other, max_new_tokens=8)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    assert eng.stats.prefix_hits == 0 and len(eng._prefix_reg) >= 2
+    last = Request(uid=2, prompt=again, max_new_tokens=16)
+    eng.submit(last)
+    eng.run()
+    assert eng.stats.prefix_hits == 1 and eng.stats.prefix_hit_tokens == 16
+    for r in reqs + [last]:
+        assert r.done and r.output == reference(r.prompt, r.max_new_tokens)
+    eng.audit()
+    assert eng.blocks_in_use == len(eng._prefix_reg)
+
+
 @pytest.mark.parametrize("admission", ["chunked", "stall"])
 def test_short_pool_blocks_fifo_like_jax(admission):
     """A pool of 9 blocks (P 8) for requests of 3-6 pages on 3 slots:
@@ -553,11 +592,19 @@ def test_paged_prompt_too_long(small):
     big.submit(r)
     big.run()
     assert r.done and len(r.output) == 3 and big.blocks_in_use == 0
+    # so does a stall prompt past the cache, prefilled into the scratch
+    # cache's ring and spliced into the slot's pages, as the JAX engine
+    # serves it
     stall = ServingEngine(model, params, slots=1, max_len=16, page_size=8,
                           admission="stall")
-    with pytest.raises(PromptTooLong, match="capacity"):
-        stall.submit(Request(uid=3, prompt=np.ones(20, np.int32),
-                             max_new_tokens=1))
+    stall.audit_every_step = True
+    r = Request(uid=3, prompt=np.arange(1, 21, dtype=np.int32),
+                max_new_tokens=3)
+    stall.submit(r)
+    stall.run()
+    assert r.done and r.output == model.reference_decode(
+        params, r.prompt, 3, max_len=16, stepwise_prefill=False)
+    assert stall.blocks_in_use == 0
 
 
 @pytest.mark.parametrize("kv", FMTS)

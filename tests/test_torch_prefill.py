@@ -114,11 +114,23 @@ def test_prefill_without_seq_lens_takes_the_last_position():
 
 
 def test_prefill_rejects_the_ring_branch_and_other_cache_formats():
+    """A prompt longer than the cache takes the ring branch (it used to be
+    refused): the logits of a cache long enough, ``lens`` advanced by the
+    whole prompt, and the last 8 positions' rows at their ring slots. A
+    cache in another format than the config's is refused."""
     model = Model(reduced(get_config("llama3.2-1b")), device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
-    toks = torch.ones((1, 12), dtype=torch.long)
-    with pytest.raises(ValueError, match="ring"):
-        model.prefill(params, toks, model.init_cache(1, 8))
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        1, 512, (1, 12))).long()
+    ring, full = model.init_cache(1, 8), model.init_cache(1, 16)
+    torch.testing.assert_close(model.prefill(params, toks, ring),
+                               model.prefill(params, toks, full),
+                               rtol=0, atol=0)
+    assert ring["lens"].tolist() == [12]
+    for r_l, f_l in zip(ring["layers"], full["layers"]):
+        for name in ("k", "v"):
+            assert torch.equal(r_l[name],
+                               torch.roll(f_l[name][:, :, 4:12], 12 % 8, 2))
     other = Model(dataclasses.replace(model.cfg, kv_quant="q8_0"),
                   device="cpu")
     with pytest.raises(ValueError, match="cache"):
