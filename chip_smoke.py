@@ -38,7 +38,16 @@ Phases (any failed check raises and the process exits nonzero):
    the gate-up GEMM at every new linear shape at M 4 and 2048 and at the
    untied heads (N 128256 and 32000, f32 logits); both RoPE + cache
    writes with the fused-QKV bias, and the prefill one with S past the
-   cache (the ring write) in the three cache formats;
+   cache (the ring write) in the three cache formats; the four MoE
+   kernels (``moe_route``, ``moe_gate_up_swiglu``, ``moe_down``,
+   ``moe_combine``) against their plain versions at phi3.5-moe-42b-a6.6b's
+   expert layer at T 4, 1 and 2048 and with a skewed router and tied
+   logits that force drops (the router's logits within 1e-5 and a token's
+   bit-equal alone, routing exact, GEMM rows within one bf16 ulp, each
+   expert's first row bit-equal alone, rows past the counts never
+   written, the combine bit-equal), then at kimi-k2-1t-a32b's expert
+   layer with its shared expert at T 4 and 512, each timed beside its
+   bound, its plain version and ``torch.bmm`` over all experts;
 4. main path: llama3.2-1b at full width (seeded random weights, q8_0
    weights, bf16 cache) served by ``repro_torch.launch.serve`` with 4
    slots, max_len 1024, 8-substep megasteps and chunked admission, 8
@@ -113,7 +122,21 @@ Phases (any failed check raises and the process exits nonzero):
    the ring's edge, both against ``reference_decode(stepwise_prefill=
    False)``; (phase 5 also resumes a stall-admitted request past
    ``max_len``, dense and paged);
-10. one ``{"kernels": [...]}`` line, the card line, and the last line
+10. the mixture-of-experts family (run right after phase 4):
+   phi3.5-moe-42b-a6.6b at full width and 24 of its 32 layers (bf16
+   weights) served by ``launch.serve`` on 4 slots (launch counts, no
+   plain MoE function on the card, streams against
+   ``reference_decode``, one decode step against the plain versions
+   beside the planted fault, the floor of the experts the routing read
+   beside every expert's, a profiled run of the first 4 requests' first
+   16 tokens for the idle share and the MoE kernels' device time), a
+   stall leg (one 4 x 512 bucket:
+   the pairs it drops, streams against a reference of the same bucket and,
+   where nothing dropped, ``reference_decode(stepwise_prefill=False)``),
+   a q8_0-cache leg and a paged leg with the prefix cache, ``--precision
+   q8_0`` refused with the engine's error, and the first request alone
+   on 1 slot;
+11. one ``{"kernels": [...]}`` line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits nonzero without printing a result when CUDA is unavailable, or
@@ -150,6 +173,9 @@ PREFILL_PROMPTS = (300, 310, 480, 500, 700, 760, 900, 270)
 # least 3.21e-1 with the attention looking one key ahead (PERF.md).
 PREFILL_REL_TOL = 4e-2
 PAGE = 16                          # the paged path's and legs' page size
+# phi3.5-moe-42b-a6.6b's depth on one 80 GB card: its bf16 weights are
+# 2.6 GB a layer (16 experts of 157 MB), 83.8 GB at its 32 layers
+MOE_LAYERS = 24
 # the paper's six models (its Fig. 4), smallest first
 PAPER_ORDER = ("qwen2-0.5b", "qwen2-1.5b", "llama3.2-1b", "llama3.2-3b",
                "llama3.2-8b", "mistral-7b-v0.1")
@@ -297,7 +323,8 @@ def bf16_tol(ref) -> float:
 # gate-up GEMM before quant_matmul
 GROUPS = ("decode_attention", "quant_matmul_swiglu", "quant_matmul",
           "add_rmsnorm", "rmsnorm", "swiglu", "rope_cache_write_prefill",
-          "rope_cache_write", "flash_attention", "memcpy", "other")
+          "rope_cache_write", "flash_attention", "moe_route", "moe_gemm",
+          "moe_combine", "memcpy", "other")
 
 
 def group_of(name: str) -> str:
@@ -882,6 +909,11 @@ def main() -> None:
     from repro_torch.kernels.quant_matmul import (
         launch_grid, quant_matmul, quant_matmul_plain, quant_matmul_swiglu,
         quant_matmul_swiglu_plain)
+    from repro_torch.kernels import moe as moe_kernels
+    from repro_torch.kernels.moe import (
+        moe_combine, moe_combine_plain, moe_down, moe_down_plain,
+        moe_gate_up_swiglu, moe_gate_up_swiglu_plain, moe_route,
+        moe_route_plain, route_from_logits_plain, router_logits_plain)
     from repro_torch.launch import serve
     from repro_torch.models import Model
     from repro_torch.quant import (QuantizedTensor, dequantize,
@@ -938,6 +970,14 @@ def main() -> None:
                 f"{st_b} / {ld_b} bytes spill stores / loads", flush=True)
             check(pair not in new_pairs_ptx or (st_b == 0 and ld_b == 0),
                   f"ptxas spilled registers in {fn}")
+    # the MoE kernels (the grouped GEMM's four instances among them) keep
+    # their registers
+    for fn, regs, st_b, ld_b in build.ptxas_usage("moe"):
+        short = re.search(r"\d(moe_[a-z_]+?_kernel(?:I\w*?EE)?)", fn)
+        print(f"  ptxas on moe.cu: {short.group(1) if short else fn}: "
+              f"{regs} registers, {st_b} / {ld_b} bytes spill stores / "
+              "loads", flush=True)
+        check(st_b == 0 and ld_b == 0, f"ptxas spilled registers in {fn}")
     # the profiler's first window starts its tracing; keep that out of
     # the timed ones
     from torch.profiler import ProfilerActivity, profile
@@ -980,7 +1020,8 @@ def main() -> None:
         names = ("quant_matmul", "quant_matmul_swiglu", "decode_attention",
                  "decode_attention_quant", "flash_attention", "rmsnorm",
                  "add_rmsnorm", "swiglu", "rope_cache_write",
-                 "rope_cache_write_prefill")
+                 "rope_cache_write_prefill", "moe_route",
+                 "moe_gate_up_swiglu", "moe_down", "moe_combine")
         saved = {n: getattr(ops, n) for n in names}
         wrap = off_by_one if fault else (lambda fn: fn)
         ops.quant_matmul = quant_matmul_plain
@@ -993,6 +1034,10 @@ def main() -> None:
         ops.swiglu = swiglu_plain
         ops.rope_cache_write = rope_cache_write_plain
         ops.rope_cache_write_prefill = rope_cache_write_prefill_plain
+        ops.moe_route = moe_route_plain
+        ops.moe_gate_up_swiglu = moe_gate_up_swiglu_plain
+        ops.moe_down = moe_down_plain
+        ops.moe_combine = moe_combine_plain
         try:
             yield
         finally:
@@ -1003,12 +1048,16 @@ def main() -> None:
     def kernels_only(quantized: bool = True):
         """While a path is served, the parts of the RoPE + cache-write
         plain versions refuse to run: every RoPE, cache write and
-        fused-QKV bias add on the card goes through the fused kernels.
-        With quantized weights the standalone SwiGLU refuses too: the
-        gate-up GEMM computes it."""
+        fused-QKV bias add on the card goes through the fused kernels,
+        and the MoE plain versions refuse too (an MoE FFN on the card runs
+        the MoE kernels). With quantized weights the standalone SwiGLU
+        refuses too: the gate-up GEMM computes it."""
         names = ("apply_rope", "kv_cache_write", "kv_cache_write_prefill",
                  "_with_bias")
+        moe_names = ("moe_route_plain", "moe_gate_up_swiglu_plain",
+                     "moe_down_plain", "moe_combine_plain")
         saved = {n: getattr(fused_ops, n) for n in names}
+        saved_moe = {n: getattr(moe_kernels, n) for n in moe_names}
         saved_swiglu = ops.swiglu
 
         def refuse(*a, **kw):
@@ -1018,8 +1067,13 @@ def main() -> None:
         def refuse_swiglu(*a, **kw):
             fail("the standalone SwiGLU ran in a served path with "
                  "quantized weights")
+
+        def refuse_moe(*a, **kw):
+            fail("a plain MoE function ran on the card in a served path")
         for n in names:
             setattr(fused_ops, n, refuse)
+        for n in moe_names:
+            setattr(moe_kernels, n, refuse_moe)
         if quantized:
             ops.swiglu = refuse_swiglu
         try:
@@ -1027,6 +1081,8 @@ def main() -> None:
         finally:
             for n, fn in saved.items():
                 setattr(fused_ops, n, fn)
+            for n, fn in saved_moe.items():
+                setattr(moe_kernels, n, fn)
             ops.swiglu = saved_swiglu
 
     gen = torch.Generator(device=dev)
@@ -2211,6 +2267,280 @@ def main() -> None:
             rope_prefill_case(fmt, 2, 40, 16, 4, 2, 32, with_bias=True)
             rope_prefill_case(fmt, 2, 70, 64, 12, 2, 128, with_bias=True)
 
+    # -- the mixture-of-experts kernels --------------------------------------
+    moe_src = "src/repro_torch/kernels/csrc/moe.cu"
+    gen_moe = torch.Generator(device=dev)        # the MoE kernel cases
+    gen_moe.manual_seed(7)
+
+    def moe_weight(*shape, scale):
+        """bf16 random weights drawn in bf16 (kimi-k2's 33.8 GB of experts
+        leave no room for f32 temporaries)."""
+        w = torch.randn(shape, generator=gen_moe, device=dev,
+                        dtype=torch.bfloat16)
+        return w.mul_(scale)
+
+    def moe_row(name, kern, plain, args, nbytes, flops, replaces, shape,
+                path, err, tol, lib=None, lib_args=None, shape_of=None,
+                per_call=1):
+        """Time an MoE kernel (``per_call`` launches a call: the route
+        kernel's router and routing are two), its plain version and,
+        for the grouped GEMMs, ``torch.bmm`` over all experts padded to C
+        (the JAX einsum's work), and keep its row. The weights read by a
+        call exceed the 50 MB L2, so one copy of the inputs serves."""
+        ms, call_ms = time_calls(kern, [args], 50, per_call=per_call)
+        attempts = time_calls.attempts
+        plain_ms, _ = time_calls(plain, [args], 5)
+        lib_ms = time_calls(lib, [lib_args], 20)[0] if lib else None
+        t_bound, by = bound(nbytes, flops)
+        rows[name] = dict(
+            name=name, route="cuda", source=moe_src, replaces=replaces,
+            no_pallas_counterpart=True, shape=shape, path=path, launches=0,
+            max_abs_err=err, tol=tol, ms=ms, call_ms=call_ms,
+            plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
+            library_ms=lib_ms,
+            library="torch.bmm over all experts padded to C" if lib else None,
+            grid=None, trace_attempts=attempts)
+        if shape_of:
+            rows[name]["shape_of"] = shape_of
+        print(f"    device ms {ms:.4f} (per call back to back {call_ms:.4f};"
+              f" {attempts} trace(s))  plain {plain_ms:.4f}  bmm "
+              + (f"{lib_ms:.4f}" if lib else "-")
+              + f"  bound {t_bound:.4f} ({by}, {nbytes / 1e6:.3f} MB, "
+              f"{flops / 1e9:.3f} GFLOP) -> {t_bound / ms:.1%} of bound",
+              flush=True)
+
+    def moe_route_case(label, x, wr, K, C, timed=False, path=None,
+                       shape_of=None):
+        """The route kernel: its logits within 1e-5 of the largest of
+        ``router_logits_plain``'s and each token's bit-equal alone (T 1);
+        its routing against the plain routing of its own logits: experts,
+        slots, counts and the kept map entries exactly, gates within 1e-6
+        relative; the read counters move by the experts with a pair and
+        one pass. Returns (route, dropped pairs)."""
+        T, E = x.shape[0], wr.shape[1]
+        reads = torch.zeros((2,), dtype=torch.int64, device=dev)
+        out = moe_route(x, wr, K, C, reads)
+        g, e, s_, cnt, src, logits = out
+        gp, ep, sp, cp, srcp, _ = route_from_logits_plain(logits, K, C)
+        ref_logits = router_logits_plain(x, wr)
+        alone = moe_route(x[:1].contiguous(), wr, K, C)[5]
+        # the library product's row alone, for the record: where it
+        # differs, a plain router would make a stream depend on its batch
+        lib_rows[f"{label} T{T}"] = torch.equal(
+            router_logits_plain(x[:1], wr)[0], ref_logits[0])
+        torch.cuda.synchronize()
+        lg_err = float((logits - ref_logits).abs().max())
+        lg_tol = 1e-5 * float(ref_logits.abs().max())
+        kept = torch.arange(C, device=dev)[None] < cp[:, None]
+        exact = (torch.equal(e, ep) and torch.equal(s_, sp)
+                 and torch.equal(cnt, cp) and torch.equal(src[kept],
+                                                          srcp[kept]))
+        rel = float(((g - gp).abs() / gp.abs().clamp(min=1e-30)).max())
+        used = int((torch.bincount(ep.view(-1).long(), minlength=E)
+                    > 0).sum())
+        dropped = int((sp >= C).sum())
+        same = {True: "bit-equal", False: "DIFFERS"}
+        print(f"  moe_route[{label} T{T} E{E} K{K} C{C}]: logits max_abs_err"
+              f" {lg_err:.3e} (tol {lg_tol:.3e}), token 0 alone "
+              f"{same[torch.equal(alone[0], logits[0])]} (torch.matmul's "
+              f"alone: {same[lib_rows[f'{label} T{T}']].lower()});"
+              f" experts, slots, counts and map "
+              f"{'exact' if exact else 'DIFFER'}; gates max rel err "
+              f"{rel:.2e} (tol 1e-6); {used} experts used, {dropped} of "
+              f"{T * K} pairs dropped; reads {reads.tolist()}", flush=True)
+        check(lg_err <= lg_tol, f"moe_route {label} T{T}: logits {lg_err} "
+              f"> {lg_tol}")
+        check(torch.equal(alone[0], logits[0]), f"moe_route {label} T{T}: "
+              "token 0's logits alone differ from the same token's in the "
+              "call")
+        check(exact, f"moe_route {label} T{T}: routing differs from plain")
+        check(rel <= 1e-6, f"moe_route {label} T{T}: gates {rel} > 1e-6")
+        check(reads.tolist() == [used, 1],
+              f"moe_route {label} T{T}: reads {reads.tolist()} != "
+              f"[{used}, 1]")
+        if timed:
+            D = x.shape[1]
+            nbytes = (T * D * 2 + D * E * 2 + T * E * 4 + T * K * 12 + E * 4
+                      + int(kept.sum()) * 4)
+            moe_row(f"moe_route[{label} T{T}]",
+                    lambda a, b: moe_route(a, b, K, C),
+                    lambda a, b: moe_route_plain(a, b, K, C), (x, wr),
+                    nbytes, 2.0 * T * D * E, "src/repro/models/moe.py:73-97",
+                    f"T{T} D{D} E{E} K{K} C{C}", path, lg_err, lg_tol,
+                    shape_of=shape_of, per_call=2)
+        return out, dropped
+
+    def moe_rows_check(what, got, ref, counts, C, canary):
+        """Rows c < counts[g] within one bf16 ulp of the plain version's;
+        every other row still holds the canary."""
+        live = torch.arange(C, device=dev)[None] < counts[:, None]
+        err = float((got[live].float() - ref[live].float()).abs().max())
+        tol = bf16_tol(ref[live])
+        untouched = bool((got[~live] == canary).all())
+        print(f"  {what}: max_abs_err {err:.3e} (tol {tol:.3e}), "
+              f"{int((got[live] != ref[live]).sum())} of "
+              f"{got[live].numel()} elements differ; rows past the counts "
+              f"{'untouched' if untouched else 'WRITTEN'}", flush=True)
+        check(err <= tol, f"{what}: {err} > {tol}")
+        check(untouched, f"{what}: a row past its count was written")
+        return err, tol
+
+    def moe_layer_case(label, T, K, x, wr, wgu, wd, timed=False,
+                       path=None, shared=None, shape_of=None):
+        """One MoE layer's kernels at T tokens against their plain
+        versions: the route; the gate-up GEMM with its SwiGLU and the down
+        GEMM over the routed rows, into canary-filled outputs; each
+        expert's first row computed alone at capacity 8 (one row, another
+        row tile, no neighbours) bit-equal to the same row in the call;
+        the combine bit-equal (with the shared experts' output where
+        ``shared`` = (w_gate_up, w_down), themselves held as one group of
+        T rows). Timed where ``timed``. Returns the dropped pairs."""
+        E, D, F2 = wgu.shape
+        Fw = F2 // 2
+        C = moe_kernels.capacity(E, K, 1.25, T)
+        (gates, experts, slots, counts, src, _), dropped = moe_route_case(
+            label, x, wr, K, C, timed, path, shape_of)
+        canary = 7.0
+        h = moe_gate_up_swiglu(x, wgu, C, counts, src, out=torch.full(
+            (E, C, Fw), canary, dtype=torch.bfloat16, device=dev))
+        hp = moe_gate_up_swiglu_plain(x, wgu, C, counts, src)
+        torch.cuda.synchronize()
+        err_h, tol_h = moe_rows_check(
+            f"moe_gate_up_swiglu[{label} T{T}]", h, hp, counts, C, canary)
+        y = moe_down(h, wd, counts, out=torch.full(
+            (E, C, D), canary, dtype=torch.bfloat16, device=dev))
+        yp = moe_down_plain(h, wd, counts)
+        torch.cuda.synchronize()
+        err_y, tol_y = moe_rows_check(f"moe_down[{label} T{T}]", y, yp,
+                                      counts, C, canary)
+        one = torch.clamp(counts, max=1).contiguous()
+        h1 = moe_gate_up_swiglu(x, wgu, 8, one, src[:, :8].contiguous())
+        y1 = moe_down(h[:, :8].contiguous(), wd, one)
+        torch.cuda.synchronize()
+        act = counts > 0
+        check(torch.equal(h1[act, 0], h[act, 0])
+              and torch.equal(y1[act, 0], y[act, 0]),
+              f"moe GEMMs {label} T{T}: a row alone (count 1, C 8) differs "
+              "from the same row in the call")
+        sh = None
+        if shared is not None:
+            sgu, sd = shared[0][None], shared[1][None]
+            canary_s = torch.full((1, T, sgu.shape[2] // 2), canary,
+                                  dtype=torch.bfloat16, device=dev)
+            hs = moe_gate_up_swiglu(x, sgu, T, out=canary_s)
+            hsp = moe_gate_up_swiglu_plain(x, sgu, T)
+            sh = moe_down(hs, sd)[0]
+            shp = moe_down_plain(hs, sd)[0]
+            torch.cuda.synchronize()
+            full_rows = torch.full((1,), T, dtype=torch.int32, device=dev)
+            moe_rows_check(f"shared gate-up [{label} T{T}]", hs, hsp,
+                           full_rows, T, canary)
+            moe_rows_check(f"shared down [{label} T{T}]", sh[None], shp[None],
+                           full_rows, T, canary)
+        out = moe_combine(y, gates, experts, slots, sh)
+        outp = moe_combine_plain(y, gates, experts, slots, sh)
+        torch.cuda.synchronize()
+        check(torch.equal(out, outp), f"moe_combine {label} T{T}: not "
+              "bit-equal to the plain version")
+        print(f"  moe GEMMs [{label} T{T}]: each expert's first row alone "
+              f"bit-equal; moe_combine bit-equal"
+              + (" (with the shared experts)" if shared else ""), flush=True)
+        if not timed:
+            return dropped
+        used = int(act.sum())
+        kept = int(counts.sum())
+        rows_in = kept * D * 2
+        shape = f"T{T} E{E} K{K} D{D} F{Fw} C{C}"
+        # torch.bmm over all experts padded to C: the JAX einsum's work
+        buf = torch.zeros((E, C, D), dtype=torch.bfloat16, device=dev)
+        hbuf = torch.zeros((E, C, Fw), dtype=torch.bfloat16, device=dev)
+        moe_row(f"moe_gate_up_swiglu[{label} T{T}]",
+                lambda *a: moe_gate_up_swiglu(*a),
+                lambda *a: moe_gate_up_swiglu_plain(*a),
+                (x, wgu, C, counts, src),
+                used * D * F2 * 2 + rows_in + kept * Fw * 2 + kept * 4,
+                2.0 * kept * D * F2, "src/repro/models/moe.py:107-112",
+                shape, path, err_h, tol_h, torch.bmm, (buf, wgu), shape_of)
+        moe_row(f"moe_down[{label} T{T}]", lambda *a: moe_down(*a),
+                lambda *a: moe_down_plain(*a), (h, wd, counts),
+                used * Fw * D * 2 + kept * Fw * 2 + kept * D * 2,
+                2.0 * kept * Fw * D, "src/repro/models/moe.py:113-116",
+                shape, path, err_y, tol_y, torch.bmm, (hbuf, wd), shape_of)
+        nbytes = (kept * D * 2 + T * K * 12 + T * D * 2
+                  + (T * D * 2 if sh is not None else 0))
+        moe_row(f"moe_combine[{label} T{T}]", lambda *a: moe_combine(*a),
+                lambda *a: moe_combine_plain(*a),
+                (y, gates, experts, slots, sh), nbytes, 2.0 * T * K * D,
+                "src/repro/models/moe.py:119-125", shape, path, 0.0, 0.0,
+                shape_of=shape_of)
+        del buf, hbuf
+        return dropped
+
+    def moe_kernel_cases():
+        """The four MoE kernels against their plain versions at
+        phi3.5-moe's shapes (E 16, K 2, D 4096, F 6400) at T 4, 1 and 2048
+        (the served path's decode at 4 slots and 1, and its stall
+        prefill), with a skewed router that forces drops and with tied
+        logits, then at kimi-k2's expert layer (E 384, K 8, D 7168, F 2048,
+        one shared expert) at T 4 and 512: 33.8 GB of expert weights,
+        allocated here and freed at the end."""
+        phi = get_config("phi3.5-moe-42b-a6.6b")
+        E, K, D, Fw = (phi.num_experts, phi.experts_per_token, phi.d_model,
+                       phi.d_ff)
+        wr = moe_weight(D, E, scale=D ** -0.5)
+        wgu = moe_weight(E, D, 2 * Fw, scale=D ** -0.5)
+        wd = moe_weight(E, Fw, D, scale=Fw ** -0.5)
+        for T, path, timed in ((4, "moe", True), (1, "moe alone", True),
+                               (2048, "moe stall", True), (16, None, False),
+                               (333, None, False)):
+            with drawing_from(gen_moe):
+                x = randn(T, D).bfloat16()
+            moe_layer_case("phi", T, K, x, wr, wgu, wd, timed, path)
+        # a skewed router: x shares a direction that expert 0's column
+        # follows, so nearly every token picks it, past C; tied logits:
+        # experts 5, 9 and 11 with one column (a three-way tie across the
+        # top-2 edge, which the lower ids win), every other column 0
+        with drawing_from(gen_moe):
+            x = (randn(2048, D) + 1.0).bfloat16()
+        skew = wr.clone()
+        skew[:, 0] = 4.0 / D
+        dropped = moe_layer_case("phi skewed", 2048, K, x, skew, wgu, wd)
+        check(dropped > 0, "the skewed router dropped no pair")
+        tied = torch.zeros_like(wr)
+        tied[:, [5, 9, 11]] = 1.0 / D
+        dropped = moe_layer_case("phi tied", 64, K, x[:64].contiguous(),
+                                 tied, wgu, wd)
+        check(dropped > 0, "the tied router dropped no pair")
+        del wr, wgu, wd, skew, tied
+        torch.cuda.empty_cache()
+        kimi = get_config("kimi-k2-1t-a32b")
+        E, K, D, Fw = (kimi.num_experts, kimi.experts_per_token,
+                       kimi.d_model, kimi.d_ff)
+        wr = moe_weight(D, E, scale=D ** -0.5)
+        wgu = moe_weight(E, D, 2 * Fw, scale=D ** -0.5)
+        wd = moe_weight(E, Fw, D, scale=Fw ** -0.5)
+        shared = (moe_weight(D, 2 * Fw, scale=D ** -0.5),
+                  moe_weight(Fw, D, scale=Fw ** -0.5))
+        print(f"  kimi-k2 expert layer: {(wgu.numel() + wd.numel()) * 2 / 1e9:.1f}"
+              " GB of expert weights", flush=True)
+        for T in (4, 512):
+            with drawing_from(gen_moe):
+                x = randn(T, D).bfloat16()
+            moe_layer_case("kimi-k2", T, K, x, wr, wgu, wd, timed=True,
+                           path="moe", shared=shared,
+                           shape_of="kimi-k2-1t-a32b's expert layer (the "
+                           "kernel phase only: kimi-k2 is not served on "
+                           "the card); launches are the kernel's on the "
+                           "phi3.5-moe path")
+        del wr, wgu, wd, shared
+        torch.cuda.empty_cache()
+
+    lib_rows = {}      # torch.matmul's f32 router row 0 alone == in the call
+    print("MoE kernels vs plain versions on the card:", flush=True)
+    t0 = time.perf_counter()
+    moe_kernel_cases()
+    moe_kernel_s = time.perf_counter() - t0
+
     # -- shared checks of a served path -------------------------------------
     def clone_cache(c):
         out = {"lens": c["lens"].clone(),
@@ -2256,14 +2586,64 @@ def main() -> None:
 
     def three_routes(run):
         """run() through the kernels, the plain versions, and the plain
-        versions with the planted faults."""
+        versions with the planted faults. An MoE layer's routing is a
+        discrete choice: rounding that differs between the passes can flip
+        a near tie among the router's logits and send a token to another
+        expert, which moves the logits far past any rounding. So the plain
+        passes route each MoE layer call to the experts the kernel pass
+        chose there (``route_from_logits_plain(experts=)``, gates from
+        their own logits), and the check is that every token whose plain
+        logits would choose other experts is a near tie: each pinned
+        expert's plain logit within twice that call's largest logit
+        difference between the passes of the plain K-th largest."""
         out = {}
+        picks, flips = [], []
+        kernel_route = ops.moe_route
+
+        def recording(x, w, K, C, reads=None):
+            r = kernel_route(x, w, K, C, reads)
+            picks.append((r[1], r[5]))
+            return r
+
+        def pinned_route(calls, judged):
+            def route(x, w, K, C, reads=None):
+                experts, lk = next(calls)
+                lg = router_logits_plain(x, w)
+                if judged:
+                    own = torch.sort(lg, dim=-1, descending=True, stable=True)
+                    same = (own.indices[:, :K].sort(-1).values
+                            == experts.long().sort(-1).values).all(-1)
+                    delta = 2 * float((lk - lg).abs().max())
+                    near = (lg.gather(1, experts.long()).min(-1).values
+                            >= own.values[:, K - 1] - delta)
+                    flips.append((int((~same).sum()),
+                                  int((~same & ~near).sum()), delta,
+                                  lg.shape[0]))
+                return route_from_logits_plain(lg, K, C, reads,
+                                               experts=experts)
+            return route
+
         for route in ("kernels", "plain", "fault"):
             ctx = (contextlib.nullcontext() if route == "kernels"
                    else plain_versions(fault=route == "fault"))
             with ctx:
-                out[route] = run()
+                ops.moe_route = (recording if route == "kernels" else
+                                 pinned_route(iter(picks), route == "plain"))
+                try:
+                    out[route] = run()
+                finally:
+                    ops.moe_route = kernel_route
         torch.cuda.synchronize()
+        if flips:
+            n = sum(f[0] for f in flips)
+            far = sum(f[1] for f in flips)
+            print(f"    MoE routing: {len(flips)} layer calls; the plain "
+                  f"pass's own logits would choose other experts for {n} of "
+                  f"{sum(f[3] for f in flips)} tokens, {far} of them no near"
+                  f" tie (largest 2x logit difference between the passes "
+                  f"{max(f[2] for f in flips):.3e})", flush=True)
+            check(far == 0, f"{far} tokens whose kernel-pass experts are no "
+                  "near tie of the plain pass's own choice")
         return out
 
     def step_vs_plain(engine, label, seeds=STEP_SEEDS):
@@ -2325,7 +2705,8 @@ def main() -> None:
 
     def ffn_launches(engine, n, heads):
         """The linears' and SwiGLU's launches over n layer passes and
-        ``heads`` unembeddings: with quantized weights three quant_matmul
+        ``heads`` unembeddings (the MoE kernels of an MoE config in place
+        of the FFN's): with quantized weights three quant_matmul
         (wqkv, wo, w_down) and the gate-up GEMM with its SwiGLU a layer,
         and one quant_matmul an unembedding by an untied (quantized)
         ``lm_head``; with plain weights the linears and the head are
@@ -2333,9 +2714,19 @@ def main() -> None:
         embedding table's transpose, always a library product."""
         quantized = engine.quant_policy in ("q8_0", "q4_0")
         head = heads * (not engine.cfg.tie_embeddings)
+        if engine.cfg.is_moe:
+            # bf16 weights: library linears; a layer pass routes, runs the
+            # two grouped GEMMs (again for the shared experts as one group)
+            # and combines
+            groups = n * (1 + bool(engine.cfg.num_shared_experts))
+            return {"quant_matmul": 0, "quant_matmul_swiglu": 0,
+                    "swiglu": 0, "moe_route": n,
+                    "moe_gate_up_swiglu": groups, "moe_down": groups,
+                    "moe_combine": n}
         return {"quant_matmul": 3 * n + head if quantized else 0,
                 "quant_matmul_swiglu": n if quantized else 0,
-                "swiglu": 0 if quantized else n}
+                "swiglu": 0 if quantized else n, "moe_route": 0,
+                "moe_gate_up_swiglu": 0, "moe_down": 0, "moe_combine": 0}
 
     def per_megastep(engine):
         """Kernel launches of one megastep: K substeps of one attention,
@@ -2633,6 +3024,254 @@ def main() -> None:
             del rp
         del eng, res2, model, params
         return out
+
+    # -- 10. the mixture-of-experts family (run right after the main path)
+    moe_counts = {}    # launches on the MoE paths, into ``counts`` below
+    moe_arch = "phi3.5-moe-42b-a6.6b"
+    moe_cut = MOE_LAYERS
+
+    def moe_floor_line(label, floor):
+        print(f"  {label}: floor {floor['ms']:.3f} ms a step for the "
+              f"{floor['experts_a_layer']:.2f} experts a layer the routing "
+              f"read (mean of {floor['moe_layer_passes']} layer passes) plus "
+              f"attention, norms, router and head "
+              f"({floor['bytes'] / 1e9:.3f} GB); every expert: "
+              f"{floor['all_experts_ms']:.3f} ms "
+              f"({floor['all_experts_bytes'] / 1e9:.3f} GB)", flush=True)
+
+    def moe_served(slots, extra=()):
+        """phi3.5-moe at full width and MOE_LAYERS layers, bf16 weights and
+        cache, served by ``launch.serve`` with the main path's traffic on
+        ``slots`` slots (8 requests; 1 alone on 1 slot)."""
+        zero_counts()
+        torch.cuda.synchronize()
+        with kernels_only(quantized=False):
+            res = serve.main([
+                "--arch", moe_arch, "--no-reduced", "--num-layers",
+                str(moe_cut), "--precision", "bf16", "--kv-quant", "bf16",
+                "--slots", str(slots), "--max-len", "1024", "--megastep-k",
+                "8", "--requests", "8" if slots == 4 else "1", "--max-new",
+                "32", "--temperature", "0", "--device", "cuda", *extra])
+        torch.cuda.synchronize()
+        return res
+
+    def moe_leg(eng, label, key, reqs, warm_reqs):
+        """Serve ``reqs`` on a (fresh) engine after a warmup that
+        captures its graph; launch counts into ``counts[key]``."""
+        zero_counts()
+        for r in warm_reqs:
+            eng.submit(r)
+        eng.run()
+        warm, after_warm = eng.stats, ops.launch_counts()
+        eng.reset()
+        for r in reqs:
+            eng.submit(r)
+        t0 = time.perf_counter()
+        with kernels_only(quantized=False):
+            eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        moe_counts[key] = check_served(eng, reqs, label, warm, after_warm)
+        return wall
+
+    def moe_phase():
+        t_phase = time.perf_counter()
+        out = dict(kernel_cases_s=moe_kernel_s,
+                   library_router_row_alone_equal=dict(lib_rows))
+        print(f"MoE path: {moe_arch} at full width, {moe_cut} of 32 layers, "
+              "bf16 weights and cache (served by launch.serve)", flush=True)
+        t0 = time.perf_counter()
+        res = moe_served(4)
+        eng = res.engine
+        label = f"MoE path ({moe_arch}, {moe_cut} layers, 4 slots)"
+        moe_counts["moe"] = check_served(eng, res.requests, label,
+                                     res.warmup_stats,
+                                     res.launches_after_warmup)
+        for r in res.requests:
+            check(r.output == eng.model.reference_decode(
+                eng.params, r.prompt, r.max_new_tokens, max_len=1024),
+                f"{label}: request {r.uid} differs from reference_decode")
+        st = eng.stats
+        out["slots4"] = dict(ms_per_step=1e3 * st.decode_wall_s / st.steps,
+                             tok_s=st.tokens_generated / st.decode_wall_s,
+                             steps=st.steps, tokens=st.tokens_generated,
+                             floor=res.floor,
+                             peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        print(f"  {label}: {out['slots4']['ms_per_step']:.3f} ms a step, "
+              f"{out['slots4']['tok_s']:.1f} tok/s; streams == "
+              "reference_decode (8 requests); peak memory "
+              f"{out['slots4']['peak_gb']:.2f} GB", flush=True)
+        moe_floor_line(label, res.floor)
+        out["slots4"].update(step_vs_plain(eng, label))
+        main_reqs = lambda: serve.make_requests(eng.cfg.vocab_size, 8, 32,
+                                                seed=0)
+        # the profile serves the first 4 requests' first 16 tokens, three
+        # megasteps of ~2900 events (run last in the script, all five
+        # traces of the ten-megastep run lost 9 events on the H100); no
+        # pair drops at 4 slots, so the streams are prefixes
+        prof, replay = profile_served(eng, lambda: serve.make_requests(
+            eng.cfg.vocab_size, 4, 16, seed=0))
+        check([r.output for r in replay] ==
+              [r.output[:16] for r in res.requests[:4]],
+              f"{label}: the profiled replay served other tokens")
+        g = prof["device_ms_per_step_by_group"]
+        moe_ms = g["moe_route"] + g["moe_gemm"] + g["moe_combine"]
+        print(f"  {label}: device ms a step in the MoE kernels {moe_ms:.3f}"
+              f" (route {g['moe_route']:.3f}, grouped GEMMs "
+              f"{g['moe_gemm']:.3f}, combine {g['moe_combine']:.3f}) of "
+              f"{prof['device_ms_per_step']:.3f}; device idle share "
+              f"{prof['device_idle_share']:.3f}", flush=True)
+        out["slots4"].update(prof, moe_device_ms_per_step=moe_ms)
+        model, params = eng.model, eng.params
+        streams = [r.output for r in res.requests]
+        dense = eng
+
+        # stall admission: one 4 x 512 bucket
+        label = f"MoE stall leg ({moe_cut} layers, one 4 x 512 bucket)"
+        seng = ServingEngine(model, params, slots=4, max_len=1024,
+                             sampling=SamplingConfig(), megastep_k=8,
+                             admission="stall")
+        rng = np.random.default_rng(2)
+        prompts = [rng.integers(1, model.cfg.vocab_size, n).astype(np.int32)
+                   for n in PREFILL_PROMPTS[:4]]
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=8)
+                for i, p in enumerate(prompts)]
+        moe_leg(seng, label, "moe stall", reqs,
+                [Request(uid=-1, prompt=prompts[0], max_new_tokens=2)])
+        check(seng.stats.prefill_batches == 1, f"{label}: "
+              f"{seng.stats.prefill_batches} prefill calls, not one bucket")
+        # the bucket reference: Model.prefill of the same padded bucket and
+        # seq_lens, its pairs' drops counted by the plain route on the same
+        # logits, then greedy decode of the 4 rows together (4 rows <= C 8:
+        # no decode step drops, so the rows do not touch)
+        lens = [len(p) for p in prompts]
+        S_b = seng._bucket_len(max(lens))
+        toks = np.zeros((4, S_b), np.int32)
+        for i, p in enumerate(prompts):
+            toks[i, :len(p)] = p
+        drops = []
+        route = ops.moe_route
+
+        def counting(x, w, K, C, reads=None):
+            out = route(x, w, K, C, reads)
+            drops.append(int((route_from_logits_plain(out[5], K, C)[2]
+                              >= C).sum()))
+            return out
+        cache = model.init_cache(4, 1024)
+        ops.moe_route = counting
+        try:
+            logits = model.prefill(params, torch.as_tensor(toks, device=dev)
+                                   .long(), cache,
+                                   seq_lens=torch.tensor(lens, device=dev))
+        finally:
+            ops.moe_route = route
+        bucket_ref = [[int(t)] for t in logits.argmax(-1).tolist()]
+        tok = logits.argmax(-1)[:, None]
+        for _ in range(7):
+            tok = model.decode_step(params, tok, cache).argmax(-1)[:, None]
+            for i, t in enumerate(tok[:, 0].tolist()):
+                bucket_ref[i].append(int(t))
+        print(f"  {label}: pairs dropped in the bucket's prefill, by layer "
+              f"(plain moe_route on the same logits): {drops}", flush=True)
+        for r in reqs:
+            check(r.output == bucket_ref[r.uid], f"{label}: request "
+                  f"{r.uid} differs from the bucket reference")
+            if not sum(drops):
+                check(r.output == model.reference_decode(
+                    params, r.prompt, 8, max_len=1024,
+                    stepwise_prefill=False), f"{label}: request {r.uid} "
+                    "differs from reference_decode(stepwise_prefill=False)")
+        out["stall"] = dict(prefill_drops=drops, **prefill_vs_plain(
+            seng, lens, label, seeds=1))
+        print(f"  {label}: streams == the bucket reference"
+              + ("" if sum(drops) else " and reference_decode("
+                 "stepwise_prefill=False)"), flush=True)
+        del seng, cache
+
+        # a q8_0 cache: streams == reference_decode of the same weights
+        # over a q8_0 cache
+        label = f"MoE q8_0-cache leg ({moe_cut} layers, 4 slots)"
+        qeng = ServingEngine(model, params, slots=4, max_len=1024,
+                             sampling=SamplingConfig(), megastep_k=8,
+                             kv_quant="q8_0")
+        reqs = main_reqs()
+        moe_leg(qeng, label, "moe q8_0 cache", reqs,
+                serve.make_requests(model.cfg.vocab_size, 1, 8, seed=9))
+        for r in reqs:
+            check(r.output == qeng.model.reference_decode(
+                params, r.prompt, r.max_new_tokens, max_len=1024),
+                f"{label}: request {r.uid} differs from reference_decode "
+                "over a q8_0 cache")
+        print(f"  {label}: streams == reference_decode over a q8_0 cache "
+              "(8 requests)", flush=True)
+        del qeng
+
+        # paged with the prefix cache: streams == the dense engine's
+        label = (f"MoE paged leg ({moe_cut} layers, page size {PAGE}, "
+                 "prefix cache)")
+        peng = ServingEngine(model, params, slots=4, max_len=1024,
+                             sampling=SamplingConfig(), megastep_k=8,
+                             page_size=PAGE, prefix_cache=True)
+        shared_reqs = lambda: serve.make_requests(
+            model.cfg.vocab_size, 8, 32, seed=0, shared_prefix=2 * PAGE + 1)
+        reqs = shared_reqs()
+        moe_leg(peng, label, "moe paged", reqs,
+                serve.make_requests(model.cfg.vocab_size, 1, 8, seed=9))
+        check(peng.stats.prefix_hits > 0, f"{label}: no prefix hit")
+        dense.reset()
+        dreqs = shared_reqs()
+        for r in dreqs:
+            dense.submit(r)
+        dense.run()
+        check([r.output for r in reqs] == [r.output for r in dreqs],
+              f"{label}: streams differ from the dense engine's")
+        print(f"  {label}: {peng.stats.prefix_hits} prefix hits; streams == "
+              "the dense engine's (8 requests)", flush=True)
+        del peng, dense, eng, res, model, params
+        torch.cuda.empty_cache()
+        out["served_s"] = time.perf_counter() - t0
+
+        # quantized weights: refused before any weight is drawn
+        try:
+            serve.main(["--arch", moe_arch, "--no-reduced", "--precision",
+                        "q8_0", "--device", "cuda"])
+        except SystemExit as e:
+            check("no quantized-weight path" in str(e),
+                  f"quantized MoE weights: another error: {e}")
+            print(f"  --precision q8_0: refused ({str(e)[:100]}...)",
+                  flush=True)
+        else:
+            fail("launch.serve served quantized MoE weights")
+
+        # the paper's single user: the first request alone on 1 slot
+        res = moe_served(1)
+        eng = res.engine
+        label = f"MoE path alone ({moe_cut} layers, 1 slot)"
+        moe_counts["moe alone"] = check_served(eng, res.requests, label,
+                                           res.warmup_stats,
+                                           res.launches_after_warmup)
+        r = res.requests[0]
+        check(r.output == streams[0] == eng.model.reference_decode(
+            eng.params, r.prompt, r.max_new_tokens, max_len=1024),
+            f"{label}: the stream differs from reference_decode")
+        st = eng.stats
+        out["slots1"] = dict(ms_per_step=1e3 * st.decode_wall_s / st.steps,
+                             tok_s=st.tokens_generated / st.decode_wall_s,
+                             steps=st.steps, tokens=st.tokens_generated,
+                             floor=res.floor)
+        print(f"  {label}: {out['slots1']['ms_per_step']:.3f} ms a step, "
+              f"{out['slots1']['tok_s']:.1f} tok/s; stream == the 4-slot "
+              "run's and reference_decode", flush=True)
+        moe_floor_line(label, res.floor)
+        del eng, res
+        torch.cuda.empty_cache()
+        out["phase_s"] = time.perf_counter() - t_phase
+        print(f"MoE phase: {out['phase_s']:.1f} s ({out['served_s']:.1f} s "
+              "serving the 4-slot path and its legs; the MoE kernel cases "
+              f"took {out['kernel_cases_s']:.1f} s in phase 3)", flush=True)
+        return out
+
+    moe = moe_phase()
 
     # -- 5. serving under load ------------------------------------------------
     load = serving_under_load()
@@ -3422,7 +4061,9 @@ def main() -> None:
                   f"{c['slots4']['tok_s']:8.1f} / {c['slots1']['tok_s']:7.1f}"
                   f" tok/s  floor {c['floor_ms']:.3f} ms", flush=True)
 
-    # -- 10. the kernel line --------------------------------------------------
+
+    # -- 11. the kernel line --------------------------------------------------
+    counts.update(moe_counts)
     for row in rows.values():
         kernel = row["name"].split("[")[0]
         path = row.pop("path")
@@ -3432,7 +4073,7 @@ def main() -> None:
     print(json.dumps({"main_path": main_path, "prefill_path": prefill_path,
                       "paged_path": paged_path, "under_load": load,
                       "second_path_step_checks": step_checks,
-                      "paper_models": paper,
+                      "paper_models": paper, "moe": moe,
                       "unembed_rows_equal_across_m": unembed_rows_equal}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)

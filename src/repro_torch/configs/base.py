@@ -1,11 +1,16 @@
-"""Model configuration for the dense decoder the port serves.
+"""Model configuration for the decoders the port serves.
 
 A copy of the fields of the JAX package's ``ModelConfig`` that the
-dense family reads, with the JAX defaults, plus ``reduced`` for the CPU
-tests: the backbone, the QKV bias (``qkv_bias``, the qwen2 models) and
-the attention window (``sliding_window``, mistral-7b; and
-``window_long_ctx`` past ``max_full_attn`` positions, the long-context
-fallback of ``Model.window_for``). Execution
+dense and mixture-of-experts families read, with the JAX defaults, plus
+``reduced`` for the CPU tests: the backbone, the QKV bias (``qkv_bias``,
+the qwen2 models), the attention window (``sliding_window``,
+mistral-7b; and ``window_long_ctx`` past ``max_full_attn`` positions,
+the long-context fallback of ``Model.window_for``) and the MoE block
+(``num_experts`` routed experts, ``experts_per_token`` of them a token,
+``capacity_factor``, ``num_shared_experts`` always-on experts and the
+Switch aux loss's ``router_aux_weight``). The other families of the JAX
+package (ssm, hybrid, audio, vlm) are refused until they are ported.
+Execution
 knobs that the port does not have (a kernel-backend switch, scan
 unrolling, remat, sharding) are left out: on a CUDA tensor the
 hand-written kernels always run, on a CPU tensor their plain versions.
@@ -14,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 
+ARCH_TYPES = ("dense", "moe")
 WEIGHT_FORMATS = ("bf16", "q8_0", "q4_0")
 PARAM_DTYPES = ("bf16", "f32")
 
@@ -22,13 +28,14 @@ PARAM_DTYPES = ("bf16", "f32")
 class ModelConfig:
     name: str = "unnamed"
     source: str = ""               # citation, e.g. "[arXiv:2407.21783]"
+    arch_type: str = "dense"       # one of ARCH_TYPES
 
     num_layers: int = 2
     d_model: int = 256
     num_heads: int = 4
     num_kv_heads: int = 4          # GQA; == num_heads → MHA
     head_dim: int = 0              # 0 → d_model // num_heads
-    d_ff: int = 1024               # SwiGLU hidden width
+    d_ff: int = 1024               # SwiGLU hidden width (per expert)
     vocab_size: int = 1024
     max_seq_len: int = 131072
     qkv_bias: bool = False         # a bias on the fused QKV projection
@@ -40,12 +47,21 @@ class ModelConfig:
     window_long_ctx: int = 4096    # the window past max_full_attn positions
     max_full_attn: int = 131072    # beyond this, the dense family windows
 
+    num_experts: int = 0           # 0 → dense FFN
+    experts_per_token: int = 0     # top-k
+    capacity_factor: float = 1.25
+    num_shared_experts: int = 0    # always-on shared experts (Kimi K2 style)
+    router_aux_weight: float = 0.01
+
     quant_policy: str = "bf16"     # weight format: bf16|q8_0|q4_0
     quant_group: int = 32          # group size along the reduction dim
     kv_quant: str = "bf16"         # cache format: bf16|q8_0|q4_0
     param_dtype: str = "bf16"      # bf16|f32 (f32 for exact parity tests)
 
     def __post_init__(self):
+        if self.arch_type not in ARCH_TYPES:
+            raise ValueError(f"arch_type {self.arch_type!r} is not ported; "
+                             f"the port serves {ARCH_TYPES}")
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim",
                                self.d_model // self.num_heads)
@@ -66,6 +82,10 @@ class ModelConfig:
         return ((self.vocab_size + 255) // 256) * 256
 
     @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    @property
     def q_dim(self) -> int:
         return self.num_heads * self.head_dim
 
@@ -76,7 +96,8 @@ class ModelConfig:
 
 def reduced(cfg: ModelConfig, **over) -> ModelConfig:
     """Reduced variant of the same family for CPU tests (the same sizes
-    the JAX package's ``reduced`` picks for a dense config)."""
+    the JAX package's ``reduced`` picks for a dense or MoE config: at
+    most 4 experts, top-2, one shared expert)."""
     base = dict(
         num_layers=2,
         d_model=min(cfg.d_model, 128),
@@ -87,6 +108,10 @@ def reduced(cfg: ModelConfig, **over) -> ModelConfig:
         vocab_size=min(cfg.vocab_size, 512),
         max_seq_len=512,
     )
+    if cfg.is_moe:
+        base["num_experts"] = min(cfg.num_experts, 4)
+        base["experts_per_token"] = min(cfg.experts_per_token, 2)
+        base["num_shared_experts"] = min(cfg.num_shared_experts, 1)
     if base["num_heads"] % base["num_kv_heads"]:
         base["num_kv_heads"] = 1
     base.update(over)

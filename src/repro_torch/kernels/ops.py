@@ -20,6 +20,9 @@ products (the counterpart of the JAX package's ``kernels/ops.py``).
 - ``rmsnorm``, ``add_rmsnorm``, ``swiglu``, ``rope_cache_write`` and
   ``rope_cache_write_prefill``: the fused small ops of ``fused_ops.py``,
   wrappers of the same kind.
+- ``moe_route``, ``moe_gate_up_swiglu``, ``moe_down`` and
+  ``moe_combine``: the mixture-of-experts FFN's kernels
+  (``kernels/moe.py``), wrappers of the same kind.
 - ``launch_counts``: every kernel wrapper's launch count by name. A
   wrapper counts the launches it enqueues, also into a CUDA graph being
   captured; a graph's replays launch again without counting.
@@ -46,6 +49,8 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_ops import (add_rmsnorm, rmsnorm,
                                            rope_cache_write,
                                            rope_cache_write_prefill, swiglu)
+from repro_torch.kernels.moe import (moe_combine, moe_down,
+                                     moe_gate_up_swiglu, moe_route)
 from repro_torch.kernels.quant_matmul import quant_matmul, quant_matmul_swiglu
 from repro_torch.quant.quantize import QuantizedTensor
 
@@ -53,12 +58,14 @@ torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 KERNELS = (decode_attention, decode_attention_quant, quant_matmul,
            quant_matmul_swiglu, flash_attention, rmsnorm, add_rmsnorm, swiglu,
-           rope_cache_write, rope_cache_write_prefill)
+           rope_cache_write, rope_cache_write_prefill, moe_route,
+           moe_gate_up_swiglu, moe_down, moe_combine)
 
 __all__ = ["matmul", "attention", "decode_attention",
            "decode_attention_quant", "flash_attention", "quant_matmul",
            "quant_matmul_swiglu", "rmsnorm", "add_rmsnorm", "swiglu",
-           "rope_cache_write", "rope_cache_write_prefill", "KERNELS",
+           "rope_cache_write", "rope_cache_write_prefill", "moe_route",
+           "moe_gate_up_swiglu", "moe_down", "moe_combine", "KERNELS",
            "launch_counts"]
 
 

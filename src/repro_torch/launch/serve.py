@@ -24,9 +24,16 @@ CLI (``main``)
 
 Runs on the card by default (``--device cpu`` for a CPU run). On the
 card the warmup request also captures the engine's megastep graph, so
-every megastep of the timed run is one graph replay. ``--pipeline-depth
+every megastep of the timed run is one graph replay. The run's output
+ends with the weight-streaming floor of a decode step (``step_floor``):
+for a mixture-of-experts config it counts the experts the run's routing
+actually read, beside the floor of reading every expert. An MoE config
+takes bf16 weights only: ``--precision q8_0`` / ``q4_0`` exits with the
+engine's error. ``--pipeline-depth
 2`` keeps one megastep in flight while the host drains the one before.
-``--page-size`` pages the KV cache (``--cache-blocks`` sizes its pool),
+``--num-layers`` cuts the depth (phi3.5-moe-42b-a6.6b's bf16 weights
+fill one 80 GB card at 24 of its 32 layers). ``--page-size`` pages the
+KV cache (``--cache-blocks`` sizes its pool),
 and ``--prefix-cache`` shares whole prompt pages across requests: every
 prompt then opens with the same seeded "system prompt" of two pages and
 one token, so that the shared pages hit. ``--max-queue`` bounds the
@@ -50,9 +57,14 @@ from repro_torch.configs.base import WEIGHT_FORMATS
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import Model
+from repro_torch.models.moe import check_weight_format
+from repro_torch.quant.quantize import QuantizedTensor
 from repro_torch.serving.engine import (EngineStats, QueueFull, Request,
                                         ServingEngine, SubmitReject)
 from repro_torch.serving.sampler import SamplingConfig
+
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
 
 
 @dataclasses.dataclass
@@ -62,6 +74,7 @@ class ServeResult:
                                         # --frontend: the front-end made them)
     warmup_stats: EngineStats           # the warmup request's stats
     launches_after_warmup: Dict[str, int]   # ops.launch_counts() then
+    floor: Dict[str, float]             # step_floor() of the timed run
 
 
 class DeadlineExceeded(Exception):
@@ -280,6 +293,10 @@ def build_parser() -> argparse.ArgumentParser:
                     default=True,
                     help="shrink the config for smoke runs "
                          "(--no-reduced for the full-size model)")
+    ap.add_argument("--num-layers", type=int, default=0,
+                    help="serve the first N layers only (0: the config's "
+                         "depth), for a model whose weights outgrow the "
+                         "card at full depth")
     ap.add_argument("--precision", default="bf16", choices=WEIGHT_FORMATS,
                     help="weight format")
     ap.add_argument("--kv-quant", dest="kv_quant", default="bf16",
@@ -347,6 +364,45 @@ def make_requests(vocab_size: int, n: int, max_new: int,
             for i in range(n)]
 
 
+def _nbytes(node) -> int:
+    if isinstance(node, QuantizedTensor):
+        return sum(t.numel() * t.element_size()
+                   for t in (node.data, node.scales))
+    if isinstance(node, dict):
+        return sum(_nbytes(v) for v in node.values())
+    if isinstance(node, list):
+        return sum(_nbytes(v) for v in node)
+    return node.numel() * node.element_size()
+
+
+def step_floor(engine: ServingEngine,
+               reads: Optional[torch.Tensor] = None) -> Dict[str, float]:
+    """The weight-streaming floor of one decode step: the bytes it must
+    read once (every layer weight as stored, the final norm and the
+    unembedding: the tied table whole, or the untied head) over the H100's
+    memory rate. For an MoE config the routed experts count only as
+    often as the routing read them: ``reads`` (``Model.expert_reads``
+    over a run: experts with a pair, summed over MoE layer passes, and
+    the passes) gives the mean experts a layer pass, and the floor counts
+    that many experts a layer; ``all_experts_*`` counts every expert.
+    Arithmetic from the weights' shapes, not a measurement."""
+    p, cfg = engine.params, engine.cfg
+    head = p["embedding"] if cfg.tie_embeddings else p["lm_head"]
+    total = _nbytes(p["layers"]) + _nbytes(head) + _nbytes(p["final_norm"])
+    out = dict(bytes=total, ms=total / HBM_BYTES_PER_S * 1e3)
+    if not cfg.is_moe:
+        return out
+    experts = _nbytes([p_l["moe"]["experts"] for p_l in p["layers"]])
+    per_expert = experts / (cfg.num_layers * cfg.num_experts)
+    read, passes = (int(v) for v in reads.tolist()) if reads is not None \
+        else (0, 0)
+    mean = read / passes if passes else float(cfg.num_experts)
+    routed = total - experts + cfg.num_layers * mean * per_expert
+    return dict(bytes=routed, ms=routed / HBM_BYTES_PER_S * 1e3,
+                all_experts_bytes=total, all_experts_ms=out["ms"],
+                experts_a_layer=mean, moe_layer_passes=passes)
+
+
 def _run_frontend(engine: ServingEngine, vocab_size: int, args) -> int:
     """Serve ``args.requests`` seeded prompts through the asyncio
     front-end, one arrival per event-loop turn. Returns how many were
@@ -385,6 +441,13 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
     if args.reduced:
         cfg = reduced(cfg)
     cfg = dataclasses.replace(cfg, kv_quant=args.kv_quant)
+    if args.num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
+    try:
+        # the engine's own check, before the weights are drawn
+        check_weight_format(cfg, args.precision)
+    except ValueError as e:
+        raise SystemExit(f"repro_torch.launch.serve: {e}") from e
     model = Model(cfg, device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
@@ -409,6 +472,9 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
     warmup_stats = engine.stats
     launches_after_warmup = ops.launch_counts()
     engine.reset()
+    reads = engine.model.expert_reads
+    if reads is not None:
+        reads.zero_()
 
     t0 = time.perf_counter()
     missed, requests = 0, []
@@ -464,7 +530,18 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
         print(f"frontend: {args.requests - missed} completed, {missed} "
               f"deadline-expired, shed or failed, {st.cancelled} engine "
               "cancellations")
-    return ServeResult(engine, requests, warmup_stats, launches_after_warmup)
+    floor = step_floor(engine, reads)
+    line = (f"floor: {floor['ms']:.3f} ms a decode step to read "
+            f"{floor['bytes'] / 1e9:.3f} GB of weights at 3.35 TB/s")
+    if cfg.is_moe:
+        line += (f" ({floor['experts_a_layer']:.2f} of {cfg.num_experts} "
+                 f"experts a layer pass, the mean over "
+                 f"{floor['moe_layer_passes']} passes; every expert: "
+                 f"{floor['all_experts_ms']:.3f} ms, "
+                 f"{floor['all_experts_bytes'] / 1e9:.3f} GB)")
+    print(line)
+    return ServeResult(engine, requests, warmup_stats, launches_after_warmup,
+                       floor)
 
 
 if __name__ == "__main__":

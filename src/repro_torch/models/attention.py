@@ -97,8 +97,8 @@ def check_cache_format(cfg: ModelConfig, cache: Dict) -> None:
 def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
                      lens: torch.Tensor, kv_len: torch.Tensor,
                      advance: Optional[torch.Tensor] = None,
-                     block_table: Optional[torch.Tensor] = None
-                     ) -> torch.Tensor:
+                     block_table: Optional[torch.Tensor] = None,
+                     frozen_see_current: bool = False) -> torch.Tensor:
     """x (B, 1, D); cache one layer's leaves (B, Hkv, S, ·), or its pools
     (n_blocks, Hkv, P, ·) with the slots' ``block_table`` (B, max_pages)
     and S = max_pages × P; lens (B,) tokens already cached per row;
@@ -107,13 +107,29 @@ def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
     go to ring slot ``lens % S``. The bias add, RoPE of q and k and the
     K/V write are one fused kernel (``ops.rope_cache_write``; its plain
     version is the add, ``apply_rope`` twice and ``kv_cache_write``);
-    both kernels take the table."""
+    both kernels take the table.
+
+    ``frozen_see_current`` (a dense cache with ``advance``): a frozen
+    row's attention reads its own current token's K/V at ring slot
+    ``lens % S``, and its cache is left as it was, as the JAX package's
+    dense decode writes every row, attends, then selects the frozen rows'
+    old cache. Without it a frozen row reads the slot's old contents;
+    either way its output is junk nobody emits, unless it reaches other
+    rows, as it does through an MoE layer whose capacity can drop pairs."""
     B = x.shape[0]
     qkv, bias = _qkv(p, x)
     qkv = qkv.reshape(B, -1)
     check_cache_format(cfg, cache)
-    q = ops.rope_cache_write(qkv, cache, lens, advance, cfg.rope_theta,
-                             cfg.kv_quant, block_table, bias=bias)
+    restore = frozen_see_current and advance is not None
+    if restore:
+        if block_table is not None:
+            raise ValueError("frozen_see_current takes a dense cache")
+        rows = torch.arange(B, device=x.device)
+        pos = (lens % cache["k"].shape[2]).long()
+        saved = {n: t[rows, :, pos] for n, t in cache.items()}
+    q = ops.rope_cache_write(qkv, cache, lens, None if restore else advance,
+                             cfg.rope_theta, cfg.kv_quant, block_table,
+                             bias=bias)
     if cfg.kv_quant in FLOAT_FORMATS:
         out = ops.decode_attention(q, cache["k"], cache["v"], kv_len,
                                    block_table=block_table)
@@ -121,6 +137,10 @@ def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
         out = ops.decode_attention_quant(
             q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"],
             kv_len, fmt=cfg.kv_quant, block_table=block_table)
+    if restore:
+        frozen = ~advance[:, None, None]
+        for n, t in cache.items():
+            t[rows, :, pos] = torch.where(frozen, saved[n], t[rows, :, pos])
     return layers.linear(p["wo"], out.reshape(B, 1, cfg.q_dim))
 
 

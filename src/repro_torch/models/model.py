@@ -1,11 +1,14 @@
-"""Dense GQA decoder: parameters, cache, the fused prefill and the decode
-step.
+"""GQA decoder, dense or mixture-of-experts: parameters, cache, the fused
+prefill and the decode step.
 
-Counterpart of the dense family of the JAX package's ``models/model.py``
-(``init``, ``init_cache``, ``prefill`` with ``seq_lens``, ``decode_step``
-with ``advance_mask``, ``reference_decode`` with stepwise or fused
-prefill, and ``window_for``). The other families and ``cache_axes`` are
-not ported yet.
+Counterpart of the dense and MoE families of the JAX package's
+``models/model.py`` (``init``, ``init_cache``, ``prefill`` with
+``seq_lens``, ``decode_step`` with ``advance_mask``, ``reference_decode``
+with stepwise or fused prefill, and ``window_for``). An MoE config
+(``cfg.is_moe``) has a ``"moe"`` FFN in each layer where a dense one has
+``"mlp"`` (``models/moe.py``), in bf16 or f32 weights only. The other
+families (ssm, hybrid, audio, vlm) and ``cache_axes`` are not ported
+yet.
 
 A windowed config (``sliding_window`` > 0, mistral-7b; or any dense
 config past ``max_full_attn`` positions) keeps a ring of ``min(max_len,
@@ -39,6 +42,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.params import ParamSpec, init_params
 from repro_torch.quant.quantize import FLOAT_FORMATS, quantize_tree
 
@@ -62,6 +66,12 @@ class Model:
                  device: Union[str, torch.device, None] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        # an MoE model's (experts that had a pair, summed over MoE layer
+        # passes; the passes), which its routing adds to on the device
+        # (the CLI's floor); the caller zeroes it in place
+        self.expert_reads = (torch.zeros((2,), dtype=torch.int64,
+                                         device=self.device)
+                             if cfg.is_moe else None)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -72,22 +82,35 @@ class Model:
         cfg = self.cfg
         specs = layers.embed_specs(cfg)
         specs["final_norm"] = _norm_spec(cfg.d_model)
+        ffn = ("moe", moe_mod.moe_specs) if cfg.is_moe else \
+            ("mlp", mlp_mod.mlp_specs)
         specs["layers"] = [{
             "attn_norm": _norm_spec(cfg.d_model),
             "attn": attn.attention_specs(cfg),
             "ffn_norm": _norm_spec(cfg.d_model),
-            "mlp": mlp_mod.mlp_specs(cfg),
+            ffn[0]: ffn[1](cfg),
         } for _ in range(cfg.num_layers)]
         return specs
+
+    def ffn(self, p_l, z: torch.Tensor) -> torch.Tensor:
+        """A layer's FFN: the MoE of an MoE config, else the dense
+        SwiGLU MLP."""
+        if self.cfg.is_moe:
+            return moe_mod.moe_forward(p_l["moe"], self.cfg, z,
+                                       self.expert_reads)
+        return mlp_mod.mlp_forward(p_l["mlp"], z)
 
     def init(self, generator: torch.Generator,
              quantize: Optional[bool] = None) -> Dict:
         """Seeded random parameters, quantized to ``cfg.quant_policy``
-        unless ``quantize`` is False."""
-        params = init_params(self.param_specs(), generator,
-                             dtype=self.dtype, device=self.device)
+        unless ``quantize`` is False. An MoE config refuses a quantized
+        policy (``moe.check_weight_format``)."""
         do_quant = (self.cfg.quant_policy not in FLOAT_FORMATS
                     if quantize is None else quantize)
+        if do_quant:
+            moe_mod.check_weight_format(self.cfg, self.cfg.quant_policy)
+        params = init_params(self.param_specs(), generator,
+                             dtype=self.dtype, device=self.device)
         if do_quant:
             params = quantize_tree(params, self.cfg.quant_policy,
                                    self.cfg.quant_group)
@@ -177,8 +200,8 @@ class Model:
                                        norms[1:]):
             z = attn.attention_forward(p_l["attn"], cfg, z, c_l, window)
             x, z = layers.add_rmsnorm(x, z, p_l["ffn_norm"], cfg.norm_eps)
-            x, z = layers.add_rmsnorm(x, mlp_mod.mlp_forward(p_l["mlp"], z),
-                                      next_norm, cfg.norm_eps)
+            x, z = layers.add_rmsnorm(x, self.ffn(p_l, z), next_norm,
+                                      cfg.norm_eps)
         cache["lens"] += S if seq_lens is None else seq_lens.to(
             cache["lens"].dtype)
         # z is the final norm of every position; unembed the last real one
@@ -205,15 +228,21 @@ class Model:
         # the positions each layer's attention reads, the same in every
         # layer: computed once a step
         kv_len = torch.clamp(lens + 1, max=self.cache_len(cache))
+        # a frozen row's junk token reaches the other rows only through an
+        # MoE layer that can drop pairs (more rows than its capacity): then
+        # it attends as the JAX package's does (attention_decode)
+        B = tokens.shape[0]
+        see_current = (cfg.is_moe and table is None
+                       and B > moe_mod.capacity(cfg, B))
         norms = _norms(params)
         z = layers.rmsnorm(x, norms[0], cfg.norm_eps)
         for p_l, c_l, next_norm in zip(params["layers"], cache["layers"],
                                        norms[1:]):
             z = attn.attention_decode(p_l["attn"], cfg, z, c_l, lens, kv_len,
-                                      advance_mask, table)
+                                      advance_mask, table, see_current)
             x, z = layers.add_rmsnorm(x, z, p_l["ffn_norm"], cfg.norm_eps)
-            x, z = layers.add_rmsnorm(x, mlp_mod.mlp_forward(p_l["mlp"], z),
-                                      next_norm, cfg.norm_eps)
+            x, z = layers.add_rmsnorm(x, self.ffn(p_l, z), next_norm,
+                                      cfg.norm_eps)
         if advance_mask is None:
             lens += 1
         else:

@@ -112,6 +112,7 @@ import torch
 from repro_torch.configs.base import WEIGHT_FORMATS
 from repro_torch.kernels import ops
 from repro_torch.models import Model
+from repro_torch.models.moe import check_weight_format
 from repro_torch.quant.quantize import (FLOAT_FORMATS, QuantizedTensor,
                                         quantize_tree)
 from repro_torch.serving.sampler import SamplingConfig, sample_batched
@@ -283,6 +284,7 @@ class ServingEngine:
         self.device = model.device
         self.kv_quant = model.cfg.kv_quant
         if quant_policy is not None and quant_policy not in FLOAT_FORMATS:
+            check_weight_format(model.cfg, quant_policy)
             for fmt in _quantized_formats(params):
                 if fmt != quant_policy:
                     raise ValueError(
