@@ -47,7 +47,16 @@ Phases (any failed check raises and the process exits nonzero):
    expert's first row bit-equal alone, rows past the counts never
    written, the combine bit-equal), then at kimi-k2-1t-a32b's expert
    layer with its shared expert at T 4 and 512, each timed beside its
-   bound, its plain version and ``torch.bmm`` over all experts;
+   bound, its plain version and ``torch.bmm`` over all experts; the four
+   SSM kernels (``ssm_conv``, ``ssm_decode_update``, ``ssd_prefill``,
+   ``gated_rmsnorm``) at mamba2-2.7b's widths: decode at 4 slots (one
+   frozen) and 1 (y within one bf16 ulp, the conv state bit-equal, the
+   SSD state within 1e-5 of its scale, frozen rows untouched), the conv
+   and the scan at S 1, 3, 37, 301 and 512 with and without a carried
+   state (the scan's y within one bf16 step, its state within
+   ``SSD_STATE_REL_TOL``), each timed beside its bound and its plain
+   version; ``quant_matmul`` at ``in_proj`` (2560 x 10576, a ragged
+   N) and ``out_proj`` under q8_0 and q4_0 at M 1, 4 and 512;
 4. main path: llama3.2-1b at full width (seeded random weights, q8_0
    weights, bf16 cache) served by ``repro_torch.launch.serve`` with 4
    slots, max_len 1024, 8-substep megasteps and chunked admission, 8
@@ -137,7 +146,28 @@ Phases (any failed check raises and the process exits nonzero):
    q8_0`` refused with the engine's error, and the first request alone
    on 1 slot;
 11. one ``{"kernels": [...]}`` line, the card line, and the last line
-   ``{"ok": true, "device": {...}}``.
+   ``{"ok": true, "device": {...}}``;
+12. the SSM family (run right after phase 10): mamba2-2.7b at full width
+   and all 64 layers, served by ``launch.serve`` under bf16, q8_0 and
+   q4_0 weights on 4 slots (8 requests) and its first request alone on 1
+   slot: launch counts (the conv, the state update, the gated norm and
+   the residual add + norm a layer, ``in_proj`` and ``out_proj`` through
+   ``quant_matmul`` when quantized; no plain SSM function on the card),
+   streams against ``reference_decode``, one decode step against the
+   plain versions within ``SSM_STEP_REL_TOL`` beside a planted fault (the
+   state not decayed), and each of its 64 SSM layers on the same input
+   within one bf16 ulp of the plain versions (output and SSD state) with
+   the fault beyond it in every layer, ms a step and tok/s beside the
+   floor with its state term, a profiled q8_0 run for the idle share and
+   the SSM kernels' device time; a q8_0 stall leg (prompts of 300, 301,
+   480 and 512 tokens: four exact-length buckets; streams against
+   ``reference_decode(stepwise_prefill=False)``, one fused 4 x 300
+   prefill against the plain versions within ``SSM_PREFILL_REL_TOL``
+   beside the planted fault, and layer by layer as the decode step), a
+   q4_0 stall leg against the fused
+   reference, a leg with ``--kv-quant q8_0 --page-size 16
+   --prefix-cache`` (no-ops, the engine's warning, the q8_0 streams), and
+   preemption with resume under chunked and stall admission.
 
 Exits nonzero without printing a result when CUDA is unavailable, or
 when run outside a checkout of the repository.
@@ -158,6 +188,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
+F32_FLOPS = 67e12                  # f32 outside the tensor cores
 MAIN_LAYERS_SECOND_PATH = 4
 STEP_SEEDS = 3                     # token batches per decode-step check
 # Kernels vs plain versions through one whole decode step, as a share of
@@ -173,6 +204,26 @@ PREFILL_PROMPTS = (300, 310, 480, 500, 700, 760, 900, 270)
 # least 3.21e-1 with the attention looking one key ahead (PERF.md).
 PREFILL_REL_TOL = 4e-2
 PAGE = 16                          # the paged path's and legs' page size
+# ssd_prefill's final f32 state against the plain scan's (chunks of 64,
+# masked, against the JAX rule's 256 halved to fit S), as a share of its
+# largest magnitude. Measured on an H100 at mamba2-2.7b's widths: at most
+# 4.5e-6 (B 4, S 512); y within one bf16 step of its scale, at most 8.9e-4
+# of it (PERF.md, Findings).
+SSD_STATE_REL_TOL = 5e-5
+# Kernels vs plain versions through one whole decode step, and one fused
+# 4 x 300 prefill, of mamba2-2.7b, as a share of the largest logit. Each of
+# the 64 layers is within one bf16 ulp of its plain version on the same
+# input (``ssm_layers_vs_plain``); through the whole depth the two passes
+# drift apart about linearly with the layer, and a prefill also carries
+# each position's flips into the later positions' states. Measured on an
+# H100 (PERF.md, Findings): decode 2.318e-2 to 3.560e-2 over bf16, q8_0
+# and q4_0 and 3 token batches, the planted fault (the state not decayed)
+# 0.81 or more; the prefill 0.153 to 0.272 over 5 token batches, its
+# fault 1.27 or more.
+SSM_STEP_REL_TOL = 5e-2
+SSM_PREFILL_REL_TOL = 0.35
+# the SSM family's stall leg: four exact-length buckets, one of them odd
+SSM_STALL_PROMPTS = (300, 301, 480, 512)
 # phi3.5-moe-42b-a6.6b's depth on one 80 GB card: its bf16 weights are
 # 2.6 GB a layer (16 experts of 157 MB), 83.8 GB at its 32 layers
 MOE_LAYERS = 24
@@ -201,9 +252,13 @@ def card_line() -> str:
 # first or the last two events it holds, in every trace of one run (the
 # first or the last copy of a megastep went with a spin; late in some
 # runs every trace lost its first host-to-device copy). So each edge is
-# four spins, which any such loss takes first.
+# spins, which any such loss takes first. Some 250 s into a run with the
+# SSM family's phases ahead of phase 5, each of five traces of a depth-2
+# run lost the first three events after four spins, the same three with
+# spins of 500,000 and of 5,000,000 cycles: a loss of the window's first
+# records, not of its first microseconds. So each edge is sixteen spins.
 PAD_CYCLES = 500_000
-PAD_SPINS = 4
+PAD_SPINS = 16
 
 
 def pad_window() -> None:
@@ -318,13 +373,14 @@ def bf16_tol(ref) -> float:
     return 2.0 ** -7 * float(ref.float().abs().max())
 
 
-# a kernel's group is the first whose name its name holds: add_rmsnorm
-# before rmsnorm, the prefill RoPE before the decode one, the fused
-# gate-up GEMM before quant_matmul
+# a kernel's group is the first whose name its name holds: gated_rmsnorm
+# and add_rmsnorm before rmsnorm, the prefill RoPE before the decode one,
+# the fused gate-up GEMM before quant_matmul
 GROUPS = ("decode_attention", "quant_matmul_swiglu", "quant_matmul",
-          "add_rmsnorm", "rmsnorm", "swiglu", "rope_cache_write_prefill",
-          "rope_cache_write", "flash_attention", "moe_route", "moe_gemm",
-          "moe_combine", "memcpy", "other")
+          "gated_rmsnorm", "add_rmsnorm", "rmsnorm", "swiglu",
+          "rope_cache_write_prefill", "rope_cache_write", "flash_attention",
+          "moe_route", "moe_gemm", "moe_combine", "ssm_decode",
+          "ssd_prefill", "ssm_conv", "memcpy", "other")
 
 
 def group_of(name: str) -> str:
@@ -408,9 +464,13 @@ def profile_served(engine, make_requests, prelude=None):
             tally[e.name] = tally.get(e.name, 0) + 1
         odd = {n[:70]: c for n, c in tally.items()
                if c % engine.stats.graph_replays}
+        from torch.autograd import DeviceType
+        pads = sum(e.name in window_events.pad_names for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
         print(f"    names off a multiple of {engine.stats.graph_replays}: "
               f"{odd}; first {[e.name[:40] for e in by_time[:3]]}, last "
-              f"{[e.name[:40] for e in by_time[-3:]]}", flush=True)
+              f"{[e.name[:40] for e in by_time[-3:]]}; {pads} of "
+              f"{2 * PAD_SPINS} spins kept", flush=True)
     check(len(events) == want, f"the served run's trace holds {len(events)} "
           f"CUDA events, not {want}, after {attempt} attempts")
     st = engine.stats
@@ -914,8 +974,13 @@ def main() -> None:
         moe_combine, moe_combine_plain, moe_down, moe_down_plain,
         moe_gate_up_swiglu, moe_gate_up_swiglu_plain, moe_route,
         moe_route_plain, route_from_logits_plain, router_logits_plain)
+    from repro_torch.kernels import ssm as ssm_kernels
+    from repro_torch.kernels.ssm import (
+        gated_rmsnorm, gated_rmsnorm_plain, ssd_prefill, ssd_prefill_plain,
+        ssm_conv, ssm_conv_plain, ssm_decode_update, ssm_decode_update_plain)
     from repro_torch.launch import serve
     from repro_torch.models import Model
+    from repro_torch.models import ssm as ssm_mod
     from repro_torch.quant import (QuantizedTensor, dequantize,
                                    dequantize_rows, quantize, quantize_rows,
                                    quantize_tree, unpack_int4_rows)
@@ -978,6 +1043,14 @@ def main() -> None:
               f"{regs} registers, {st_b} / {ld_b} bytes spill stores / "
               "loads", flush=True)
         check(st_b == 0 and ld_b == 0, f"ptxas spilled registers in {fn}")
+    # the SSM kernels keep their registers (the scan holds 16 running sums
+    # a thread in each of its three products)
+    for fn, regs, st_b, ld_b in build.ptxas_usage("ssm"):
+        short = re.search(r"\d((?:ssm|ssd|gated)_\w+?_kernel)", fn)
+        print(f"  ptxas on ssm.cu: {short.group(1) if short else fn}: "
+              f"{regs} registers, {st_b} / {ld_b} bytes spill stores / "
+              "loads", flush=True)
+        check(st_b == 0 and ld_b == 0, f"ptxas spilled registers in {fn}")
     # the profiler's first window starts its tracing; keep that out of
     # the timed ones
     from torch.profiler import ProfilerActivity, profile
@@ -1012,16 +1085,27 @@ def main() -> None:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset + 1)
 
+    def no_decay(fn):
+        """A planted fault: the SSD state is not decayed (A_log -inf, so
+        A = -exp(A_log) = 0 and exp(dt A) = 1)."""
+        def run(xbc, dt, dt_bias, A_log, D, state, *a, **kw):
+            return fn(xbc, dt, dt_bias, torch.full_like(A_log, -math.inf),
+                      D, state, *a, **kw)
+        return run
+
     @contextlib.contextmanager
     def plain_versions(fault: bool = False):
         """Route the model's kernel calls to the plain versions (the
         reference pass of the kernel-vs-plain checks), with the planted
-        faults in the attention where ``fault``."""
+        faults in the attention, and in the SSD recurrence (no decay),
+        where ``fault``."""
         names = ("quant_matmul", "quant_matmul_swiglu", "decode_attention",
                  "decode_attention_quant", "flash_attention", "rmsnorm",
                  "add_rmsnorm", "swiglu", "rope_cache_write",
                  "rope_cache_write_prefill", "moe_route",
-                 "moe_gate_up_swiglu", "moe_down", "moe_combine")
+                 "moe_gate_up_swiglu", "moe_down", "moe_combine",
+                 "ssm_conv", "ssm_decode_update", "ssd_prefill",
+                 "gated_rmsnorm")
         saved = {n: getattr(ops, n) for n in names}
         wrap = off_by_one if fault else (lambda fn: fn)
         ops.quant_matmul = quant_matmul_plain
@@ -1038,6 +1122,12 @@ def main() -> None:
         ops.moe_gate_up_swiglu = moe_gate_up_swiglu_plain
         ops.moe_down = moe_down_plain
         ops.moe_combine = moe_combine_plain
+        ops.ssm_conv = ssm_conv_plain
+        ops.ssm_decode_update = (no_decay(ssm_decode_update_plain) if fault
+                                 else ssm_decode_update_plain)
+        ops.ssd_prefill = (no_decay(ssd_prefill_plain) if fault
+                           else ssd_prefill_plain)
+        ops.gated_rmsnorm = gated_rmsnorm_plain
         try:
             yield
         finally:
@@ -1049,15 +1139,19 @@ def main() -> None:
         """While a path is served, the parts of the RoPE + cache-write
         plain versions refuse to run: every RoPE, cache write and
         fused-QKV bias add on the card goes through the fused kernels,
-        and the MoE plain versions refuse too (an MoE FFN on the card runs
-        the MoE kernels). With quantized weights the standalone SwiGLU
-        refuses too: the gate-up GEMM computes it."""
+        and the MoE and SSM plain versions refuse too (an MoE FFN or an
+        SSM layer on the card runs its kernels). With quantized weights
+        the standalone SwiGLU refuses too: the gate-up GEMM computes it."""
         names = ("apply_rope", "kv_cache_write", "kv_cache_write_prefill",
                  "_with_bias")
         moe_names = ("moe_route_plain", "moe_gate_up_swiglu_plain",
                      "moe_down_plain", "moe_combine_plain")
+        ssm_names = ("ssm_conv_plain", "ssm_decode_update_plain",
+                     "ssd_prefill_plain", "gated_rmsnorm_plain",
+                     "causal_conv", "ssd_chunked")
         saved = {n: getattr(fused_ops, n) for n in names}
         saved_moe = {n: getattr(moe_kernels, n) for n in moe_names}
+        saved_ssm = {n: getattr(ssm_kernels, n) for n in ssm_names}
         saved_swiglu = ops.swiglu
 
         def refuse(*a, **kw):
@@ -1070,10 +1164,15 @@ def main() -> None:
 
         def refuse_moe(*a, **kw):
             fail("a plain MoE function ran on the card in a served path")
+
+        def refuse_ssm(*a, **kw):
+            fail("a plain SSM function ran on the card in a served path")
         for n in names:
             setattr(fused_ops, n, refuse)
         for n in moe_names:
             setattr(moe_kernels, n, refuse_moe)
+        for n in ssm_names:
+            setattr(ssm_kernels, n, refuse_ssm)
         if quantized:
             ops.swiglu = refuse_swiglu
         try:
@@ -1083,6 +1182,8 @@ def main() -> None:
                 setattr(fused_ops, n, fn)
             for n, fn in saved_moe.items():
                 setattr(moe_kernels, n, fn)
+            for n, fn in saved_ssm.items():
+                setattr(ssm_kernels, n, fn)
             ops.swiglu = saved_swiglu
 
     gen = torch.Generator(device=dev)
@@ -2541,6 +2642,285 @@ def main() -> None:
     moe_kernel_cases()
     moe_kernel_s = time.perf_counter() - t0
 
+    # -- the SSM kernels -----------------------------------------------------
+    ssm_src = "src/repro_torch/kernels/csrc/ssm.cu"
+    gen_ssm = torch.Generator(device=dev)        # the SSM kernel cases
+    gen_ssm.manual_seed(8)
+    mamba = get_config("mamba2-2.7b")
+    sH, sP, sN = mamba.ssm_heads, mamba.ssm_head_dim, mamba.ssm_state
+    s_di, s_C = mamba.d_inner, mamba.d_inner + 2 * mamba.ssm_state
+    s_F = 2 * s_di + 2 * sN + sH                  # in_proj's width, 10576
+
+    def ssm_row(name, kern, plain, copies, nbytes, flops, replaces, shape,
+                path, err, tol, per_call=1):
+        """Time an SSM kernel and its plain version, and keep its row. No
+        single PyTorch call computes any of the four (``F.conv1d`` with
+        groups has no silu and no state), so ``library_ms`` is null. The
+        scan's operations are f32 on CUDA cores: its bound is their count
+        at 67 TFLOP/s (the H100's f32 peak), or its bytes."""
+        ms, call_ms = time_calls(kern, copies, 100, per_call=per_call)
+        attempts = time_calls.attempts
+        plain_ms, _ = time_calls(plain, copies, 10)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOPS * 1e3
+        t_bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else \
+            (t_ops, "operations")
+        rows[name] = dict(
+            name=name, route="cuda", source=ssm_src, replaces=replaces,
+            no_pallas_counterpart=True, shape=shape, path=path, launches=0,
+            max_abs_err=err, tol=tol, ms=ms, call_ms=call_ms,
+            plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
+            library_ms=None, library=None, grid=None,
+            trace_attempts=attempts)
+        print(f"    device ms {ms:.4f} (per call back to back {call_ms:.4f};"
+              f" {attempts} trace(s))  plain {plain_ms:.4f}  bound "
+              f"{t_bound:.4f} ({by}, {nbytes / 1e6:.3f} MB, "
+              f"{flops / 1e9:.3f} GFLOP) -> {t_bound / ms:.1%} of bound",
+              flush=True)
+
+    def ssm_params():
+        with drawing_from(gen_ssm):
+            return dict(w=randn(mamba.ssm_conv, s_C, scale=0.5).bfloat16(),
+                        b=randn(s_C, scale=0.2).bfloat16(),
+                        dt_bias=randn(sH, scale=0.5).bfloat16(),
+                        A_log=randn(sH, scale=0.5).bfloat16(),
+                        D=randn(sH).bfloat16(),
+                        norm_w=(1 + randn(s_di, scale=0.1)).bfloat16())
+
+    def ssm_rows_in(B, S):
+        """The fused projection's output (B, S, 10576) and its z, xBC and
+        dt views, as the model hands them to the kernels."""
+        with drawing_from(gen_ssm):
+            zx = randn(B, S, s_F).bfloat16()
+        return (zx, zx[..., :s_di], zx[..., s_di:s_di + s_C],
+                zx[..., s_di + s_C:])
+
+    def ssm_conv_case(sp, B, S, advance=None, carry=True, timed=False,
+                      path=None):
+        """y within one bf16 ulp of the plain version's; the new conv
+        state bit-equal (it is a copy of inputs); a frozen row's state
+        untouched."""
+        zx, z, xbc, dtr = ssm_rows_in(B, S)
+        with drawing_from(gen_ssm):
+            st0 = randn(B, mamba.ssm_conv - 1, s_C).bfloat16()
+        adv = (None if advance is None else
+               torch.tensor(advance, dtype=torch.bool, device=dev))
+        s1, s2 = st0.clone(), st0.clone()
+        y = ssm_conv(xbc, sp["w"], sp["b"], s1, adv, carry)
+        ref = ssm_conv_plain(xbc, sp["w"], sp["b"], s2, adv, carry)
+        torch.cuda.synchronize()
+        err = float((y.float() - ref.float()).abs().max())
+        tol = bf16_tol(ref)
+        frozen = (~adv) if adv is not None else torch.zeros(
+            B, dtype=torch.bool, device=dev)
+        shape = f"B{B} S{S} C{s_C}" + ("" if carry else " no carry") + (
+            f" advance {advance}" if advance else "")
+        print(f"  ssm_conv {shape}: max_abs_err {err:.3e} (tol {tol:.3e}); "
+              f"state bit-equal {torch.equal(s1, s2)}, frozen rows "
+              f"untouched {torch.equal(s1[frozen], st0[frozen])}",
+              flush=True)
+        check(err <= tol, f"ssm_conv {shape}: {err} > {tol}")
+        check(torch.equal(s1, s2), f"ssm_conv {shape}: the new conv state "
+              "differs from the plain version's")
+        check(torch.equal(s1[frozen], st0[frozen]),
+              f"ssm_conv {shape}: a frozen row's state was written")
+        if not timed:
+            return y
+        n_adv = B if adv is None else int(adv.sum())
+        nbytes = (B * S * s_C * 2 * 2 + (mamba.ssm_conv + 1) * s_C * 2
+                  + (B * carry + n_adv) * (mamba.ssm_conv - 1) * s_C * 2)
+        copies = [(xbc, st0.clone())] + [
+            (xbc.clone(), st0.clone())
+            for _ in range(n_copies(B * S * s_C * 4) - 1)]
+        ssm_row(f"ssm_conv[{'decode' if S == 1 else 'prefill'} B{B} S{S}]",
+                lambda x, s: ssm_conv(x, sp["w"], sp["b"], s, adv, carry),
+                lambda x, s: ssm_conv_plain(x, sp["w"], sp["b"], s, adv,
+                                            carry),
+                copies, nbytes, 0.0, "src/repro/models/ssm.py:43 (jnp)",
+                shape, path, err, tol)
+        return y
+
+    def ssm_decode_case(sp, B, advance, timed=False, path=None):
+        """y within one bf16 ulp, the f32 state within 1e-5 of its scale,
+        a frozen row's state bit-equal to before."""
+        zx, z, xbc_raw, dtr = ssm_rows_in(B, 1)
+        with drawing_from(gen_ssm):
+            xbc = randn(B, s_C).bfloat16()
+            state = randn(B, sH, sP, sN, scale=0.3)
+        dt = dtr[:, 0]
+        adv = torch.tensor(advance, dtype=torch.bool, device=dev)
+        a1, a2 = state.clone(), state.clone()
+        y = ssm_decode_update(xbc, dt, sp["dt_bias"], sp["A_log"], sp["D"],
+                              a1, adv)
+        ref = ssm_decode_update_plain(xbc, dt, sp["dt_bias"], sp["A_log"],
+                                      sp["D"], a2, adv)
+        torch.cuda.synchronize()
+        err = float((y.float() - ref.float()).abs().max())
+        tol = bf16_tol(ref)
+        s_err = float((a1 - a2).abs().max())
+        s_tol = 1e-5 * float(a2.abs().max())
+        shape = f"B{B} H{sH} P{sP} N{sN} advance {advance}"
+        print(f"  ssm_decode_update {shape}: y max_abs_err {err:.3e} (tol "
+              f"{tol:.3e}); state {s_err:.3e} (tol {s_tol:.3e}); frozen rows"
+              f" bit-equal {torch.equal(a1[~adv], state[~adv])}", flush=True)
+        check(err <= tol, f"ssm_decode_update {shape}: y {err} > {tol}")
+        check(s_err <= s_tol, f"ssm_decode_update {shape}: state {s_err} > "
+              f"{s_tol}")
+        check(torch.equal(a1[~adv], state[~adv]),
+              f"ssm_decode_update {shape}: a frozen row's state moved")
+        if not timed:
+            return
+        n_adv = int(adv.sum())
+        row = sH * sP * sN * 4
+        nbytes = (B * row + n_adv * row + B * (s_C + sH + s_di) * 2
+                  + 3 * sH * 2)
+        copies = [(state.clone(),)] + [
+            (state.clone(),) for _ in range(n_copies(B * row) - 1)]
+        ssm_row(f"ssm_decode_update[B{B}]",
+                lambda s: ssm_decode_update(xbc, dt, sp["dt_bias"],
+                                            sp["A_log"], sp["D"], s, adv),
+                lambda s: ssm_decode_update_plain(
+                    xbc, dt, sp["dt_bias"], sp["A_log"], sp["D"], s, adv),
+                copies, nbytes, 4.0 * B * sH * sP * sN,
+                "src/repro/models/ssm.py:150 (jnp)", shape, path, err, tol)
+
+    def ssd_prefill_case(sp, B, S, carry, timed=False, path=None):
+        """y and the final f32 state against the plain ``ssd_chunked``
+        (the JAX chunk rule at mamba2's chunk 256, halved to 1 at odd S,
+        against the kernel's masked chunks of 64): y within one bf16 step
+        of its scale, the state within ``SSD_STATE_REL_TOL`` of its."""
+        zx, z, xbc_raw, dtr = ssm_rows_in(B, S)
+        xbc = ssm_conv_plain(xbc_raw, sp["w"], sp["b"], torch.zeros(
+            (B, mamba.ssm_conv - 1, s_C), dtype=torch.bfloat16, device=dev))
+        with drawing_from(gen_ssm):
+            state = randn(B, sH, sP, sN, scale=0.3)
+        a1, a2 = state.clone(), state.clone()
+        y = ssd_prefill(xbc, dtr, sp["dt_bias"], sp["A_log"], sp["D"], a1,
+                        carry)
+        ref = ssd_prefill_plain(xbc, dtr, sp["dt_bias"], sp["A_log"],
+                                sp["D"], a2, carry, mamba.ssm_chunk)
+        torch.cuda.synchronize()
+        err = float((y.float() - ref.float()).abs().max())
+        tol = bf16_tol(ref)
+        s_err = float((a1 - a2).abs().max()) / float(a2.abs().max())
+        shape = f"B{B} S{S} H{sH} P{sP} N{sN}" + ("" if carry else
+                                                  " from zeros")
+        print(f"  ssd_prefill {shape}: y max_abs_err {err:.3e} (tol "
+              f"{tol:.3e}, {err / float(ref.float().abs().max()):.3e} of "
+              f"its scale); state {s_err:.3e} of its scale (tol "
+              f"{SSD_STATE_REL_TOL:.0e})", flush=True)
+        check(err <= tol, f"ssd_prefill {shape}: y {err} > {tol}")
+        check(s_err <= SSD_STATE_REL_TOL, f"ssd_prefill {shape}: state "
+              f"{s_err} > {SSD_STATE_REL_TOL}")
+        ssd_readings.append((err / float(ref.float().abs().max()), s_err))
+        if not timed:
+            return
+        # the f32 operations the function needs in the kernel's chunks: C
+        # B^T and M x over the causal pairs k <= q only, the state's two
+        # products over the real positions (not the last chunk's masked
+        # tail)
+        Q, flops = ssm_kernels.SCAN_CHUNK, 0.0
+        for c0 in range(0, S, Q):
+            q = min(Q, S - c0)
+            pairs = q * (q + 1) // 2
+            flops += 2.0 * B * (pairs * sN + sH * (pairs * sP
+                                                   + 2 * q * sP * sN))
+        nbytes = (B * S * (s_C + sH + s_di) * 2 + 3 * sH * 2
+                  + (1 + carry) * B * sH * sP * sN * 4)
+        copies = [(state.clone(),)] + [
+            (state.clone(),) for _ in range(n_copies(B * S * s_C * 2) - 1)]
+        ssm_row(f"ssd_prefill[B{B} S{S}]",
+                lambda s: ssd_prefill(xbc, dtr, sp["dt_bias"], sp["A_log"],
+                                      sp["D"], s, carry),
+                lambda s: ssd_prefill_plain(xbc, dtr, sp["dt_bias"],
+                                            sp["A_log"], sp["D"], s, carry,
+                                            mamba.ssm_chunk),
+                copies, nbytes, flops, "src/repro/models/ssm.py:68 (jnp)",
+                shape, path, err, tol)
+
+    def gated_case(sp, B, S, timed=False, path=None):
+        """rmsnorm(y * silu(z)) within one bf16 ulp, z read in place from
+        the projection's rows."""
+        zx, z, _, _ = ssm_rows_in(B, S)
+        with drawing_from(gen_ssm):
+            y = randn(B, S, s_di).bfloat16()
+        eps = mamba.norm_eps
+        out = gated_rmsnorm(y, z, sp["norm_w"], eps)
+        ref = gated_rmsnorm_plain(y, z, sp["norm_w"], eps)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        tol = bf16_tol(ref)
+        shape = f"B{B} S{S} d{s_di}"
+        print(f"  gated_rmsnorm {shape}: max_abs_err {err:.3e} (tol "
+              f"{tol:.3e}), {int((out != ref).sum())} of {out.numel()} "
+              "elements differ", flush=True)
+        check(err <= tol, f"gated_rmsnorm {shape}: {err} > {tol}")
+        if not timed:
+            return
+        nbytes = 3 * B * S * s_di * 2 + s_di * 2
+        copies = [(y, z)] + [(y.clone(), z.clone()) for _ in
+                             range(n_copies(B * S * s_di * 4) - 1)]
+        ssm_row(f"gated_rmsnorm[B{B} S{S}]",
+                lambda a, b: gated_rmsnorm(a, b, sp["norm_w"], eps),
+                lambda a, b: gated_rmsnorm_plain(a, b, sp["norm_w"], eps),
+                copies, nbytes, 0.0, "src/repro/models/ssm.py:143 (jnp)",
+                shape, path, err, tol)
+
+    def ssm_kernel_cases():
+        """The four SSM kernels against their plain versions at
+        mamba2-2.7b's widths: decode at 4 slots (one frozen) and 1; the
+        conv and the scan at S 1, 3, 37, 301 and 512, with and without a
+        carried state; then ``quant_matmul`` at ``in_proj`` (2560 x 10576,
+        a ragged 80-column edge) and ``out_proj`` (5120 x 2560) under q8_0
+        and q4_0 at M 1, 4 and 512."""
+        sp = ssm_params()
+        ssm_conv_case(sp, 4, 1, [True, False, True, True], timed=True,
+                      path="ssm q8_0")
+        ssm_conv_case(sp, 1, 1, timed=True, path="ssm q8_0 alone")
+        for S in (1, 2, 3, 37, 301):
+            for carry in (True, False):
+                ssm_conv_case(sp, 2, S, carry=carry)
+        ssm_conv_case(sp, 1, 512, carry=False, timed=True, path="ssm stall")
+        ssm_decode_case(sp, 4, [True, False, True, True], timed=True,
+                        path="ssm q8_0")
+        ssm_decode_case(sp, 1, [True], timed=True, path="ssm q8_0 alone")
+        ssm_decode_case(sp, 2, [False, True])
+        for S in (1, 3, 37, 301, 512):
+            for carry in (True, False):
+                ssd_prefill_case(sp, 1, S, carry,
+                                 timed=(S == 512 and not carry),
+                                 path="ssm stall")
+        ssd_prefill_case(sp, 4, 300, False, timed=True, path="ssm stall")
+        gated_case(sp, 4, 1, timed=True, path="ssm q8_0")
+        gated_case(sp, 1, 1, timed=True, path="ssm q8_0 alone")
+        gated_case(sp, 1, 512, timed=True, path="ssm stall")
+        gated_case(sp, 2, 37)
+        with drawing_from(gen_ssm):
+            for label, (K, N) in (("in_proj", (mamba.d_model, s_F)),
+                                  ("out_proj", (s_di, mamba.d_model))):
+                qmm_case("q8_0", label, B, K, N, torch.bfloat16, timed=True,
+                         path="ssm q8_0")
+                qmm_case("q4_0", label, B, K, N, torch.bfloat16, timed=True,
+                         path="ssm q4_0")
+                for fmt in ("q8_0", "q4_0"):
+                    qmm_case(fmt, label, 1, K, N, torch.bfloat16,
+                             timed=False)
+                qmm_case("q8_0", label, 512, K, N, torch.bfloat16,
+                         timed=True, path="ssm stall")
+                qmm_case("q4_0", label, 512, K, N, torch.bfloat16,
+                         timed=False)
+        r_y, r_s = (max(r[i] for r in ssd_readings) for i in (0, 1))
+        print(f"  ssd_prefill against the plain scan: y at most {r_y:.3e} "
+              f"of its scale (tol one bf16 step, {2.0 ** -7:.3e}), the "
+              f"state at most {r_s:.3e} of its scale (tol "
+              f"{SSD_STATE_REL_TOL:.0e})", flush=True)
+
+    ssd_readings = []
+    print("SSM kernels vs plain versions on the card:", flush=True)
+    t0 = time.perf_counter()
+    ssm_kernel_cases()
+    ssm_kernel_s = time.perf_counter() - t0
+
     # -- shared checks of a served path -------------------------------------
     def clone_cache(c):
         out = {"lens": c["lens"].clone(),
@@ -2646,10 +3026,10 @@ def main() -> None:
                   "near tie of the plain pass's own choice")
         return out
 
-    def step_vs_plain(engine, label, seeds=STEP_SEEDS):
+    def step_vs_plain(engine, label, seeds=STEP_SEEDS, tol=STEP_REL_TOL):
         """One decode step from the engine's current cache, for a few
-        seeded token batches, judged against STEP_REL_TOL (the planted
-        fault: the attention one position short)."""
+        seeded token batches, judged against ``tol`` (the planted fault:
+        the attention one position short, the SSD state not decayed)."""
         worst, fault_least = 0.0, math.inf
         for seed in range(seeds):
             g = torch.Generator(device=dev)
@@ -2658,15 +3038,17 @@ def main() -> None:
                                  (engine.slots, 1), generator=g, device=dev)
             logits = three_routes(lambda: engine.model.decode_step(
                 engine.params, toks, clone_cache(engine.cache)))
-            err, fault = judge(logits, STEP_REL_TOL, f"{label} seed {seed}",
+            err, fault = judge(logits, tol, f"{label} seed {seed}",
                                "decode_step")
             worst, fault_least = max(worst, err), min(fault_least, fault)
         return dict(max_rel_err=worst, fault_least_rel_err=fault_least)
 
-    def prefill_vs_plain(engine, lens, label, seeds=PREFILL_SEEDS):
+    def prefill_vs_plain(engine, lens, label, seeds=PREFILL_SEEDS,
+                         tol=PREFILL_REL_TOL):
         """One fused prefill of a bucket with these true lengths, for a
-        few seeded token batches, judged against PREFILL_REL_TOL (the
-        planted fault: each query also sees the next key)."""
+        few seeded token batches, judged against ``tol`` (the planted
+        fault: each query also sees the next key, the SSD state not
+        decayed)."""
         n, S = len(lens), engine._bucket_len(max(lens))
         seq_lens = torch.tensor(lens, device=dev)
         worst, fault_least = 0.0, math.inf
@@ -2678,11 +3060,107 @@ def main() -> None:
             logits = three_routes(lambda: engine.model.prefill(
                 engine.params, toks, engine.model.init_cache(
                     n, engine.max_len), seq_lens=seq_lens))
-            err, fault = judge(logits, PREFILL_REL_TOL,
+            err, fault = judge(logits, tol,
                                f"{label} seed {seed}",
                                f"prefill ({n} x {S}, seq_lens {lens})")
             worst, fault_least = max(worst, err), min(fault_least, fault)
         return dict(max_rel_err=worst, fault_least_rel_err=fault_least)
+
+    def ssm_layers_vs_plain(engine, label, lens=None):
+        """Each SSM layer of one decode step from the engine's cache (with
+        ``lens``: of one fused prefill of a bucket of these true lengths)
+        through the kernels, the plain versions and the plain versions with
+        the planted fault (the state not decayed), on the same input and
+        states: the kernel pass's. Each layer's output and new SSD state
+        must stay within one bf16 ulp of the plain version's scale
+        (``bf16_tol``), and the planted fault must land beyond it in every
+        layer. Then a whole pass through the plain versions gives, layer by
+        layer, how far its input has drifted from the kernel pass's: the
+        layers' rounding compounding with depth, which the end-to-end
+        checks read at the logits."""
+        model, params = engine.model, engine.params
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        if lens is None:
+            name, what = "ssm_decode", "decode_step"
+            toks = torch.randint(1, engine.cfg.vocab_size, (engine.slots, 1),
+                                 generator=g, device=dev)
+
+            def run():
+                return model.decode_step(params, toks,
+                                         clone_cache(engine.cache))
+        else:
+            S = engine._bucket_len(max(lens))
+            name, what = "ssm_prefill", f"prefill ({len(lens)} x {S})"
+            toks = torch.randint(1, engine.cfg.vocab_size, (len(lens), S),
+                                 generator=g, device=dev)
+            seq_lens = torch.tensor(lens, device=dev)
+
+            def run():
+                return model.prefill(params, toks, model.init_cache(
+                    len(lens), engine.max_len), seq_lens=seq_lens)
+        real = getattr(ssm_mod, name)
+        rel = bf16_tol(torch.ones(()))
+        errs, inputs = [], {"kernels": [], "plain": []}
+
+        def share(a, b):
+            return float((a.float() - b.float()).abs().max()) / float(
+                b.float().abs().max())
+
+        def checked(p, cfg, z, cache, *a):
+            inputs["kernels"].append(z.clone())
+            before = {k: t.clone() for k, t in cache.items()}
+            out = real(p, cfg, z, cache, *a)
+            row = []
+            for fault in (False, True):
+                c = {k: t.clone() for k, t in before.items()}
+                with plain_versions(fault=fault):
+                    ref = real(p, cfg, z, c, *a)
+                row.append((share(out, ref), share(cache["state"],
+                                                   c["state"])))
+            errs.append(row)
+            return out
+
+        def recording(p, cfg, z, cache, *a):
+            inputs["plain"].append(z.clone())
+            return real(p, cfg, z, cache, *a)
+
+        try:
+            setattr(ssm_mod, name, checked)
+            lk = run()
+            setattr(ssm_mod, name, recording)
+            with plain_versions():
+                lp = run()
+        finally:
+            setattr(ssm_mod, name, real)
+        torch.cuda.synchronize()
+        L = len(errs)
+        check(L == engine.cfg.num_layers and len(inputs["plain"]) == L,
+              f"{label}: {L} SSM layer calls checked")
+        out_err = max(e[0][0] for e in errs)
+        state_err = max(e[0][1] for e in errs)
+        fault_least = min(e[1][0] for e in errs)
+        drift = [share(k, p) for k, p in zip(inputs["kernels"],
+                                            inputs["plain"])]
+        at = sorted({0, 1, L // 4, L // 2, L - 1})
+        print(f"  {label}: {what} layer by layer on the same input: "
+              f"output at most {out_err:.3e}, SSD state {state_err:.3e} of "
+              f"their scales (tol one bf16 ulp, {rel:.3e}); planted fault at"
+              f" least {fault_least:.3e} in every layer; a whole plain pass's"
+              f" input drift from the kernel pass's by layer "
+              + ", ".join(f"{l}: {drift[l]:.3e}" for l in at)
+              + f"; logits {share(lk, lp):.3e}", flush=True)
+        check(out_err <= rel and state_err <= rel,
+              f"{label}: an SSM layer's output ({out_err}) or SSD state "
+              f"({state_err}) through the kernels is beyond one bf16 ulp of "
+              "the plain versions' on the same input")
+        check(fault_least > rel, f"{label}: the planted fault's error "
+              f"{fault_least} is within one bf16 ulp in some layer")
+        return dict(layer_max_rel_err=out_err,
+                    layer_state_max_rel_err=state_err,
+                    layer_fault_least_rel_err=fault_least,
+                    input_drift_by_layer={l: drift[l] for l in at},
+                    logits_drift=share(lk, lp))
 
     def step_check_mid_run(engine, requests, label, prelude=None):
         """``step_vs_plain`` on a paged engine, from its state one
@@ -2728,27 +3206,51 @@ def main() -> None:
                 "swiglu": 0 if quantized else n, "moe_route": 0,
                 "moe_gate_up_swiglu": 0, "moe_down": 0, "moe_combine": 0}
 
+    def every_kernel(launches):
+        """``launches`` with every other kernel of ``ops.KERNELS`` at 0."""
+        return {**dict.fromkeys(ops.launch_counts(), 0), **launches}
+
+    def ssm_launches(engine, n, norms, prefill):
+        """An SSM config's launches over n layer passes: the conv, the
+        state update (decode) or the scan (prefill), the gated norm and
+        the residual add + norm a layer, ``in_proj`` and ``out_proj``
+        through quant_matmul under quantized weights (library products
+        under bf16, as is the tied head), and ``norms`` RMSNorms alone."""
+        quantized = engine.quant_policy in ("q8_0", "q4_0")
+        return every_kernel({
+            "rmsnorm": norms, "add_rmsnorm": n, "ssm_conv": n,
+            "gated_rmsnorm": n, "quant_matmul": 2 * n if quantized else 0,
+            "ssm_decode_update": 0 if prefill else n,
+            "ssd_prefill": n if prefill else 0})
+
     def per_megastep(engine):
         """Kernel launches of one megastep: K substeps of one attention,
         one RoPE + cache write, the linears and SwiGLU, and two residual
         adds with the RMSNorm after them per layer, and layer 0's
         RMSNorm alone (the final norm is the last layer's second
-        add_rmsnorm), from the config's depth and head."""
+        add_rmsnorm), from the config's depth and head (an SSM config:
+        ``ssm_launches``)."""
         L, K = engine.cfg.num_layers, engine.megastep_k
+        if engine.cfg.is_recurrent:
+            return ssm_launches(engine, L * K, K, prefill=False)
         quant_cache = engine.kv_quant != "bf16"
-        return {"decode_attention": 0 if quant_cache else L * K,
-                "decode_attention_quant": L * K if quant_cache else 0,
-                **ffn_launches(engine, L * K, K), "flash_attention": 0,
-                "rmsnorm": K, "add_rmsnorm": 2 * L * K,
-                "rope_cache_write": L * K, "rope_cache_write_prefill": 0}
+        return every_kernel({
+            "decode_attention": 0 if quant_cache else L * K,
+            "decode_attention_quant": L * K if quant_cache else 0,
+            **ffn_launches(engine, L * K, K), "flash_attention": 0,
+            "rmsnorm": K, "add_rmsnorm": 2 * L * K,
+            "rope_cache_write": L * K, "rope_cache_write_prefill": 0})
 
     def per_prefill(engine):
         """Kernel launches of one prefill call (eager)."""
         L = engine.cfg.num_layers
-        return {"decode_attention": 0, "decode_attention_quant": 0,
-                **ffn_launches(engine, L, 1), "flash_attention": L,
-                "rmsnorm": 1, "add_rmsnorm": 2 * L,
-                "rope_cache_write": 0, "rope_cache_write_prefill": L}
+        if engine.cfg.is_recurrent:
+            return ssm_launches(engine, L, 1, prefill=True)
+        return every_kernel({
+            "decode_attention": 0, "decode_attention_quant": 0,
+            **ffn_launches(engine, L, 1), "flash_attention": L,
+            "rmsnorm": 1, "add_rmsnorm": 2 * L,
+            "rope_cache_write": 0, "rope_cache_write_prefill": L})
 
     def check_served(engine, requests, label, warm, after_warm):
         """Outputs complete and in range, and the launch counts under
@@ -3272,6 +3774,265 @@ def main() -> None:
         return out
 
     moe = moe_phase()
+
+    # -- 12. the SSM family (run right after the MoE family) ---------------
+    ssm_counts = {}    # launches on the SSM paths, into ``counts`` below
+    ssm_arch = "mamba2-2.7b"
+
+    def ssm_served(fmt, slots, extra=()):
+        """mamba2-2.7b at full width and depth under ``fmt`` weights,
+        served by ``launch.serve`` with the main path's traffic on
+        ``slots`` slots (8 requests; 1 alone on 1 slot)."""
+        zero_counts()
+        torch.cuda.synchronize()
+        with kernels_only(quantized=fmt != "bf16"):
+            res = serve.main([
+                "--arch", ssm_arch, "--no-reduced", "--precision", fmt,
+                "--slots", str(slots), "--max-len", "1024", "--megastep-k",
+                "8", "--requests", "8" if slots == 4 else "1", "--max-new",
+                "32", "--temperature", "0", "--device", "cuda", *extra])
+        torch.cuda.synchronize()
+        return res
+
+    def ssm_numbers(eng, floor):
+        st = eng.stats
+        return dict(ms_per_step=1e3 * st.decode_wall_s / st.steps,
+                    tok_s=st.tokens_generated / st.decode_wall_s,
+                    steps=st.steps, tokens=st.tokens_generated,
+                    floor_ms=floor["ms"], weight_bytes=floor["weight_bytes"],
+                    state_bytes=floor["state_bytes"])
+
+    def ssm_leg(eng, label, key, reqs, warm_reqs):
+        """Serve ``reqs`` on a (fresh) engine with quantized weights after
+        a warmup that captures its graph; launch counts into
+        ``ssm_counts[key]``."""
+        zero_counts()
+        for r in warm_reqs:
+            eng.submit(r)
+        eng.run()
+        warm, after_warm = eng.stats, ops.launch_counts()
+        eng.reset()
+        for r in reqs:
+            eng.submit(r)
+        with kernels_only():
+            eng.run()
+        torch.cuda.synchronize()
+        ssm_counts[key] = check_served(eng, reqs, label, warm, after_warm)
+
+    def ssm_resume_leg(model, params, admission):
+        """A request preempted once it has tokens resumes from its prompt
+        and tokens: chunked, its stream is ``reference_decode``'s; stall,
+        its tokens after the resume are the fused reference of the prompt
+        and the tokens before it (an exact-length re-prefill)."""
+        eng = ServingEngine(model, params, slots=2, max_len=1024,
+                            sampling=SamplingConfig(), megastep_k=8,
+                            quant_policy="q8_0", admission=admission)
+        reqs = serve.make_requests(model.cfg.vocab_size, 2, 24, seed=4)
+        with kernels_only():
+            for r in reqs:
+                eng.submit(r)
+            while not reqs[0].output:
+                eng.step()
+            check(eng.preempt(reqs[0]), "SSM resume leg: nothing preempted")
+            head = list(reqs[0].output)
+            eng.run()
+        torch.cuda.synchronize()
+        r = reqs[0]
+        check(r.done and len(r.output) == 24 and r.output[:len(head)] == head
+              and r.preemptions == 1, f"SSM resume leg ({admission}): "
+              f"{len(r.output)} tokens, {r.preemptions} preemptions")
+        if admission == "chunked":
+            check(r.output == model.reference_decode(
+                params, r.prompt, 24, max_len=1024),
+                "SSM resume leg (chunked): the stream differs from "
+                "reference_decode")
+        else:
+            resumed = np.concatenate([r.prompt, np.asarray(head, np.int32)])
+            check(r.output[len(head):] == model.reference_decode(
+                params, resumed, 24 - len(head), max_len=1024,
+                stepwise_prefill=False), "SSM resume leg (stall): the tokens"
+                " after the resume differ from reference_decode("
+                "stepwise_prefill=False) of the prompt and the tokens before")
+        check(reqs[1].output == model.reference_decode(
+            params, reqs[1].prompt, 24, max_len=1024,
+            stepwise_prefill=admission == "chunked"),
+            f"SSM resume leg ({admission}): the other request's stream "
+            "differs from its reference")
+        print(f"  SSM resume leg ({admission}): preempted after "
+              f"{len(head)} tokens, resumed to 24; "
+              + ("stream == reference_decode" if admission == "chunked" else
+                 "tokens after the resume == reference_decode(prompt + "
+                 "tokens, stepwise_prefill=False)"), flush=True)
+        return dict(preempted_after=len(head))
+
+    def ssm_phase():
+        t_phase = time.perf_counter()
+        out = dict(kernel_cases_s=ssm_kernel_s, checks_s=0.0,
+                   ssd_prefill_max_rel_err=[max(r[i] for r in ssd_readings)
+                                            for i in (0, 1)])
+        print(f"SSM path: {ssm_arch} at full width and depth "
+              f"({get_config(ssm_arch).num_layers} layers), bf16 / q8_0 / "
+              "q4_0 weights (served by launch.serve)", flush=True)
+        streams = {}
+        for fmt in ("bf16", "q8_0", "q4_0"):
+            cell = {}
+            for slots in (4, 1):
+                res = ssm_served(fmt, slots)
+                eng = res.engine
+                label = f"{ssm_arch} ({fmt} weights, {slots} slot(s))"
+                ssm_counts[f"ssm {fmt}" + ("" if slots == 4 else " alone")] \
+                    = check_served(eng, res.requests, label,
+                                   res.warmup_stats,
+                                   res.launches_after_warmup)
+                for r in res.requests:
+                    check(r.output == eng.model.reference_decode(
+                        eng.params, r.prompt, r.max_new_tokens,
+                        max_len=1024), f"{label}: request {r.uid} differs "
+                        "from reference_decode")
+                if slots == 1:
+                    check(res.requests[0].output == streams[fmt][0],
+                          f"{label}: the stream alone differs from the "
+                          "4-slot run's")
+                cell[f"slots{slots}"] = ssm_numbers(eng, res.floor)
+                print(f"  {label}: {cell[f'slots{slots}']['ms_per_step']:.3f}"
+                      f" ms a step, {cell[f'slots{slots}']['tok_s']:.1f} tok/s"
+                      f"; floor {res.floor['ms']:.3f} ms "
+                      f"({res.floor['weight_bytes'] / 1e9:.3f} GB of weights"
+                      f" + {res.floor['state_bytes'] / 1e9:.3f} GB of state "
+                      "read and written); streams == reference_decode",
+                      flush=True)
+                if slots == 4:
+                    streams[fmt] = [r.output for r in res.requests]
+                    t0 = time.perf_counter()
+                    cell.update(step_vs_plain(eng, label,
+                                              tol=SSM_STEP_REL_TOL))
+                    cell.update(ssm_layers_vs_plain(eng, label))
+                    out["checks_s"] += time.perf_counter() - t0
+                    cell["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                if fmt == "q8_0" and slots == 4:
+                    # where the device time goes: the first 4 requests'
+                    # first 16 tokens again under the profiler
+                    prof, replay = profile_served(
+                        eng, lambda: serve.make_requests(
+                            eng.cfg.vocab_size, 4, 16, seed=0))
+                    check([r.output for r in replay] ==
+                          [o[:16] for o in streams[fmt][:4]],
+                          f"{label}: the profiled replay served other "
+                          "tokens")
+                    g = prof["device_ms_per_step_by_group"]
+                    ssm_ms = (g["ssm_conv"] + g["ssm_decode"]
+                              + g["gated_rmsnorm"])
+                    print(f"  {label}: device ms a step in the SSM kernels "
+                          f"{ssm_ms:.3f} (conv {g['ssm_conv']:.3f}, state "
+                          f"update {g['ssm_decode']:.3f}, gated norm "
+                          f"{g['gated_rmsnorm']:.3f}) of "
+                          f"{prof['device_ms_per_step']:.3f}; device idle "
+                          f"share {prof['device_idle_share']:.3f}",
+                          flush=True)
+                    cell.update(prof, ssm_device_ms_per_step=ssm_ms)
+                if fmt == "q8_0" and slots == 4:
+                    model, params = eng.model, eng.params
+                if fmt == "q4_0" and slots == 4:
+                    model4, params4 = eng.model, eng.params
+                del eng, res
+                torch.cuda.empty_cache()
+            out[fmt] = cell
+
+        # stall admission: four prompts of distinct lengths, each its own
+        # exact-length bucket (one odd)
+        label = (f"SSM stall leg ({ssm_arch}, q8_0 weights, buckets "
+                 f"{SSM_STALL_PROMPTS})")
+        seng = ServingEngine(model, params, slots=4, max_len=1024,
+                             sampling=SamplingConfig(), megastep_k=8,
+                             quant_policy="q8_0", admission="stall")
+        rng = np.random.default_rng(2)
+        prompts = [rng.integers(1, model.cfg.vocab_size, n).astype(np.int32)
+                   for n in SSM_STALL_PROMPTS]
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=8)
+                for i, p in enumerate(prompts)]
+        t0 = time.perf_counter()
+        ssm_leg(seng, label, "ssm stall", reqs,
+                [Request(uid=-1, prompt=prompts[0][:37], max_new_tokens=2)])
+        check(seng.stats.prefill_batches == 4 and [
+            seng._bucket_len(n) for n in SSM_STALL_PROMPTS] ==
+            list(SSM_STALL_PROMPTS), f"{label}: "
+            f"{seng.stats.prefill_batches} prefill calls, buckets "
+            f"{[seng._bucket_len(n) for n in SSM_STALL_PROMPTS]}")
+        for r in reqs:
+            check(r.output == model.reference_decode(
+                params, r.prompt, 8, max_len=1024, stepwise_prefill=False),
+                f"{label}: request {r.uid} differs from reference_decode("
+                "stepwise_prefill=False)")
+        served_s = time.perf_counter() - t0
+        out["stall"] = prefill_vs_plain(seng, [300] * 4, label,
+                                        tol=SSM_PREFILL_REL_TOL)
+        out["stall"].update(ssm_layers_vs_plain(seng, label, [300] * 4))
+        out["stall"]["served_s"] = served_s
+        out["checks_s"] += time.perf_counter() - t0 - served_s
+        print(f"  {label}: four exact-length prefill calls; streams == "
+              "reference_decode(stepwise_prefill=False)", flush=True)
+        del seng
+        # under q4_0 each admission mode meets its own reference: chunked
+        # (the 4-slot cell) the stepwise one, stall the fused one
+        label = f"SSM q4_0 stall leg ({ssm_arch}, buckets 300 and 301)"
+        qeng = ServingEngine(model4, params4, slots=4, max_len=1024,
+                             sampling=SamplingConfig(), megastep_k=8,
+                             quant_policy="q4_0", admission="stall")
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=8)
+                for i, p in enumerate(prompts[:2])]
+        ssm_leg(qeng, label, "ssm q4_0 stall", reqs,
+                [Request(uid=-1, prompt=prompts[0][:37], max_new_tokens=2)])
+        for r in reqs:
+            check(r.output == model4.reference_decode(
+                params4, r.prompt, 8, max_len=1024, stepwise_prefill=False),
+                f"{label}: request {r.uid} differs from reference_decode("
+                "stepwise_prefill=False)")
+        print(f"  {label}: streams == reference_decode(stepwise_prefill="
+              "False); the chunked cell's == the stepwise reference",
+              flush=True)
+        del qeng, model4, params4
+        torch.cuda.empty_cache()
+
+        # --kv-quant q8_0 --page-size 16 --prefix-cache: no-ops, with the
+        # engine's warning; the streams are the q8_0 cell's
+        import warnings
+        label = f"SSM no-op leg ({ssm_arch}, q8_0, --kv-quant q8_0 " \
+                f"--page-size {PAGE} --prefix-cache)"
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = ssm_served("q8_0", 4, ("--kv-quant", "q8_0", "--page-size",
+                                         str(PAGE), "--prefix-cache"))
+        eng = res.engine
+        check(any("prefix_cache requires" in str(w.message) for w in caught),
+              f"{label}: no prefix-cache warning")
+        check(not eng.paged and not eng.prefix_cache
+              and eng.kv_quant == "bf16", f"{label}: paged {eng.paged}, "
+              f"prefix cache {eng.prefix_cache}, kv_quant {eng.kv_quant}")
+        ssm_counts["ssm no-op"] = check_served(
+            eng, res.requests, label, res.warmup_stats,
+            res.launches_after_warmup)
+        check([r.output for r in res.requests] == streams["q8_0"],
+              f"{label}: streams differ from the q8_0 cell's")
+        print(f"  {label}: warned, dense bf16 state; streams == the q8_0 "
+              "cell's (8 requests)", flush=True)
+        del eng, res
+        torch.cuda.empty_cache()
+
+        # preemption with resume, chunked and stall
+        for admission in ("chunked", "stall"):
+            out[f"resume_{admission}"] = ssm_resume_leg(model, params,
+                                                        admission)
+        del model, params
+        torch.cuda.empty_cache()
+        out["phase_s"] = time.perf_counter() - t_phase
+        print(f"SSM phase: {out['phase_s']:.1f} s, of which the "
+              f"kernel-vs-plain checks {out['checks_s']:.1f} s and the stall "
+              f"leg's serving and reference streams "
+              f"{out['stall']['served_s']:.1f} s (the SSM kernel cases took "
+              f"{out['kernel_cases_s']:.1f} s in phase 3)", flush=True)
+        return out
+
+    ssm = ssm_phase()
 
     # -- 5. serving under load ------------------------------------------------
     load = serving_under_load()
@@ -4064,6 +4825,7 @@ def main() -> None:
 
     # -- 11. the kernel line --------------------------------------------------
     counts.update(moe_counts)
+    counts.update(ssm_counts)
     for row in rows.values():
         kernel = row["name"].split("[")[0]
         path = row.pop("path")
@@ -4073,7 +4835,7 @@ def main() -> None:
     print(json.dumps({"main_path": main_path, "prefill_path": prefill_path,
                       "paged_path": paged_path, "under_load": load,
                       "second_path_step_checks": step_checks,
-                      "paper_models": paper, "moe": moe,
+                      "paper_models": paper, "moe": moe, "ssm": ssm,
                       "unembed_rows_equal_across_m": unembed_rows_equal}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)

@@ -11,7 +11,8 @@ neither JAX nor the JAX package:
 - the JAX stacked layer leaves (L, ...) under ``"layers"`` are split
   into the port's list of per-layer dicts;
 - a cache's stacked per-layer ``lens`` (L, B), equal across layers,
-  becomes the port's single ``lens`` (B,).
+  becomes the port's single ``lens`` (B,) (a dense KV cache, or an SSM
+  cache of conv and SSD states).
 """
 from __future__ import annotations
 
@@ -75,9 +76,9 @@ def _split_layers(tree) -> list:
 
 def from_jax(tree: Dict[str, Any],
              device: Union[str, torch.device, None] = None) -> Dict:
-    """The JAX package's dense-model params, or its dense KV cache, with
-    numpy leaves → the port's params or cache on ``device`` (default:
-    the card)."""
+    """The JAX package's params, or its dense KV or SSM cache, with numpy
+    leaves → the port's params or cache on ``device`` (default: the
+    card)."""
     dev = resolve_device(device)
     out = _convert(tree, dev)
     lens = out["layers"].pop("lens", None)

@@ -1,6 +1,7 @@
 """Config registry: ``get_config("<arch-id>")`` / ``--arch <id>``: the
-paper's six models under the JAX package's names, deepseek-7b, and the
-mixture-of-experts family (phi3.5-moe-42b-a6.6b, kimi-k2-1t-a32b)."""
+paper's six models under the JAX package's names, deepseek-7b, the
+mixture-of-experts family (phi3.5-moe-42b-a6.6b, kimi-k2-1t-a32b) and the
+SSM family (mamba2-2.7b)."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,6 +9,7 @@ import dataclasses
 from repro_torch.configs.base import ModelConfig, reduced
 from repro_torch.configs.deepseek_7b import CONFIG as DEEPSEEK_7B
 from repro_torch.configs.kimi_k2_1t_a32b import CONFIG as KIMI_K2
+from repro_torch.configs.mamba2_2_7b import CONFIG as MAMBA2_2_7B
 from repro_torch.configs.paper_models import (LLAMA31_8B, LLAMA32_1B,
                                               LLAMA32_3B, MISTRAL_7B,
                                               PAPER_MODELS, QWEN2_0_5B,
@@ -15,7 +17,9 @@ from repro_torch.configs.paper_models import (LLAMA31_8B, LLAMA32_1B,
 from repro_torch.configs.phi3_5_moe_42b import CONFIG as PHI35_MOE
 
 MOE_MODELS = {m.name: m for m in (PHI35_MOE, KIMI_K2)}
-CONFIGS = {**PAPER_MODELS, DEEPSEEK_7B.name: DEEPSEEK_7B, **MOE_MODELS}
+SSM_MODELS = {MAMBA2_2_7B.name: MAMBA2_2_7B}
+CONFIGS = {**PAPER_MODELS, DEEPSEEK_7B.name: DEEPSEEK_7B, **MOE_MODELS,
+           **SSM_MODELS}
 
 
 def get_config(name: str, **overrides) -> ModelConfig:
@@ -28,4 +32,4 @@ def get_config(name: str, **overrides) -> ModelConfig:
 __all__ = ["ModelConfig", "reduced", "get_config", "CONFIGS", "PAPER_MODELS",
            "LLAMA32_1B", "LLAMA32_3B", "LLAMA31_8B", "QWEN2_0_5B",
            "QWEN2_1_5B", "MISTRAL_7B", "DEEPSEEK_7B", "MOE_MODELS",
-           "PHI35_MOE", "KIMI_K2"]
+           "PHI35_MOE", "KIMI_K2", "SSM_MODELS", "MAMBA2_2_7B"]

@@ -8,8 +8,11 @@ mistral-7b; and ``window_long_ctx`` past ``max_full_attn`` positions,
 the long-context fallback of ``Model.window_for``) and the MoE block
 (``num_experts`` routed experts, ``experts_per_token`` of them a token,
 ``capacity_factor``, ``num_shared_experts`` always-on experts and the
-Switch aux loss's ``router_aux_weight``). The other families of the JAX
-package (ssm, hybrid, audio, vlm) are refused until they are ported.
+Switch aux loss's ``router_aux_weight``) and the Mamba-2 SSD layer of
+the SSM family (``ssm_state`` N, ``ssm_expand``, ``ssm_head_dim`` P,
+``ssm_chunk``, ``ssm_conv``; ``num_heads`` 0: no attention). The other
+families of the JAX package (hybrid, audio, vlm) are refused until they
+are ported.
 Execution
 knobs that the port does not have (a kernel-backend switch, scan
 unrolling, remat, sharding) are left out: on a CUDA tensor the
@@ -19,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 
-ARCH_TYPES = ("dense", "moe")
+ARCH_TYPES = ("dense", "moe", "ssm")
 WEIGHT_FORMATS = ("bf16", "q8_0", "q4_0")
 PARAM_DTYPES = ("bf16", "f32")
 
@@ -53,6 +56,12 @@ class ModelConfig:
     num_shared_experts: int = 0    # always-on shared experts (Kimi K2 style)
     router_aux_weight: float = 0.01
 
+    ssm_state: int = 0             # N (state dim); 0 → no SSM
+    ssm_expand: int = 2            # d_inner = expand * d_model
+    ssm_head_dim: int = 64         # P
+    ssm_chunk: int = 256           # SSD chunk length (the plain scan's)
+    ssm_conv: int = 4              # short conv width
+
     quant_policy: str = "bf16"     # weight format: bf16|q8_0|q4_0
     quant_group: int = 32          # group size along the reduction dim
     kv_quant: str = "bf16"         # cache format: bf16|q8_0|q4_0
@@ -62,10 +71,10 @@ class ModelConfig:
         if self.arch_type not in ARCH_TYPES:
             raise ValueError(f"arch_type {self.arch_type!r} is not ported; "
                              f"the port serves {ARCH_TYPES}")
-        if self.head_dim == 0:
+        if self.head_dim == 0 and self.num_heads:
             object.__setattr__(self, "head_dim",
                                self.d_model // self.num_heads)
-        if self.num_heads % self.num_kv_heads:
+        if self.num_heads % max(self.num_kv_heads, 1):
             raise ValueError(f"num_kv_heads {self.num_kv_heads} must "
                              f"divide num_heads {self.num_heads}")
         for field, allowed in (("quant_policy", WEIGHT_FORMATS),
@@ -86,6 +95,21 @@ class ModelConfig:
         return self.num_experts > 0
 
     @property
+    def is_recurrent(self) -> bool:
+        """A family whose cache is a fixed recurrent state (the JAX
+        package's ssm and hybrid): exact-length prefill buckets, no
+        paging and no ``kv_quant``."""
+        return self.arch_type == "ssm"
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
+
+    @property
     def q_dim(self) -> int:
         return self.num_heads * self.head_dim
 
@@ -96,15 +120,16 @@ class ModelConfig:
 
 def reduced(cfg: ModelConfig, **over) -> ModelConfig:
     """Reduced variant of the same family for CPU tests (the same sizes
-    the JAX package's ``reduced`` picks for a dense or MoE config: at
-    most 4 experts, top-2, one shared expert)."""
+    the JAX package's ``reduced`` picks for a dense, MoE or SSM config:
+    at most 4 experts, top-2, one shared expert; an SSM config at d_model
+    128, N at most 16, P 32 and chunks of 64)."""
     base = dict(
         num_layers=2,
         d_model=min(cfg.d_model, 128),
         num_heads=min(cfg.num_heads, 4),
         num_kv_heads=min(cfg.num_kv_heads, 2),
         head_dim=32,
-        d_ff=min(cfg.d_ff, 256),
+        d_ff=min(cfg.d_ff, 256) if cfg.d_ff else 0,
         vocab_size=min(cfg.vocab_size, 512),
         max_seq_len=512,
     )
@@ -112,7 +137,12 @@ def reduced(cfg: ModelConfig, **over) -> ModelConfig:
         base["num_experts"] = min(cfg.num_experts, 4)
         base["experts_per_token"] = min(cfg.experts_per_token, 2)
         base["num_shared_experts"] = min(cfg.num_shared_experts, 1)
-    if base["num_heads"] % base["num_kv_heads"]:
+    if cfg.is_recurrent:
+        base["d_model"] = 128
+        base["ssm_state"] = min(cfg.ssm_state, 16)
+        base["ssm_head_dim"] = 32
+        base["ssm_chunk"] = 64
+    if base["num_heads"] % max(base["num_kv_heads"], 1):
         base["num_kv_heads"] = 1
     base.update(over)
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **base)

@@ -27,7 +27,12 @@ card the warmup request also captures the engine's megastep graph, so
 every megastep of the timed run is one graph replay. The run's output
 ends with the weight-streaming floor of a decode step (``step_floor``):
 for a mixture-of-experts config it counts the experts the run's routing
-actually read, beside the floor of reading every expert. An MoE config
+actually read, beside the floor of reading every expert; for a recurrent
+config (mamba2-2.7b) it adds the state every slot reads and writes once
+a step, whatever the context. A recurrent config takes ``--page-size``,
+``--prefix-cache`` and ``--kv-quant`` as the JAX package does, as no-ops
+(the engine warns that the prefix cache is disabled), and the output
+names the cache format and paging actually served. An MoE config
 takes bf16 weights only: ``--precision q8_0`` / ``q4_0`` exits with the
 engine's error. ``--pipeline-depth
 2`` keeps one megastep in flight while the host drains the one before.
@@ -380,16 +385,25 @@ def step_floor(engine: ServingEngine,
     """The weight-streaming floor of one decode step: the bytes it must
     read once (every layer weight as stored, the final norm and the
     unembedding: the tied table whole, or the untied head) over the H100's
-    memory rate. For an MoE config the routed experts count only as
-    often as the routing read them: ``reads`` (``Model.expert_reads``
-    over a run: experts with a pair, summed over MoE layer passes, and
-    the passes) gives the mean experts a layer pass, and the floor counts
-    that many experts a layer; ``all_experts_*`` counts every expert.
+    memory rate. A recurrent config's step also reads and writes every
+    slot's conv and SSD states once (``state_bytes``: read plus written,
+    at the engine's slot count), which the floor adds. For an MoE config
+    the routed experts count only as often as the routing read them:
+    ``reads`` (``Model.expert_reads`` over a run: experts with a pair,
+    summed over MoE layer passes, and the passes) gives the mean experts
+    a layer pass, and the floor counts that many experts a layer;
+    ``all_experts_*`` counts every expert.
     Arithmetic from the weights' shapes, not a measurement."""
     p, cfg = engine.params, engine.cfg
     head = p["embedding"] if cfg.tie_embeddings else p["lm_head"]
     total = _nbytes(p["layers"]) + _nbytes(head) + _nbytes(p["final_norm"])
     out = dict(bytes=total, ms=total / HBM_BYTES_PER_S * 1e3)
+    if cfg.is_recurrent:
+        state = 2 * _nbytes(engine.cache["layers"])
+        out = dict(bytes=total + state,
+                   ms=(total + state) / HBM_BYTES_PER_S * 1e3,
+                   weight_bytes=total, state_bytes=state,
+                   slots=engine.slots)
     if not cfg.is_moe:
         return out
     experts = _nbytes([p_l["moe"]["experts"] for p_l in p["layers"]])
@@ -518,6 +532,11 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
         print(f"overload: {st.shed} shed, {st.preemptions} preemptions, "
               f"{st.poisoned} poisoned, {st.cancelled} cancelled (queue "
               f"bound {engine.max_queue or 'none'})")
+    if cfg.is_recurrent:
+        print(f"recurrent state: {_nbytes(engine.cache['layers'])} bytes "
+              f"for {engine.slots} slots; page_size={engine.page_size} "
+              f"(asked {args.page_size}), kv_quant={engine.kv_quant} (asked "
+              f"{args.kv_quant}), prefix_cache={engine.prefix_cache}")
     if engine.paged:
         print(f"paged cache: page_size={engine.page_size}, "
               f"{engine.cache_blocks} blocks ({engine.cache_nbytes()} "
@@ -531,8 +550,14 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
               f"deadline-expired, shed or failed, {st.cancelled} engine "
               "cancellations")
     floor = step_floor(engine, reads)
-    line = (f"floor: {floor['ms']:.3f} ms a decode step to read "
-            f"{floor['bytes'] / 1e9:.3f} GB of weights at 3.35 TB/s")
+    if cfg.is_recurrent:
+        line = (f"floor: {floor['ms']:.3f} ms a decode step to read "
+                f"{floor['weight_bytes'] / 1e9:.3f} GB of weights and read "
+                f"and write {floor['state_bytes'] / 1e9:.3f} GB of state "
+                f"({floor['slots']} slots) at 3.35 TB/s")
+    else:
+        line = (f"floor: {floor['ms']:.3f} ms a decode step to read "
+                f"{floor['bytes'] / 1e9:.3f} GB of weights at 3.35 TB/s")
     if cfg.is_moe:
         line += (f" ({floor['experts_a_layer']:.2f} of {cfg.num_experts} "
                  f"experts a layer pass, the mean over "

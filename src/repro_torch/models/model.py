@@ -1,14 +1,20 @@
-"""GQA decoder, dense or mixture-of-experts: parameters, cache, the fused
-prefill and the decode step.
+"""The decoder, dense, mixture-of-experts or SSM: parameters, cache, the
+fused prefill and the decode step.
 
-Counterpart of the dense and MoE families of the JAX package's
+Counterpart of the dense, MoE and SSM families of the JAX package's
 ``models/model.py`` (``init``, ``init_cache``, ``prefill`` with
 ``seq_lens``, ``decode_step`` with ``advance_mask``, ``reference_decode``
-with stepwise or fused prefill, and ``window_for``). An MoE config
-(``cfg.is_moe``) has a ``"moe"`` FFN in each layer where a dense one has
-``"mlp"`` (``models/moe.py``), in bf16 or f32 weights only. The other
-families (ssm, hybrid, audio, vlm) and ``cache_axes`` are not ported
-yet.
+with stepwise or fused prefill, ``window_for``, ``kv_quant_effective``
+and ``paging_effective``). An MoE config (``cfg.is_moe``) has a ``"moe"``
+FFN in each layer where a dense one has ``"mlp"`` (``models/moe.py``), in
+bf16 or f32 weights only. An SSM config (mamba2, ``cfg.is_recurrent``)
+has ``{"norm", "ssm"}`` layers (``models/ssm.py``) and no attention: its
+cache is each layer's conv and SSD states beside the one ``lens``, a
+fixed size whatever the context, never paged and never quantized
+(``kv_quant`` is a no-op, as in the JAX package), and a prefill starts
+from zero states and runs at its exact length (a prompt longer than
+``max_len`` too). The other families (hybrid, audio, vlm) and
+``cache_axes`` are not ported yet.
 
 A windowed config (``sliding_window`` > 0, mistral-7b; or any dense
 config past ``max_full_attn`` positions) keeps a ring of ``min(max_len,
@@ -43,6 +49,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.params import ParamSpec, init_params
 from repro_torch.quant.quantize import FLOAT_FORMATS, quantize_tree
 
@@ -53,12 +60,13 @@ def _norm_spec(d: int) -> ParamSpec:
 
 def _norms(params) -> List:
     """The RMSNorm weights in the order the residual stream meets them:
-    each layer's ``attn_norm``, then ``final_norm``. The first runs alone
-    (``rmsnorm``). Each later one, and each ``ffn_norm``, is fused with
-    the residual add before it (``add_rmsnorm``), as XLA fuses them in
-    the JAX package's layer body."""
-    return [p_l["attn_norm"] for p_l in params["layers"]] + \
-        [params["final_norm"]]
+    each layer's ``attn_norm`` (an SSM layer's ``norm``), then
+    ``final_norm``. The first runs alone (``rmsnorm``). Each later one,
+    and each ``ffn_norm``, is fused with the residual add before it
+    (``add_rmsnorm``), as XLA fuses them in the JAX package's layer
+    body."""
+    return [p_l["norm"] if "norm" in p_l else p_l["attn_norm"]
+            for p_l in params["layers"]] + [params["final_norm"]]
 
 
 class Model:
@@ -82,6 +90,11 @@ class Model:
         cfg = self.cfg
         specs = layers.embed_specs(cfg)
         specs["final_norm"] = _norm_spec(cfg.d_model)
+        if cfg.is_recurrent:
+            specs["layers"] = [{"norm": _norm_spec(cfg.d_model),
+                                "ssm": ssm_mod.ssm_specs(cfg)}
+                               for _ in range(cfg.num_layers)]
+            return specs
         ffn = ("moe", moe_mod.moe_specs) if cfg.is_moe else \
             ("mlp", mlp_mod.mlp_specs)
         specs["layers"] = [{
@@ -127,12 +140,20 @@ class Model:
             return cfg.window_long_ctx
         return 0
 
+    def kv_quant_effective(self) -> str:
+        """Cache format actually served: ``cfg.kv_quant``, but bf16 for a
+        recurrent family, whose state does not grow with the context and
+        whose scan compounds rounding (a no-op there, as in the JAX
+        package)."""
+        return "bf16" if self.cfg.is_recurrent else self.cfg.kv_quant
+
     def paging_effective(self, max_len: int, page_size: int) -> int:
         """Page size actually served, or 0 when the cache stays dense.
         Paging virtualizes growing full-attention caches; a windowed
-        cache is a ring already capped at the window, which the JAX
-        package keeps dense (as it does recurrent state)."""
-        if not page_size or self.window_for(max_len):
+        cache is a ring already capped at the window and recurrent state
+        has a fixed size, which the JAX package keeps dense."""
+        if (not page_size or self.cfg.is_recurrent
+                or self.window_for(max_len)):
             return 0
         return int(page_size)
 
@@ -142,7 +163,15 @@ class Model:
         positions a slot (a ring of ``min(max_len, window)`` for a
         windowed config); paged (block pools of ``cache_blocks`` blocks,
         default one a page a slot plus the garbage block, and a zeroed
-        block table) when ``page_size`` > 0 and paging is effective."""
+        block table) when ``page_size`` > 0 and paging is effective. An
+        SSM config's cache is each layer's zeroed conv and SSD states,
+        whatever ``max_len``."""
+        if self.cfg.is_recurrent:
+            return {"lens": torch.zeros((batch,), dtype=torch.int32,
+                                        device=self.device),
+                    "layers": [ssm_mod.init_ssm_cache(self.cfg, batch,
+                                                      self.dtype, self.device)
+                               for _ in range(self.cfg.num_layers)]}
         page_size = self.paging_effective(max_len, page_size)
         cache = {
             "lens": torch.zeros((batch,), dtype=torch.int32,
@@ -182,28 +211,42 @@ class Model:
         (their last S_cache positions, at slots ``pos % S_cache``); that
         branch is uniform-length by contract, so ``seq_lens`` is ignored
         there and ``lens`` advances by S. The attention runs within
-        ``window_for(S)``. The JAX package's ``prefill`` takes
-        ``{"tokens", "seq_lens"}`` and returns a new cache."""
+        ``window_for(S)``. An SSM config runs every position of every
+        row from zero states (its caller does not pad it: the engine
+        buckets recurrent prompts at their exact length), and ``lens``
+        advances by S, as in the JAX package. The JAX package's
+        ``prefill`` takes ``{"tokens", "seq_lens"}`` and returns a new
+        cache."""
         cfg = self.cfg
         B, S = tokens.shape
-        if "block_table" in cache:
-            raise ValueError("prefill writes a dense cache; the serving "
-                             "engine prefills into a dense scratch cache "
-                             "and splices its pages into the pool")
-        if S > self.cache_len(cache):
-            seq_lens = None        # the ring branch: uniform-length
-        window = self.window_for(S)
+        if not cfg.is_recurrent:
+            if "block_table" in cache:
+                raise ValueError("prefill writes a dense cache; the serving "
+                                 "engine prefills into a dense scratch "
+                                 "cache and splices its pages into the "
+                                 "pool")
+            if S > self.cache_len(cache):
+                seq_lens = None        # the ring branch: uniform-length
+            window = self.window_for(S)
         x = layers.embed(params, tokens)
         norms = _norms(params)
         z = layers.rmsnorm(x, norms[0], cfg.norm_eps)
-        for p_l, c_l, next_norm in zip(params["layers"], cache["layers"],
-                                       norms[1:]):
-            z = attn.attention_forward(p_l["attn"], cfg, z, c_l, window)
-            x, z = layers.add_rmsnorm(x, z, p_l["ffn_norm"], cfg.norm_eps)
-            x, z = layers.add_rmsnorm(x, self.ffn(p_l, z), next_norm,
-                                      cfg.norm_eps)
-        cache["lens"] += S if seq_lens is None else seq_lens.to(
-            cache["lens"].dtype)
+        if cfg.is_recurrent:
+            for p_l, c_l, next_norm in zip(params["layers"], cache["layers"],
+                                           norms[1:]):
+                z = ssm_mod.ssm_prefill(p_l["ssm"], cfg, z, c_l)
+                x, z = layers.add_rmsnorm(x, z, next_norm, cfg.norm_eps)
+            cache["lens"] += S
+        else:
+            for p_l, c_l, next_norm in zip(params["layers"], cache["layers"],
+                                           norms[1:]):
+                z = attn.attention_forward(p_l["attn"], cfg, z, c_l, window)
+                x, z = layers.add_rmsnorm(x, z, p_l["ffn_norm"],
+                                          cfg.norm_eps)
+                x, z = layers.add_rmsnorm(x, self.ffn(p_l, z), next_norm,
+                                          cfg.norm_eps)
+            cache["lens"] += S if seq_lens is None else seq_lens.to(
+                cache["lens"].dtype)
         # z is the final norm of every position; unembed the last real one
         if seq_lens is None:
             last = z[:, -1:]
@@ -218,12 +261,21 @@ class Model:
                     ) -> torch.Tensor:
         """tokens (B, 1) → logits (B, vocab) f32; the cache is updated
         in place. Rows where ``advance_mask`` (B,) is False keep their
-        cache frozen: no K/V write and no ``lens`` advance (the serving
-        engine's retired and waiting slots). A paged cache is read and
-        written through its block table."""
+        cache frozen: no K/V write (no conv or SSD state update) and no
+        ``lens`` advance (the serving engine's retired and waiting
+        slots). A paged cache is read and written through its block
+        table."""
         cfg = self.cfg
         x = layers.embed(params, tokens)
         lens = cache["lens"]
+        norms = _norms(params)
+        z = layers.rmsnorm(x, norms[0], cfg.norm_eps)
+        if cfg.is_recurrent:
+            for p_l, c_l, next_norm in zip(params["layers"], cache["layers"],
+                                           norms[1:]):
+                z = ssm_mod.ssm_decode(p_l["ssm"], cfg, z, c_l, advance_mask)
+                x, z = layers.add_rmsnorm(x, z, next_norm, cfg.norm_eps)
+            return self._advance_and_unembed(params, z, lens, advance_mask)
         table = cache.get("block_table")
         # the positions each layer's attention reads, the same in every
         # layer: computed once a step
@@ -234,8 +286,6 @@ class Model:
         B = tokens.shape[0]
         see_current = (cfg.is_moe and table is None
                        and B > moe_mod.capacity(cfg, B))
-        norms = _norms(params)
-        z = layers.rmsnorm(x, norms[0], cfg.norm_eps)
         for p_l, c_l, next_norm in zip(params["layers"], cache["layers"],
                                        norms[1:]):
             z = attn.attention_decode(p_l["attn"], cfg, z, c_l, lens, kv_len,
@@ -243,12 +293,20 @@ class Model:
             x, z = layers.add_rmsnorm(x, z, p_l["ffn_norm"], cfg.norm_eps)
             x, z = layers.add_rmsnorm(x, self.ffn(p_l, z), next_norm,
                                       cfg.norm_eps)
+        return self._advance_and_unembed(params, z, lens, advance_mask)
+
+    def _advance_and_unembed(self, params, z: torch.Tensor,
+                             lens: torch.Tensor,
+                             advance_mask: Optional[torch.Tensor]
+                             ) -> torch.Tensor:
+        """A decode step's end: ``lens`` advances where the row does, and
+        the final norm ``z`` (B, 1, D) becomes f32 logits (B, vocab)."""
         if advance_mask is None:
             lens += 1
         else:
             lens += advance_mask.to(lens.dtype)
-        logits = layers.unembed(params, z, cfg)[:, 0]
-        return logits[:, :cfg.vocab_size]
+        logits = layers.unembed(params, z, self.cfg)[:, 0]
+        return logits[:, :self.cfg.vocab_size]
 
     def reference_decode(self, params, prompt: Sequence[int],
                          max_new_tokens: int, eos_id: int = -1, *,
@@ -261,7 +319,8 @@ class Model:
         unpadded (the stall-admission path). Returns the generated
         tokens (stops at EOS or ``max_new_tokens``). A fused prompt longer
         than ``max_len`` (or than a windowed config's ring) is written
-        into the cache's ring, as in the JAX package."""
+        into the cache's ring, as in the JAX package; an SSM config's
+        cache holds any length."""
         if max_new_tokens <= 0:
             return []
         if len(prompt) == 0:

@@ -21,7 +21,9 @@ serves K tokens per slot.
   length (the next power of two, at least 8, capped at the cache's
   length; a prompt longer than the cache, such as a windowed model's
   past its ring or a resumed request past ``max_len``, at its exact
-  length, which the prefill writes into the ring) and each group is
+  length, which the prefill writes into the ring; every prompt of a
+  recurrent family at its exact length, since its state runs through
+  every position) and each group is
   prefilled in one ``Model.prefill`` call into a scratch cache, whose
   rows are copied into the live cache at the slots. The first token is
   sampled from the prefill's logits; decoding slots stall meanwhile.
@@ -31,6 +33,12 @@ serves K tokens per slot.
 - **Nonfinite logits**: a slot whose logits hold a NaN or inf emits
   nothing, turns idle at once, and its request ends with
   ``error = "nonfinite-logits"``; the other slots are untouched.
+- **Recurrent families** (mamba2, ``cfg.is_recurrent``): the cache is
+  each layer's conv and SSD states, of a fixed size a slot, so paging,
+  the prefix cache and ``kv_quant`` are no-ops (the JAX package's
+  contract: the prefix cache warns and disables itself), a prompt longer
+  than ``max_len`` is served, and a fresh slot's states are zeroed at
+  its admission like its K/V rows.
 - **Paged cache** (``page_size`` > 0): every layer's K/V is a pool of
   ``cache_blocks`` blocks of ``page_size`` positions, and a block table
   (slots, max_pages) maps each slot's pages onto blocks, so the cache's
@@ -282,7 +290,7 @@ class ServingEngine:
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
-        self.kv_quant = model.cfg.kv_quant
+        self.kv_quant = model.kv_quant_effective()
         if quant_policy is not None and quant_policy not in FLOAT_FORMATS:
             check_weight_format(model.cfg, quant_policy)
             for fmt in _quantized_formats(params):
@@ -796,7 +804,8 @@ class ServingEngine:
         pool holds, or a prompt longer than a dense full-attention
         cache, whose prefill write would corrupt the slot; a windowed
         ring, or a paged cache, takes a longer prompt over its own
-        positions), as the JAX ``submit`` rejects,
+        positions, and a recurrent state any length), as the JAX
+        ``submit`` rejects,
         ``QueueFull`` at the ``max_queue`` bound, ``InfeasibleDeadline``
         when ``req.deadline_s`` cannot be met by an empty engine."""
         prompt_len = len(np.asarray(req.prompt))
@@ -819,7 +828,8 @@ class ServingEngine:
                     f"pool holds {self.cache_blocks - 1}: it can never be "
                     "admitted (raise cache_blocks or shrink the request)",
                     uid=req.uid)
-        elif not self._has_window and prompt_len > self._cache_seq:
+        elif (not self._has_window and not self.cfg.is_recurrent
+              and prompt_len > self._cache_seq):
             raise PromptTooLong(
                 f"request {req.uid}: prompt of {prompt_len} tokens exceeds "
                 f"the cache capacity {self._cache_seq}", uid=req.uid)
@@ -974,8 +984,9 @@ class ServingEngine:
         """Padded prefill length: the next power of two (at least 8),
         capped at the cache's length, so that a padded prefill never
         takes the ring write; a prompt longer than the cache (which only
-        the ring takes) at its exact length."""
-        if prompt_len > self._cache_seq:
+        the ring takes), and any prompt of a recurrent family (whose state
+        padding would corrupt), at its exact length."""
+        if self.cfg.is_recurrent or prompt_len > self._cache_seq:
             return prompt_len
         return min(max(8, 1 << (prompt_len - 1).bit_length()),
                    self._cache_seq)
@@ -1220,10 +1231,10 @@ class ServingEngine:
             st.prefill_pos.copy_(torch.where(new, a["start_pos"],
                                              st.prefill_pos))
         else:
-            rows = new[:, None, None, None]
             for layer in self.cache["layers"]:
                 for leaf in layer.values():
-                    leaf.masked_fill_(rows, 0)
+                    leaf.masked_fill_(
+                        new.view((-1,) + (1,) * (leaf.dim() - 1)), 0)
             lens.masked_fill_(new, 0)
             st.prefill_pos.masked_fill_(new, 0)
         for field, key in (("max_new", "max_new"), ("eos_id", "eos"),
