@@ -997,14 +997,15 @@ def main() -> None:
     libs, secs = build.build()
     print(f"build: {sorted(libs)} in {secs:.1f}s "
           f"({build.BUILD_DIR})", flush=True)
-    # flash_attention overlaps its wgmma groups with the softmax; ptxas
+    # flash_attention overlaps its wgmma groups with the softmax and the
+    # grouped expert GEMM its k steps with the next stage's wait; ptxas
     # may serialize them instead, which it reports
     for stem in sorted(libs):
         notes = build.perf_notes(stem)
         print(f"  ptxas on {stem}.cu: {len(notes)} performance warnings"
               + "".join(f"\n    {n[:200]}" for n in notes), flush=True)
-        check(stem != "flash_attention" or not notes,
-              "ptxas serialized flash_attention.cu's wgmma groups")
+        check(stem not in ("flash_attention", "moe") or not notes,
+              f"ptxas serialized {stem}.cu's wgmma groups")
     # the fused gate-up kernels keep quant_matmul's budget (two CTAs an
     # SM, at most 128 registers a thread) without spilling
     for fn, regs, st_b, ld_b in build.ptxas_usage("quant_matmul"):
@@ -1035,14 +1036,18 @@ def main() -> None:
                 f"{st_b} / {ld_b} bytes spill stores / loads", flush=True)
             check(pair not in new_pairs_ptx or (st_b == 0 and ld_b == 0),
                   f"ptxas spilled registers in {fn}")
-    # the MoE kernels (the grouped GEMM's four instances among them) keep
-    # their registers
+    # the MoE kernels (the grouped GEMM's four instances and its two
+    # split-sum kernels among them) keep their registers
+    gemm_instances = 0
     for fn, regs, st_b, ld_b in build.ptxas_usage("moe"):
+        gemm_instances += "moe_gemm_kernel" in fn
         short = re.search(r"\d(moe_[a-z_]+?_kernel(?:I\w*?EE)?)", fn)
         print(f"  ptxas on moe.cu: {short.group(1) if short else fn}: "
               f"{regs} registers, {st_b} / {ld_b} bytes spill stores / "
               "loads", flush=True)
         check(st_b == 0 and ld_b == 0, f"ptxas spilled registers in {fn}")
+    check(gemm_instances == 4, f"moe.cu: {gemm_instances} moe_gemm_kernel "
+          "instances in ptxas's report, not 4")
     # the SSM kernels keep their registers (the scan holds 16 running sums
     # a thread in each of its three products)
     for fn, regs, st_b, ld_b in build.ptxas_usage("ssm"):
@@ -2487,7 +2492,8 @@ def main() -> None:
         return err, tol
 
     def moe_layer_case(label, T, K, x, wr, wgu, wd, timed=False,
-                       path=None, shared=None, shape_of=None):
+                       path=None, shared=None, shape_of=None,
+                       plain_route=False):
         """One MoE layer's kernels at T tokens against their plain
         versions: the route; the gate-up GEMM with its SwiGLU and the down
         GEMM over the routed rows, into canary-filled outputs; each
@@ -2495,12 +2501,19 @@ def main() -> None:
         row tile, no neighbours) bit-equal to the same row in the call;
         the combine bit-equal (with the shared experts' output where
         ``shared`` = (w_gate_up, w_down), themselves held as one group of
-        T rows). Timed where ``timed``. Returns the dropped pairs."""
+        T rows). ``plain_route``: the plain routing of the plain logits
+        (the route kernel takes E a multiple of 8 only). Timed where
+        ``timed``. Returns the dropped pairs."""
         E, D, F2 = wgu.shape
         Fw = F2 // 2
         C = moe_kernels.capacity(E, K, 1.25, T)
-        (gates, experts, slots, counts, src, _), dropped = moe_route_case(
-            label, x, wr, K, C, timed, path, shape_of)
+        if plain_route:
+            gates, experts, slots, counts, src, _ = route_from_logits_plain(
+                router_logits_plain(x, wr), K, C)
+            dropped = int((slots >= C).sum())
+        else:
+            (gates, experts, slots, counts, src, _), dropped = \
+                moe_route_case(label, x, wr, K, C, timed, path, shape_of)
         canary = 7.0
         h = moe_gate_up_swiglu(x, wgu, C, counts, src, out=torch.full(
             (E, C, Fw), canary, dtype=torch.bfloat16, device=dev))
@@ -2561,12 +2574,14 @@ def main() -> None:
                 (x, wgu, C, counts, src),
                 used * D * F2 * 2 + rows_in + kept * Fw * 2 + kept * 4,
                 2.0 * kept * D * F2, "src/repro/models/moe.py:107-112",
-                shape, path, err_h, tol_h, torch.bmm, (buf, wgu), shape_of)
+                shape, path, err_h, tol_h, torch.bmm, (buf, wgu), shape_of,
+                per_call=moe_kernels.gemm_launches(wgu, C, mapped=True))
         moe_row(f"moe_down[{label} T{T}]", lambda *a: moe_down(*a),
                 lambda *a: moe_down_plain(*a), (h, wd, counts),
                 used * Fw * D * 2 + kept * Fw * 2 + kept * D * 2,
                 2.0 * kept * Fw * D, "src/repro/models/moe.py:113-116",
-                shape, path, err_y, tol_y, torch.bmm, (hbuf, wd), shape_of)
+                shape, path, err_y, tol_y, torch.bmm, (hbuf, wd), shape_of,
+                per_call=moe_kernels.gemm_launches(wd, C))
         nbytes = (kept * D * 2 + T * K * 12 + T * D * 2
                   + (T * D * 2 if sh is not None else 0))
         moe_row(f"moe_combine[{label} T{T}]", lambda *a: moe_combine(*a),
@@ -2614,6 +2629,20 @@ def main() -> None:
         check(dropped > 0, "the tied router dropped no pair")
         del wr, wgu, wd, skew, tied
         torch.cuda.empty_cache()
+        # ragged widths: E 4, K 2, D 520, F 200, each a multiple of 8 and
+        # of no tile, so the masked TMA edges (K and the columns) and the
+        # split plan's short last chunk (gate-up: 9 chunks, the last of 8
+        # k) run against the plain versions; T 16 on the 16-row tile's
+        # split route, T 333 (C 216) on the 128-row tile's walk route
+        Er, Kr, Dr, Fr = 4, 2, 520, 200
+        wr = moe_weight(Dr, Er, scale=Dr ** -0.5)
+        wgu = moe_weight(Er, Dr, 2 * Fr, scale=Dr ** -0.5)
+        wd = moe_weight(Er, Fr, Dr, scale=Fr ** -0.5)
+        for T in (16, 333):
+            with drawing_from(gen_moe):
+                x = randn(T, Dr).bfloat16()
+            moe_layer_case("ragged", T, Kr, x, wr, wgu, wd, plain_route=True)
+        del wr, wgu, wd
         kimi = get_config("kimi-k2-1t-a32b")
         E, K, D, Fw = (kimi.num_experts, kimi.experts_per_token,
                        kimi.d_model, kimi.d_ff)
@@ -3576,6 +3605,41 @@ def main() -> None:
         moe_counts[key] = check_served(eng, reqs, label, warm, after_warm)
         return wall
 
+    def profile_prefill_call(eng, reqs, label):
+        """The requests served again by the (reset) engine with its one
+        prefill call under the profiler: (device ms by kernel group, the
+        call's wall ms). The engine is left as it was."""
+        groups = dict.fromkeys(GROUPS, 0.0)
+        walls = []
+        impl = eng._prefill_impl
+
+        def profiled(*args):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                first = impl(*args)
+                torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - t0))
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    groups[group_of(e.name)] += e.time_range.elapsed_us() / 1e3
+            return first
+
+        eng.reset()
+        eng._prefill_impl = profiled
+        try:
+            replay = [Request(uid=r.uid, prompt=r.prompt,
+                              max_new_tokens=r.max_new_tokens) for r in reqs]
+            for r in replay:
+                eng.submit(r)
+            eng.run()
+        finally:
+            del eng._prefill_impl           # the class's method again
+        check([r.output for r in replay] == [r.output for r in reqs],
+              f"{label}: the profiled replay served other tokens")
+        check(len(walls) == 1, f"{label}: {len(walls)} prefill calls in "
+              "the profiled replay, not one")
+        return groups, walls[0]
+
     def moe_phase():
         t_phase = time.perf_counter()
         out = dict(kernel_cases_s=moe_kernel_s,
@@ -3688,6 +3752,24 @@ def main() -> None:
         print(f"  {label}: streams == the bucket reference"
               + ("" if sum(drops) else " and reference_decode("
                  "stepwise_prefill=False)"), flush=True)
+        # where the bucket's one prefill call spends its device time: the
+        # same requests again, that call under the profiler (card only)
+        prefill_groups, prefill_wall = profile_prefill_call(seng, reqs, label)
+        busy = sum(prefill_groups.values())
+        check(prefill_groups["moe_gemm"] > 0.0, f"{label}: the prefill "
+              "call's trace holds no grouped-GEMM kernel")
+        print(f"  {label}: the 4 x 512 prefill call: device ms in the MoE "
+              f"kernels {prefill_groups['moe_route'] + prefill_groups['moe_gemm'] + prefill_groups['moe_combine']:.3f}"
+              f" (route {prefill_groups['moe_route']:.3f}, grouped GEMMs "
+              f"{prefill_groups['moe_gemm']:.3f}, combine "
+              f"{prefill_groups['moe_combine']:.3f}) of {busy:.3f} "
+              f"(wall {prefill_wall:.3f} ms, device idle share "
+              f"{1 - busy / prefill_wall:.3f}); by group "
+              + ", ".join(f"{g} {ms:.3f}" for g, ms in prefill_groups.items()
+                          if ms), flush=True)
+        out["stall"].update(prefill_device_ms_by_group=prefill_groups,
+                            prefill_device_ms=busy,
+                            prefill_wall_ms=prefill_wall)
         del seng, cache
 
         # a q8_0 cache: streams == reference_decode of the same weights

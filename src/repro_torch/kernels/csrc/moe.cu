@@ -33,33 +33,98 @@
 //
 // moe_gemm_kernel (moe.py:107-116): out[g, c] for the rows c < counts[g]
 // of each group g (an expert, or the shared experts as one group of T
-// rows), CTAs of other rows and of empty groups exit at once. GLU: the
-// gate-up product of the rows of a gathered through the map (or rows g*C
-// + c without one) with w (G, K, 2F), h = bf16(silu(g) * u) of the f32
+// rows); rows past a count and groups of count 0 are never written. GLU:
+// the gate-up product of the rows of a gathered through the map (or rows
+// g*C + c without one) with w (G, K, 2F), h = bf16(silu(g) * u) of the f32
 // sums; else y = bf16(rows @ w (G, K, N)). Bound: at decode (a few rows
 // an expert) the bytes of the routed experts' weights; at prefill (a few
-// hundred rows an expert) the tensor cores. Design: the product is taken
-// transposed, out^T = w^T rows^T, so the weights are the A operand of
-// mma.sync.m16n8k16 (bf16 in, f32 accumulate; ldmatrix.trans from the
-// (k, n) tile in shared memory) and the rows the B operand, 8 at a time.
-// A CTA owns 64 output columns (GLU: the gate block and the up block of
-// the same columns, so the SwiGLU is a register epilogue) of MT rows (8
-// at decode, 128 at prefill: 4 warps, or 4 x 2), and streams its weight
-// columns through a 4-stage cp.async ring of 32-k tiles, once for all
-// its rows. Each output element is summed by the same mma instructions
-// in the same k order at the same position of its m16 tile, whatever MT,
-// the count or the other rows: a row's bits do not depend on them.
+// hundred rows an expert, about 256 flops a weight byte against the
+// card's 295) the bytes and the tensor cores nearly alike.
+//
+// Design (Hopper: TMA, mbarriers, wgmma). The product is taken transposed
+// (swap AB): out^T = w^T rows^T, so a 64-column block of the weights is
+// the A operand of wgmma.mma_async.m64nRk16 (bf16 in, f32 accumulate),
+// read from shared memory MN-major (the descriptor's transpose bit), and
+// the rows are the B operand, K-major, R of them (the row tile, the
+// instruction's N). A work item is 128 weight columns (GLU: the gate and
+// the up block of the same 64 output columns) of one row tile of one
+// group over a range of K. A CTA is 384 threads: a producer warpgroup and
+// two consumer warpgroups, consumer 0 on the first 64 columns and
+// consumer 1 on the other 64, over all R rows.
+// - The producer fills a ring of 64-k stages on full/empty mbarriers:
+//   both weight boxes by TMA from one 3-D map over w (G, K, N'), 128-byte
+//   swizzle, zero past K; rows without a map by TMA too (a 3-D map over
+//   (G, C, K), zero past C and K). Rows gathered through the map: at the
+//   16-row tile (decode) by TMA as well, one copy a row (a 64 k x 1 row
+//   box of a 2-D map over the rows), issued by the producer threads side
+//   by side: the 128-byte swizzle follows the shared-memory address, so
+//   each row lands where a whole tile's box would put it. At the 128-row
+//   tile, 128 copies a stage held the producer back (as did cp.async
+//   with a fence.proxy.async before wgmma read the rows: the gate-up GEMM
+//   ran several times slower than the down GEMM's TMA-fed rows at
+//   phi3.5-moe's 4 x 512 bucket), so moe_gemm_gather_kernel first copies
+//   the rows into (G, C, K), once a call, and the GEMM reads them as
+//   boxes. Every byte of a stage arrives through the async proxy that
+//   wgmma reads, so no proxy fence is needed.
+// - The grid is persistent: CTAs take the work items round robin, and the
+//   producer runs on into the next item while the consumers store the
+//   last one. The items are those of the row tiles that hold rows: the
+//   groups with rows and the prefix sums of their items are listed in
+//   shared memory at start, so an empty expert or tile costs nothing and
+//   the CTAs that share a weight block stay side by side.
+// - Row tile: R = 16 where C <= 16 (decode; two CTAs an SM), else R =
+//   128 (prefill; one CTA an SM); 5 stages each. At phi3.5-moe's 4 x 512
+//   bucket C is 320: an expert's 256 rows or so take two or three tiles,
+//   whose items are adjacent, so the CTAs that read one weight block run
+//   together and the later reads come from the L2. A tile with at most
+//   64 live rows (an expert's third) loads and runs wgmma on its first 64
+//   rows only, at N 64 (the width does not enter a row's sums). A 128-row
+//   tile keeps the walk route's running sums in registers (64 + 64
+//   floats a thread); a 160-row tile, two at C 320, spilled at the 168
+//   registers a thread of one 384-thread CTA an SM. Tried and not kept:
+//   CTA pairs in a cluster on neighbouring column blocks, each loading
+//   half the rows tile for both by TMA multicast (one ring for two CTAs
+//   made each wait out the other's epilogue; no faster); the consumers
+//   splitting the rows instead of the columns (no SwiGLU exchange, but
+//   ptxas serialized their wgmma and spilled); the weight boxes asked of
+//   the L2 eight or sixteen stages ahead of the ring (slower); the
+//   epilogue run after the next item's first k steps were issued, to
+//   overlap them (slower).
+// - K is cut into chunks of k_per_chunk rows (a multiple of 64), planned
+//   from (K, N', SM count) alone by kernels/moe.py::moe_gemm_plan, never
+//   from the counts, C, the active experts or R. With one row tile a
+//   group (C <= R) and more than one chunk, each chunk is a work item of
+//   its own, so that a call with two active experts still streams enough
+//   weight blocks at once: it writes its f32 sums to partial (chunks, G,
+//   C, N'), and moe_gemm_sum_kernel adds them in chunk order. Otherwise
+//   an item walks every chunk, each summed in its own accumulators
+//   (wgmma's scale-d 0 at a chunk's first k16 step) and added in order to
+//   a running sum. Both routes compute s = 0; s += chunk[c] for c in
+//   order, as quant_matmul.cu does.
+// - Epilogue: consumer 1 hands its up sums to consumer 0 for the even
+//   rows and consumer 0 its gate sums to consumer 1 for the odd rows
+//   (shared memory), and each computes h = silu(g) * u of the f32 sums,
+//   rounded once; the output tile is staged in shared memory, transposed,
+//   and stored 16 bytes a thread, whole rows.
+// Invariant: each output element is summed by the same wgmma k16 steps
+// in the same k order, at the same row of its m64 block, and added over
+// the same chunks in the same order, whatever the count, C, R, the route
+// or the other rows: a row's bits do not depend on them (wgmma's N, the
+// row count, does not enter an element's sum).
 //
 // moe_combine_kernel (moe.py:119-125, 136-139): out[t] = bf16(sum over k
 // in order of gate[t, k] * f32(y[e_tk, slot_tk])), a dropped pair adding
 // 0, each product and sum rounded once (no fma contraction), then + the
 // shared experts' output in bf16 (rounded once). Bound: bytes.
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the driver at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <climits>
+#include <cstring>
+#include <type_traits>
 
 namespace {
 
@@ -68,9 +133,8 @@ using bf16 = __nv_bfloat16;
 constexpr int kRouteThreads = 512;
 constexpr int kMaxK = 8;            // experts a token (kimi-k2's top-8)
 constexpr int kMaxPerLane = 32;     // E <= 1024: one bit a logit in a lane's mask
-constexpr int kBK = 32;             // k rows a stage
-constexpr int kStages = 4;
-constexpr int kBN = 64;             // output columns a CTA
+constexpr int kGemmThreads = 384;   // two consumer warpgroups and a producer warpgroup
+constexpr int kMaxGroups = 1024;    // groups a GEMM call (E <= 1024)
 constexpr int kCombineThreads = 128;
 constexpr int kRouterThreads = 128;
 constexpr int kRouterExperts = 8;   // logits a router CTA computes
@@ -204,186 +268,563 @@ __global__ void __launch_bounds__(kRouteThreads)
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-// 16 bytes global -> shared; src_bytes 0 writes zeros and reads nothing
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
 }
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
 }
-__device__ __forceinline__ void ldmatrix_x2(uint32_t& r0, uint32_t& r1, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(smem_addr(p)));
-}
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col); gid = lane / 4,
-// tig = lane % 4: a = {(gid, 2tig..+1), (gid + 8, 2tig..+1), (gid, 2tig +
-// 8..+9), (gid + 8, 2tig + 8..+9)}, b = {(k 2tig..+1, n gid), (k 2tig +
-// 8..+9, n gid)}, c = {(gid, 2tig), (gid, 2tig + 1), (gid + 8, 2tig), (gid
-// + 8, 2tig + 1)}.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// a 3-D TMA tile copy global -> shared, completing on bar
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                       uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
+      : "memory");
+}
+// A wgmma shared-memory descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle layout (1: 128B).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              int layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)layout << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed wgmma groups are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from touching wgmma operands across the async window
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// named barrier 1 over the 256 consumer threads, 2 over the producer's 128
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+__device__ __forceinline__ void producer_sync() {
+  asm volatile("bar.sync 2, 128;\n" ::: "memory");
 }
 
-// The CTA's shape for MT rows: warps 4 along the columns (16 output
-// columns each) by MT / 64 along the rows (or one at MT 8). A stage holds
-// the weight tile (kBK rows of WC columns: the gate block then the up
-// block under GLU) and the rows' tile (MT rows of kBK k), each row padded
-// by 16 bytes so that ldmatrix's eight row addresses fall in distinct
-// banks.
-template <int MT, bool GLU>
-struct Gemm {
-  static constexpr int kWarpsM = MT >= 64 ? MT / 64 : 1;
-  static constexpr int kThreads = 32 * 4 * kWarpsM;
-  static constexpr int kN8 = MT / kWarpsM / 8;   // n8 tiles of rows a warp
-  static constexpr int kMI = GLU ? 2 : 1;        // m16 tiles a warp: gate (and up)
-  static constexpr int kWC = kBN * kMI;          // weight columns a stage
-  static constexpr int kWPitch = kWC * 2 + 16;   // bytes
-  static constexpr int kXPitch = kBK * 2 + 16;
-  static constexpr int kStage = kBK * kWPitch + MT * kXPitch;
-  static constexpr int kSmem = kStages * kStage;
+// d (m64 x N f32, registers) (+)= a (m64 x k16 bf16, shared memory,
+// MN-major: the transpose bit) * b (k16 x N bf16, shared memory, K-major).
+// Warp w of the warpgroup holds rows 16w..16w+15 (the weight columns);
+// with gid = lane / 4, tig = lane % 4, d[4j + e] = (gid + 8 * (e >> 1),
+// 8j + 2tig + (e & 1)).
+template <int N>
+struct WgmmaSS;
+
+template <>
+struct WgmmaSS<16> {
+  static __device__ __forceinline__ void mma(float* d, uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
 };
 
-template <int MT, bool GLU>
-__device__ __forceinline__ void load_stage(uint8_t* st, const bf16* __restrict__ a,
-                                           const int* __restrict__ map,
-                                           const bf16* __restrict__ w, int g, int C, int cnt,
-                                           int K, int N, int k0, int n0, int m0) {
-  using G = Gemm<MT, GLU>;
-  const int wn = GLU ? 2 * N : N;                // a weight row's columns
-  const bf16* wg = w + (size_t)g * K * wn;
-  constexpr int kChunksW = kBK * G::kWC / 8;
-  constexpr int kPerRow = G::kWC / 8;
-  for (int c = threadIdx.x; c < kChunksW; c += G::kThreads) {
-    const int r = c / kPerRow, q = c % kPerRow;
-    const int col = n0 + (q % 8) * 8;            // 8 chunks of 8 columns a block
-    const bool ok = k0 + r < K && col < N;
-    const int gcol = (GLU && q >= 8) ? N + col : col;
-    const bf16* p = ok ? wg + (size_t)(k0 + r) * wn + gcol : w;
-    cp_async16(st + r * G::kWPitch + q * 16, p, ok ? 16 : 0);
+template <>
+struct WgmmaSS<64> {
+  static __device__ __forceinline__ void mma(float* d, uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
   }
-  uint8_t* xs = st + kBK * G::kWPitch;
-  for (int c = threadIdx.x; c < MT * 4; c += G::kThreads) {
-    const int i = c >> 2, q = c & 3;
-    const int row = m0 + i;
-    const bool ok = row < cnt && k0 + q * 8 < K;
-    const bf16* p = a;
-    if (ok) {
-      const int ar = map != nullptr ? map[g * C + row] : g * C + row;
-      p = a + (size_t)ar * K + k0 + q * 8;
+};
+
+template <>
+struct WgmmaSS<128> {
+  static __device__ __forceinline__ void mma(float* d, uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+// silu(g) * u in f32, rounded once to bf16 by the caller
+__device__ __forceinline__ float silu_mul(float g, float u) {
+  const float s = __fdiv_rn(g, __fadd_rn(1.f, expf(-g)));
+  return __fmul_rn(s, u);
+}
+
+struct GemmMaps {
+  CUtensorMap w;   // (G, K, N') bf16, boxes of 64 columns x 64 k
+  CUtensorMap x;   // rows without a map, (G, C, K) bf16, boxes of 64 k x R rows
+  CUtensorMap xs;  // the same, boxes of 64 k x 64 rows (R 128: a short tile's)
+  CUtensorMap r;   // rows through the map, (rows, K) bf16, boxes of 64 k x 1 row
+};
+
+// Shared memory for row tile R: the ring (each stage two 8 KB weight
+// boxes, then R rows of 128 bytes, all 1024-byte aligned for the 128-byte
+// swizzle), the epilogue's exchange / staging tile, the groups' counts and
+// the list of groups with rows, the producer's gathered row indices, the
+// barriers.
+template <int R>
+struct GemmGeo {
+  static constexpr int kStages = 5;
+  static constexpr int kCtasPerSm = R <= 16 ? 2 : 1;
+  static constexpr int kBox = 64 * 128;
+  static constexpr int kW = 2 * kBox;
+  static constexpr int kX = R * 128;
+  static constexpr int kStage = kW + kX;
+  static constexpr int kRing = kStages * kStage;
+  static constexpr int kPitchGlu = 64 * 2 + 16;    // a staged row of h (bytes)
+  static constexpr int kPitch = 128 * 2 + 16;      // a staged row of y
+  static constexpr int kOut = R * kPitch;          // >= the exchange's R * 256
+  static constexpr int kList = (3 * kMaxGroups + 2) * 4;
+  static constexpr int kSrc = R * 4;
+  static constexpr int kBars = 2 * kStages * 8;
+  static constexpr int kSmem = kRing + kOut + kList + kSrc + kBars + 1024;
+  static_assert(kStage % 1024 == 0, "stages keep the swizzle's 1024-byte alignment");
+  static_assert((kOut + kList + kSrc) % 8 == 0, "the barriers are 8-byte aligned");
+};
+
+// One work item: 128 weight columns (boxes at c0 and c1; output columns
+// n0..) of rows m0.. (live of them) of group g over k in [kb, ke).
+struct GemmItem {
+  int g, m0, live, n0, c0, c1, kb, ke, kc;
+};
+
+// Item i: group list[a] for the last a with start[a] <= i (start: the
+// prefix sums of the listed groups' items, n + 1 of them); within it,
+// the row tile fastest (the tiles of one weight block side by side),
+// then the column block, then the chunk.
+template <int R, bool GLU>
+__device__ __forceinline__ GemmItem gemm_item(int i, const int* list, const int* cnts,
+                                              const int* start, int n, int K, int N, int kper,
+                                              int blocks, int ctas_k) {
+  GemmItem it;
+  int lo = 0, hi = n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (start[mid] <= i) lo = mid;
+    else hi = mid - 1;
+  }
+  it.g = list[lo];
+  const int cnt = cnts[it.g], tiles = (cnt + R - 1) / R;
+  int r = i - start[lo];
+  const int tile = r % tiles;
+  r /= tiles;
+  const int nb = r % blocks;
+  it.kc = r / blocks;
+  it.m0 = tile * R;
+  it.live = min(R, cnt - it.m0);
+  it.n0 = nb * (GLU ? 64 : 128);
+  it.c0 = it.n0;
+  it.c1 = GLU ? N + it.n0 : it.n0 + 64;
+  it.kb = ctas_k > 1 ? it.kc * kper : 0;
+  it.ke = ctas_k > 1 ? min(K, it.kb + kper) : K;
+  return it;
+}
+
+// out (G, C, N) bf16 over the rows c < counts[g] (all C without counts);
+// GLU: w (G, K, 2N), out = silu(gate) * up; else w (G, K, N). With
+// partial (split route) the item's f32 sums go to partial (chunks, G, C,
+// N') instead, and moe_gemm_sum_kernel writes out.
+template <int R, bool GLU>
+__global__ void __launch_bounds__(kGemmThreads, GemmGeo<R>::kCtasPerSm)
+    moe_gemm_kernel(const __grid_constant__ GemmMaps p, const bf16* __restrict__ a,
+                    const int* __restrict__ map, const int* __restrict__ counts,
+                    bf16* __restrict__ out, float* __restrict__ partial, int G, int C, int K,
+                    int N, int kper, int chunks) {
+  using T = GemmGeo<R>;
+  constexpr int S = T::kStages;
+  constexpr int NA = R / 2;                       // accumulators a thread
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* osm = ring + T::kRing;                 // exchange, then the staged tile
+  int* cnts = reinterpret_cast<int*>(osm + T::kOut);
+  int* list = cnts + kMaxGroups;
+  int* start = list + kMaxGroups;                 // kMaxGroups + 1 (+ 1 for the barriers' alignment)
+  int* srcs = start + kMaxGroups + 2;
+  uint64_t* full = reinterpret_cast<uint64_t*>(srcs + R);
+  uint64_t* empty = full + S;
+
+  const int tid = threadIdx.x;
+  const bool gather = map != nullptr;
+  const int Nw = GLU ? 2 * N : N;
+  const int blocks = (Nw + 127) / 128;
+  const int ctas_k = partial != nullptr ? chunks : 1;
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);                     // the producer's expect_tx
+      mbar_init(&empty[s], 2);                    // one arrival per consumer warpgroup
     }
-    cp_async16(xs + i * G::kXPitch + q * 16, p, ok ? 16 : 0);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int e = tid; e < G; e += kGemmThreads) cnts[e] = counts != nullptr ? counts[e] : C;
+  __syncthreads();
+  if (tid < 32) {                                 // the groups with rows, in order,
+    int n = 0, total = 0;                         // and the prefix sums of their items
+    for (int base = 0; base < G; base += 32) {
+      const int e = base + tid;
+      const bool v = e < G && cnts[e] > 0;
+      const unsigned m = __ballot_sync(0xffffffffu, v);
+      const int pos = n + __popc(m & ((1u << tid) - 1u));
+      int own = v ? (cnts[e] + R - 1) / R * blocks * ctas_k : 0, inc = own;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int up = __shfl_up_sync(0xffffffffu, inc, o);
+        if (tid >= o) inc += up;
+      }
+      if (v) {
+        list[pos] = e;
+        start[pos] = total + inc - own;
+      }
+      n += __popc(m);
+      total += __shfl_sync(0xffffffffu, inc, 31);
+    }
+    if (tid == 0) {
+      start[n] = total;
+      srcs[0] = n;                                // handed over through srcs[0]
+    }
+  }
+  __syncthreads();
+  const int groups = srcs[0], items = start[groups];
+  __syncthreads();                                // srcs is the producer's from here on
+
+  if (tid >= 2 * 128) {                           // producer warpgroup
+    if (R > 16) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int pt = tid - 256;
+    if (!gather && pt != 0) return;
+    int it = 0;                                   // ring slot, counted over all items
+    for (int i = blockIdx.x; i < items; i += gridDim.x) {
+      const GemmItem I =
+          gemm_item<R, GLU>(i, list, cnts, start, groups, K, N, kper, blocks, ctas_k);
+      if (gather) {
+        producer_sync();                          // the last item's copies are all issued
+        for (int r = pt; r < I.live; r += 128) srcs[r] = map[I.g * C + I.m0 + r];
+        producer_sync();
+      }
+      for (int k0 = I.kb; k0 < I.ke; k0 += 64, ++it) {
+        const int s = it % S;
+        if (it >= S) mbar_wait(&empty[s], (it / S - 1) & 1);
+        uint8_t* st = ring + s * T::kStage;
+        if (pt == 0) {
+          // a short tile (at most 64 live rows, run at N 64) loads 64 rows
+          const bool short_tile = R > 64 && I.live <= 64;
+          mbar_expect_tx(&full[s], T::kW + (gather      ? I.live * 128
+                                            : short_tile ? 64 * 128
+                                                         : T::kX));
+          tma_3d(st, &p.w, I.c0, k0, I.g, &full[s]);
+          tma_3d(st + T::kBox, &p.w, I.c1, k0, I.g, &full[s]);
+          if (!gather)
+            tma_3d(st + T::kW, short_tile ? &p.xs : &p.x, k0, I.m0, I.g, &full[s]);
+        }
+        // a gathered row a copy, at its place in the tile: the 128-byte
+        // swizzle follows the shared-memory address, so each row lands
+        // where the tile's box would put it
+        if (gather)
+          for (int r = pt; r < I.live; r += 128)
+            tma_3d(st + T::kW + r * 128, &p.r, k0, srcs[r], 0, &full[s]);
+      }
+    }
+    return;
+  }
+
+  if (R > 16) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  // consumers: warpgroup wg runs the weight box wg (gate / up, or columns
+  // 0-63 / 64-127) over all R rows
+  const int wg = tid >> 7, wt = tid & 127;
+  const int lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  const int mrow = (wt >> 5) * 16 + gid;          // this thread's first weight column (+ 8)
+  float acc[NA], run[NA];
+#pragma unroll
+  for (int v = 0; v < NA; ++v) acc[v] = 0.f;
+  int it = 0;
+  for (int i = blockIdx.x; i < items; i += gridDim.x) {
+    const GemmItem I =
+        gemm_item<R, GLU>(i, list, cnts, start, groups, K, N, kper, blocks, ctas_k);
+#pragma unroll
+    for (int v = 0; v < NA; ++v) run[v] = 0.f;
+    int pend = -1;                                // the slot whose group may still run
+    for (int k0 = I.kb; k0 < I.ke; k0 += 64, ++it) {
+      const int s = it % S;
+      mbar_wait(&full[s], (it / S) & 1);
+      const uint32_t wbase = smem_addr(ring + s * T::kStage + wg * T::kBox);
+      const uint32_t xbase = smem_addr(ring + s * T::kStage + T::kW);
+      const int fresh = k0 % kper == 0 ? 0 : 1;   // a chunk's first step starts from 0
+      wgmma_fence();
+      if constexpr (R > 64) {
+        if (I.live <= 64) {                       // a short tile: its first 64 rows
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            WgmmaSS<64>::mma(acc, make_desc(wbase + kk * 16 * 128, T::kBox, 8 * 128, 1),
+                             make_desc(xbase + kk * 32, 16, 8 * 128, 1), kk > 0 ? 1 : fresh);
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            WgmmaSS<R>::mma(acc, make_desc(wbase + kk * 16 * 128, T::kBox, 8 * 128, 1),
+                            make_desc(xbase + kk * 32, 16, 8 * 128, 1), kk > 0 ? 1 : fresh);
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          WgmmaSS<R>::mma(acc, make_desc(wbase + kk * 16 * 128, T::kBox, 8 * 128, 1),
+                          make_desc(xbase + kk * 32, 16, 8 * 128, 1), kk > 0 ? 1 : fresh);
+      }
+      wgmma_commit();
+      const bool end = (k0 + 64) % kper == 0 || k0 + 64 >= I.ke;
+      if (end) {
+        wgmma_wait<0>();
+        fence_regs<NA>(acc);
+        if (wt == 0) {
+          if (pend >= 0) mbar_arrive(&empty[pend]);
+          mbar_arrive(&empty[s]);
+        }
+        pend = -1;
+#pragma unroll
+        for (int v = 0; v < NA; ++v) run[v] = __fadd_rn(run[v], acc[v]);
+      } else {
+        wgmma_wait<1>();
+        if (wt == 0 && pend >= 0) mbar_arrive(&empty[pend]);
+        pend = s;
+      }
+    }
+
+    const int cw = wg ? I.c1 : I.c0;              // this warpgroup's first weight column
+    if (ctas_k > 1) {
+      // split route: the chunk's sums, f32, straight from the fragments
+      // (8 consecutive columns of a row a quad: whole 32-byte sectors)
+      float* P = partial + ((size_t)(I.kc * G + I.g) * C + I.m0) * Nw;
+#pragma unroll
+      for (int v = 0; v < NA; ++v) {
+        const int n = (v >> 2) * 8 + 2 * tig + (v & 1), m = mrow + 8 * ((v >> 1) & 1);
+        const bool col_ok = GLU ? I.n0 + m < N : cw + m < N;
+        if (n < I.live && col_ok) P[(size_t)n * Nw + cw + m] = run[v];
+      }
+      continue;
+    }
+
+    consumer_sync();                              // the last item's stores have read osm
+    if (GLU) {
+      // even rows (v & 1 == 0) are consumer 0's, odd rows consumer 1's;
+      // each hands the other its sums for the other's rows
+      float* xg = reinterpret_cast<float*>(osm);  // gate sums of the odd rows
+      float* xu = xg + (R / 4) * 128;             // up sums of the even rows
+      // the rows of parity P are consumer P's (the branch on wg stays
+      // outside the unrolled loops, so no warp issues the other's work)
+      auto swiglu = [&](auto parity) {
+        constexpr int P = decltype(parity)::value;
+#pragma unroll
+        for (int v = 1 - P; v < NA; v += 2) (P ? xu : xg)[(v >> 1) * 128 + wt] = run[v];
+        consumer_sync();
+#pragma unroll
+        for (int v = P; v < NA; v += 2) {
+          const float other = (P ? xg : xu)[(v >> 1) * 128 + wt];
+          run[v] = P ? silu_mul(other, run[v]) : silu_mul(run[v], other);
+        }
+        consumer_sync();                          // the exchange is read; stage over it
+#pragma unroll
+        for (int v = P; v < NA; v += 2) {
+          const int n = (v >> 2) * 8 + 2 * tig + P, m = mrow + 8 * ((v >> 1) & 1);
+          reinterpret_cast<bf16*>(osm + n * T::kPitchGlu)[m] = __float2bfloat16_rn(run[v]);
+        }
+      };
+      if (wg == 0)
+        swiglu(std::integral_constant<int, 0>{});
+      else
+        swiglu(std::integral_constant<int, 1>{});
+    } else {
+#pragma unroll
+      for (int v = 0; v < NA; ++v) {
+        const int n = (v >> 2) * 8 + 2 * tig + (v & 1), m = mrow + 8 * ((v >> 1) & 1);
+        reinterpret_cast<bf16*>(osm + n * T::kPitch)[wg * 64 + m] = __float2bfloat16_rn(run[v]);
+      }
+    }
+    consumer_sync();
+    // whole rows, 16 bytes a thread; columns past N and rows past the
+    // count are not written
+    constexpr int CH = GLU ? 8 : 16;              // 16-byte chunks a staged row
+    constexpr int pitch = GLU ? T::kPitchGlu : T::kPitch;
+    bf16* obase = out + ((size_t)I.g * C + I.m0) * N + I.n0;
+    for (int idx = tid; idx < I.live * CH; idx += 256) {
+      const int r = idx / CH, ch = idx % CH;
+      if (I.n0 + ch * 8 < N)
+        *reinterpret_cast<uint4*>(obase + (size_t)r * N + ch * 8) =
+            *reinterpret_cast<const uint4*>(osm + r * pitch + ch * 16);
+    }
   }
 }
 
-// out (G, C, N) bf16, rows c < counts[g] (all C rows without counts).
-// GLU: N = F, w (G, K, 2F), out = silu(gate) * up; else w (G, K, N).
-template <int MT, bool GLU>
-__global__ void __launch_bounds__(Gemm<MT, GLU>::kThreads)
-    moe_gemm_kernel(const bf16* __restrict__ a, const int* __restrict__ map,
-                    const bf16* __restrict__ w, const int* __restrict__ counts,
-                    bf16* __restrict__ out, int C, int K, int N) {
-  using G = Gemm<MT, GLU>;
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int g = blockIdx.z;
-  const int cnt = counts != nullptr ? counts[g] : C;
-  const int m0 = blockIdx.x * MT, n0 = blockIdx.y * kBN;
-  if (m0 >= cnt) return;  // an empty expert, or rows past its count
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int warp_n = warp & 3, warp_m = warp >> 2;
-  const int nk = (K + kBK - 1) / kBK;
+// rows (G, C, K) <- a[map[g * C + c]] for c < counts[g]: the rows a
+// 128-row tile reads, gathered once a call so that the GEMM loads them as
+// TMA boxes (one copy a row a stage held its producer back at prefill).
+// grid (C, G); a thread 16 bytes at a time.
+__global__ void __launch_bounds__(128)
+    moe_gemm_gather_kernel(const bf16* __restrict__ a, const int* __restrict__ map,
+                           const int* __restrict__ counts, bf16* __restrict__ rows, int C,
+                           int K) {
+  const int c = blockIdx.x, g = blockIdx.y;
+  if (c >= counts[g]) return;
+  const uint4* src = reinterpret_cast<const uint4*>(a + (size_t)map[g * C + c] * K);
+  uint4* dst = reinterpret_cast<uint4*>(rows + ((size_t)g * C + c) * K);
+  for (int j = threadIdx.x; j < K / 8; j += 128) dst[j] = src[j];
+}
 
-  float acc[G::kMI][G::kN8][4];
+// out[g, c] from the split route's partials, rows c < counts[g]: each sum
+// s = 0; s += partial[chunk] in chunk order, then (GLU) silu(g) * u, one
+// rounding. grid (C, G); a thread 8 output columns at a time.
+template <bool GLU>
+__global__ void __launch_bounds__(128)
+    moe_gemm_sum_kernel(const float* __restrict__ partial, const int* __restrict__ counts,
+                        bf16* __restrict__ out, int G, int C, int N, int chunks) {
+  const int c = blockIdx.x, g = blockIdx.y;
+  if (c >= (counts != nullptr ? counts[g] : C)) return;
+  const int Nw = GLU ? 2 * N : N;
+  const size_t plane = (size_t)G * C * Nw;
+  const float* p0 = partial + ((size_t)g * C + c) * Nw;
+  for (int j = threadIdx.x * 8; j < N; j += 128 * 8) {
+    float s[8], u[8];
 #pragma unroll
-  for (int mi = 0; mi < G::kMI; ++mi)
+    for (int e = 0; e < 8; ++e) s[e] = u[e] = 0.f;
+    for (int ch = 0; ch < chunks; ++ch) {
+      const float* pc = p0 + ch * plane + j;
+      const float4 a0 = *reinterpret_cast<const float4*>(pc);
+      const float4 a1 = *reinterpret_cast<const float4*>(pc + 4);
+      const float va[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
 #pragma unroll
-    for (int j = 0; j < G::kN8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mi][j][i] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk)
-      load_stage<MT, GLU>(smem + s * G::kStage, a, map, w, g, C, cnt, K, N, s * kBK, n0, m0);
-    cp_async_commit();
-  }
-  // this lane's ldmatrix row addresses: A (trans) k row and column offset,
-  // B row and k chunk
-  const int a_k = (lane & 7) + ((lane >> 4) << 3), a_c = ((lane >> 3) & 1) * 8;
-  const int b_r = lane & 7, b_q = (lane >> 3) & 1;
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int nxt = kt + kStages - 1;
-    if (nxt < nk)
-      load_stage<MT, GLU>(smem + (nxt % kStages) * G::kStage, a, map, w, g, C, cnt, K, N,
-                          nxt * kBK, n0, m0);
-    cp_async_commit();
-    const uint8_t* ws = smem + (kt % kStages) * G::kStage;
-    const uint8_t* xs = ws + kBK * G::kWPitch;
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      uint32_t af[G::kMI][4];
-#pragma unroll
-      for (int mi = 0; mi < G::kMI; ++mi)
-        ldmatrix_x4_trans(af[mi], ws + (kk * 16 + a_k) * G::kWPitch +
-                                      (mi * kBN + warp_n * 16 + a_c) * 2);
-#pragma unroll
-      for (int j = 0; j < G::kN8; ++j) {
-        uint32_t b0, b1;
-        const int r = (warp_m * G::kN8 + j) * 8 + b_r;
-        ldmatrix_x2(b0, b1, xs + r * G::kXPitch + (kk * 2 + b_q) * 16);
-#pragma unroll
-        for (int mi = 0; mi < G::kMI; ++mi) mma_bf16(acc[mi][j], af[mi], b0, b1);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  const int gid = lane >> 2, tig = lane & 3;
-#pragma unroll
-  for (int j = 0; j < G::kN8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = m0 + (warp_m * G::kN8 + j) * 8 + 2 * tig + (i & 1);
-      const int col = n0 + warp_n * 16 + gid + (i >> 1) * 8;
-      if (row >= cnt || col >= N) continue;
-      float v = acc[0][j][i];
+      for (int e = 0; e < 8; ++e) s[e] = __fadd_rn(s[e], va[e]);
       if (GLU) {
-        const float s = __fdiv_rn(v, __fadd_rn(1.f, expf(-v)));
-        v = __fmul_rn(s, acc[G::kMI - 1][j][i]);
+        const float4 b0 = *reinterpret_cast<const float4*>(pc + N);
+        const float4 b1 = *reinterpret_cast<const float4*>(pc + N + 4);
+        const float vb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int e = 0; e < 8; ++e) u[e] = __fadd_rn(u[e], vb[e]);
       }
-      out[((size_t)g * C + row) * N + col] = __float2bfloat16_rn(v);
     }
+    uint4 res;
+    bf16* o = reinterpret_cast<bf16*>(&res);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[e] = __float2bfloat16_rn(GLU ? silu_mul(s[e], u[e]) : s[e]);
+    *reinterpret_cast<uint4*>(out + ((size_t)g * C + c) * N + j) = res;
+  }
 }
 
-template <int MT, bool GLU>
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* q = nullptr;
+    cudaDriverEntryPointQueryResult r;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &q, cudaEnableDefault, &r) ==
+            cudaSuccess &&
+        r == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(q);
+  }
+  return fn;
+}
+
+// a bf16 (d2, d1, d0) tensor, d0 contiguous, as a 3-D map with boxes of
+// b0 x b1 x 1 and the 128-byte swizzle; elements past the edges read as 0
+bool make_map(CUtensorMap* map, const void* base, int d0, int d1, int d2, int b0, int b1) {
+  const EncodeTiled fn = encoder();
+  if (!fn) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)d0 * 2, (cuuint64_t)d1 * d0 * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)b0, (cuuint32_t)b1, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+            box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+template <int R, bool GLU>
 cudaError_t launch_gemm(const bf16* a, const int* map, const bf16* w, const int* counts,
-                        bf16* out, int G_, int C, int K, int N, cudaStream_t stream) {
-  using G = Gemm<MT, GLU>;
-  auto kernel = moe_gemm_kernel<MT, GLU>;
-  static bool sized = false;
+                        bf16* out, float* partial, bf16* gathered, int G, int C, int K, int N,
+                        int rows, int kper, int ctas, cudaStream_t stream) {
+  using T = GemmGeo<R>;
+  auto kernel = moe_gemm_kernel<R, GLU>;
+  const int Nw = GLU ? 2 * N : N;
+  if (gathered != nullptr) {                      // the map's rows, gathered first
+    if (map == nullptr || counts == nullptr) return cudaErrorInvalidValue;
+    moe_gemm_gather_kernel<<<dim3(C, G), 128, 0, stream>>>(a, map, counts, gathered, C, K);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    a = gathered;
+    map = nullptr;
+  }
+  GemmMaps p;                                     // copied into the launch
+  memset(&p, 0, sizeof(p));
+  if (!make_map(&p.w, w, Nw, K, G, 64, 64) ||
+      (map == nullptr && !make_map(&p.x, a, K, C, G, 64, R)) ||
+      (map == nullptr && R > 64 && !make_map(&p.xs, a, K, C, G, 64, 64)) ||
+      (map != nullptr && !make_map(&p.r, a, K, rows, 1, 64, 1)))
+    return cudaErrorInvalidValue;
+  static bool sized = false;                      // once per instantiation (one device)
   if (!sized) {
     const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
     if (e != cudaSuccess) return e;
     sized = true;
   }
-  const dim3 grid((C + MT - 1) / MT, (N + kBN - 1) / kBN, G_);
-  kernel<<<grid, G::kThreads, G::kSmem, stream>>>(a, map, w, counts, out, C, K, N);
+  const int chunks = (K + kper - 1) / kper;
+  kernel<<<ctas, kGemmThreads, T::kSmem, stream>>>(p, a, map, counts, out, partial, G, C, K, N,
+                                                   kper, chunks);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || partial == nullptr) return e;
+  moe_gemm_sum_kernel<GLU><<<dim3(C, G), 128, 0, stream>>>(partial, counts, out, G, C, N, chunks);
   return cudaGetLastError();
 }
 
@@ -449,22 +890,38 @@ extern "C" int moe_route(const void* x, const void* w, void* logits, int T, int 
   return cudaGetLastError();
 }
 
-// glu: N = F (w (G, K, 2F)); else w (G, K, N). MT 8 where C <= 32 (decode:
-// one or a few row tiles), else 128.
+// glu: N = F (w (G, K, 2F)); else w (G, K, N); rows: a's rows (rows x
+// K). row_tile (16 or 128), k_per_chunk (a multiple of 64) and ctas (the
+// persistent grid) come from kernels/moe.py, the one place they are set;
+// partial (chunks, G, C, N') f32 selects the split route, null the walk
+// route; gathered (G, C, K) bf16, with a map, gathers the rows first.
+// Returns the launch's cudaError_t (0 on success), or -1 for a row tile
+// with no instance.
 extern "C" int moe_gemm(int glu, const void* a, const void* map, const void* w,
-                        const void* counts, void* out, int G, int C, int K, int N,
-                        void* stream) {
+                        const void* counts, void* out, void* partial, void* gathered, int G,
+                        int C, int K, int N, int rows, int row_tile, int k_per_chunk,
+                        int ctas, void* stream) {
+  if (G < 1 || G > kMaxGroups || C < 1 || K < 8 || K % 8 || N % 8 || rows < 1 ||
+      k_per_chunk < 64 || k_per_chunk % 64 || ctas < 1)
+    return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto a_ = static_cast<const bf16*>(a);
   const auto map_ = static_cast<const int*>(map);
   const auto w_ = static_cast<const bf16*>(w);
   const auto c_ = static_cast<const int*>(counts);
   const auto o_ = static_cast<bf16*>(out);
-  if (C <= 32)
-    return glu ? launch_gemm<8, true>(a_, map_, w_, c_, o_, G, C, K, N, s)
-               : launch_gemm<8, false>(a_, map_, w_, c_, o_, G, C, K, N, s);
-  return glu ? launch_gemm<128, true>(a_, map_, w_, c_, o_, G, C, K, N, s)
-             : launch_gemm<128, false>(a_, map_, w_, c_, o_, G, C, K, N, s);
+  const auto p_ = static_cast<float*>(partial);
+  const auto g_ = static_cast<bf16*>(gathered);
+#define GEMM_CASE(R_)                                                                      \
+  if (row_tile == R_)                                                                      \
+    return glu ? launch_gemm<R_, true>(a_, map_, w_, c_, o_, p_, g_, G, C, K, N, rows,    \
+                                       k_per_chunk, ctas, s)                               \
+               : launch_gemm<R_, false>(a_, map_, w_, c_, o_, p_, g_, G, C, K, N, rows,   \
+                                        k_per_chunk, ctas, s);
+  GEMM_CASE(16)
+  GEMM_CASE(128)
+#undef GEMM_CASE
+  return -1;
 }
 
 extern "C" int moe_combine(const void* y, const void* gates, const void* experts,

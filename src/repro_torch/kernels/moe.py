@@ -35,11 +35,15 @@ each expert's count. The design of each is described in the source.
 
 The shared experts (kimi-k2) run through the two GEMMs as one group of T
 rows with no counts and no map, so they round where the JAX MoE rounds
-them (moe.py:128-139). Each ``*_plain`` function is the plain PyTorch
-version with the same rounding points (an f32 product of the operands,
-one cast), looping over the experts that have rows; each wrapper runs
-it for CPU tensors only, and for a CUDA tensor launches its kernel or
-raises.
+them (moe.py:128-139). The GEMMs' tiling is set here, in plain
+functions the CPU tests hold: the row tile (``row_tile``), the chunks of
+K (``moe_gemm_plan``, from K, the weight width and the SM count alone),
+the route (``moe_gemm_split``), the gathering of mapped rows
+(``moe_gemm_gathers``) and the persistent grid (``moe_gemm_ctas``).
+Each ``*_plain`` function is the plain PyTorch version with the same
+rounding points (an f32 product of the operands, one cast), looping over
+the experts that have rows; each wrapper runs it for CPU tensors only,
+and for a CUDA tensor launches its kernel or raises.
 """
 from __future__ import annotations
 
@@ -57,7 +61,7 @@ MAX_EXPERTS = 1024
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ROUTE_ARGS = (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P)
-_GEMM_ARGS = (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+_GEMM_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)
 _COMBINE_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
 
 Route = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
@@ -227,24 +231,104 @@ def moe_down_plain(h: torch.Tensor, w: torch.Tensor,
     return out
 
 
+K_TILE = 64                   # k rows a stage of the GEMM ring
+COL_BLOCK = 128               # weight columns a work item (GLU: 64 gate + 64 up)
+ROW_TILES = (16, 128)         # the kernel's instances (wgmma's N)
+
+
+def row_tile(C: int) -> int:
+    """The GEMM's row tile for capacity C: 16 rows at decode (C <= 16),
+    else 128 (phi3.5-moe's 4 x 512 bucket, C 320, is three tiles, the
+    third empty for an expert of 256 rows or fewer)."""
+    return ROW_TILES[0] if C <= ROW_TILES[0] else ROW_TILES[1]
+
+
+def moe_gemm_plan(K: int, N: int, sms: int) -> Tuple[int, int]:
+    """(chunks, k_per_chunk): K cut into chunks of ``k_per_chunk`` rows,
+    a multiple of ``K_TILE`` (the last chunk holds the rest), so that two
+    active experts give at least ``sms`` work items of ``COL_BLOCK`` of
+    the N weight columns each. It depends on (K, N, sms) alone, never on
+    the counts, C, the active experts or the row tile, so a row's sums do
+    not depend on its batch-mates' routing."""
+    blocks = -(-N // COL_BLOCK)
+    k_tiles = -(-K // K_TILE)
+    want = min(k_tiles, max(1, -(-sms // (2 * blocks))))
+    per = -(-k_tiles // want) * K_TILE
+    return -(-K // per), per
+
+
+def moe_gemm_gathers(C: int, mapped: bool) -> bool:
+    """Rows through the map are gathered by a first kernel into (G, C, K)
+    past the 16-row tile (prefill), so that the GEMM loads them as TMA
+    boxes; at the 16-row tile the GEMM copies them itself, a row a copy."""
+    return mapped and C > ROW_TILES[0]
+
+
+def moe_gemm_split(C: int, chunks: int) -> bool:
+    """The split route: one row tile a group and more than one chunk, so
+    each chunk is a work item whose f32 sums a second kernel adds in
+    chunk order (two launches a call); else an item walks the chunks and
+    adds them in the same order itself (one launch)."""
+    return chunks > 1 and C <= row_tile(C)
+
+
+def moe_gemm_ctas(G: int, C: int, N: int, chunks: int, sms: int) -> int:
+    """The persistent grid: the call's work items (all groups counted),
+    at most two CTAs an SM at the 16-row tile and one past it."""
+    R = row_tile(C)
+    items = (G * -(-C // R) * -(-N // COL_BLOCK)
+             * (chunks if moe_gemm_split(C, chunks) else 1))
+    return min(items, sms * (2 if R == ROW_TILES[0] else 1))
+
+
+_SMS = {}
+
+
+def _sms(dev: torch.device) -> int:
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev]
+
+
+def gemm_launches(w: torch.Tensor, C: int, mapped: bool = False) -> int:
+    """Kernels a GEMM wrapper launches for w (G, K, N') on its device at
+    capacity C, rows through a map or not: the GEMM, one more on the
+    split route, one more where the rows are gathered first."""
+    chunks, _ = moe_gemm_plan(w.shape[1], w.shape[2], _sms(w.device))
+    return (1 + moe_gemm_split(C, chunks)
+            + moe_gemm_gathers(C, mapped))
+
+
 def _gemm(what: str, glu: int, a: torch.Tensor, src: Optional[torch.Tensor],
           w: torch.Tensor, counts: Optional[torch.Tensor], out: torch.Tensor,
           C: int, N: int) -> None:
-    G, K = w.shape[0], w.shape[1]
+    G, K, Nw = w.shape
     _require(a.dtype == w.dtype == torch.bfloat16,
              f"{what} kernel takes bf16 rows and weights, got {a.dtype}, "
              f"{w.dtype}")
     _require(K % 8 == 0 and N % 8 == 0,
              f"{what}: K {K} and N {N} must be multiples of 8")
+    _require(G <= MAX_EXPERTS, f"{what}: {G} groups (at most {MAX_EXPERTS})")
     for t in (counts, src):
         _require(t is None or t.dtype == torch.int32,
                  f"{what}: counts and the map are int32")
     _check_cuda(what, a, src, w, counts, out)
     if G == 0 or C == 0:
         return
+    sms = _sms(w.device)
+    chunks, kper = moe_gemm_plan(K, Nw, sms)
+    partial = gathered = None
+    if moe_gemm_split(C, chunks):
+        partial = torch.empty((chunks, G, C, Nw), dtype=torch.float32,
+                              device=w.device)
+    if moe_gemm_gathers(C, src is not None):
+        _require(counts is not None, f"{what}: a map needs the counts")
+        gathered = torch.empty((G, C, K), dtype=a.dtype, device=a.device)
     fn = build.function("moe", "moe_gemm", _GEMM_ARGS)
     err = fn(glu, a.data_ptr(), _ptr(src), w.data_ptr(), _ptr(counts),
-             out.data_ptr(), G, C, K, N, _stream(a))
+             out.data_ptr(), _ptr(partial), _ptr(gathered), G, C, K, N,
+             a.numel() // K, row_tile(C), kper,
+             moe_gemm_ctas(G, C, Nw, chunks, sms), _stream(a))
     build.check(err, what)
 
 
