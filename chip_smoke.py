@@ -52,11 +52,17 @@ Phases (any failed check raises and the process exits nonzero):
    ``gated_rmsnorm``) at mamba2-2.7b's widths: decode at 4 slots (one
    frozen) and 1 (y within one bf16 ulp, the conv state bit-equal, the
    SSD state within 1e-5 of its scale, frozen rows untouched), the conv
-   and the scan at S 1, 3, 37, 301 and 512 with and without a carried
-   state (the scan's y within one bf16 step, its state within
-   ``SSD_STATE_REL_TOL``), each timed beside its bound and its plain
-   version; ``quant_matmul`` at ``in_proj`` (2560 x 10576, a ragged
-   N) and ``out_proj`` under q8_0 and q4_0 at M 1, 4 and 512;
+   at S 1, 2, 3, 37 and 301 and the scan at S 1, 3, 37, 63, 64, 65, 301,
+   512 and 1100 (three slices) with and without a carried state (the
+   scan's y within one bf16 step, its state within
+   ``SSD_STATE_REL_TOL``; a sequence alone bit-equal to its row in a B 4
+   call and in a B 2 call of 1100; N 48 on 4 heads; the scan's peak
+   allocation at 1 x ``SSM_LONG_PROMPT`` within its output and one
+   slice's scratch), each timed beside its bound and its plain version; a
+   build check that fails on a ptxas spill or a serialized ``wgmma`` in
+   ``ssm.cu``;
+   ``quant_matmul`` at ``in_proj`` (2560 x 10576, a ragged N) and
+   ``out_proj`` under q8_0 and q4_0 at M 1, 4 and 512;
 4. main path: llama3.2-1b at full width (seeded random weights, q8_0
    weights, bf16 cache) served by ``repro_torch.launch.serve`` with 4
    slots, max_len 1024, 8-substep megasteps and chunked admission, 8
@@ -160,7 +166,11 @@ Phases (any failed check raises and the process exits nonzero):
    the fault beyond it in every layer, ms a step and tok/s beside the
    floor with its state term, a profiled q8_0 run for the idle share and
    the SSM kernels' device time; a q8_0 stall leg (prompts of 300, 301,
-   480 and 512 tokens: four exact-length buckets; streams against
+   480 and 512 tokens: four exact-length buckets, each prefill call's
+   device ms by kernel group; then one prompt of ``SSM_LONG_PROMPT``
+   tokens served alone, its stream against ``reference_decode`` and the
+   card's peak allocation over the engine's while it is served; streams
+   against
    ``reference_decode(stepwise_prefill=False)``, one fused 4 x 300
    prefill against the plain versions within ``SSM_PREFILL_REL_TOL``
    beside the planted fault, and layer by layer as the decode step), a
@@ -207,8 +217,10 @@ PAGE = 16                          # the paged path's and legs' page size
 # ssd_prefill's final f32 state against the plain scan's (chunks of 64,
 # masked, against the JAX rule's 256 halved to fit S), as a share of its
 # largest magnitude. Measured on an H100 at mamba2-2.7b's widths: at most
-# 4.5e-6 (B 4, S 512); y within one bf16 step of its scale, at most 8.9e-4
-# of it (PERF.md, Findings).
+# 4.5e-6 (B 4, S 512) for the f32 CUDA-core kernel, 8.2e-6 (B 1, S 63,
+# from zeros) for the tensor-core kernel with its f32 operands split in
+# three; y within one bf16 step of its scale, at most 1.9e-3 of it
+# (PERF.md, Findings).
 SSD_STATE_REL_TOL = 5e-5
 # Kernels vs plain versions through one whole decode step, and one fused
 # 4 x 300 prefill, of mamba2-2.7b, as a share of the largest logit. Each of
@@ -224,6 +236,9 @@ SSM_STEP_REL_TOL = 5e-2
 SSM_PREFILL_REL_TOL = 0.35
 # the SSM family's stall leg: four exact-length buckets, one of them odd
 SSM_STALL_PROMPTS = (300, 301, 480, 512)
+# and the longest prompt it serves (the engine takes an SSM prompt of any
+# length at its exact length): eight of the scan's slices of 512
+SSM_LONG_PROMPT = 4096
 # phi3.5-moe-42b-a6.6b's depth on one 80 GB card: its bf16 weights are
 # 2.6 GB a layer (16 experts of 157 MB), 83.8 GB at its 32 layers
 MOE_LAYERS = 24
@@ -375,12 +390,13 @@ def bf16_tol(ref) -> float:
 
 # a kernel's group is the first whose name its name holds: gated_rmsnorm
 # and add_rmsnorm before rmsnorm, the prefill RoPE before the decode one,
-# the fused gate-up GEMM before quant_matmul
+# the fused gate-up GEMM before quant_matmul; the scan's two kernels (its
+# state walk and its chunk outputs) apart
 GROUPS = ("decode_attention", "quant_matmul_swiglu", "quant_matmul",
           "gated_rmsnorm", "add_rmsnorm", "rmsnorm", "swiglu",
           "rope_cache_write_prefill", "rope_cache_write", "flash_attention",
-          "moe_route", "moe_gemm", "moe_combine", "ssm_decode",
-          "ssd_prefill", "ssm_conv", "memcpy", "other")
+          "moe_route", "moe_gemm", "moe_combine", "ssm_decode", "ssd_prefill_state", "ssd_prefill_out", "ssm_conv",
+          "memcpy", "other")
 
 
 def group_of(name: str) -> str:
@@ -997,14 +1013,15 @@ def main() -> None:
     libs, secs = build.build()
     print(f"build: {sorted(libs)} in {secs:.1f}s "
           f"({build.BUILD_DIR})", flush=True)
-    # flash_attention overlaps its wgmma groups with the softmax and the
-    # grouped expert GEMM its k steps with the next stage's wait; ptxas
-    # may serialize them instead, which it reports
+    # flash_attention overlaps its wgmma groups with the softmax, the
+    # grouped expert GEMM its k steps with the next stage's wait and the
+    # SSD scan its products with the decay matrix; ptxas may serialize
+    # them instead, which it reports
     for stem in sorted(libs):
         notes = build.perf_notes(stem)
         print(f"  ptxas on {stem}.cu: {len(notes)} performance warnings"
               + "".join(f"\n    {n[:200]}" for n in notes), flush=True)
-        check(stem not in ("flash_attention", "moe") or not notes,
+        check(stem not in ("flash_attention", "moe", "ssm") or not notes,
               f"ptxas serialized {stem}.cu's wgmma groups")
     # the fused gate-up kernels keep quant_matmul's budget (two CTAs an
     # SM, at most 128 registers a thread) without spilling
@@ -1048,8 +1065,8 @@ def main() -> None:
         check(st_b == 0 and ld_b == 0, f"ptxas spilled registers in {fn}")
     check(gemm_instances == 4, f"moe.cu: {gemm_instances} moe_gemm_kernel "
           "instances in ptxas's report, not 4")
-    # the SSM kernels keep their registers (the scan holds 16 running sums
-    # a thread in each of its three products)
+    # the SSM kernels keep their registers (the scan's output kernel holds
+    # C B^T, the split decay matrix and its accumulator a thread)
     for fn, regs, st_b, ld_b in build.ptxas_usage("ssm"):
         short = re.search(r"\d((?:ssm|ssd|gated)_\w+?_kernel)", fn)
         print(f"  ptxas on ssm.cu: {short.group(1) if short else fn}: "
@@ -2681,17 +2698,18 @@ def main() -> None:
     s_F = 2 * s_di + 2 * sN + sH                  # in_proj's width, 10576
 
     def ssm_row(name, kern, plain, copies, nbytes, flops, replaces, shape,
-                path, err, tol, per_call=1):
+                path, err, tol, per_call=1, peak=F32_FLOPS, extra=None):
         """Time an SSM kernel and its plain version, and keep its row. No
-        single PyTorch call computes any of the four (``F.conv1d`` with
-        groups has no silu and no state), so ``library_ms`` is null. The
-        scan's operations are f32 on CUDA cores: its bound is their count
-        at 67 TFLOP/s (the H100's f32 peak), or its bytes."""
+        single PyTorch call computes any of them (``F.conv1d`` with groups
+        has no silu and no state), so ``library_ms`` is null. The bound is
+        the bytes, or the counted operations at ``peak``: the f32 CUDA-core
+        rate (67 TFLOP/s) for the decode kernels, the tensor cores' 989
+        TFLOP/s for the scan."""
         ms, call_ms = time_calls(kern, copies, 100, per_call=per_call)
         attempts = time_calls.attempts
         plain_ms, _ = time_calls(plain, copies, 10)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_FLOPS * 1e3
+        t_ops = flops / peak * 1e3
         t_bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else \
             (t_ops, "operations")
         rows[name] = dict(
@@ -2700,7 +2718,7 @@ def main() -> None:
             max_abs_err=err, tol=tol, ms=ms, call_ms=call_ms,
             plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
             library_ms=None, library=None, grid=None,
-            trace_attempts=attempts)
+            trace_attempts=attempts, **(extra or {}))
         print(f"    device ms {ms:.4f} (per call back to back {call_ms:.4f};"
               f" {attempts} trace(s))  plain {plain_ms:.4f}  bound "
               f"{t_bound:.4f} ({by}, {nbytes / 1e6:.3f} MB, "
@@ -2844,10 +2862,11 @@ def main() -> None:
         ssd_readings.append((err / float(ref.float().abs().max()), s_err))
         if not timed:
             return
-        # the f32 operations the function needs in the kernel's chunks: C
-        # B^T and M x over the causal pairs k <= q only, the state's two
-        # products over the real positions (not the last chunk's masked
-        # tail)
+        # the operations the function needs in the kernel's chunks, counted
+        # once (the kernel runs each f32 operand's product three times, one
+        # a bf16 part): C B^T and M x over the causal pairs k <= q only, the
+        # state's two products over the real positions (not the last
+        # chunk's masked tail); bound at the tensor cores' rate
         Q, flops = ssm_kernels.SCAN_CHUNK, 0.0
         for c0 in range(0, S, Q):
             q = min(Q, S - c0)
@@ -2865,7 +2884,92 @@ def main() -> None:
                                             sp["A_log"], sp["D"], s, carry,
                                             mamba.ssm_chunk),
                 copies, nbytes, flops, "src/repro/models/ssm.py:68 (jnp)",
-                shape, path, err, tol)
+                shape, path, err, tol,
+                per_call=ssm_kernels.scan_launches(S), peak=BF16_FLOPS,
+                extra=dict(
+                    launches_per_call=ssm_kernels.scan_launches(S),
+                    f32_cuda_core_bound_ms=flops / F32_FLOPS * 1e3))
+
+    def ssd_alone_case(sp, B=4, S=300):
+        """A sequence alone is bit-equal to its row in a B-row call (y and
+        the final state): nothing in the scan's plan depends on B."""
+        zx, z, xbc_raw, dtr = ssm_rows_in(B, S)
+        xbc = ssm_conv_plain(xbc_raw, sp["w"], sp["b"], torch.zeros(
+            (B, mamba.ssm_conv - 1, s_C), dtype=torch.bfloat16, device=dev))
+        with drawing_from(gen_ssm):
+            state = randn(B, sH, sP, sN, scale=0.3)
+        sb = state.clone()
+        yb = ssd_prefill(xbc, dtr, sp["dt_bias"], sp["A_log"], sp["D"], sb,
+                         True)
+        equal = []
+        for r in range(B):
+            s1 = state[r:r + 1].clone()
+            y1 = ssd_prefill(xbc[r:r + 1], dtr[r:r + 1], sp["dt_bias"],
+                             sp["A_log"], sp["D"], s1, True)
+            equal.append(torch.equal(y1, yb[r:r + 1])
+                         and torch.equal(s1, sb[r:r + 1]))
+        torch.cuda.synchronize()
+        print(f"  ssd_prefill B{B} S{S}: each sequence alone bit-equal to its "
+              f"row of the batch (y and state): {equal}", flush=True)
+        check(all(equal), f"ssd_prefill: a sequence alone differs from its "
+              f"row in a B {B} call: {equal}")
+
+    def ssd_small_state_case(sp, H=4, N=48, B=2, S=130):
+        """N below the kernel's 128 (zero columns in its tiles) on a few
+        heads, against the plain scan."""
+        with drawing_from(gen_ssm):
+            xbc = F.silu(randn(B, S, H * sP + 2 * N)).bfloat16()
+            dtr = randn(B, S, H).bfloat16()
+            state = randn(B, H, sP, N, scale=0.3)
+        a1, a2 = state.clone(), state.clone()
+        args = (sp["dt_bias"][:H], sp["A_log"][:H], sp["D"][:H])
+        y = ssd_prefill(xbc, dtr, *args, a1, True)
+        ref = ssd_prefill_plain(xbc, dtr, *args, a2, True, mamba.ssm_chunk)
+        torch.cuda.synchronize()
+        err = float((y.float() - ref.float()).abs().max())
+        tol = bf16_tol(ref)
+        s_err = float((a1 - a2).abs().max()) / float(a2.abs().max())
+        print(f"  ssd_prefill B{B} S{S} H{H} N{N}: y max_abs_err {err:.3e} "
+              f"(tol {tol:.3e}); state {s_err:.3e} of its scale", flush=True)
+        check(err <= tol and s_err <= SSD_STATE_REL_TOL,
+              f"ssd_prefill N{N}: y {err} (tol {tol}), state {s_err}")
+        ssd_readings.append((err / float(ref.float().abs().max()), s_err))
+
+    def ssd_memory_case(sp, B=1, S=None):
+        """The card's peak allocation over one call at B x S
+        (``SSM_LONG_PROMPT``): at most y and one slice's f32 scratch of
+        incoming states (``SCAN_SLICE`` chunks a sequence, whatever S),
+        against ``ceil(S / 64)`` chunks' unsliced."""
+        S = S or SSM_LONG_PROMPT
+        zx, z, xbc, dtr = ssm_rows_in(B, S)
+        with drawing_from(gen_ssm):
+            state = randn(B, sH, sP, sN, scale=0.3)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y = ssd_prefill(xbc, dtr, sp["dt_bias"], sp["A_log"], sp["D"], state,
+                        True)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        chunk_bytes = B * sH * sP * sN * 4
+        nc = -(-S // ssm_kernels.SCAN_CHUNK)
+        scratch = min(nc, ssm_kernels.SCAN_SLICE) * chunk_bytes
+        y_bytes = y.numel() * y.element_size()
+        print(f"  ssd_prefill B{B} S{S}: peak allocation over the inputs "
+              f"{peak / 2 ** 20:.1f} MiB (y {y_bytes / 2 ** 20:.1f} MiB, one "
+              f"slice's scratch {scratch / 2 ** 20:.1f} MiB; unsliced "
+              f"{nc * chunk_bytes / 2 ** 20:.1f} MiB), "
+              f"{ssm_kernels.scan_launches(S)} launches", flush=True)
+        check(peak <= y_bytes + scratch + 2 * 2 ** 20,
+              f"ssd_prefill B{B} S{S}: peak {peak} bytes over y {y_bytes} + "
+              f"scratch {scratch}")
+        check(bool(torch.isfinite(y.float()).all())
+              and bool(torch.isfinite(state).all()),
+              f"ssd_prefill B{B} S{S}: nonfinite output")
+        ssd_memory.update(B=B, S=S, peak_bytes=peak, y_bytes=y_bytes,
+                          scratch_bytes=scratch,
+                          unsliced_scratch_bytes=nc * chunk_bytes,
+                          launches=ssm_kernels.scan_launches(S))
 
     def gated_case(sp, B, S, timed=False, path=None):
         """rmsnorm(y * silu(z)) within one bf16 ulp, z read in place from
@@ -2898,10 +3002,11 @@ def main() -> None:
     def ssm_kernel_cases():
         """The four SSM kernels against their plain versions at
         mamba2-2.7b's widths: decode at 4 slots (one frozen) and 1; the
-        conv and the scan at S 1, 3, 37, 301 and 512, with and without a
-        carried state; then ``quant_matmul`` at ``in_proj`` (2560 x 10576,
-        a ragged 80-column edge) and ``out_proj`` (5120 x 2560) under q8_0
-        and q4_0 at M 1, 4 and 512."""
+        conv and the scan at several S (the scan past one slice too), with
+        and without a carried state, a sequence alone against its batch
+        row, N 48, the scan's peak allocation at a long prompt; then ``quant_matmul`` at ``in_proj`` (2560 x 10576, a ragged
+        80-column edge) and ``out_proj`` (5120 x 2560) under q8_0 and q4_0
+        at M 1, 4 and 512."""
         sp = ssm_params()
         ssm_conv_case(sp, 4, 1, [True, False, True, True], timed=True,
                       path="ssm q8_0")
@@ -2914,12 +3019,16 @@ def main() -> None:
                         path="ssm q8_0")
         ssm_decode_case(sp, 1, [True], timed=True, path="ssm q8_0 alone")
         ssm_decode_case(sp, 2, [False, True])
-        for S in (1, 3, 37, 301, 512):
+        for S in (1, 3, 37, 63, 64, 65, 301, 512, 1100):
             for carry in (True, False):
                 ssd_prefill_case(sp, 1, S, carry,
                                  timed=(S == 512 and not carry),
                                  path="ssm stall")
         ssd_prefill_case(sp, 4, 300, False, timed=True, path="ssm stall")
+        ssd_alone_case(sp)
+        ssd_alone_case(sp, B=2, S=1100)
+        ssd_small_state_case(sp)
+        ssd_memory_case(sp)
         gated_case(sp, 4, 1, timed=True, path="ssm q8_0")
         gated_case(sp, 1, 1, timed=True, path="ssm q8_0 alone")
         gated_case(sp, 1, 512, timed=True, path="ssm stall")
@@ -2944,7 +3053,7 @@ def main() -> None:
               f"state at most {r_s:.3e} of its scale (tol "
               f"{SSD_STATE_REL_TOL:.0e})", flush=True)
 
-    ssd_readings = []
+    ssd_readings, ssd_memory = [], {}
     print("SSM kernels vs plain versions on the card:", flush=True)
     t0 = time.perf_counter()
     ssm_kernel_cases()
@@ -3605,23 +3714,25 @@ def main() -> None:
         moe_counts[key] = check_served(eng, reqs, label, warm, after_warm)
         return wall
 
-    def profile_prefill_call(eng, reqs, label):
-        """The requests served again by the (reset) engine with its one
-        prefill call under the profiler: (device ms by kernel group, the
-        call's wall ms). The engine is left as it was."""
-        groups = dict.fromkeys(GROUPS, 0.0)
-        walls = []
+    def profile_prefill_calls(eng, reqs, label):
+        """The requests served again by the (reset) engine with each of its
+        prefill calls under the profiler: [(the call's bucket length,
+        device ms by kernel group, the call's wall ms)], in call order. The
+        engine is left as it was."""
+        calls = []
         impl = eng._prefill_impl
 
         def profiled(*args):
+            groups = dict.fromkeys(GROUPS, 0.0)
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 first = impl(*args)
                 torch.cuda.synchronize()
-                walls.append(1e3 * (time.perf_counter() - t0))
+                wall = 1e3 * (time.perf_counter() - t0)
             for e in prof.events():
                 if e.device_type == DeviceType.CUDA:
                     groups[group_of(e.name)] += e.time_range.elapsed_us() / 1e3
+            calls.append((int(args[0].shape[1]), groups, wall))
             return first
 
         eng.reset()
@@ -3636,9 +3747,15 @@ def main() -> None:
             del eng._prefill_impl           # the class's method again
         check([r.output for r in replay] == [r.output for r in reqs],
               f"{label}: the profiled replay served other tokens")
-        check(len(walls) == 1, f"{label}: {len(walls)} prefill calls in "
+        return calls
+
+    def profile_prefill_call(eng, reqs, label):
+        """``profile_prefill_calls`` of requests served in one prefill call:
+        (device ms by kernel group, the call's wall ms)."""
+        calls = profile_prefill_calls(eng, reqs, label)
+        check(len(calls) == 1, f"{label}: {len(calls)} prefill calls in "
               "the profiled replay, not one")
-        return groups, walls[0]
+        return calls[0][1], calls[0][2]
 
     def moe_phase():
         t_phase = time.perf_counter()
@@ -3951,7 +4068,8 @@ def main() -> None:
         t_phase = time.perf_counter()
         out = dict(kernel_cases_s=ssm_kernel_s, checks_s=0.0,
                    ssd_prefill_max_rel_err=[max(r[i] for r in ssd_readings)
-                                            for i in (0, 1)])
+                                            for i in (0, 1)],
+                   ssd_prefill_memory=ssd_memory)
         print(f"SSM path: {ssm_arch} at full width and depth "
               f"({get_config(ssm_arch).num_layers} layers), bf16 / q8_0 / "
               "q4_0 weights (served by launch.serve)", flush=True)
@@ -4009,7 +4127,8 @@ def main() -> None:
                           f"update {g['ssm_decode']:.3f}, gated norm "
                           f"{g['gated_rmsnorm']:.3f}) of "
                           f"{prof['device_ms_per_step']:.3f}; device idle "
-                          f"share {prof['device_idle_share']:.3f}",
+                          f"share {prof['device_idle_share']:.3f}; CUDA "
+                          f"events a megastep {prof['events_per_megastep']}",
                           flush=True)
                     cell.update(prof, ssm_device_ms_per_step=ssm_ms)
                 if fmt == "q8_0" and slots == 4:
@@ -4046,13 +4165,58 @@ def main() -> None:
                 f"{label}: request {r.uid} differs from reference_decode("
                 "stepwise_prefill=False)")
         served_s = time.perf_counter() - t0
+        # each bucket's prefill call under the profiler (card only)
+        calls = profile_prefill_calls(seng, reqs, label)
+        check(sorted(c[0] for c in calls) == sorted(SSM_STALL_PROMPTS),
+              f"{label}: profiled prefill calls at {[c[0] for c in calls]}")
+        by_bucket = {}
+        for S, groups, wall in calls:
+            busy = sum(groups.values())
+            check(groups["ssd_prefill_state"] > 0.0
+                  and groups["ssd_prefill_out"] > 0.0,
+                  f"{label}: the {S}-token prefill call's trace lacks a "
+                  "scan kernel")
+            by_bucket[S] = dict(device_ms=busy, wall_ms=wall,
+                                device_ms_by_group={
+                                    g: ms for g, ms in groups.items() if ms})
+            print(f"  {label}: the 1 x {S} prefill call: {busy:.3f} device "
+                  f"ms (wall {wall:.3f}); by group "
+                  + ", ".join(f"{g} {ms:.3f}" for g, ms in groups.items()
+                              if ms), flush=True)
         out["stall"] = prefill_vs_plain(seng, [300] * 4, label,
                                         tol=SSM_PREFILL_REL_TOL)
+        out["stall"]["prefill_calls_by_bucket"] = by_bucket
         out["stall"].update(ssm_layers_vs_plain(seng, label, [300] * 4))
         out["stall"]["served_s"] = served_s
         out["checks_s"] += time.perf_counter() - t0 - served_s
         print(f"  {label}: four exact-length prefill calls; streams == "
               "reference_decode(stepwise_prefill=False)", flush=True)
+        # the longest prompt, served alone: the card's peak allocation over
+        # the engine's own (weights, states, graph pools) while it is served
+        long_req = Request(uid=100, prompt=rng.integers(
+            1, model.cfg.vocab_size, SSM_LONG_PROMPT).astype(np.int32),
+            max_new_tokens=4)
+        seng.reset()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t_long = time.perf_counter()
+        seng.submit(long_req)
+        seng.run()
+        torch.cuda.synchronize()
+        long_s = time.perf_counter() - t_long
+        long_peak = torch.cuda.max_memory_allocated() - base
+        check(long_req.output == model.reference_decode(
+            params, long_req.prompt, 4, max_len=1024, stepwise_prefill=False),
+            f"{label}: the {SSM_LONG_PROMPT}-token request differs from "
+            "reference_decode(stepwise_prefill=False)")
+        print(f"  {label}: one {SSM_LONG_PROMPT}-token prompt served in "
+              f"{long_s:.3f} s, == reference_decode(stepwise_prefill=False);"
+              f" peak allocation over the engine's {long_peak / 2 ** 20:.1f} "
+              f"MiB (engine {base / 2 ** 30:.2f} GiB)", flush=True)
+        out["stall"]["long_prompt"] = dict(
+            tokens=SSM_LONG_PROMPT, served_s=long_s, peak_bytes=long_peak,
+            engine_bytes=base)
         del seng
         # under q4_0 each admission mode meets its own reference: chunked
         # (the 4-slot cell) the stepwise one, stall the fused one

@@ -11,34 +11,69 @@
 // and XLA fuses what it can inside the jitted megastep and prefill.
 // Eagerly, one decode step of the layer is about ten PyTorch launches, each
 // reading or writing the layer's f32 state (10.5 MB at 4 slots of
-// mamba2-2.7b); the scan builds (B, Q, Q, H) f32 tensors a chunk. Each
-// kernel here is one launch.
+// mamba2-2.7b); the scan builds (B, Q, Q, H) f32 tensors a chunk.
 //
-// Bounds.
+// Bounds and designs.
 // - ssm_conv and gated_rmsnorm: bytes. One pass over their rows, reading
 //   each input once (the gated norm keeps a row in registers, its loads
-//   in flight together: a decode step has only B rows, one CTA each); at
-//   decode they are a few hundred kilobytes, so the launch latency bounds
-//   them.
+//   in flight together); at decode they are a few hundred kilobytes, so
+//   the launch latency bounds them. Folding the decode's gated norm into
+//   ssm_decode_update's launch (the CTA that takes a slot's last ticket
+//   normalizes the row) was bit-equal and slower on the card (PERF.md).
 // - ssm_decode_update: bytes. The state (B, H, P, N) f32 is read once and
 //   written once, in place; a warp takes one (slot, head, p) row of N
 //   states in 16-byte loads, a CTA eight rows, so one slot of 80 heads of
 //   64 is 640 CTAs on 132 SMs (the split along P fills the card at 1 slot).
-// - ssd_prefill: operations, in f32 on CUDA cores. A CTA takes one
-//   (sequence, head, 32 columns of P) and walks the chunks in order,
-//   carrying its (32, N) state in shared memory. A chunk of kQ = 64
-//   positions: C B^T (64 x 64 over N), the decay matrix
-//   M = exp(L_q - L_k) C_q.B_k dt_k for k <= q (the segment-sum form: L
-//   is the chunk's own running sum of dt * A, so no quotient of two
-//   exponentials can underflow to 0/0 over a long prompt), y = M x +
-//   exp(L_q) C s^T, and s <- s exp(L_last) + sum_k exp(L_last - L_k)
-//   dt_k x_k B_k. The chunk is fixed and the last one masked (dt 0, x, B
-//   and C 0 past the prompt, which leave the state alone), so an
-//   exact-length prefill of any length scans whole chunks; the JAX rule
-//   halves its chunk until it divides S, down to one position for an odd
-//   S. The algorithm is exact: only the rounding differs from the plain
-//   scan. C B^T is recomputed by each of a sequence's 2H CTAs; a
-//   tensor-core design that shares it is later work.
+// - ssd_prefill: two launches a slice of at most `slice` chunks (the
+//   caller's, kernels/ssm.py's SCAN_SLICE), the slices in order, so its
+//   f32 scratch of incoming states holds one slice's chunks, not the
+//   prompt's; a slice's walk starts from the state the last one wrote,
+//   which holds the walk's accumulator exactly, so the slices change no
+//   bit of y or of the state. Chunks of kQ = 64 positions, the last
+//   one masked (dt 0, x, B and C 0 past the prompt, which leave the state
+//   alone), so an exact-length prefill of any length scans whole chunks; L
+//   is a chunk's own running sum of dt * A (a warp scan), and exp(L_q -
+//   L_k) is taken only for k <= q (the segment-sum form: no quotient of
+//   two exponentials, which could underflow to 0/0).
+//   1. ssd_prefill_state_kernel, a CTA a (sequence, head, 64 columns of
+//      the state), the state passing: it walks the chunks in order with
+//      its (P x 64) f32 state in the wgmma accumulator, writes each
+//      chunk's incoming state s_in to scratch, then acc = acc exp(L_last)
+//      and acc += sum_k exp(L_last - L_k) dt_k x_k B_k^T, the chunk state
+//      accumulated onto the decayed state by the tensor cores; the final
+//      state goes into the state. Chunk tiles come through a ring of
+//      kWalkStages stages.
+//   2. ssd_prefill_out_kernel, a CTA a (chunk, 2 heads, sequence), chunk-
+//      parallel: C B^T once for its heads, then per head y = exp(L_q) C
+//      s_in^T + M x with M = exp(L_q - L_k) C_q.B_k dt_k (k <= q), rounded,
+//      plus the D skip.
+//   Every product is a wgmma m64n64k16 (the chunk is wgmma's 64 rows; P =
+//   64): C B^T (k N) and C s^T (k N) with C and B or s K-major in shared
+//   memory; M x (k 64) and the chunk state (x w)^T B (k 64) with M or
+//   (x w)^T in registers and x or B N-major (the descriptor's transpose
+//   bit). x, B and C are bf16, so their products are exact in f32; M, s
+//   and x w are f32, each split into three bf16 parts (hi, mid, lo: 24
+//   significant bits, the f32 value exactly), three products where one
+//   would do, so each product is as exact as an f32 fma; the sums are the
+//   tensor cores' f32 accumulation. Tiles come by cp.async from the
+//   strided rows into the 128-byte swizzle (zero past S and N), then a
+//   proxy fence for wgmma; f32 outputs are staged in shared memory and
+//   stored whole rows at a time (fragment stores, 32 bytes a row, were
+//   slower).
+//   Bound: bytes at mamba2's shapes (the counted operations at 989
+//   TFLOP/s take a third of the bytes' time); the incoming states pass
+//   through device memory twice, which the bound does not count. What
+//   holds it back (PERF.md): each step is a few thousand dependent
+//   instructions of one warpgroup (the split, the decay, the staging), and
+//   at B 1 the walk has 160 chains of ceil(S / 64) steps for 132 SMs; the
+//   output kernel runs two CTAs an SM (255 registers, 101 KB). Tried and
+//   no faster: the chunk states chunk-parallel with a separate passing
+//   kernel (its states read and written once more), four or one heads a
+//   CTA, prefetching the next head's state by cp.async at one CTA an SM,
+//   building the next chunk's operand during the products, and C s^T in
+//   two passes over N.
+//   A sequence's CTAs read only its rows: its y and final state do not
+//   depend on B or the other sequences, bit for bit.
 //
 // Numerics follow the plain PyTorch versions in kernels/ssm.py op for op
 // (the _rn intrinsics keep nvcc from contracting products and sums into
@@ -66,9 +101,12 @@ constexpr int kWidth = 4;          // the conv's width (every config's)
 constexpr int kDecRows = 8;        // decode: p rows a CTA, a warp each
 constexpr int kNormThreads = 256;
 constexpr int kNormRuns = 4;       // gated norm: 8-element runs a thread keeps
-constexpr int kQ = 64;             // the prefill scan's chunk
-constexpr int kPT = 32;            // the prefill scan's columns of P a CTA
-constexpr int kScanThreads = 256;
+constexpr int kQ = 64;             // the prefill scan's chunk (wgmma's M)
+constexpr int kHP = 64;            // the scan's head dim P (a 128-byte row)
+constexpr int kNS = 128;           // the state width the scan's tiles hold
+constexpr int kOutHeads = 2;       // heads a CTA of ssd_prefill_out_kernel (share C B^T)
+constexpr int kScanThreads = 128;  // one warpgroup
+constexpr int kBox = 64 * 128;     // a swizzled box: 64 rows of 128 bytes
 
 __device__ __forceinline__ float f(bf16 v) { return __bfloat162float(v); }
 // v rounded to bf16, as a bf16 op's result is
@@ -226,170 +264,490 @@ __global__ void __launch_bounds__(kNormThreads)
   }
 }
 
-// ------------------------------------------------------- chunked SSD scan --
-// Shared memory: B and C of the chunk (kQ x N, rows padded to N + 1 so a
-// warp reading one column across rows hits 32 banks), the state (kPT x N,
-// padded), M (kQ x kQ, padded), x (kQ x kPT, padded), and L, dt and the
-// state weights exp(L_last - L_k) dt_k.
-__host__ __device__ constexpr size_t scan_smem(int N) {
-  return sizeof(float) * ((size_t)2 * kQ * (N + 1) + (size_t)kPT * (N + 1) +
-                          (size_t)kQ * (kQ + 1) + (size_t)kQ * (kPT + 1) + 3 * kQ);
+// ------------------------------------------------- chunk-parallel SSD scan --
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
 }
 
-// grid (ceil(P / kPT), H, B)
+// 16 bytes global -> shared; src_bytes 0 fills them with zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+// this thread's shared-memory writes, visible to wgmma's (async proxy) reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Byte offset of bf16 element (r, c) of a tile of 64 rows held in boxes of
+// 64 columns (128-byte rows), with the 128-byte swizzle: the 16-byte chunk
+// j of row r at chunk j ^ (r % 8). Boxes are 1024-byte aligned.
+__device__ __forceinline__ int swz(int r, int c) {
+  return (c >> 6) * kBox + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4) + ((c & 7) << 1);
+}
+
+// Rows [0, 64) x columns [0, W) of a bf16 tile, row r at src + r * ld, by
+// cp.async into the swizzled layout; rows >= nrows and columns >= ncols (a
+// multiple of 8) are zero.
+template <int W>
+__device__ __forceinline__ void load_tile(uint8_t* tile, const bf16* src, long long ld, int nrows,
+                                          int ncols) {
+  constexpr int kRowChunks = W / 8;
+  for (int i = threadIdx.x; i < 64 * kRowChunks; i += kScanThreads) {
+    const int r = i / kRowChunks, c = (i % kRowChunks) * 8;
+    const bool ok = r < nrows && c < ncols;
+    cp_async16(tile + swz(r, c), ok ? src + r * ld + c : src, ok ? 16 : 0);
+  }
+}
+
+__device__ __forceinline__ float tile_at(const uint8_t* tile, int r, int c) {
+  return f(*reinterpret_cast<const bf16*>(tile + swz(r, c)));
+}
+
+// v = hi + mid + lo, each a bf16 value (8 significant bits): exact for a
+// normal f32 v (v - hi and its rest are exact by Sterbenz's lemma)
+__device__ __forceinline__ void split3(float v, float part[3]) {
+  part[0] = rb(v);
+  const float r = __fsub_rn(v, part[0]);
+  part[1] = rb(r);
+  part[2] = rb(__fsub_rn(r, part[1]));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);   // .x = lo = low half
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// A warp's chunk of one head: dt_q = softplus(dt + bias) (0 at q >= qn),
+// L_q = the running sum of dt_q A, w_q = exp(L_last - L_q) dt_q (the state
+// weights), for q = lane and lane + 32, by a warp scan (the same order in
+// every kernel). raw holds this lane's two dt values (dt_raw, from dt at
+// the chunk's first position).
+__device__ __forceinline__ void dt_raw(const bf16* __restrict__ dt, long long dt_ss, int qn,
+                                       float raw[2]) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) raw[i] = lane + 32 * i < qn ? f(dt[(lane + 32 * i) * dt_ss]) : 0.f;
+}
+__device__ __forceinline__ void decay_of(const float raw[2], int qn, float bias, float A,
+                                         float* dts, float* L, float* wv) {
+  const int lane = threadIdx.x % 32;
+  float d[2], v[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    d[i] = lane + 32 * i < qn ? softplus(__fadd_rn(raw[i], bias)) : 0.f;
+    v[i] = __fmul_rn(d[i], A);
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float t = __shfl_up_sync(0xffffffffu, v[i], o);
+      if (lane >= o) v[i] = __fadd_rn(v[i], t);
+    }
+  }
+  v[1] = __fadd_rn(__shfl_sync(0xffffffffu, v[0], 31), v[1]);
+  const float last = __shfl_sync(0xffffffffu, v[1], 31);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    dts[lane + 32 * i] = d[i];
+    L[lane + 32 * i] = v[i];
+    if (wv != nullptr) wv[lane + 32 * i] = __fmul_rn(expf(__fsub_rn(last, v[i])), d[i]);
+  }
+}
+
+// A wgmma shared-memory descriptor: start address, leading and stride
+// byte offsets (16-byte units), the 128-byte swizzle.
+__device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)1 << 62);
+}
+// k16 step kk of a K-major B operand: rows (n) of a tile whose columns (k)
+// are in 64-column boxes
+__device__ __forceinline__ uint64_t desc_kmajor(const uint8_t* tile, int kk) {
+  return make_desc(tile + (kk / 4) * kBox + (kk % 4) * 32, 16, 1024);
+}
+// k16 step kk of an N-major B operand: rows k of one 64-column box (n)
+__device__ __forceinline__ uint64_t desc_nmajor(const uint8_t* box, int kk) {
+  return make_desc(box + kk * 16 * 128, kBox, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from touching wgmma operands across the async window
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (*a)[4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// d (m64 x n64 f32, registers) (+)= a (m64 x k16 bf16, registers) * b (k16
+// x n64 bf16, shared memory by descriptor; TRANS_B 0: K-major, 1:
+// N-major); scale_d 0 starts d from zero. Fragments as in the PTX ISA:
+// warp w of the warpgroup holds rows 16w..16w+15; with gid = lane / 4,
+// tig = lane % 4, a = {(gid, 2tig), (gid + 8, 2tig), (gid, 2tig + 8),
+// (gid + 8, 2tig + 8)} (two consecutive k each) and d[4j + e] = (gid + 8 *
+// (e >> 1), 8j + 2tig + (e & 1)).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma64(float* d, const uint32_t a[4], uint64_t desc,
+                                        int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %36, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %37, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d), "l"(desc), "n"(TRANS_B));
+}
+
+// The same with a from shared memory too, K-major, by descriptor.
+__device__ __forceinline__ void wgmma64ss(float* d, uint64_t desc_a, uint64_t desc_b,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// Shared memory of the two chunk kernels (bytes past the 1024-byte
+// alignment): the swizzled tiles, then dt, L and the state weights.
+// Outputs are staged a warp's 16 rows at a time and stored whole rows
+// at a time (fragment stores scatter 32 bytes a row).
+constexpr int kSoPitch = 64 + 8;    // a staged f32 state row (floats)
+constexpr int kYPitch = kHP + 8;    // a staged bf16 y row (elements)
+constexpr int kWalkStages = 4;      // the state walk's ring of chunk tiles
+constexpr int kStateSmem = kWalkStages * 2 * kBox + 64 * kSoPitch * 4 + 2 * 3 * kQ * 4 + 1024;
+constexpr int kOutSmem =
+    (2 + 2 + 1 + 6) * kBox + 64 * kYPitch * 2 + 2 * kOutHeads * kQ * 4 + 1024;
+
+// 1. grid (ceil(N / 64), H, B): one (sequence, head, 64 columns of the
+// state) walks the chunks in order with its (P x 64) state in the wgmma
+// accumulator: it writes s_in (the state before the chunk) into states
+// (B, chunks, H, P, N), then acc = acc exp(L_last) and acc += (x w)^T B
+// over the chunk's 64 positions, (x w)^T split into three bf16 parts as
+// the register A operand (rows p), B N-major from the tile; the final
+// state goes into state. The next chunk's tiles load (cp.async, two
+// stages) and its decay is taken while this one's products run.
 __global__ void __launch_bounds__(kScanThreads)
-    ssd_prefill_kernel(const bf16* __restrict__ xbc, long long x_sb, long long x_ss,
-                       const bf16* __restrict__ dt, long long dt_sb, long long dt_ss,
-                       const bf16* __restrict__ dt_bias, const bf16* __restrict__ A_log,
-                       const bf16* __restrict__ D, float* state, bf16* __restrict__ y, int S, int H,
-                       int P, int N, int carry) {
-  extern __shared__ float smem[];
-  const int NP = N + 1, MP = kQ + 1, XP = kPT + 1;
-  float* Bs = smem;
-  float* Cs = Bs + kQ * NP;
-  float* st = Cs + kQ * NP;
-  float* Ms = st + kPT * NP;
-  float* xs = Ms + kQ * MP;
-  float* L = xs + kQ * XP;
-  float* dts = L + kQ;
-  float* wv = dts + kQ;
-  const int tid = threadIdx.x;
-  const int p0 = blockIdx.x * kPT, h = blockIdx.y, b = blockIdx.z;
-  const int di = H * P;
-  float* gst = state + (((size_t)b * H + h) * P) * N;
-  for (int i = tid; i < kPT * N; i += kScanThreads) {
-    const int pr = i / N, n = i % N;
-    st[pr * NP + n] = (carry && p0 + pr < P) ? gst[(size_t)(p0 + pr) * N + n] : 0.f;
+    ssd_prefill_state_kernel(const bf16* __restrict__ xbc, long long x_sb, long long x_ss,
+                             const bf16* __restrict__ dt, long long dt_sb, long long dt_ss,
+                             const bf16* __restrict__ dt_bias, const bf16* __restrict__ A_log,
+                             float* state, float* __restrict__ states, int S, int H, int N,
+                             int carry) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* tiles = align1024(smem_raw);                // per stage: B (rows q, cols n), x
+  float* so = reinterpret_cast<float*>(tiles + kWalkStages * 2 * kBox);  // staging, 16 rows a warp
+  float* dec = so + 64 * kSoPitch;                    // per stage: dt, L, w
+  const int n0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
+  const int ncols = min(64, N - n0), nc = (S + kQ - 1) / kQ;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const float bias = f(dt_bias[h]), A = -expf(f(A_log[h]));
+  const bf16* xrow = xbc + b * x_sb;
+  const bf16* dtrow = dt + b * dt_sb + h;
+  auto load = [&](int c) {                            // chunk c's tiles into its stage
+    uint8_t* st = tiles + (c % kWalkStages) * 2 * kBox;
+    const bf16* rows = xrow + c * kQ * x_ss;
+    load_tile<64>(st, rows + H * kHP + n0, x_ss, min(kQ, S - c * kQ), ncols);
+    load_tile<kHP>(st + kBox, rows + h * kHP, x_ss, min(kQ, S - c * kQ), kHP);
+  };
+  auto qn_of = [&](int c) { return min(kQ, S - c * kQ); };
+  float raw[2] = {0.f, 0.f};                          // warp 0: the next chunk's dt
+  auto decay = [&](int c) {                           // chunk c's dt, L, w (warp 0)
+    float* d = dec + (c & 1) * 3 * kQ;
+    decay_of(raw, qn_of(c), bias, A, d, d + kQ, d + 2 * kQ);
+  };
+  // stage acc (the state, rows p, this CTA's 64 columns) and store it at
+  // dst (rows of N floats), whole rows at a time
+  auto store_state = [&](const float* acc, float* dst) {
+    float* stage = so + warp * 16 * kSoPitch;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+        *reinterpret_cast<float2*>(stage + (gid + 8 * rr) * kSoPitch + 8 * j + 2 * tig) =
+            make_float2(acc[4 * j + 2 * rr], acc[4 * j + 2 * rr + 1]);
+    __syncwarp();
+    const int row4 = ncols / 4;
+    for (int e = lane; e < 16 * row4; e += 32)
+      *reinterpret_cast<float4*>(dst + (warp * 16 + e / row4) * N + (e % row4) * 4) =
+          *reinterpret_cast<const float4*>(stage + (e / row4) * kSoPitch + (e % row4) * 4);
+    __syncwarp();
+  };
+
+  float acc[32];                                      // the state: rows p, columns n0 + 8j + ...
+  float* gstate = state + ((size_t)b * H + h) * kHP * N + n0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int p = warp * 16 + gid + 8 * rr, n = 8 * j + 2 * tig;
+      const float2 v = carry && n < ncols ? *reinterpret_cast<const float2*>(gstate + p * N + n)
+                                          : make_float2(0.f, 0.f);
+      acc[4 * j + 2 * rr] = v.x;
+      acc[4 * j + 2 * rr + 1] = v.y;
+    }
+  // the ring: chunks c + 1 .. c + kWalkStages - 1 load while chunk c runs
+  // (one commit group a chunk, empty past the last)
+#pragma unroll
+  for (int i = 0; i < kWalkStages - 1; ++i) {
+    if (i < nc) load(i);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
   }
-  const float A = -expf(f(A_log[h]));
-  const float Dh = f(D[h]);
-  const float bias = f(dt_bias[h]);
-  for (int c0 = 0; c0 < S; c0 += kQ) {
-    const int qn = min(kQ, S - c0);
-    __syncthreads();  // the last chunk's reads of B, C, x, M are done
-    if (tid < kQ) {
-      const float d =
-          tid < qn ? softplus(__fadd_rn(f(dt[b * dt_sb + (c0 + tid) * dt_ss + h]), bias)) : 0.f;
-      dts[tid] = d;
-      L[tid] = __fmul_rn(d, A);
-    }
-    for (int i = tid; i < kQ * N; i += kScanThreads) {
-      const int q = i / N, n = i % N;
-      const bf16* r = xbc + b * x_sb + (c0 + q) * x_ss;
-      Bs[q * NP + n] = q < qn ? f(r[di + n]) : 0.f;
-      Cs[q * NP + n] = q < qn ? f(r[di + N + n]) : 0.f;
-    }
-    for (int i = tid; i < kQ * kPT; i += kScanThreads) {
-      const int q = i / kPT, pr = i % kPT;
-      xs[q * XP + pr] = (q < qn && p0 + pr < P)
-                            ? f(xbc[b * x_sb + (c0 + q) * x_ss + h * P + p0 + pr]) : 0.f;
-    }
-    __syncthreads();
-    if (tid == 0) {  // the chunk's running sum of dt * A, in order
-      float acc = 0.f;
-      for (int q = 0; q < kQ; ++q) {
-        acc = __fadd_rn(acc, L[q]);
-        L[q] = acc;
-      }
-    }
-    __syncthreads();
-    const float Llast = L[kQ - 1];
-    if (tid < kQ) wv[tid] = __fmul_rn(expf(__fsub_rn(Llast, L[tid])), dts[tid]);
-    {  // M: thread (ty, tx) takes q = ty + 16 i, k = tx + 16 j
-      const int ty = tid / 16, tx = tid % 16;
-      float acc[4][4] = {};
-      for (int n = 0; n < N; ++n) {
-        float cq[4], bk[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) cq[i] = Cs[(ty + 16 * i) * NP + n];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bk[j] = Bs[(tx + 16 * j) * NP + n];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(cq[i], bk[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int q = ty + 16 * i, k = tx + 16 * j;
-          Ms[q * MP + k] = k <= q ? __fmul_rn(expf(__fsub_rn(L[q], L[k])),
-                                              __fmul_rn(acc[i][j], dts[k]))
-                                  : 0.f;
-        }
-    }
-    __syncthreads();
-    {  // y: thread (ty, tx) takes q = ty + 32 i, pr = tx + 8 j
-      const int ty = tid / 8, tx = tid % 8;
-      float yi[2][4] = {}, ye[2][4] = {};
-      for (int k = 0; k < kQ; ++k) {
-        float m[2], xv[4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) m[i] = Ms[(ty + 32 * i) * MP + k];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) xv[j] = xs[k * XP + tx + 8 * j];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) yi[i][j] = fmaf(m[i], xv[j], yi[i][j]);
-      }
-      for (int n = 0; n < N; ++n) {
-        float cv[2], sv[4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) cv[i] = Cs[(ty + 32 * i) * NP + n];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sv[j] = st[(tx + 8 * j) * NP + n];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) ye[i][j] = fmaf(cv[i], sv[j], ye[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int q = ty + 32 * i;
-        if (q >= qn) continue;
-        const float eL = expf(L[q]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int pr = tx + 8 * j;
-          if (p0 + pr >= P) continue;
-          const float yv = rb(__fadd_rn(yi[i][j], __fmul_rn(ye[i][j], eL)));
-          const float skip = rb(__fmul_rn(xs[q * XP + pr], Dh));
-          y[((size_t)b * S + c0 + q) * di + h * P + p0 + pr] =
-              __float2bfloat16(__fadd_rn(yv, skip));
-        }
-      }
-    }
-    __syncthreads();  // every read of the old state is done
-    {  // state: thread takes n = lane + 32 j, pr = warp + 8 i
-      const int lane = tid % 32, warp = tid / 32;
-      const float gamma = expf(Llast);
-      float acc[4][4] = {};
-      for (int k = 0; k < kQ; ++k) {
-        float wb[4], xv[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wb[j] = __fmul_rn(wv[k], Bs[k * NP + lane + 32 * j]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) xv[i] = xs[k * XP + warp + 8 * i];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(wb[j], xv[i], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int pr = warp + 8 * i, n = lane + 32 * j;
-          if (n < N) st[pr * NP + n] = __fadd_rn(__fmul_rn(st[pr * NP + n], gamma), acc[i][j]);
-        }
-    }
+  if (warp == 0) {
+    dt_raw(dtrow, dt_ss, qn_of(0), raw);
+    decay(0);
+    if (nc > 1) dt_raw(dtrow + kQ * dt_ss, dt_ss, qn_of(1), raw);
   }
+  // chunk c: its tiles and its decay (taken during chunk c - 1's products)
+  // are ready after the barrier
+  for (int c = 0; c < nc; ++c) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kWalkStages - 2) : "memory");
+    fence_proxy_async();
+    __syncthreads();
+    if (c + kWalkStages - 1 < nc) load(c + kWalkStages - 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const uint8_t* Bt = tiles + (c % kWalkStages) * 2 * kBox;
+    const uint8_t* xt = Bt + kBox;
+    const float* L = dec + (c & 1) * 3 * kQ + kQ;
+    const float* w = L + kQ;
+    store_state(acc, states + ((((size_t)b * nc + c) * H + h) * kHP) * N + n0);
+    const float gamma = expf(L[kQ - 1]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = __fmul_rn(acc[i], gamma);
+    uint32_t a[3][4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int p = warp * 16 + gid + 8 * (r & 1), q = 16 * kk + 2 * tig + 8 * (r >> 1);
+        float v0[3], v1[3];
+        split3(__fmul_rn(tile_at(xt, q, p), w[q]), v0);
+        split3(__fmul_rn(tile_at(xt, q + 1, p), w[q + 1]), v1);
+#pragma unroll
+        for (int part = 0; part < 3; ++part) a[part][kk][r] = pack_bf16(v0[part], v1[part]);
+      }
+    wgmma_fence();
+#pragma unroll
+    for (int part = 0; part < 3; ++part)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma64<1>(acc, a[part][kk], desc_nmajor(Bt, kk), 1);
+    wgmma_commit();
+    if (warp == 0 && c + 1 < nc) {
+      decay(c + 1);
+      if (c + 2 < nc) dt_raw(dtrow + (c + 2) * kQ * dt_ss, dt_ss, qn_of(c + 2), raw);
+    }
+    wgmma_wait_all();
+    fence_regs<32>(acc);
+#pragma unroll
+    for (int part = 0; part < 3; ++part) fence_regs<4>(a[part]);
+  }
+  store_state(acc, gstate);
+}
+
+// 2. grid (chunks, ceil(H / kOutHeads), B). C B^T once for the CTA's
+// heads (C and B K-major in shared memory), then per head acc = C s_in^T
+// (s_in split into three K-major tiles), scaled by exp(L_q), then acc +=
+// M x (M split, the register A operand; x N-major); y = bf16(acc) + bf16(x
+// D) in bf16, rows q < qn. A slice's chunks: x, dt and y start at its
+// first position, S is its length and Sy the rows of a sequence's y.
+__global__ void __launch_bounds__(kScanThreads)
+    ssd_prefill_out_kernel(const bf16* __restrict__ xbc, long long x_sb, long long x_ss,
+                           const bf16* __restrict__ dt, long long dt_sb, long long dt_ss,
+                           const bf16* __restrict__ dt_bias, const bf16* __restrict__ A_log,
+                           const bf16* __restrict__ D, const float* __restrict__ states,
+                           bf16* __restrict__ y, int Sy, int S, int H, int N) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Ct = align1024(smem_raw);                   // C: rows q, 2 boxes of n
+  uint8_t* Bt = Ct + 2 * kBox;                         // B: rows k, 2 boxes of n
+  uint8_t* xt = Bt + 2 * kBox;                         // x of the head: rows k, cols p
+  uint8_t* st = xt + kBox;                             // s_in hi, mid, lo: rows p, 2 boxes of n
+  bf16* ys = reinterpret_cast<bf16*>(st + 6 * kBox);  // y staging, 16 rows a warp
+  float* dts = reinterpret_cast<float*>(ys + 64 * kYPitch);
+  float* L = dts + kOutHeads * kQ;
+  const int c = blockIdx.x, nc = gridDim.x, h0 = blockIdx.y * kOutHeads, b = blockIdx.z;
+  const int c0 = c * kQ, qn = min(kQ, S - c0), nh = min(kOutHeads, H - h0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int di = H * kHP;
+  const bf16* rows = xbc + b * x_sb + c0 * x_ss;
+  load_tile<kNS>(Bt, rows + di, x_ss, qn, N);
+  load_tile<kNS>(Ct, rows + di + N, x_ss, qn, N);
+  for (int i = warp; i < nh; i += kScanThreads / 32) {
+    const int h = h0 + i;
+    float raw[2];
+    dt_raw(dt + b * dt_sb + c0 * dt_ss + h, dt_ss, qn, raw);
+    decay_of(raw, qn, f(dt_bias[h]), -expf(f(A_log[h])), dts + i * kQ, L + i * kQ, nullptr);
+  }
+  cp_async_wait_all();
+  fence_proxy_async();
   __syncthreads();
-  for (int i = tid; i < kPT * N; i += kScanThreads) {
-    const int pr = i / N, n = i % N;
-    if (p0 + pr < P) gst[(size_t)(p0 + pr) * N + n] = st[pr * NP + n];
+
+  // C B^T, C (rows q) and B (rows k) both K-major in shared memory
+  float cb[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) cb[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) wgmma64ss(cb, desc_kmajor(Ct, kk), desc_kmajor(Bt, kk), kk > 0);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs<32>(cb);
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int i = 0; i < nh; ++i) {
+    const int h = h0 + i;
+    __syncthreads();                                    // the last head's reads of xt and st
+    load_tile<kHP>(xt, rows + h * kHP, x_ss, qn, kHP);
+    {  // s_in, split into three bf16 tiles; half a thread's loads in flight at a time
+      constexpr int kLoads = kHP * kNS / 4 / kScanThreads, kBatch = kLoads / 2;
+      const float* sin = states + (((size_t)b * nc + c) * H + h) * kHP * N;
+#pragma unroll
+      for (int k0 = 0; k0 < kLoads; k0 += kBatch) {
+        float4 v[kBatch];
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+          const int e = tid + (k0 + k) * kScanThreads, p = e / (kNS / 4), n = (e % (kNS / 4)) * 4;
+          v[k] = n < N ? __ldcs(reinterpret_cast<const float4*>(sin + p * N + n))
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+          const int e = tid + (k0 + k) * kScanThreads, p = e / (kNS / 4), n = (e % (kNS / 4)) * 4;
+          float s0[3], s1[3], s2[3], s3[3];
+          split3(v[k].x, s0);
+          split3(v[k].y, s1);
+          split3(v[k].z, s2);
+          split3(v[k].w, s3);
+#pragma unroll
+          for (int part = 0; part < 3; ++part)
+            *reinterpret_cast<uint2*>(st + part * 2 * kBox + swz(p, n)) =
+                make_uint2(pack_bf16(s0[part], s1[part]), pack_bf16(s2[part], s3[part]));
+        }
+      }
+    }
+    cp_async_wait_all();
+    fence_proxy_async();
+    __syncthreads();
+
+    const float* Lh = L + i * kQ;
+    const float* dh = dts + i * kQ;
+    uint32_t mf[3][4][4];                               // M's parts, k16 steps of keys
+    {
+      // acc = C s_in^T on the tensor cores, while M = exp(L_q - L_k) CB dt_k
+      // (k <= q) is computed and split
+      wgmma_fence();
+#pragma unroll
+      for (int part = 0; part < 3; ++part)
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+          wgmma64ss(acc, desc_kmajor(Ct, kk), desc_kmajor(st + part * 2 * kBox, kk),
+                    part + kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int q = warp * 16 + gid + 8 * rr, k = 8 * j + 2 * tig;
+          if (8 * j > warp * 16 + 15) {                 // the warp's rows see none of these keys
+#pragma unroll
+            for (int part = 0; part < 3; ++part) mf[part][j / 2][(j & 1) * 2 + rr] = 0u;
+            continue;
+          }
+          float m0[3], m1[3];
+          split3(k <= q ? __fmul_rn(expf(__fsub_rn(Lh[q], Lh[k])),
+                                    __fmul_rn(cb[4 * j + 2 * rr], dh[k]))
+                        : 0.f, m0);
+          split3(k + 1 <= q ? __fmul_rn(expf(__fsub_rn(Lh[q], Lh[k + 1])),
+                                        __fmul_rn(cb[4 * j + 2 * rr + 1], dh[k + 1]))
+                            : 0.f, m1);
+#pragma unroll
+          for (int part = 0; part < 3; ++part)
+            mf[part][j / 2][(j & 1) * 2 + rr] = pack_bf16(m0[part], m1[part]);
+        }
+      wgmma_wait_all();
+      fence_regs<32>(acc);
+    }
+    // acc = exp(L_q) C s_in^T, then += M x
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const float eL = expf(Lh[warp * 16 + gid + 8 * rr]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc[4 * j + 2 * rr] = __fmul_rn(acc[4 * j + 2 * rr], eL);
+        acc[4 * j + 2 * rr + 1] = __fmul_rn(acc[4 * j + 2 * rr + 1], eL);
+      }
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int part = 0; part < 3; ++part)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma64<1>(acc, mf[part][kk], desc_nmajor(xt, kk), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs<32>(acc);
+#pragma unroll
+    for (int part = 0; part < 3; ++part) fence_regs<4>(mf[part]);
+
+    // y = bf16(the scan's y) + bf16(x D) in bf16, staged, then rows q < qn
+    const float Dh = f(D[h]);
+    bf16* stage = ys + warp * 16 * kYPitch;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int q = warp * 16 + gid + 8 * rr;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int p = 8 * j + 2 * tig;
+        float o[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float skip = rb(__fmul_rn(tile_at(xt, q, p + e), Dh));
+          o[e] = __fadd_rn(rb(acc[4 * j + 2 * rr + e]), skip);
+        }
+        *reinterpret_cast<__nv_bfloat162*>(stage + (gid + 8 * rr) * kYPitch + p) =
+            __floats2bfloat162_rn(o[0], o[1]);
+      }
+    }
+    __syncwarp();
+    for (int e = lane; e < 16 * (kHP / 8); e += 32) {
+      const int r = e / (kHP / 8), q = warp * 16 + r;
+      if (q < qn)
+        *reinterpret_cast<uint4*>(y + ((size_t)b * Sy + c0 + q) * di + h * kHP +
+                                  (e % (kHP / 8)) * 8) =
+            *reinterpret_cast<const uint4*>(stage + r * kYPitch + (e % (kHP / 8)) * 8);
+    }
+    __syncwarp();
   }
 }
 
@@ -431,31 +789,55 @@ extern "C" int ssm_decode_update(const void* xbc, long long xbc_sb, const void* 
   return cudaGetLastError();
 }
 
-// xbc (B, S, H*P + 2N) bf16 at row strides (x_sb, x_ss); dt (B, S, H) bf16
-// at strides (dt_sb, dt_ss) (before softplus); dt_bias, A_log, D (H,) bf16;
-// state (B, H, P, N) f32: the initial state (carry; else zeros), then the
-// final one, in place; y (B, S, H*P) bf16 with the D skip. Returns the
-// launch's cudaError_t.
+// xbc (B, S, H*P + 2N) bf16 at row strides (x_sb, x_ss), both multiples of
+// 8, 16-byte aligned; dt (B, S, H) bf16 at strides (dt_sb, dt_ss) (before
+// softplus); dt_bias, A_log, D (H,) bf16; state (B, H, P, N) f32: the
+// initial state (carry; else zeros), then the final one, in place; states
+// (B, min(ceil(S / 64), slice), H, P, N) f32 scratch (a slice's incoming
+// states); y (B, S, H*P) bf16 with the D skip. P == 64, N % 8 == 0, N <=
+// 128, slice > 0. Two launches a slice of `slice` chunks: the state walk,
+// then the chunk outputs. Returns the first launch error.
 extern "C" int ssd_prefill(const void* xbc, long long x_sb, long long x_ss, const void* dt,
                            long long dt_sb, long long dt_ss, const void* dt_bias,
-                           const void* A_log, const void* D, void* state, void* y, int B, int S,
-                           int H, int P, int N, int carry, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || N <= 0 || N > 128) return cudaErrorInvalidValue;
-  const size_t smem = scan_smem(N);
-  static size_t sized = 0;
-  if (smem > sized) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ssd_prefill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)scan_smem(128));
+                           const void* A_log, const void* D, void* state, void* states, void* y,
+                           int B, int S, int H, int P, int N, int carry, int slice,
+                           void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || P != kHP || N <= 0 || N % 8 || N > kNS || x_sb % 8 ||
+      x_ss % 8 || slice <= 0 || reinterpret_cast<uintptr_t>(xbc) % 16)
+    return cudaErrorInvalidValue;
+  static bool sized = false;
+  if (!sized) {
+    cudaError_t e = cudaFuncSetAttribute(ssd_prefill_state_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kStateSmem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(ssd_prefill_out_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kOutSmem);
     if (e != cudaSuccess) return e;
-    sized = scan_smem(128);
+    sized = true;
   }
-  const dim3 grid((P + kPT - 1) / kPT, H, B);
-  ssd_prefill_kernel<<<grid, kScanThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(xbc), x_sb, x_ss, static_cast<const bf16*>(dt), dt_sb, dt_ss,
-      static_cast<const bf16*>(dt_bias), static_cast<const bf16*>(A_log),
-      static_cast<const bf16*>(D), static_cast<float*>(state), static_cast<bf16*>(y), S, H, P, N,
-      carry);
-  return cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nc = (S + kQ - 1) / kQ, di = H * kHP;
+  for (int c0 = 0; c0 < nc; c0 += slice) {
+    const int s0 = c0 * kQ, n = slice < nc - c0 ? slice : nc - c0;
+    const int Ss = S - s0 < n * kQ ? S - s0 : n * kQ;
+    const bf16* x = static_cast<const bf16*>(xbc) + s0 * x_ss;
+    const bf16* d = static_cast<const bf16*>(dt) + s0 * dt_ss;
+    ssd_prefill_state_kernel<<<dim3((N + 63) / 64, H, B), kScanThreads, kStateSmem, st>>>(
+        x, x_sb, x_ss, d, dt_sb, dt_ss, static_cast<const bf16*>(dt_bias),
+        static_cast<const bf16*>(A_log), static_cast<float*>(state), static_cast<float*>(states),
+        Ss, H, N, carry || c0 > 0);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    ssd_prefill_out_kernel<<<dim3(n, (H + kOutHeads - 1) / kOutHeads, B), kScanThreads, kOutSmem,
+                             st>>>(
+        x, x_sb, x_ss, d, dt_sb, dt_ss, static_cast<const bf16*>(dt_bias),
+        static_cast<const bf16*>(A_log), static_cast<const bf16*>(D),
+        static_cast<const float*>(states), static_cast<bf16*>(y) + (size_t)s0 * di,
+        S, Ss, H, N);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 // y (M, d) bf16, d % 8 == 0 and d <= kNormRuns * kNormThreads * 8; z (M, d)

@@ -5,8 +5,11 @@ scan, and the gated RMSNorm.
 No Pallas kernel of the JAX package stands behind them: its
 ``models/ssm.py`` computes the layer with ``jnp`` outside any kernel.
 Eagerly, a decode step of the layer is about ten PyTorch launches, each
-reading or writing the layer's f32 state; each kernel here is one launch.
-The design of each is described in the source.
+reading or writing the layer's f32 state; each kernel here is one launch
+but the scan (``scan_launches``). The design of each is described in the
+source. The decode path runs ``ssm_conv``, ``ssm_decode_update`` and
+``gated_rmsnorm``; the prefill path ``ssm_conv``, ``ssd_prefill`` and
+``gated_rmsnorm``.
 
 - ``ssm_conv(x, w, b, state, advance, carry)``: the depthwise causal conv
   of width W (the kernel: ``CONV_WIDTH``, every config's) over x (B, S, C) (rows may be strided, columns contiguous),
@@ -26,9 +29,14 @@ The design of each is described in the source.
   state (``carry``; else zeros), → y (B, S, H P): the scan's y rounded to
   xbc's dtype, plus x D in that dtype (the JAX ``ssm_forward``); the final
   f32 state is written into ``state``. The kernel scans chunks of its own
-  length (64, the last one masked); the plain version uses the JAX
-  package's chunk rule (``chunk``, halved until it divides S). The
-  algorithm is exact: the two differ by rounding only.
+  length (64, the last one masked), ``SCAN_SLICE`` chunks at a time, in
+  ``SCAN_KERNELS`` launches a slice (a walk over the chunks that passes
+  the state, then the chunk outputs in parallel), its products on the tensor cores with each f32 operand
+  split into three bf16 parts (``split3``); the
+  plain version uses the JAX package's chunk rule (``chunk``, halved until
+  it divides S). The algorithm is exact: the two differ by rounding only.
+  The kernel takes P = ``SCAN_HEAD_DIM`` and N a multiple of 8 up to
+  ``MAX_STATE``.
 - ``gated_rmsnorm(y, z, w, eps)``: rmsnorm(y * silu(z)) * w, the product
   in y's dtype, the norm in f32, one rounding (z's rows may be strided).
   The kernel keeps a row in registers in 16-byte runs: d a multiple of 8
@@ -56,14 +64,17 @@ from repro_torch.kernels.fused_ops import rmsnorm_plain
 CONV_WIDTH = 4                 # the conv kernel's width
 MAX_STATE = 128                # the scan kernel's largest N
 SCAN_CHUNK = 64                # the scan kernel's chunk
+SCAN_HEAD_DIM = 64             # the scan kernel's P (wgmma's 64 rows)
+SCAN_KERNELS = 2               # launches of one slice of an ssd_prefill call
+SCAN_SLICE = 8                 # chunks a slice (the f32 scratch's depth)
 NORM_MAX_D = 8192              # the gated norm kernel's widest row
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _CONV_ARGS = (_P, _L, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
 _DECODE_ARGS = (_P, _L, _P, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
-_SCAN_ARGS = (_P, _L, _L, _P, _L, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-              _I, _I, _P)
+_SCAN_ARGS = (_P, _L, _L, _P, _L, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+              _I, _I, _I, _P)
 _NORM_ARGS = (_P, _P, _L, _P, _P, _I, _I, _F, _P)
 
 
@@ -315,12 +326,34 @@ def ssd_prefill_plain(xbc: torch.Tensor, dt: torch.Tensor,
     return y.reshape(B, S, H * P)
 
 
+def split3(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """The scan kernel's split of an f32 operand into three bf16 parts,
+    hi = bf16(v), mid = bf16(v - hi), lo = bf16(v - hi - mid): 24
+    significant bits, so hi + mid + lo == v for a normal f32 v (each
+    difference is exact), and a product with a bf16 operand taken as the
+    three products summed in f32 is as exact as the f32 product."""
+    hi = v.to(torch.bfloat16)
+    r = v - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
+def scan_launches(S: int) -> int:
+    """The kernel launches of one ``ssd_prefill`` call over S positions on
+    the card: ``SCAN_KERNELS`` for each slice of ``SCAN_SLICE`` chunks."""
+    return SCAN_KERNELS * -(-S // (SCAN_CHUNK * SCAN_SLICE))
+
+
 def ssd_prefill(xbc: torch.Tensor, dt: torch.Tensor, dt_bias: torch.Tensor,
                 A_log: torch.Tensor, D: torch.Tensor, state: torch.Tensor,
                 carry: bool = True, chunk: int = 256) -> torch.Tensor:
     """xbc (B, S, H P + 2 N), dt (B, S, H) → y (B, S, H P); the final f32
     state goes into ``state`` (B, H, P, N). ``chunk`` is the plain
-    version's (the kernel's is ``SCAN_CHUNK``)."""
+    version's (the kernel's is ``SCAN_CHUNK``). On the card one call is
+    ``scan_launches(S)`` launches, through f32 scratch for the incoming
+    states of one slice's chunks (at most ``SCAN_SLICE`` a sequence: 21 MB
+    a sequence at mamba2-2.7b's widths, whatever S)."""
     if xbc.device.type == "cpu":
         return ssd_prefill_plain(xbc, dt, dt_bias, A_log, D, state, carry,
                                  chunk)
@@ -328,14 +361,23 @@ def ssd_prefill(xbc: torch.Tensor, dt: torch.Tensor, dt_bias: torch.Tensor,
     H, P, N = _check_ssd("ssd_prefill", xbc, dt, (dt_bias, A_log, D), state)
     _check_cuda("ssd_prefill", xbc, dt, dt_bias, A_log, D, state)
     _bf16("ssd_prefill", xbc, dt, dt_bias, A_log, D)
-    _require(N <= MAX_STATE and state.is_contiguous(),
-             f"ssd_prefill: N {N} > {MAX_STATE} or a strided state")
+    _require(P == SCAN_HEAD_DIM and N % 8 == 0 and N <= MAX_STATE
+             and state.is_contiguous(),
+             f"ssd_prefill: the kernel takes P {SCAN_HEAD_DIM} (got {P}), N "
+             f"a multiple of 8 up to {MAX_STATE} (got {N}) and a contiguous "
+             "state")
+    _require(xbc.data_ptr() % 16 == 0 and xbc.stride(0) % 8 == 0
+             and xbc.stride(1) % 8 == 0,
+             "ssd_prefill: xbc's rows must be 16-byte aligned")
+    depth = min(-(-S // SCAN_CHUNK), SCAN_SLICE)
     y = torch.empty((B, S, H * P), dtype=xbc.dtype, device=xbc.device)
+    states = torch.empty((B, depth, H, P, N), dtype=torch.float32,
+                         device=xbc.device)
     fn = build.function("ssm", "ssd_prefill", _SCAN_ARGS)
     err = fn(xbc.data_ptr(), xbc.stride(0), xbc.stride(1), dt.data_ptr(),
              dt.stride(0), dt.stride(1), dt_bias.data_ptr(), A_log.data_ptr(),
-             D.data_ptr(), state.data_ptr(), y.data_ptr(), B, S, H, P, N,
-             int(carry), _stream(xbc))
+             D.data_ptr(), state.data_ptr(), states.data_ptr(), y.data_ptr(),
+             B, S, H, P, N, int(carry), SCAN_SLICE, _stream(xbc))
     build.check(err, "ssd_prefill")
     ssd_prefill.launches += 1
     return y
