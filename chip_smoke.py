@@ -42,12 +42,17 @@ Phases (any failed check raises and the process exits nonzero):
    kernels (``moe_route``, ``moe_gate_up_swiglu``, ``moe_down``,
    ``moe_combine``) against their plain versions at phi3.5-moe-42b-a6.6b's
    expert layer at T 4, 1 and 2048 and with a skewed router and tied
-   logits that force drops (the router's logits within 1e-5 and a token's
+   logits that force drops, and the route alone at T 2048 with every token
+   the same row (each k's pairs all to one expert) and with tied logits
+   (the router's logits within 1e-5 and a token's
    bit-equal alone, routing exact, GEMM rows within one bf16 ulp, each
    expert's first row bit-equal alone, rows past the counts never
    written, the combine bit-equal), then at kimi-k2-1t-a32b's expert
    layer with its shared expert at T 4 and 512, each timed beside its
-   bound, its plain version and ``torch.bmm`` over all experts; the four
+   bound, its plain version and ``torch.bmm`` over all experts, and its
+   route alone at T 4 and 16 (at T 4 the three-launch route bit-equal to
+   the one-launch route and timed beside it; launches on two streams at
+   once exact); the four
    SSM kernels (``ssm_conv``, ``ssm_decode_update``, ``ssd_prefill``,
    ``gated_rmsnorm``) at mamba2-2.7b's widths: decode at 4 slots (one
    frozen) and 1 (y within one bf16 ulp, the conv state bit-equal, the
@@ -58,7 +63,9 @@ Phases (any failed check raises and the process exits nonzero):
    ``SSD_STATE_REL_TOL``; a sequence alone bit-equal to its row in a B 4
    call and in a B 2 call of 1100; N 48 on 4 heads; the scan's peak
    allocation at 1 x ``SSM_LONG_PROMPT`` within its output and one
-   slice's scratch), each timed beside its bound and its plain version; a
+   slice's scratch; the gated norm's row 0 alone bit-equal to its row in
+   a B 4 and a 1 x 512 call), each timed beside its bound and its plain
+   version; a
    build check that fails on a ptxas spill or a serialized ``wgmma`` in
    ``ssm.cu``;
    ``quant_matmul`` at ``in_proj`` (2560 x 10576, a ragged N) and
@@ -2405,8 +2412,8 @@ def main() -> None:
     def moe_row(name, kern, plain, args, nbytes, flops, replaces, shape,
                 path, err, tol, lib=None, lib_args=None, shape_of=None,
                 per_call=1):
-        """Time an MoE kernel (``per_call`` launches a call: the route
-        kernel's router and routing are two), its plain version and,
+        """Time an MoE kernel (``per_call`` launches a call: the route's
+        from ``route_launches``), its plain version and,
         for the grouped GEMMs, ``torch.bmm`` over all experts padded to C
         (the JAX einsum's work), and keep its row. The weights read by a
         call exceed the 50 MB L2, so one copy of the inputs serves."""
@@ -2490,7 +2497,8 @@ def main() -> None:
                     lambda a, b: moe_route_plain(a, b, K, C), (x, wr),
                     nbytes, 2.0 * T * D * E, "src/repro/models/moe.py:73-97",
                     f"T{T} D{D} E{E} K{K} C{C}", path, lg_err, lg_tol,
-                    shape_of=shape_of, per_call=2)
+                    shape_of=shape_of,
+                    per_call=moe_kernels.route_launches(T, D, E, K))
         return out, dropped
 
     def moe_rows_check(what, got, ref, counts, C, canary):
@@ -2644,6 +2652,20 @@ def main() -> None:
         dropped = moe_layer_case("phi tied", 64, K, x[:64].contiguous(),
                                  tied, wgu, wd)
         check(dropped > 0, "the tied router dropped no pair")
+        # the route alone at T 2048: every token the same row, so each k
+        # sends all its pairs to one expert (T pairs against C), and the
+        # tied router over all 2048 tokens (its slot segments each a run
+        # of one expert)
+        C = moe_kernels.capacity(E, K, 1.25, 2048)
+        same = x[:1].expand(2048, D).contiguous()
+        (_, e_same, _, cnt, _, _), dropped = moe_route_case(
+            "phi all-to-one", same, wr, K, C)
+        check(bool((e_same == e_same[:1]).all()) and dropped == K * (2048 - C)
+              and int(cnt.sum()) == K * C, f"moe_route all-to-one: {dropped}"
+              f" pairs dropped, counts {cnt.tolist()}")
+        _, dropped = moe_route_case("phi tied", x, tied, K, C)
+        check(dropped > 0, "the tied router at T 2048 dropped no pair")
+        del same
         del wr, wgu, wd, skew, tied
         torch.cuda.empty_cache()
         # ragged widths: E 4, K 2, D 520, F 200, each a multiple of 8 and
@@ -2679,8 +2701,72 @@ def main() -> None:
                            "kernel phase only: kimi-k2 is not served on "
                            "the card); launches are the kernel's on the "
                            "phi3.5-moe path")
-        del wr, wgu, wd, shared
+        del wgu, wd, shared
         torch.cuda.empty_cache()
+        kimi_route_paths(wr, K)
+        del wr
+
+    def kimi_route_paths(wr, K):
+        """The route at kimi-k2's decode T 4 and T 16 (E 384), each timed
+        by its plan (``route_launches``: at T 4 one launch of three
+        clusters and their ticket, at T 16 three). At T 4 the three-launch
+        route (the prefill's: ``route_launches`` patched to 3) exact
+        against the one-launch route and timed beside it on the same
+        inputs. Then two streams routing at once, each launch exact
+        against the route on the default stream (the ticket is a
+        stream's own)."""
+        D, E = wr.shape
+        plan = moe_kernels.route_launches
+
+        def three_launches(a, b):
+            moe_kernels.route_launches = lambda T, D, E, K: 3
+            try:
+                return moe_route(a, b, K, C)
+            finally:
+                moe_kernels.route_launches = plan
+
+        def same_route(o, ref, kept):
+            return (all(torch.equal(a, b) for i, (a, b) in
+                        enumerate(zip(o, ref)) if i != 4)
+                    and torch.equal(o[4][kept], ref[4][kept]))
+
+        paths = {}
+        for T in (4, 16):
+            with drawing_from(gen_moe):
+                x = randn(T, D).bfloat16()
+            C = moe_kernels.capacity(E, K, 1.25, T)
+            n = plan(T, D, E, K)
+            ref = moe_route(x, wr, K, C)
+            kept = torch.arange(C, device=dev)[None] < ref[3][:, None]
+            ms = time_calls(lambda a, b: moe_route(a, b, K, C), [(x, wr)],
+                            50, per_call=n)[0]
+            paths[f"T{T}"] = dict(launches=n, ms=ms)
+            if n == 1:
+                check(same_route(three_launches(x, wr), ref, kept),
+                      f"moe_route kimi-k2 T{T}: the three-launch route "
+                      "differs from the one-launch route")
+                ms3 = time_calls(three_launches, [(x, wr)], 50,
+                                 per_call=3)[0]
+                paths[f"T{T}"]["three_launch_ms"] = ms3
+            print(f"  moe_route[kimi-k2 T{T}]: {n} launch(es) {ms:.5f} "
+                  "device ms" + (f", three launches {ms3:.5f} (bit-equal)"
+                                 if n == 1 else ""), flush=True)
+            streams = (torch.cuda.Stream(), torch.cuda.Stream())
+            for s in streams:
+                s.wait_stream(torch.cuda.current_stream())
+            outs = []
+            for _ in range(16):
+                for s in streams:
+                    with torch.cuda.stream(s):
+                        outs.append(moe_route(x, wr, K, C))
+            torch.cuda.synchronize()
+            bad = sum(not same_route(o, ref, kept) for o in outs)
+            print(f"  moe_route[kimi-k2 T{T}] on two streams at once: {bad} "
+                  f"of {len(outs)} launches differ", flush=True)
+            check(bad == 0, f"moe_route kimi-k2 T{T}: {bad} of {len(outs)} "
+                  "launches on two streams differ from the route alone")
+            del outs
+        rows["moe_route[kimi-k2 T4]"]["decode_paths_ms"] = paths
 
     lib_rows = {}      # torch.matmul's f32 router row 0 alone == in the call
     print("MoE kernels vs plain versions on the card:", flush=True)
@@ -2973,31 +3059,39 @@ def main() -> None:
 
     def gated_case(sp, B, S, timed=False, path=None):
         """rmsnorm(y * silu(z)) within one bf16 ulp, z read in place from
-        the projection's rows."""
+        the projection's rows; row 0 alone bit-equal to row 0 of the call
+        (a B 4 decode and a 1 x 512 prefill among them)."""
         zx, z, _, _ = ssm_rows_in(B, S)
         with drawing_from(gen_ssm):
             y = randn(B, S, s_di).bfloat16()
         eps = mamba.norm_eps
         out = gated_rmsnorm(y, z, sp["norm_w"], eps)
         ref = gated_rmsnorm_plain(y, z, sp["norm_w"], eps)
+        alone = gated_rmsnorm(y.reshape(-1, s_di)[:1],
+                              z.reshape(-1, s_di)[:1], sp["norm_w"], eps)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
         tol = bf16_tol(ref)
         shape = f"B{B} S{S} d{s_di}"
+        same = torch.equal(alone[0], out.reshape(-1, s_di)[0])
         print(f"  gated_rmsnorm {shape}: max_abs_err {err:.3e} (tol "
               f"{tol:.3e}), {int((out != ref).sum())} of {out.numel()} "
-              "elements differ", flush=True)
+              f"elements differ; row 0 alone "
+              f"{'bit-equal' if same else 'DIFFERS'}", flush=True)
         check(err <= tol, f"gated_rmsnorm {shape}: {err} > {tol}")
+        check(same, f"gated_rmsnorm {shape}: row 0 alone differs from row "
+              "0 in the call")
         if not timed:
             return
         nbytes = 3 * B * S * s_di * 2 + s_di * 2
         copies = [(y, z)] + [(y.clone(), z.clone()) for _ in
                              range(n_copies(B * S * s_di * 4) - 1)]
-        ssm_row(f"gated_rmsnorm[B{B} S{S}]",
-                lambda a, b: gated_rmsnorm(a, b, sp["norm_w"], eps),
+        name = f"gated_rmsnorm[B{B} S{S}]"
+        ssm_row(name, lambda a, b: gated_rmsnorm(a, b, sp["norm_w"], eps),
                 lambda a, b: gated_rmsnorm_plain(a, b, sp["norm_w"], eps),
                 copies, nbytes, 0.0, "src/repro/models/ssm.py:143 (jnp)",
-                shape, path, err, tol)
+                shape, path, err, tol,
+                extra=dict(plan=ssm_kernels.norm_plan(s_di)))
 
     def ssm_kernel_cases():
         """The four SSM kernels against their plain versions at
@@ -4165,8 +4259,17 @@ def main() -> None:
                 f"{label}: request {r.uid} differs from reference_decode("
                 "stepwise_prefill=False)")
         served_s = time.perf_counter() - t0
-        # each bucket's prefill call under the profiler (card only)
-        calls = profile_prefill_calls(seng, reqs, label)
+        # each bucket's prefill call under the profiler (card only); the
+        # profiler now and then drops a kernel's events (a run once lost
+        # the 301 call's scan kernels), so the calls are traced again, up
+        # to three times, until every trace holds both scan kernels
+        for attempt in range(1, 4):
+            calls = profile_prefill_calls(seng, reqs, label)
+            if all(g["ssd_prefill_state"] > 0.0 and g["ssd_prefill_out"] > 0.0
+                   for _, g, _ in calls):
+                break
+            print(f"  {label}: profile attempt {attempt}: a trace lacks a "
+                  "scan kernel", flush=True)
         check(sorted(c[0] for c in calls) == sorted(SSM_STALL_PROMPTS),
               f"{label}: profiled prefill calls at {[c[0] for c in calls]}")
         by_bucket = {}

@@ -9,27 +9,56 @@
 // compute the same function but skip what is never gathered back: experts
 // that no token was routed to, and rows past each expert's count.
 //
-// moe_router_kernel (moe.py:74): the router's f32 logits (T, E) of x (T,
-// D) bf16 and w (D, E) bf16, each product exact in f32 and summed in f32
-// in one fixed order: CTA (token, 8 experts), thread i summing d = i +
-// 128 j by fma in j order, then the warps' xor trees and the 4 warps in
-// order. A token's logits do not depend on T: the library's f32 product
-// sums a row differently at M 1 and M 4 on the H100, which would make a
-// request's routing, and so its stream, depend on its batch-mates.
-// Bound: the bytes of x and w (w stays in L2 across tokens).
-//
-// moe_route_kernel (moe.py:73-97): one CTA. Each warp takes tokens in
-// turn: the f32 softmax of the router logits (T, E), the top K chosen on
-// the logits (softmax is monotone; equal values go to the lower expert
-// id, as jax.lax.top_k orders them), the chosen probabilities divided by
-// max(their sum, 1e-9). Then warp 0 walks the T*K (token, k) pairs in
-// flat order, 32 at a time, and gives each its rank among the pairs of
-// its expert (__match_any_sync within the 32, a running count a expert
-// before them): the slot that the stable argsort and searchsorted of
-// moe.py:88-97 give. A kept pair (slot < C) writes its token into the
-// (E, C) gather map; counts[e] = min(pairs of e, C). Bound: launch
-// latency at decode (a few hundred logits), the serial walk at prefill
-// (T*K/32 steps).
+// moe_route (moe.py:73-97): the router's f32 logits (T, E) of x (T, D)
+// bf16 and w (D, E) bf16, then softmax, top-k, the gates and each pair's
+// slot. The logits are summed in one order planned from (D, E) alone, so a
+// token's logits, and so its routing, do not depend on T or on its
+// batch-mates, bit for bit (the library's f32 product sums a row
+// differently at M 1 and M 4 on the H100, which would make a request's
+// stream depend on them): 128 lanes, lane i summing by fma the 16-byte
+// runs r = i + 128 j of d (d = 8r .. 8r + 7) in order of j and then d;
+// the lanes added pairwise by lane bits 4, 3, 2, 1, 0 within each 32
+// (a warp's xor tree), then the four warp sums in order. Each product is
+// exact in f32; the sums run on the CUDA cores (the tensor cores do not
+// sum in this order). The top K are chosen on the logits
+// (softmax is monotone; equal values go to the lower expert id, as
+// jax.lax.top_k orders them), a warp a token, and a gate is exp(l_k -
+// l_max) over the chosen ones' sum (route_token). A pair's slot is its
+// rank among the pairs of its expert in flat (t, k) order, the slot that
+// the stable argsort and searchsorted of moe.py:88-97 give; a kept pair
+// (slot < C) writes its token into the (E, C) gather map; counts[e] =
+// min(pairs of e, C).
+// - Decode (T <= kClusterT at E <= 32, the megastep's T; T <=
+//   kClusterTWide above): one launch where there were two,
+//   moe_route_cluster_kernel: clusters of kClusterCtas CTAs, a cluster two
+//   blocks of experts (one cluster at phi3.5-moe's E 16, 3 at kimi-k2's E
+//   384). A CTA keeps one lane-warp of a block; a producer
+//   warp streams its x and w (w viewed (E, runs, 8), so a stage holds
+//   [k][lane][experts]) through a ring of TMA stages, all in flight at
+//   once; its partial sums go into the cluster leader's shared memory
+//   (distributed shared memory), which adds the four in order. One
+//   cluster routes from there (no logit round trip through device
+//   memory); more write their logits and the last, by a ticket (a
+//   stream's own), routes. Bound: launch latency, two cluster barriers
+//   and one pass over w (phi3.5-moe: 131 KB on 8 SMs; kimi-k2: 5.5 MB on
+//   24). At kimi-k2's T 16 the clusters' fmas (44 M on 24 SMs) outweigh
+//   the two extra launches, so it takes the prefill's three.
+// - Prefill: three launches. moe_router_tile_kernel, a CTA a tile of 16
+//   tokens x 16 experts, stages the tile's x rows and w's (1024 d x 16
+//   experts) slice in shared memory by cp.async through a ring of
+//   kTileStages; each thread keeps 8 tokens x 16 experts of running sums,
+//   so w is read once a tile of tokens, not once a token (the former
+//   per-token router read kimi-k2's 5.5 MB of w once a token, 2.8 GB
+//   through the L2 at T 512). moe_route_topk_kernel: a warp a token.
+//   moe_route_slots_kernel: one CTA of kSlotWarps warps; the pairs in
+//   flat order are cut into a segment of 32 x n pairs a warp (n from T K
+//   alone), each warp counts its segment's pairs per expert in shared
+//   memory, an exclusive scan over the segments gives each (segment,
+//   expert) its first slot, and each warp then ranks its pairs as the
+//   serial walk did (__match_any_sync, a running count an expert): T K /
+//   1024 steps a warp in place of T K / 32 steps of one warp (0.25 ms at
+//   phi3.5-moe's T 2048). Bound: the bytes of x and w; at kimi-k2's T 512
+//   the 1.4 G f32 fmas on the CUDA cores.
 //
 // moe_gemm_kernel (moe.py:107-116): out[g, c] for the rows c < counts[g]
 // of each group g (an expert, or the shared experts as one group of T
@@ -130,141 +159,29 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kRouteThreads = 512;
 constexpr int kMaxK = 8;            // experts a token (kimi-k2's top-8)
 constexpr int kMaxPerLane = 32;     // E <= 1024: one bit a logit in a lane's mask
 constexpr int kGemmThreads = 384;   // two consumer warpgroups and a producer warpgroup
 constexpr int kMaxGroups = 1024;    // groups a GEMM call (E <= 1024)
 constexpr int kCombineThreads = 128;
-constexpr int kRouterThreads = 128;
-constexpr int kRouterExperts = 8;   // logits a router CTA computes
+constexpr int kLanes = 128;         // the router's lanes: partial sums a logit
+constexpr int kStepD = kLanes * 8;  // d a step of all lanes (a run of 8 each)
+constexpr int kClusterT = 16;       // the decode route's largest T at E <= 32 (kernels/moe.py::
+constexpr int kClusterTWide = 4;    // ROUTE_CLUSTER_T) and at E > 32 (ROUTE_CLUSTER_T_WIDE)
+constexpr int kClusterBlocks = 2;   // expert blocks a cluster (of its 4 lane-warps: 8 units)
+constexpr int kClusterCtas = 8;     // its cluster (the portable size)
+constexpr int kSmemMax = 232448;    // shared memory a CTA may have
+constexpr int kMaxStages = 8;       // the decode route's deepest ring
+constexpr int kTileT = 16;          // tokens a router tile (two groups of 8)
+constexpr int kTileE = 16;          // experts a router tile
+constexpr int kTileStages = 3;
+constexpr int kTileStage = kTileT * kStepD * 2 + kStepD * kTileE * 2;  // 64 KB
+constexpr int kTopkWarps = 8;
+constexpr int kSlotWarps = 32;      // the slot kernel's warps
+constexpr int kSlotThreads = 32 * kSlotWarps;
+constexpr int kWalkBatch = 8;       // pairs a lane loads at once in a walk
 
-// ---------------------------------------------------------------- route --
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__global__ void __launch_bounds__(kRouterThreads)
-    moe_router_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                      float* __restrict__ logits, int D, int E) {
-  __shared__ float part[kRouterThreads / 32][kRouterExperts];
-  const int groups = E / kRouterExperts;
-  const int t = blockIdx.x / groups, e0 = (blockIdx.x % groups) * kRouterExperts;
-  float acc[kRouterExperts] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int d = threadIdx.x; d < D; d += kRouterThreads) {
-    const float xv = __bfloat162float(x[(size_t)t * D + d]);
-    const uint4 raw = *reinterpret_cast<const uint4*>(w + (size_t)d * E + e0);
-    const bf16* wv = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-    for (int i = 0; i < kRouterExperts; ++i)
-      acc[i] = __fmaf_rn(xv, __bfloat162float(wv[i]), acc[i]);
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < kRouterExperts; ++i) {
-    acc[i] = warp_sum(acc[i]);
-    if (lane == 0) part[warp][i] = acc[i];
-  }
-  __syncthreads();
-  if (threadIdx.x < kRouterExperts) {
-    float v = part[0][threadIdx.x];
-    for (int k = 1; k < kRouterThreads / 32; ++k) v = __fadd_rn(v, part[k][threadIdx.x]);
-    logits[(size_t)t * E + e0 + threadIdx.x] = v;
-  }
-}
-
-__global__ void __launch_bounds__(kRouteThreads)
-    moe_route_kernel(const float* __restrict__ logits, int T, int E, int K, int C,
-                     float* __restrict__ gates, int* __restrict__ experts,
-                     int* __restrict__ slots, int* __restrict__ counts,
-                     int* __restrict__ src, unsigned long long* __restrict__ reads) {
-  extern __shared__ int cnt[];  // pairs routed to each expert so far
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-  for (int e = threadIdx.x; e < E; e += blockDim.x) cnt[e] = 0;
-
-  for (int t = warp; t < T; t += warps) {
-    const float* row = logits + (size_t)t * E;
-    float m = -INFINITY;
-    for (int e = lane; e < E; e += 32) m = fmaxf(m, row[e]);
-    m = warp_max(m);
-    float s = 0.f;
-    for (int e = lane; e < E; e += 32) s += expf(row[e] - m);
-    s = warp_sum(s);
-    uint32_t taken = 0;  // bit j: logit lane + 32 j chosen
-    float g[kMaxK];
-    int idx[kMaxK];
-    float gsum = 0.f;
-    for (int k = 0; k < K; ++k) {
-      float bv = -INFINITY;
-      int bi = INT_MAX;
-      for (int j = 0, e = lane; e < E; ++j, e += 32) {
-        const float v = row[e];
-        if (!((taken >> j) & 1u) && (v > bv || (v == bv && e < bi))) {
-          bv = v;
-          bi = e;
-        }
-      }
-#pragma unroll
-      for (int o = 16; o; o >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-        if (ov > bv || (ov == bv && oi < bi)) {
-          bv = ov;
-          bi = oi;
-        }
-      }
-      if (bi >= E) bi = 0;  // only NaN logits left: keep the index in range
-      if ((bi & 31) == lane) taken |= 1u << (bi >> 5);
-      idx[k] = bi;
-      g[k] = __fdiv_rn(expf(row[bi] - m), s);
-      gsum = __fadd_rn(gsum, g[k]);
-    }
-    const float den = fmaxf(gsum, 1e-9f);
-    if (lane == 0)
-      for (int k = 0; k < K; ++k) {
-        experts[t * K + k] = idx[k];
-        gates[t * K + k] = __fdiv_rn(g[k], den);
-      }
-  }
-  __syncthreads();  // the experts written above are visible to the block
-
-  if (warp == 0) {
-    const int P = T * K;
-    for (int base = 0; base < P; base += 32) {
-      const int i = base + lane;
-      const int e = i < P ? experts[i] : -1 - lane;  // idle lanes match no one
-      const unsigned peers = __match_any_sync(0xffffffffu, e);
-      const int rank = __popc(peers & ((1u << lane) - 1u));
-      const int start = i < P ? cnt[e] : 0;
-      __syncwarp();
-      if (i < P) {
-        const int slot = start + rank;
-        slots[i] = slot;
-        if (slot < C) src[e * C + slot] = i / K;
-        if (rank == __popc(peers) - 1) cnt[e] = start + __popc(peers);
-      }
-      __syncwarp();
-    }
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < E; e += blockDim.x) counts[e] = min(cnt[e], C);
-  if (reads != nullptr && threadIdx.x == 0) {
-    unsigned long long used = 0;
-    for (int e = 0; e < E; ++e) used += cnt[e] > 0;
-    atomicAdd(reads, used);        // experts whose weights a GEMM streams
-    atomicAdd(reads + 1, 1ull);    // MoE layer passes
-  }
-}
-
-// ----------------------------------------------------------------- gemm --
+// ------------------------------------------------- TMA and mbarriers --
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -300,6 +217,553 @@ __device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, int c0
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
       : "memory");
 }
+// ---------------------------------------------------------------- route --
+__device__ __forceinline__ int warp_sum_int(int v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+// bf16 element k (0-7) of a 16-byte run, as f32 (k known at compile time)
+__device__ __forceinline__ float run_at(const uint4& r, int k) {
+  const uint32_t v = k < 2 ? r.x : k < 4 ? r.y : k < 6 ? r.z : r.w;
+  return __uint_as_float(k & 1 ? v & 0xffff0000u : v << 16);
+}
+
+// acc[t NE + e] = fma(x[t][d], w[d][e], acc[t NE + e]) for the run's
+// element k
+template <int TT, int NE>
+__device__ __forceinline__ void run_fma(float (&acc)[TT * NE], const uint4 (&xr)[TT], int k,
+                                        const float (&wv)[NE]) {
+#pragma unroll
+  for (int t = 0; t < TT; ++t) {
+    const float xv = run_at(xr[t], k);
+#pragma unroll
+    for (int e = 0; e < NE; ++e) acc[t * NE + e] = __fmaf_rn(xv, wv[e], acc[t * NE + e]);
+  }
+}
+
+// A warp's xor tree over N values a lane, pairing lanes by bit O, O / 2,
+// ..., 1: at each level with N > 1 a lane keeps half the values (the
+// upper half where its bit O is set) and adds its partner's copy of them,
+// so each level sums the same pairs as v += shfl_xor(v, O) would; at
+// N == 1 it is that. A lane ends with max(N / 32, 1) sums, of the values
+// tree_base<N, O>(lane) + k.
+template <int N, int O>
+__device__ __forceinline__ void warp_tree(float* v, int lane) {
+  if constexpr (O > 0) {
+    if constexpr (N > 1) {
+      const bool up = lane & O;
+#pragma unroll
+      for (int k = 0; k < N / 2; ++k) {
+        const float send = up ? v[k] : v[k + N / 2];
+        const float keep = up ? v[k + N / 2] : v[k];
+        v[k] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, O));
+      }
+      warp_tree<N / 2, O / 2>(v, lane);
+    } else {
+      v[0] = __fadd_rn(v[0], __shfl_xor_sync(0xffffffffu, v[0], O));
+      warp_tree<1, O / 2>(v, lane);
+    }
+  }
+}
+template <int N, int O>
+__device__ __forceinline__ int tree_base(int lane) {
+  if constexpr (O > 0 && N > 1)
+    return (lane & O ? N / 2 : 0) + tree_base<N / 2, O / 2>(lane);
+  else
+    return 0;
+}
+
+// The four warp sums of a 128-lane group, in order: part[w][i] for i < n
+// (each group's part holds 4 x n floats); the caller synchronizes.
+__device__ __forceinline__ float group_sum(const float* part, int n, int i) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(part[i], part[n + i]), part[2 * n + i]), part[3 * n + i]);
+}
+
+// One token's routing by one warp from its logits in registers (logit
+// lane + 32 j in v[j], j < NJ, NJ 32 >= E; -inf past E): the top K by
+// value (ties to the lower id), then gate k = exp(l_k - l_0) / sum_k' of
+// them, l_0 the largest logit. That is softmax, the chosen probabilities
+// and their division by their sum (JAX's max(sum, 1e-9) never binds: the
+// top probability is at least 1 / E) with the softmax's denominator
+// cancelled, which moves a gate by a rounding or two. Lane k < K writes
+// pair k.
+template <int NJ>
+__device__ __forceinline__ void route_token(float (&v)[NJ], int E, int K, int lane,
+                                            float* gates, int* experts, int* experts_s) {
+  float m = 0.f, gsum = 0.f, mine_g = 0.f;
+  int mine_e = 0;
+  for (int k = 0; k < K; ++k) {
+    float bv = -INFINITY;
+    int bi = INT_MAX;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)  // a chosen logit is -inf (or NaN) and never wins
+      if (v[j] > bv) {
+        bv = v[j];
+        bi = lane + 32 * j;
+      }
+#pragma unroll
+    for (int o = 16; o; o >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+      if (ov > bv || (ov == bv && oi < bi)) {
+        bv = ov;
+        bi = oi;
+      }
+    }
+    if (bi >= E) bi = 0;  // only -inf or NaN logits left: keep the index in range
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      if (lane + 32 * j == bi) v[j] = -INFINITY;
+    if (k == 0) m = bv;
+    const float g = expf(bv - m);
+    gsum = __fadd_rn(gsum, g);
+    if (lane == k) {
+      mine_g = g;
+      mine_e = bi;
+    }
+  }
+  if (lane < K) {
+    experts[lane] = mine_e;
+    gates[lane] = __fdiv_rn(mine_g, gsum);
+    if (experts_s != nullptr) experts_s[lane] = mine_e;
+  }
+}
+
+// counts[e] = min(n[e], C) for every e, and (reads) the experts with a
+// pair and one pass added to the read counters: one warp.
+__device__ __forceinline__ void warp_counts(const int* n, int E, int C, int* counts,
+                                            unsigned long long* reads, int lane) {
+  int used = 0;
+  for (int e = lane; e < E; e += 32) {
+    counts[e] = min(n[e], C);
+    used += n[e] > 0;
+  }
+  used = warp_sum_int(used);
+  if (reads != nullptr && lane == 0) {
+    atomicAdd(reads, (unsigned long long)used);          // experts whose weights a GEMM streams
+    atomicAdd(reads + 1, 1ull);                          // MoE layer passes
+  }
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// a pointer to the same shared-memory variable in the cluster's CTA `rank`
+template <typename T>
+__device__ __forceinline__ T* cluster_peer(T* p, int rank) {
+  uint64_t out;
+  asm volatile("mapa.u64 %0, %1, %2;\n" : "=l"(out) : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<T*>(out);
+}
+
+// 16 bytes global -> shared by cp.async; src_bytes 0 writes zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The decode route's tensor maps: x (T, D), boxes of 256 d x T tokens; w
+// (D, E) viewed as (E, runs, 8) (element (e, r, k) = w[8r + k][e]: the
+// run's stride before the row's, which the encoder takes), boxes of EB
+// experts x 32 runs x 8 k, so that a stage holds [k][lane][EB] (the
+// 128-byte swizzle at EB 64). Elements past T, D or E read as 0.
+// A stage's row (k, lane) of EB experts holds octet o at 16-byte chunk
+// swizzled(o, lane), so that lanes l .. l + 7 reading one octet fall in 8
+// bank groups.
+template <int EB>
+__device__ __forceinline__ int swizzled(int o, int lane) {
+  return EB == 64 ? o ^ (lane & 7) : o;
+}
+struct RouteMaps {
+  CUtensorMap x, w;
+};
+
+// Decode: one launch, T <= kClusterT: clusters of kClusterCtas CTAs,
+// cluster c taking the kClusterBlocks blocks of EB experts from c
+// kClusterBlocks. A unit is one lane-warp lw (the lanes 32 lw .. 32 lw +
+// 31 of the order above) of one block, for all T tokens; unit u = (u % 4,
+// u / 4) of a cluster goes to its CTA u % 8, so a CTA keeps one lane-warp.
+// Item (unit, j) is the 256 rows of d that the lane-warp's runs of step j
+// cover: the tokens' x over them and w's (256 rows x EB experts) block,
+// two TMA boxes through a ring of S stages on mbarriers (every item in
+// flight where they fit), issued by a producer warp; the consumer warps
+// free a stage on its empty barrier. Consumer warp (octet o, token group
+// g) sums TT tokens x 8 experts a lane; at a unit's end its xor tree
+// gives the lane-warp's partial sums, which go into its cluster leader's
+// (rank 0) shared memory (distributed shared memory). The blocks: EB 8 at
+// E <= 32 (phi3.5-moe: one cluster), a warp a token; else EB 64 with TT 4
+// at T <= kClusterTWide (kimi-k2's E 384: three clusters; at its T 16 a
+// variant of EB 32 with TT 16 was slower than the three launches of the
+// prefill route, PERF.md). After a cluster barrier
+// each leader adds its experts' four partials in order. With one cluster
+// a warp of the leader takes a token's logits from there, writes them and
+// routes it; with more, each leader writes its experts' logits out, and
+// the last to take the ticket (after a fence) reads them all back and
+// routes (the ticket counts the leaders modulo their number, so it is 0
+// again after every launch). Then its warp 0 gives the pairs their slots
+// and writes the
+// counts. Shared memory: the ring ([S] stages of x (T x 256 bf16), then w
+// at the next 1024 bytes ([8][32][EB] bf16)), the partials (4, T, the
+// cluster's experts), the counts (E), the chosen experts (T K), the full
+// and empty barriers, a flag.
+template <int EB, int TT>
+__global__ void __launch_bounds__(EB == 8 ? 512 + 32 : 32 * EB / 8 + 32)
+    moe_route_cluster_kernel(const __grid_constant__ RouteMaps maps, int T, int D, int E, int K,
+                             int C, int S, float* __restrict__ logits, float* __restrict__ gates,
+                             int* __restrict__ experts, int* __restrict__ slots,
+                             int* __restrict__ counts, int* __restrict__ src,
+                             unsigned long long* __restrict__ reads, int* __restrict__ ticket) {
+  constexpr int NO = EB / 8;                             // octets of experts a unit
+  extern __shared__ uint8_t route_raw[];
+  uint8_t* ring = route_raw + ((1024 - (smem_addr(route_raw) & 1023)) & 1023);
+  const int cl = blockIdx.x / kClusterCtas, rank = blockIdx.x % kClusterCtas;
+  const int ncl = gridDim.x / kClusterCtas, tid = threadIdx.x, nthr = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, o = warp % NO, tg = warp / NO;
+  const int consumers = nthr / 32 - 1;                   // the last warp is the producer
+  const int runs = D / 8, lw = rank % 4, eb0 = cl * kClusterBlocks;
+  const int nb = min(kClusterBlocks, (E + EB - 1) / EB - eb0);  // this cluster's blocks
+  const int Ec = min(E - eb0 * EB, nb * EB);             // and experts
+  const int units = 4 * nb;
+  const int mine = rank < units ? (units - rank + kClusterCtas - 1) / kClusterCtas : 0;
+  // steps a unit (one, of zeros, where the lane-warp has no run)
+  const int J = runs > 32 * lw ? (runs - 32 * lw + kLanes - 1) / kLanes : 1;
+  const int items = mine * J, wofs = (T * 512 + 1023) & ~1023, stage = wofs + 512 * EB;
+  float* part = reinterpret_cast<float*>(ring + S * stage);  // (4, T, Ec)
+  int* cnt = reinterpret_cast<int*>(part + 4 * T * Ec);  // (E)
+  int* ex = cnt + E;                                     // (T K)
+  uint64_t* full = reinterpret_cast<uint64_t*>(ex + ((T * K + 1) & ~1));
+  uint64_t* empty = full + S;
+  int* last = reinterpret_cast<int*>(empty + S);         // this CTA routes (the last leader)
+  float* lead = cluster_peer(part, 0);
+  auto issue = [&](int n) {                              // item n: step n % J of unit n / J
+    const int s = n % S, eb = eb0 + (rank + kClusterCtas * (n / J)) / 4;
+    const int r0 = 32 * lw + kLanes * (n % J);
+    uint8_t* st = ring + s * stage;
+    mbar_expect_tx(&full[s], T * 512 + 512 * EB);
+    tma_3d(st, &maps.x, 8 * r0, 0, 0, &full[s]);
+    tma_3d(st + wofs, &maps.w, eb * EB, r0, 0, &full[s]);
+  };
+  if (tid == 32 * consumers) {                           // the producer: the barriers, the first
+    for (int s = 0; s < S; ++s) {                        // stages' copies at once
+      mbar_init(&full[s], 1);                            // the producer's expect_tx
+      mbar_init(&empty[s], consumers);                   // a consumer warp's read
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int n = 0; n < S && n < items; ++n) issue(n);
+  }
+  cluster_arrive_relaxed();                              // this CTA has started
+  for (int e = tid; e < E; e += nthr) cnt[e] = 0;        // (the leader's)
+  __syncthreads();                                       // the barriers are initialized
+
+  if (warp == consumers) {                               // producer: the rest of the ring
+    if (lane == 0)
+      for (int n = S; n < items; ++n) {
+        mbar_wait(&empty[n % S], (n / S - 1) & 1);
+        issue(n);
+      }
+    __syncwarp();
+    cluster_wait();
+  } else {
+    float acc[TT * 8];
+    for (int n = 0; n < items; ++n) {
+      const int j = n % J;
+      if (j == 0) {
+#pragma unroll
+        for (int v = 0; v < TT * 8; ++v) acc[v] = 0.f;
+      }
+      mbar_wait(&full[n % S], (n / S) & 1);
+      const uint8_t* st = ring + (n % S) * stage;
+      if (32 * lw + kLanes * j + lane < runs) {
+        uint4 xr[TT];
+#pragma unroll
+        for (int tt = 0; tt < TT; ++tt) {
+          const int t = tg * TT + tt;
+          xr[tt] = t < T ? *reinterpret_cast<const uint4*>(st + t * 512 + lane * 16)
+                         : make_uint4(0, 0, 0, 0);
+        }
+        uint4 wr[8];                                     // the run's 8 rows, loads side by side
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          wr[k] = *reinterpret_cast<const uint4*>(st + wofs + (k * 32 + lane) * EB * 2 +
+                                                  swizzled<EB>(o, lane) * 16);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          float wv[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) wv[e] = run_at(wr[k], e);
+          run_fma<TT, 8>(acc, xr, k, wv);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[n % S]);        // this warp has read the stage
+      if (j == J - 1) {                                  // the unit's lane-warp partials
+        warp_tree<TT * 8, 16>(acc, lane);
+        const int base = tree_base<TT * 8, 16>(lane);
+        const int ec0 = (rank + kClusterCtas * (n / J)) / 4 * EB;  // the unit's first expert in Ec
+        if (n / J == 0) cluster_wait();                  // every CTA has started
+#pragma unroll
+        for (int v = 0; v < (TT * 8 >= 32 ? TT * 8 / 32 : 1); ++v) {
+          const int t = tg * TT + (base + v) / 8, ec = ec0 + 8 * o + (base + v) % 8;
+          if (t < T && ec < Ec) lead[(lw * T + t) * Ec + ec] = acc[v];
+        }
+      }
+    }
+    if (items == 0) cluster_wait();
+  }
+  cluster_sync();                                        // the partials are in the leader
+  if (rank != 0) return;
+
+  // the leader: its experts' logits, the four partials in order
+  const int TE = T * Ec;
+  auto logit = [&](int t, int ec) {
+    const float* p = part + t * Ec + ec;
+    return __fadd_rn(__fadd_rn(__fadd_rn(p[0], p[TE]), p[2 * TE]), p[3 * TE]);
+  };
+  if (ncl > 1) {                                         // out; the last cluster's leader routes
+    for (int i = tid; i < TE; i += nthr)
+      logits[(size_t)(i / Ec) * E + eb0 * EB + i % Ec] = logit(i / Ec, i % Ec);
+    __syncthreads();
+    if (tid == 0) {                                      // the ticket wraps to 0 for the next
+      __threadfence();                                   // launch on the stream
+      *last = atomicInc(reinterpret_cast<unsigned*>(ticket), ncl - 1) == (unsigned)(ncl - 1);
+    }
+    __syncthreads();
+    if (!*last) return;
+    __threadfence();
+  }
+  // a warp a token: its logits into registers (one cluster: out too),
+  // then its routing
+  for (int t = warp; t < T; t += nthr / 32) {
+    float v[EB == 8 ? 1 : kMaxPerLane];
+#pragma unroll
+    for (int j = 0; j < (EB == 8 ? 1 : kMaxPerLane); ++j) {
+      const int e = lane + 32 * j;
+      if (e >= E) {
+        v[j] = -INFINITY;
+      } else if (ncl > 1) {
+        v[j] = __ldcg(logits + (size_t)t * E + e);
+      } else {
+        v[j] = logit(t, e);
+        logits[(size_t)t * E + e] = v[j];
+      }
+    }
+    route_token(v, E, K, lane, gates + t * K, experts + t * K, ex + t * K);
+  }
+  __syncthreads();                                       // every token's experts are in ex
+  if (warp != 0) return;
+  // warp 0: each pair's slot (its rank among the earlier pairs of its
+  // expert); the last pair of an expert sets its count
+  for (int i = lane; i < T * K; i += 32) {
+    const int e = ex[i];
+    int rank = 0;
+    bool last = true;
+    for (int q = 0; q < T * K; ++q)
+      if (ex[q] == e) {
+        rank += q < i;
+        last &= q <= i;
+      }
+    slots[i] = rank;
+    if (rank < C) src[e * C + rank] = i / K;
+    if (last) cnt[e] = rank + 1;
+  }
+  __syncwarp();
+  warp_counts(cnt, E, C, counts, reads, lane);
+}
+
+// Prefill: a CTA the tile of tokens t0 + [0, 16) and experts e0 + [0, 16)
+// (grid (ceil(E / 16), ceil(T / 16))). A stage holds the tile's x rows
+// over 1024 d ([16][1024] bf16) and w's slice ([1024][16] bf16, each row
+// two 16-byte chunks, chunk c of row r at chunk 2r + c xor (r / 8) % 8,
+// so the 8 rows 8i + k that lanes i .. i + 7 read at once fall in 8
+// bank groups). The CTA's TG x EG groups of 128 lanes split the tile:
+// thread (group g, lane i) sums tokens (g % TG) 16 / TG + [0, 16 / TG) by
+// experts (g / TG) 16 / EG + [0, 16 / EG) over its runs i + 128 j,
+// staged j by j.
+template <int TG, int EG>
+__global__ void __launch_bounds__(128 * TG * EG, 1)
+    moe_router_tile_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                           float* __restrict__ logits, int T, int D, int E) {
+  constexpr int NT = 128 * TG * EG, TTt = kTileT / TG, EEt = kTileE / EG, NV = TTt * EEt;
+  extern __shared__ uint8_t tile_smem[];
+  const int tid = threadIdx.x, grp = tid >> 7, li = tid & 127, lane = tid & 31;
+  const int tg = grp % TG, eg = grp / TG;
+  const int e0 = blockIdx.x * kTileE, t0 = blockIdx.y * kTileT;
+  const int steps = (D + kStepD - 1) / kStepD, runs = D / 8;
+  auto xs = [&](int s) { return reinterpret_cast<bf16*>(tile_smem + s * kTileStage); };
+  auto ws = [&](int s) { return tile_smem + s * kTileStage + kTileT * kStepD * 2; };
+  auto issue = [&](int j) {
+    const int s = j % kTileStages, d0 = j * kStepD;
+    bf16* xd = xs(s);
+    uint8_t* wd = ws(s);
+#pragma unroll
+    for (int n = 0; n < kTileT * (kStepD / 8) / NT; ++n) {
+      const int q = tid + n * NT;
+      const int t = q / (kStepD / 8), col = q % (kStepD / 8), d = d0 + 8 * col;
+      const bool ok = t0 + t < T && d < D;
+      cp_async16(xd + t * kStepD + 8 * col, ok ? x + (size_t)(t0 + t) * D + d : x, ok ? 16 : 0);
+    }
+#pragma unroll
+    for (int n = 0; n < kStepD * 2 / NT; ++n) {
+      const int q = tid + n * NT;
+      const int r = q >> 1, c = q & 1;
+      const bool ok = d0 + r < D && e0 + 8 * c < E;
+      cp_async16(wd + ((2 * r + c) ^ ((r >> 3) & 7)) * 16,
+                 ok ? w + (size_t)(d0 + r) * E + e0 + 8 * c : w, ok ? 16 : 0);
+    }
+  };
+  float acc[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) acc[v] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kTileStages - 1; ++j) {
+    if (j < steps) issue(j);
+    cp_async_commit();
+  }
+  for (int j = 0; j < steps; ++j) {
+    cp_async_wait<kTileStages - 2>();
+    __syncthreads();                                     // stage j is in; stage j - 1 is read
+    if (j + kTileStages - 1 < steps) issue(j + kTileStages - 1);
+    cp_async_commit();
+    const int s = j % kTileStages;
+    if (j * kLanes + li < runs) {
+      const bf16* xd = xs(s);
+      const uint8_t* wd = ws(s);
+      uint4 xr[TTt];
+#pragma unroll
+      for (int t = 0; t < TTt; ++t)
+        xr[t] = *reinterpret_cast<const uint4*>(xd + (TTt * tg + t) * kStepD + 8 * li);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int r = 8 * li + k;
+        float wv[EEt];
+#pragma unroll
+        for (int c = 0; c < EEt / 8; ++c) {
+          const uint4 wr = *reinterpret_cast<const uint4*>(
+              wd + ((2 * r + (EEt / 8) * eg + c) ^ (li & 7)) * 16);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) wv[8 * c + e] = run_at(wr, e);
+        }
+        run_fma<TTt, EEt>(acc, xr, k, wv);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                                       // the ring is free for the sums
+  float* part = reinterpret_cast<float*>(tile_smem);     // (groups, 4 warps, NV)
+  warp_tree<NV, 16>(acc, lane);
+  const int base = tree_base<NV, 16>(lane);
+#pragma unroll
+  for (int k = 0; k < NV / 32; ++k) part[(grp * 4 + (li >> 5)) * NV + base + k] = acc[k];
+  __syncthreads();
+  for (int i = tid; i < kTileT * kTileE; i += NT) {
+    const int tt = i / kTileE, ee = i % kTileE, t = t0 + tt, e = e0 + ee;
+    const int g = (tt / TTt) + TG * (ee / EEt);
+    if (t < T && e < E)
+      logits[(size_t)t * E + e] =
+          group_sum(part + g * 4 * NV, NV, (tt % TTt) * EEt + ee % EEt);
+  }
+}
+
+// Prefill: a warp a token's routing from its logits row (NJ 32 >= E).
+template <int NJ>
+__global__ void __launch_bounds__(kTopkWarps * 32)
+    moe_route_topk_kernel(const float* __restrict__ logits, int T, int E, int K,
+                          float* __restrict__ gates, int* __restrict__ experts) {
+  const int t = blockIdx.x * kTopkWarps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (t >= T) return;
+  float v[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+    v[j] = lane + 32 * j < E ? logits[(size_t)t * E + lane + 32 * j] : -INFINITY;
+  route_token(v, E, K, lane, gates + t * K, experts + t * K, nullptr);
+}
+
+// One warp walks the pairs [lo, hi) of experts (flat (t, k) order), 32 at
+// a time, loading kWalkBatch x 32 of them at once; for each group of 32,
+// op(i, e, peers, rank) with i the lane's pair, e its expert (i < hi),
+// peers the lanes of the group with the same expert (__match_any_sync)
+// and rank the lane's place among them.
+template <typename Op>
+__device__ __forceinline__ void walk_pairs(const int* experts, int lo, int hi, int lane, Op op) {
+  for (int b = lo; b < hi; b += 32 * kWalkBatch) {
+    int ev[kWalkBatch];
+#pragma unroll
+    for (int u = 0; u < kWalkBatch; ++u) {
+      const int i = b + 32 * u + lane;
+      ev[u] = i < hi ? experts[i] : -1 - lane;           // idle lanes match no one
+    }
+#pragma unroll
+    for (int u = 0; u < kWalkBatch; ++u) {
+      if (b + 32 * u >= hi) break;
+      const unsigned peers = __match_any_sync(0xffffffffu, ev[u]);
+      op(b + 32 * u + lane, ev[u], peers, __popc(peers & ((1u << lane) - 1u)));
+      __syncwarp();
+    }
+  }
+}
+
+// Prefill: the slots of the P = T K pairs, one CTA of kSlotWarps warps.
+// Warp w takes the pairs [w seg, (w + 1) seg), seg = 32 ceil(P / (32 W))
+// (kernels/moe.py::route_segment); cnt[w][e] counts its pairs of e, then
+// the exclusive scan over w makes it the slot of warp w's first pair of
+// e, and the warp ranks its pairs from there as the serial walk did (a
+// running count an expert). Shared memory: cnt (W, E), the totals (E).
+__global__ void __launch_bounds__(kSlotThreads)
+    moe_route_slots_kernel(const int* __restrict__ experts, int P, int E, int K, int C,
+                           int* __restrict__ slots, int* __restrict__ counts,
+                           int* __restrict__ src, unsigned long long* __restrict__ reads) {
+  extern __shared__ int cnt[];                           // (W, E), then the totals (E)
+  int* total = cnt + kSlotWarps * E;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int seg = 32 * ((P + 32 * kSlotWarps - 1) / (32 * kSlotWarps));
+  const int lo = min(P, warp * seg), hi = min(P, lo + seg);
+  int* mine = cnt + warp * E;
+  for (int i = tid; i < kSlotWarps * E; i += kSlotThreads) cnt[i] = 0;
+  __syncthreads();
+  walk_pairs(experts, lo, hi, lane, [&](int i, int e, unsigned peers, int rank) {
+    if (i < hi && rank == 0) mine[e] += __popc(peers);
+  });
+  __syncthreads();
+  for (int e = tid; e < E; e += kSlotThreads) {
+    int run = 0;
+    for (int w = 0; w < kSlotWarps; ++w) {
+      const int c = cnt[w * E + e];
+      cnt[w * E + e] = run;
+      run += c;
+    }
+    total[e] = run;
+  }
+  __syncthreads();
+  walk_pairs(experts, lo, hi, lane, [&](int i, int e, unsigned peers, int rank) {
+    const int start = i < hi ? mine[e] : 0;
+    __syncwarp();
+    if (i < hi) {
+      const int slot = start + rank;
+      slots[i] = slot;
+      if (slot < C) src[e * C + slot] = i / K;
+      if (rank == __popc(peers) - 1) mine[e] = start + __popc(peers);
+    }
+  });
+  if (warp == 0) warp_counts(total, E, C, counts, reads, lane);
+}
+
+// ----------------------------------------------------------------- gemm --
 // A wgmma shared-memory descriptor: start address, leading and stride
 // byte offsets (16-byte units), swizzle layout (1: 128B).
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
@@ -775,19 +1239,26 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// a bf16 (d2, d1, d0) tensor, d0 contiguous, as a 3-D map with boxes of
-// b0 x b1 x 1 and the 128-byte swizzle; elements past the edges read as 0
-bool make_map(CUtensorMap* map, const void* base, int d0, int d1, int d2, int b0, int b1) {
+// a bf16 3-D map over base: dims (d0 contiguous, d1, d2), the byte
+// strides of d1 and d2, boxes box; elements past the edges read as 0
+bool make_map(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[3],
+              const cuuint64_t (&strides)[2], const cuuint32_t (&box)[3],
+              CUtensorMapSwizzle swizzle) {
   const EncodeTiled fn = encoder();
   if (!fn) return false;
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+            box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a bf16 (d2, d1, d0) tensor, d0 contiguous, as a 3-D map with boxes of
+// b0 x b1 x 1 and the 128-byte swizzle
+bool make_map(CUtensorMap* map, const void* base, int d0, int d1, int d2, int b0, int b1) {
   const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
   const cuuint64_t strides[2] = {(cuuint64_t)d0 * 2, (cuuint64_t)d1 * d0 * 2};
   const cuuint32_t box[3] = {(cuuint32_t)b0, (cuuint32_t)b1, 1};
-  const cuuint32_t estr[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-            box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
+  return make_map(map, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int R, bool GLU>
@@ -870,23 +1341,113 @@ __global__ void __launch_bounds__(kCombineThreads)
 
 }  // namespace
 
-// Two launches: the router's logits, then the routing.
+// the tiled router's split: 2 x 1 groups of 128 lanes (8 tokens x 16
+// experts a thread)
+constexpr int kTileTG = 2, kTileEG = 1;
+
+// launches (kernels/moe.py::route_launches): 1, one launch of clusters of
+// kClusterCtas CTAs (T <= kClusterT at E <= 32, T <= kClusterTWide
+// above), or 3, the tiled router, the top-k and the slots. logits (T, E) f32 is written either way. ticket: an
+// int32, 0 before the stream's first launch, that no other stream uses;
+// more than one cluster needs it. Returns the first launch error.
 extern "C" int moe_route(const void* x, const void* w, void* logits, int T, int D, int E,
                          int K, int C, void* gates, void* experts, void* slots, void* counts,
-                         void* src, void* reads, void* stream) {
-  if (K < 1 || K > kMaxK || E < K || E > 32 * kMaxPerLane || E % kRouterExperts)
+                         void* src, void* reads, void* ticket, int launches, void* stream) {
+  if (K < 1 || K > kMaxK || E < K || E > 32 * kMaxPerLane || E % 8 || D < 8 || D % 8 || C < 1 ||
+      !(launches == 3 || (launches == 1 && T <= (E <= 32 ? kClusterT : kClusterTWide))))
     return cudaErrorInvalidValue;
   if (T == 0) return cudaSuccess;
-  moe_router_kernel<<<T * (E / kRouterExperts), kRouterThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<float*>(logits), D,
-      E);
-  const cudaError_t e = cudaGetLastError();
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto x_ = static_cast<const bf16*>(x);
+  const auto w_ = static_cast<const bf16*>(w);
+  const auto lg = static_cast<float*>(logits);
+  const auto g_ = static_cast<float*>(gates);
+  const auto e_ = static_cast<int*>(experts);
+  const auto s_ = static_cast<int*>(slots);
+  const auto c_ = static_cast<int*>(counts);
+  const auto m_ = static_cast<int*>(src);
+  const auto r_ = static_cast<unsigned long long*>(reads);
+  static bool sized = false;                      // once (one device)
+  if (!sized) {
+    cudaError_t e = cudaFuncSetAttribute(moe_route_cluster_kernel<8, 1>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(moe_route_cluster_kernel<64, 4>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(moe_router_tile_kernel<kTileTG, kTileEG>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kTileStages * kTileStage);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(moe_route_slots_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (kSlotWarps + 1) * 32 * kMaxPerLane * 4);
+    if (e != cudaSuccess) return e;
+    sized = true;
+  }
+  if (launches == 1) {
+    // blocks of 8 experts a token a warp (E <= 32: phi3.5-moe's 16), else
+    // of 64 experts 4 tokens a warp (T <= 4); a cluster two blocks (one
+    // when E fits in one), so its 8 CTAs
+    // take the 4 lane-warps of each; every item of a CTA in flight where
+    // the ring holds them, else as many stages as fit
+    const bool small = E <= 32;
+    const int EB = small ? 8 : 64;
+    const int ncl = ((E + EB - 1) / EB + kClusterBlocks - 1) / kClusterBlocks;
+    if (ncl > 1 && ticket == nullptr) return cudaErrorInvalidValue;
+    RouteMaps maps;
+    memset(&maps, 0, sizeof(maps));
+    {
+      const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, 1};
+      const cuuint64_t strides[2] = {2ull * D, 2ull * D * T};
+      const cuuint32_t box[3] = {256, (cuuint32_t)T, 1};
+      if (!make_map(&maps.x, x, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE))
+        return cudaErrorInvalidValue;
+    }
+    {
+      const cuuint64_t dims[3] = {(cuuint64_t)E, (cuuint64_t)D / 8, 8};
+      const cuuint64_t strides[2] = {16ull * E, 2ull * E};
+      const cuuint32_t box[3] = {(cuuint32_t)EB, 32, 8};
+      if (!make_map(&maps.w, w_, dims, strides, box,
+                    EB == 8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B))
+        return cudaErrorInvalidValue;
+    }
+    const int threads = (small ? 32 * T : 4 * EB) + 32;  // and a producer warp
+    const int Ec = E < kClusterBlocks * EB ? E : kClusterBlocks * EB;
+    const int stage = ((T * 512 + 1023) & ~1023) + 512 * EB;
+    const int tail = 1023 + (4 * T * Ec + E + ((T * K + 1) & ~1)) * 4 + 2 * kMaxStages * 8 + 4;
+    // steps a unit (the most of any lane-warp) x units a CTA
+    const int items = (D / 8 + kLanes - 1) / kLanes * ((4 * kClusterBlocks + 7) / 8);
+    const int fit = (kSmemMax - tail) / stage;
+    const int S = items < fit ? (items < kMaxStages ? items : kMaxStages) : fit;
+    if (S < 1) return cudaErrorInvalidValue;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(kClusterCtas * ncl);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = S * stage + tail;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kClusterCtas;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const auto kernel = small ? moe_route_cluster_kernel<8, 1> : moe_route_cluster_kernel<64, 4>;
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, maps, T, D, E, K, C, S, lg, g_, e_,
+                                             s_, c_, m_, r_, static_cast<int*>(ticket));
+    return e != cudaSuccess ? e : cudaGetLastError();
+  }
+  moe_router_tile_kernel<kTileTG, kTileEG>
+      <<<dim3((E + kTileE - 1) / kTileE, (T + kTileT - 1) / kTileT), 128 * kTileTG * kTileEG,
+         kTileStages * kTileStage, st>>>(x_, w_, lg, T, D, E);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  moe_route_kernel<<<1, kRouteThreads, E * sizeof(int), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(logits), T, E, K, C, static_cast<float*>(gates),
-      static_cast<int*>(experts), static_cast<int*>(slots), static_cast<int*>(counts),
-      static_cast<int*>(src), static_cast<unsigned long long*>(reads));
+  (E <= 32 ? moe_route_topk_kernel<1> : moe_route_topk_kernel<kMaxPerLane>)
+      <<<(T + kTopkWarps - 1) / kTopkWarps, kTopkWarps * 32, 0, st>>>(lg, T, E, K, g_, e_);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  moe_route_slots_kernel<<<1, kSlotThreads, (kSlotWarps + 1) * E * 4, st>>>(e_, T * K, E, K, C,
+                                                                           s_, c_, m_, r_);
   return cudaGetLastError();
 }
 

@@ -14,12 +14,23 @@
 // mamba2-2.7b); the scan builds (B, Q, Q, H) f32 tensors a chunk.
 //
 // Bounds and designs.
-// - ssm_conv and gated_rmsnorm: bytes. One pass over their rows, reading
-//   each input once (the gated norm keeps a row in registers, its loads
-//   in flight together); at decode they are a few hundred kilobytes, so
-//   the launch latency bounds them. Folding the decode's gated norm into
-//   ssm_decode_update's launch (the CTA that takes a slot's last ticket
-//   normalizes the row) was bit-equal and slower on the card (PERF.md).
+// - ssm_conv: bytes. One pass over its rows, reading each input once; at
+//   decode they are a few hundred kilobytes, so the launch latency bounds
+//   it.
+// - gated_rmsnorm: bytes, and at decode (4 rows of 5120) a chain of
+//   dependent latencies: the loads, the gates, the reduction, the
+//   scaling. A thread takes one 16-byte run (one CTA of 640 threads a row
+//   at mamba2's d 5120) where the former CTA of 256 gated up to 24 values
+//   a thread serially; w is loaded with y and z, before the reduction;
+//   the sum is two xor trees (a warp's runs, then the warps' sums), its
+//   order from kernels/ssm.py::norm_plan(d) alone. A row spread over a
+//   cluster of 4 or 7 CTAs (partial sums through distributed shared
+//   memory) was about as fast at decode and slower at prefill, and a
+//   launch under programmatic dependent launch did not make the decode
+//   step faster; neither was kept (PERF.md). Folding the decode's gated
+//   norm into ssm_decode_update's launch (the CTA that takes a slot's
+//   last ticket normalizes the row) was bit-equal and slower on the card
+//   (PERF.md).
 // - ssm_decode_update: bytes. The state (B, H, P, N) f32 is read once and
 //   written once, in place; a warp takes one (slot, head, p) row of N
 //   states in 16-byte loads, a CTA eight rows, so one slot of 80 heads of
@@ -99,8 +110,7 @@ constexpr int kConvThreads = 128;  // channels a CTA
 constexpr int kConvRun = 32;       // positions a thread walks
 constexpr int kWidth = 4;          // the conv's width (every config's)
 constexpr int kDecRows = 8;        // decode: p rows a CTA, a warp each
-constexpr int kNormThreads = 256;
-constexpr int kNormRuns = 4;       // gated norm: 8-element runs a thread keeps
+constexpr int kNormMaxThreads = 1024;  // gated norm: a CTA a row, a thread a 16-byte run
 constexpr int kQ = 64;             // the prefill scan's chunk (wgmma's M)
 constexpr int kHP = 64;            // the scan's head dim P (a 128-byte row)
 constexpr int kNS = 128;           // the state width the scan's tiles hold
@@ -206,62 +216,57 @@ __global__ void __launch_bounds__(kDecRows * 32)
 }
 
 // ---------------------------------------------------------- gated RMSNorm --
-__device__ float block_sum(float v) {
-  __shared__ float warp_sums[kNormThreads / 32];
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) warp_sums[warp] = v;
-  __syncthreads();
-  v = lane < kNormThreads / 32 ? warp_sums[lane] : 0.f;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// One CTA a row of d: g = bf16(y * bf16(silu(z))), out = bf16(g * rsqrt(
-// mean(g^2) + eps) * w). A thread takes the runs of 8 elements at
-// (threadIdx.x + c * kNormThreads) * 8, c < kNormRuns, in 16-byte loads
-// (d % 8 == 0, rows 16-byte aligned, d <= kNormRuns * kNormThreads * 8),
-// and keeps g in registers between the sum and the scaling, so the row is
-// read once, all its loads in flight together (a decode step has 4 rows: 4
-// CTAs, where a loop over the row would pay one memory latency a step).
-__global__ void __launch_bounds__(kNormThreads)
+// A CTA row blockIdx.x, of `per` run-warps (32 consecutive 8-element runs,
+// a warp a run-warp, a thread a run), the order of kernels/ssm.py::
+// norm_plan(d). g = bf16(y * bf16(silu(z))), out = bf16(g * rsqrt(mean(
+// g^2) + eps) * w), w loaded with y and z, g kept as bf16 pairs (exact: it
+// is rounded to bf16) until the scaling. The sum of squares: a run's 8 in
+// order, each run-warp's xor tree, then the CTA's run-warp sums (zeros past
+// per, 32 in all) by another xor tree that every warp takes alike.
+__global__ void __launch_bounds__(kNormMaxThreads)
     gated_rmsnorm_kernel(const bf16* __restrict__ y, const bf16* __restrict__ z, long long z_rs,
                          const bf16* __restrict__ w, bf16* __restrict__ out, int d, float eps) {
+  __shared__ float warp_sums[32];
+  const int tid = threadIdx.x, lane = tid & 31, per = blockDim.x >> 5;
   const size_t row = blockIdx.x;
-  const bf16* yr = y + row * d;
-  const bf16* zr = z + row * z_rs;
-  auto gate = [&](float yv, float zv) { return rb(__fmul_rn(yv, rb(silu(zv)))); };
+  const int at = tid * 8;
+  uint4 uw = make_uint4(0, 0, 0, 0), uz = uw, uy = uw;
+  if (at < d) {
+    uw = *reinterpret_cast<const uint4*>(w + at);
+    uz = *reinterpret_cast<const uint4*>(z + row * z_rs + at);
+    uy = *reinterpret_cast<const uint4*>(y + row * d + at);
+  }
+  const bf16* hy = reinterpret_cast<const bf16*>(&uy);
+  const bf16* hz = reinterpret_cast<const bf16*>(&uz);
+  __nv_bfloat162 g[4];
   float ss = 0.f;
-  float g[kNormRuns][8];
 #pragma unroll
-  for (int c = 0; c < kNormRuns; ++c) {
-    const int i = (threadIdx.x + c * kNormThreads) * 8;
-    if (i >= d) continue;
-    const uint4 uy = *reinterpret_cast<const uint4*>(yr + i);
-    const uint4 uz = *reinterpret_cast<const uint4*>(zr + i);
-    const bf16* hy = reinterpret_cast<const bf16*>(&uy);
-    const bf16* hz = reinterpret_cast<const bf16*>(&uz);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      g[c][j] = gate(f(hy[j]), f(hz[j]));
-      ss = __fadd_rn(ss, __fmul_rn(g[c][j], g[c][j]));
-    }
+  for (int j = 0; j < 8; j += 2) {
+    const float g0 = rb(__fmul_rn(f(hy[j]), rb(silu(f(hz[j])))));
+    const float g1 = rb(__fmul_rn(f(hy[j + 1]), rb(silu(f(hz[j + 1])))));
+    ss = __fadd_rn(ss, __fmul_rn(g0, g0));
+    ss = __fadd_rn(ss, __fmul_rn(g1, g1));
+    g[j / 2] = __floats2bfloat162_rn(g0, g1);
   }
-  const float r = rsqrtf(__fadd_rn(__fdiv_rn(block_sum(ss), (float)d), eps));
+  if (at >= d) ss = 0.f;
 #pragma unroll
-  for (int c = 0; c < kNormRuns; ++c) {
-    const int i = (threadIdx.x + c * kNormThreads) * 8;
-    if (i >= d) continue;
-    const uint4 uw = *reinterpret_cast<const uint4*>(w + i);
-    const bf16* hw = reinterpret_cast<const bf16*>(&uw);
-    uint4 uo;
-    bf16* ho = reinterpret_cast<bf16*>(&uo);
+  for (int o = 16; o > 0; o >>= 1) ss = __fadd_rn(ss, __shfl_xor_sync(0xffffffffu, ss, o));
+  if (lane == 0) warp_sums[tid >> 5] = ss;
+  __syncthreads();
+  float sum = lane < per ? warp_sums[lane] : 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) ho[j] = __float2bfloat16(__fmul_rn(__fmul_rn(g[c][j], r), f(hw[j])));
-    *reinterpret_cast<uint4*>(out + row * d + i) = uo;
+  for (int o = 16; o > 0; o >>= 1) sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, o));
+  const float r = rsqrtf(__fadd_rn(__fdiv_rn(sum, (float)d), eps));
+  if (at >= d) return;
+  const bf16* hw = reinterpret_cast<const bf16*>(&uw);
+  uint4 uo;
+  bf16* ho = reinterpret_cast<bf16*>(&uo);
+#pragma unroll
+  for (int j = 0; j < 8; j += 2) {
+    ho[j] = __float2bfloat16(__fmul_rn(__fmul_rn(__low2float(g[j / 2]), r), f(hw[j])));
+    ho[j + 1] = __float2bfloat16(__fmul_rn(__fmul_rn(__high2float(g[j / 2]), r), f(hw[j + 1])));
   }
+  *reinterpret_cast<uint4*>(out + row * d + at) = uo;
 }
 
 // ------------------------------------------------- chunk-parallel SSD scan --
@@ -840,16 +845,17 @@ extern "C" int ssd_prefill(const void* xbc, long long x_sb, long long x_ss, cons
   return cudaSuccess;
 }
 
-// y (M, d) bf16, d % 8 == 0 and d <= kNormRuns * kNormThreads * 8; z (M, d)
-// bf16 rows at stride z_rs, z_rs % 8 == 0; w (d,) bf16; out (M, d) bf16;
-// every pointer 16-byte aligned. Returns the launch's cudaError_t.
+// y (M, d) bf16, d % 8 == 0 and d <= per * 256; z (M, d) bf16 rows at
+// stride z_rs, z_rs % 8 == 0; w (d,) bf16; out (M, d) bf16; every pointer
+// 16-byte aligned. per (run-warps a CTA, at most kNormMaxThreads / 32) is
+// kernels/ssm.py::norm_plan(d)'s. Returns the launch's cudaError_t.
 extern "C" int gated_rmsnorm(const void* y, const void* z, long long z_rs, const void* w,
-                             void* out, int M, int d, float eps, void* stream) {
+                             void* out, int M, int d, float eps, int per, void* stream) {
   auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  if (M <= 0 || d <= 0 || d % 8 || z_rs % 8 || d > kNormRuns * kNormThreads * 8 || !aligned(y) ||
-      !aligned(z) || !aligned(w) || !aligned(out))
+  if (M <= 0 || d <= 0 || d % 8 || z_rs % 8 || per < 1 || per > kNormMaxThreads / 32 ||
+      d > per * 256 || !aligned(y) || !aligned(z) || !aligned(w) || !aligned(out))
     return cudaErrorInvalidValue;
-  gated_rmsnorm_kernel<<<M, kNormThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  gated_rmsnorm_kernel<<<M, 32 * per, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(y), static_cast<const bf16*>(z), z_rs, static_cast<const bf16*>(w),
       static_cast<bf16*>(out), d, eps);
   return cudaGetLastError();

@@ -11,18 +11,26 @@ each expert's count. The design of each is described in the source.
 
 - ``moe_route(x, w, K, C, reads)``: the router's f32 logits (T, E) of
   x (T, D) and its weight w (D, E), each product exact in f32 and summed
-  in one fixed order (a token's logits do not depend on T), then gates
-  (T, K) f32, experts (T, K), slots (T, K), counts (E,) and the gather
-  map (E, C), all int32, and the logits. The top K are chosen on the logits, which
-  orders them as ``jax.lax.top_k`` orders the softmax probabilities
-  (equal values to the lower expert id); the gates are their
-  probabilities divided by ``max(sum, 1e-9)``; a pair's slot is its rank
-  among the pairs of its expert in flat (t, k) order, the stable
+  in one order planned from (D, E) alone (a token's logits do not depend
+  on T), then gates (T, K) f32, experts (T, K), slots (T, K), counts (E,)
+  and the gather map (E, C), all int32, and the logits. The top K are
+  chosen on the logits, which orders them as ``jax.lax.top_k`` orders the
+  softmax probabilities (equal values to the lower expert id); the gates
+  are their probabilities divided by ``max(sum, 1e-9)`` (the kernel
+  cancels the softmax's denominator: exp(l - l_max) over the chosen
+  ones' sum, a rounding or two apart); a pair's slot is
+  its rank among the pairs of its expert in flat (t, k) order, the stable
   ``argsort`` + ``searchsorted`` of the JAX dispatch; a pair is kept
   where its slot < C; counts[e] = min(pairs of e, C), and the map holds
   the token of each kept (e, slot). Where ``reads`` (an int64 (2,)
   tensor, ``Model.expert_reads``) is given, it adds the number of
-  experts with a pair and one layer pass to it.
+  experts with a pair and one layer pass to it. On the card a call is
+  ``route_launches(T, D, E, K)`` launches: one of clusters of CTAs at a
+  megastep's decode T (up to ``ROUTE_CLUSTER_T``, or
+  ``ROUTE_CLUSTER_T_WIDE`` past 32 experts), else a tiled router
+  product, a top-k kernel and
+  a slot kernel whose warps rank fixed segments of the pairs
+  (``route_slots_segmented`` is that algorithm in PyTorch).
 - ``moe_gate_up_swiglu(a, w, C, counts, src)``: h (G, C, F) =
   silu(g) * u of the f32 sums rows @ w (G, D, 2F), rounded once, for the
   rows c < counts[g] of each group g, its row c being a[src[g, c]] (or
@@ -58,9 +66,13 @@ from repro_torch.kernels import build
 
 MAX_K = 8                      # experts a token the route kernel takes
 MAX_EXPERTS = 1024
+ROUTE_CLUSTER_T = 16           # the largest T the one-launch (cluster) route takes at E <= 32
+ROUTE_CLUSTER_T_WIDE = 4       # and above (kimi-k2's E 384: three launches are faster at T 16)
+ROUTE_SEGMENTS = 32            # the slot kernel's warps, a segment of pairs each
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ROUTE_ARGS = (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P)
+_ROUTE_ARGS = (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+               _P)
 _GEMM_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)
 _COMBINE_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
 
@@ -149,6 +161,82 @@ def moe_route_plain(x: torch.Tensor, w: torch.Tensor, K: int, C: int,
     return route_from_logits_plain(router_logits_plain(x, w), K, C, reads)
 
 
+def route_launches(T: int, D: int, E: int, K: int) -> int:
+    """The kernel launches of one ``moe_route`` call on the card: one (of
+    clusters of CTAs) at T <= ``ROUTE_CLUSTER_T`` for E <= 32 (the tokens
+    of a decode step) or T <= ``ROUTE_CLUSTER_T_WIDE`` for more experts,
+    else the tiled router, the top-k and the slot kernel. D and K do not
+    change it."""
+    one = ROUTE_CLUSTER_T if E <= 32 else ROUTE_CLUSTER_T_WIDE
+    return 1 if T <= one else 3
+
+
+_TICKETS = {}
+
+
+def _ticket(x: torch.Tensor) -> torch.Tensor:
+    """The one-launch route's int32 ticket on x's device and current
+    stream, which its cluster leaders take in turn when there is more than
+    one cluster; it wraps to 0 at each launch's end. Launches on one
+    stream run one after another and share it; each stream has its own.
+    Made zeroed on a stream's first such call, which must not be inside a
+    CUDA graph's capture (the engine's warm-up on its capture stream makes
+    it before); a graph keeps its capture stream's ticket, so the graphs
+    of one capture stream are replayed on one stream."""
+    key = (x.device, _stream(x))
+    if key not in _TICKETS:
+        _require(not torch.cuda.is_current_stream_capturing(),
+                 "moe_route: the stream being captured has no ticket yet; "
+                 "run the route once on it before the capture")
+        _TICKETS[key] = torch.zeros((1,), dtype=torch.int32, device=x.device)
+    return _TICKETS[key]
+
+
+def route_segment(P: int) -> int:
+    """The slot kernel's segment of pairs a warp: 32 x n pairs, n from the
+    number of pairs P alone, the least that lets ``ROUTE_SEGMENTS``
+    segments hold them."""
+    return 32 * -(-P // (32 * ROUTE_SEGMENTS))
+
+
+def route_slots_segmented(experts: torch.Tensor, E: int, C: int,
+                          seg: int) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """The slot kernel's algorithm in plain PyTorch: experts (T, K) in
+    flat (t, k) order cut into segments of ``seg`` pairs; each segment's
+    pairs counted per expert, an exclusive scan over the segments giving
+    each (segment, expert) its first slot, and a pair's slot that plus
+    its rank among the earlier pairs of its expert in its segment. The
+    slots do not depend on ``seg``. → (slots (T, K), counts (E,), src
+    (E, C)) int32, as ``route_from_logits_plain`` gives them (the map's
+    entries past a count 0)."""
+    T, K = experts.shape
+    flat = experts.reshape(-1).long()
+    P = flat.numel()
+    segs = max(1, -(-P // seg))
+    seg_of = torch.arange(P, device=flat.device) // seg
+    onehot = F.one_hot(flat, E)                          # (P, E)
+    per_seg = torch.zeros((segs, E), dtype=torch.long, device=flat.device)
+    per_seg.index_add_(0, seg_of, onehot)
+    first = torch.cumsum(per_seg, 0) - per_seg           # exclusive over segments
+    # a pair's rank among the earlier pairs of its expert in its segment
+    # (the warp's __match_any_sync ranks and running counts)
+    key = seg_of * E + flat
+    order = torch.argsort(key, stable=True)
+    sk = key[order]
+    rank = torch.empty_like(flat)
+    rank[order] = (torch.arange(P, device=flat.device)
+                   - torch.searchsorted(sk, sk, side="left"))
+    slots = first[seg_of, flat] + rank
+    n_pairs = per_seg.sum(0)
+    counts = torch.clamp(n_pairs, max=C).to(torch.int32)
+    src = torch.zeros((E, C), dtype=torch.int32, device=flat.device)
+    keep = slots < C
+    tokens = torch.arange(T, device=flat.device).repeat_interleave(K)
+    src[flat[keep], slots[keep]] = tokens[keep].to(torch.int32)
+    return slots.view(T, K).to(torch.int32), counts, src
+
+
 def moe_route(x: torch.Tensor, w: torch.Tensor, K: int, C: int,
               reads: Optional[torch.Tensor] = None) -> Route:
     """x (T, D), the router weight w (D, E) → (gates (T, K) f32, experts
@@ -163,9 +251,11 @@ def moe_route(x: torch.Tensor, w: torch.Tensor, K: int, C: int,
              f"E <= {MAX_EXPERTS})")
     if x.device.type == "cpu":
         return moe_route_plain(x, w, K, C, reads)
-    _require(x.dtype == w.dtype == torch.bfloat16 and E % 8 == 0,
-             f"moe_route kernel takes bf16 x and router weights and E a "
-             f"multiple of 8, got {x.dtype}, {w.dtype}, E {E}")
+    _require(x.dtype == w.dtype == torch.bfloat16 and E % 8 == 0
+             and D % 8 == 0 and C >= 1,
+             f"moe_route kernel takes bf16 x and router weights, E and D "
+             f"multiples of 8 and C >= 1, got {x.dtype}, {w.dtype}, E {E}, "
+             f"D {D}, C {C}")
     _check_cuda("moe_route", x, w, reads)
     dev = x.device
     logits = torch.empty((T, E), dtype=torch.float32, device=dev)
@@ -174,10 +264,15 @@ def moe_route(x: torch.Tensor, w: torch.Tensor, K: int, C: int,
                       for _ in range(2))
     counts = torch.empty((E,), dtype=torch.int32, device=dev)
     src = torch.empty((E, C), dtype=torch.int32, device=dev)
+    launches = route_launches(T, D, E, K)
+    # one cluster takes 16 experts (two blocks of 8) or more; past 16 the
+    # one-launch route may need more clusters, and so their ticket
+    ticket = _ticket(x) if launches == 1 and E > 16 else None
     fn = build.function("moe", "moe_route", _ROUTE_ARGS)
     err = fn(x.data_ptr(), w.data_ptr(), logits.data_ptr(), T, D, E, K, C,
              gates.data_ptr(), experts.data_ptr(), slots.data_ptr(),
-             counts.data_ptr(), src.data_ptr(), _ptr(reads), _stream(x))
+             counts.data_ptr(), src.data_ptr(), _ptr(reads), _ptr(ticket),
+             launches, _stream(x))
     build.check(err, "moe_route")
     moe_route.launches += 1
     return gates, experts, slots, counts, src, logits

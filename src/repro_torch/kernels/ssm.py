@@ -39,9 +39,11 @@ source. The decode path runs ``ssm_conv``, ``ssm_decode_update`` and
   ``MAX_STATE``.
 - ``gated_rmsnorm(y, z, w, eps)``: rmsnorm(y * silu(z)) * w, the product
   in y's dtype, the norm in f32, one rounding (z's rows may be strided).
-  The kernel keeps a row in registers in 16-byte runs: d a multiple of 8
-  and at most ``NORM_MAX_D``, z's row stride a multiple of 8, every
-  pointer 16-byte aligned.
+  The kernel gives a thread of one CTA a row a 16-byte run, its order of
+  sums fixed by ``norm_plan(d)`` from d alone, so a row's bits do not
+  depend on the number of rows (``gated_rmsnorm_planned`` is that order
+  in PyTorch): d a multiple of 8 and at most ``NORM_MAX_D``, z's row
+  stride a multiple of 8, every pointer 16-byte aligned.
 
 Each ``*_plain`` function is the plain PyTorch version with the JAX
 package's rounding points; ``causal_conv`` and ``ssd_chunked`` are the
@@ -75,7 +77,7 @@ _CONV_ARGS = (_P, _L, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
 _DECODE_ARGS = (_P, _L, _P, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
 _SCAN_ARGS = (_P, _L, _L, _P, _L, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
               _I, _I, _I, _P)
-_NORM_ARGS = (_P, _P, _L, _P, _P, _I, _I, _F, _P)
+_NORM_ARGS = (_P, _P, _L, _P, _P, _I, _I, _F, _I, _P)
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -393,6 +395,42 @@ def gated_rmsnorm_plain(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
     return rmsnorm_plain(y * F.silu(z), w, eps)
 
 
+def norm_plan(d: int) -> int:
+    """Run-warps a CTA of the gated norm kernel for rows of d: the d / 8
+    16-byte runs in run-warps of 32, one CTA a row, a thread a run. It
+    fixes the order of the row's sum (``gated_rmsnorm_planned``) from d
+    alone."""
+    return -(-(d // 8) // 32)
+
+
+def gated_rmsnorm_planned(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                          eps: float = 1e-6) -> torch.Tensor:
+    """The gated norm kernel's order of sums in f32, from ``norm_plan(d)``:
+    g = y * silu(z) in y's dtype; each run's 8 squares in order, a
+    run-warp's 32 runs pairwise by lane bit 4, 3, 2, 1, 0, then the CTA's
+    run-warp sums (zeros past them, 32 in all) pairwise the same way; then
+    g * rsqrt(sum / d + eps) * w, rounded once. Row by row: a row's bits
+    do not depend on the others."""
+    d = y.shape[-1]
+    per = norm_plan(d)
+    g = (y * F.silu(z)).float().reshape(-1, d)
+    M = g.shape[0]
+    sq = torch.zeros((M, per * 32 * 8), dtype=torch.float32)
+    sq[:, :d] = g * g
+    sq = sq.view(M, per, 32, 8)
+    ss = sq[..., 0]
+    for j in range(1, 8):
+        ss = ss + sq[..., j]
+    for h in (16, 8, 4, 2, 1):
+        ss = ss[..., :h] + ss[..., h:2 * h]
+    part = torch.zeros((M, 32), dtype=torch.float32)
+    part[:, :per] = ss[..., 0]
+    for h in (16, 8, 4, 2, 1):
+        part = part[..., :h] + part[..., h:2 * h]
+    r = torch.rsqrt(part[:, 0] / d + eps)
+    return (g * r[:, None] * w.float()).to(y.dtype).reshape(y.shape)
+
+
 def gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
                   eps: float = 1e-6) -> torch.Tensor:
     """y (..., d) and z (..., d) (rows of z may be strided), w (d,) → y's
@@ -417,7 +455,8 @@ def gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
     if y2.shape[0]:
         fn = build.function("ssm", "gated_rmsnorm", _NORM_ARGS)
         err = fn(y2.data_ptr(), z2.data_ptr(), z2.stride(0), w.data_ptr(),
-                 out.data_ptr(), y2.shape[0], d, float(eps), _stream(y))
+                 out.data_ptr(), y2.shape[0], d, float(eps), norm_plan(d),
+                 _stream(y))
         build.check(err, "gated_rmsnorm")
         gated_rmsnorm.launches += 1
     return out.reshape(y.shape)
