@@ -17,7 +17,9 @@ Phases (any failed check raises and the process exits nonzero):
    SwiGLU folded in (``quant_matmul_swiglu``) bit-equal to
    ``swiglu(quant_matmul(x, w))`` through its split-K merge and its
    two-CTA clusters, rows bit-equal across M, timed beside the unfused
-   pair, with no ptxas spill; the fused RMSNorm, residual
+   pair, with no ptxas spill; split decode attention (bf16 and q8_0)
+   launched on two streams at once, each launch bit-equal to the launch
+   alone (its merge tickets are a stream's own); the fused RMSNorm, residual
    add + RMSNorm (h bit-equal) and SwiGLU kernels at M 4 and 2048, the
    decode RoPE + cache write in the three cache formats, with ring slots
    S - 1 and S and frozen rows, and the prefill RoPE + cache write at the
@@ -52,12 +54,18 @@ Phases (any failed check raises and the process exits nonzero):
    bound, its plain version and ``torch.bmm`` over all experts, and its
    route alone at T 4 and 16 (at T 4 the three-launch route bit-equal to
    the one-launch route and timed beside it; launches on two streams at
-   once exact); the four
-   SSM kernels (``ssm_conv``, ``ssm_decode_update``, ``ssd_prefill``,
-   ``gated_rmsnorm``) at mamba2-2.7b's widths: decode at 4 slots (one
-   frozen) and 1 (y within one bf16 ulp, the conv state bit-equal, the
-   SSD state within 1e-5 of its scale, frozen rows untouched), the conv
-   at S 1, 2, 3, 37 and 301 and the scan at S 1, 3, 37, 63, 64, 65, 301,
+   once exact); the five
+   SSM kernels (``ssm_conv``, ``ssm_decode_step``, ``ssd_prefill``,
+   ``gated_rmsnorm``) at mamba2-2.7b's widths: decode at
+   4 slots (one frozen) and 1 (y within one bf16 ulp, the conv state
+   bit-equal, the SSD state within 1e-5 of its scale, frozen rows
+   untouched, each slot alone bit-equal to its row of the batch; the
+   fused step bit-equal to the conv and update kernels back to back and
+   timed beside them, 64 steps in a row with its conv state bit-equal to
+   the plain pair's after each, launches on two streams at once exact),
+   the conv bit-equal at S 1, 2, 3, 37 and 301, 1 x 300, 4 x 300 and 1 x
+   512 (timed beside ``F.conv1d`` + ``F.silu``), the scan at S 1, 3, 37,
+   63, 64, 65, 301,
    512 and 1100 (three slices) with and without a carried state (the
    scan's y within one bf16 step, its state within
    ``SSD_STATE_REL_TOL``; a sequence alone bit-equal to its row in a B 4
@@ -981,6 +989,7 @@ def main() -> None:
                                                       paged_gather)
     from repro_torch.kernels.decode_attention_quant import (
         decode_attention_quant, decode_attention_quant_plain)
+    from repro_torch.kernels import decode_attention as da_mod
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
@@ -1000,7 +1009,7 @@ def main() -> None:
     from repro_torch.kernels import ssm as ssm_kernels
     from repro_torch.kernels.ssm import (
         gated_rmsnorm, gated_rmsnorm_plain, ssd_prefill, ssd_prefill_plain,
-        ssm_conv, ssm_conv_plain, ssm_decode_update, ssm_decode_update_plain)
+        ssm_conv, ssm_conv_plain, ssm_decode_step, ssm_decode_step_plain)
     from repro_torch.launch import serve
     from repro_torch.models import Model
     from repro_torch.models import ssm as ssm_mod
@@ -1114,12 +1123,13 @@ def main() -> None:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset + 1)
 
-    def no_decay(fn):
-        """A planted fault: the SSD state is not decayed (A_log -inf, so
-        A = -exp(A_log) = 0 and exp(dt A) = 1)."""
-        def run(xbc, dt, dt_bias, A_log, D, state, *a, **kw):
-            return fn(xbc, dt, dt_bias, torch.full_like(A_log, -math.inf),
-                      D, state, *a, **kw)
+    def no_decay(fn, at=3):
+        """A planted fault: the SSD state is not decayed (A_log, argument
+        ``at`` of fn, -inf, so A = -exp(A_log) = 0 and exp(dt A) = 1)."""
+        def run(*a, **kw):
+            a = list(a)
+            a[at] = torch.full_like(a[at], -math.inf)
+            return fn(*a, **kw)
         return run
 
     @contextlib.contextmanager
@@ -1133,7 +1143,7 @@ def main() -> None:
                  "add_rmsnorm", "swiglu", "rope_cache_write",
                  "rope_cache_write_prefill", "moe_route",
                  "moe_gate_up_swiglu", "moe_down", "moe_combine",
-                 "ssm_conv", "ssm_decode_update", "ssd_prefill",
+                 "ssm_conv", "ssm_decode_step", "ssd_prefill",
                  "gated_rmsnorm")
         saved = {n: getattr(ops, n) for n in names}
         wrap = off_by_one if fault else (lambda fn: fn)
@@ -1152,8 +1162,8 @@ def main() -> None:
         ops.moe_down = moe_down_plain
         ops.moe_combine = moe_combine_plain
         ops.ssm_conv = ssm_conv_plain
-        ops.ssm_decode_update = (no_decay(ssm_decode_update_plain) if fault
-                                 else ssm_decode_update_plain)
+        ops.ssm_decode_step = (no_decay(ssm_decode_step_plain, at=6) if fault
+                               else ssm_decode_step_plain)
         ops.ssd_prefill = (no_decay(ssd_prefill_plain) if fault
                            else ssd_prefill_plain)
         ops.gated_rmsnorm = gated_rmsnorm_plain
@@ -1176,6 +1186,7 @@ def main() -> None:
         moe_names = ("moe_route_plain", "moe_gate_up_swiglu_plain",
                      "moe_down_plain", "moe_combine_plain")
         ssm_names = ("ssm_conv_plain", "ssm_decode_update_plain",
+                     "ssm_decode_step_plain",
                      "ssd_prefill_plain", "gated_rmsnorm_plain",
                      "causal_conv", "ssd_chunked")
         saved = {n: getattr(fused_ops, n) for n in names}
@@ -1230,6 +1241,8 @@ def main() -> None:
 
     gen_paper = torch.Generator(device=dev)      # the paper models' cases
     gen_paper.manual_seed(6)
+    gen_streams = torch.Generator(device=dev)    # launches on two streams
+    gen_streams.manual_seed(27)
     draw_from = [gen]          # the generator randn takes by default
 
     def randn(*shape, scale=1.0, g=None):
@@ -1401,6 +1414,54 @@ def main() -> None:
         fn = decode_attention_quant_plain if plain else decode_attention_quant
         return fn(q, *leaves, lens, fmt=fmt, block_table=table)
 
+    def attention_streams(fmt, reps=32):
+        """Split decode attention launched on two streams at once (two
+        engines on one card): each launch bit-equal to the same launch
+        alone on the default stream. The last CTA of a (slot, kv head) to
+        take its merge ticket merges the splits, so the tickets are a
+        stream's own (``kernels/tickets.py``). Then the same launches with
+        one set of counts for every stream, the keying by device that the
+        tickets had before, whose differing launches are counted, not
+        checked."""
+        with drawing_from(gen_streams):
+            q = randn(B, Hq, D).bfloat16()
+            k = randn(B, Hkv, S, D).bfloat16()
+            v = randn(B, Hkv, S, D).bfloat16()
+        leaves = (k, v) if fmt == "bf16" else (
+            *quantize_rows(k, fmt), *quantize_rows(v, fmt))
+        lens = torch.tensor([S, 700, 1000, 333], dtype=torch.int32,
+                            device=dev)
+        ref = attn_call(fmt, q, leaves, lens)
+
+        def differing():
+            streams = (torch.cuda.Stream(), torch.cuda.Stream())
+            for st in streams:
+                st.wait_stream(torch.cuda.current_stream())
+            outs = []
+            for _ in range(reps):
+                for st in streams:
+                    with torch.cuda.stream(st):
+                        outs.append(attn_call(fmt, q, leaves, lens))
+            torch.cuda.synchronize()
+            return sum(not torch.equal(o, ref) for o in outs), len(outs)
+        bad, n = differing()
+        keyed = da_mod.tickets
+        shared = torch.zeros((4096,), dtype=torch.int32, device=dev)
+        da_mod.tickets = lambda n_, device: shared
+        try:
+            bad_shared, _ = differing()
+        finally:
+            da_mod.tickets = keyed
+        print(f"  decode attention [{fmt}] on two streams at once: {bad} of "
+              f"{n} launches differ from the launch alone (with one set of "
+              f"tickets for both streams: {bad_shared})", flush=True)
+        check(bad == 0, f"decode attention [{fmt}]: {bad} of {n} launches "
+              "on two streams differ from the launch alone")
+        attention_stream_readings[fmt] = dict(
+            launches=n, differ=bad, differ_with_shared_tickets=bad_shared)
+
+    attention_stream_readings = {}
+
     def paged_pool(fmt, n_blocks, hkv, P, d, g):
         k = randn(n_blocks, hkv, P, d, g=g).bfloat16()
         v = randn(n_blocks, hkv, P, d, g=g).bfloat16()
@@ -1409,6 +1470,8 @@ def main() -> None:
         kq, ks = quantize_rows(k, fmt)
         vq, vs = quantize_rows(v, fmt)
         return (kq, ks, vq, vs)
+    for fmt in ("bf16", "q8_0"):
+        attention_streams(fmt)
 
     def shuffled_table(b, max_pages, n_blocks):
         """Row b maps its pages to distinct blocks >= 1 in a shuffled
@@ -2787,7 +2850,8 @@ def main() -> None:
                 path, err, tol, per_call=1, peak=F32_FLOPS, extra=None):
         """Time an SSM kernel and its plain version, and keep its row. No
         single PyTorch call computes any of them (``F.conv1d`` with groups
-        has no silu and no state), so ``library_ms`` is null. The bound is
+        has no silu and no state: the conv's rows carry ``conv1d_pair``,
+        two calls, as a yardstick), so ``library_ms`` is null. The bound is
         the bytes, or the counted operations at ``peak``: the f32 CUDA-core
         rate (67 TFLOP/s) for the decode kernels, the tensor cores' 989
         TFLOP/s for the scan."""
@@ -2828,11 +2892,25 @@ def main() -> None:
         return (zx, zx[..., :s_di], zx[..., s_di:s_di + s_C],
                 zx[..., s_di + s_C:])
 
+    def conv1d_pair(sp, x):
+        """The yardstick of the conv's rows: ``F.conv1d`` (depthwise,
+        padding 3, with the bias) then ``F.silu`` on x (B, S, C), the JAX
+        conv's function without its state (the kernel's state, the
+        rounding of each product and partial sum and its strided rows are
+        not in it); two library calls, used nowhere in the port."""
+        S = x.shape[1]
+        wc = sp["w"].t().contiguous().unsqueeze(1)         # (C, 1, W)
+        return F.silu(F.conv1d(x.transpose(1, 2), wc, sp["b"],
+                               padding=mamba.ssm_conv - 1,
+                               groups=s_C)[..., :S]).transpose(1, 2)
+
     def ssm_conv_case(sp, B, S, advance=None, carry=True, timed=False,
                       path=None):
-        """y within one bf16 ulp of the plain version's; the new conv
-        state bit-equal (it is a copy of inputs); a frozen row's state
-        untouched."""
+        """y and the new conv state bit-equal to the plain version's (the
+        kernel rounds each product and partial sum where the plain version
+        does; the state is a copy of inputs); a frozen row's state
+        untouched. Timed (the prefill row) beside the unfused
+        ``conv1d_pair``."""
         zx, z, xbc, dtr = ssm_rows_in(B, S)
         with drawing_from(gen_ssm):
             st0 = randn(B, mamba.ssm_conv - 1, s_C).bfloat16()
@@ -2848,11 +2926,13 @@ def main() -> None:
             B, dtype=torch.bool, device=dev)
         shape = f"B{B} S{S} C{s_C}" + ("" if carry else " no carry") + (
             f" advance {advance}" if advance else "")
-        print(f"  ssm_conv {shape}: max_abs_err {err:.3e} (tol {tol:.3e}); "
-              f"state bit-equal {torch.equal(s1, s2)}, frozen rows "
-              f"untouched {torch.equal(s1[frozen], st0[frozen])}",
-              flush=True)
+        print(f"  ssm_conv {shape}: max_abs_err {err:.3e} (tol {tol:.3e}; "
+              f"bit-equal {torch.equal(y, ref)}); state bit-equal "
+              f"{torch.equal(s1, s2)}, frozen rows untouched "
+              f"{torch.equal(s1[frozen], st0[frozen])}", flush=True)
         check(err <= tol, f"ssm_conv {shape}: {err} > {tol}")
+        check(torch.equal(y, ref), f"ssm_conv {shape}: y differs from the "
+              f"plain version's (max abs err {err})")
         check(torch.equal(s1, s2), f"ssm_conv {shape}: the new conv state "
               "differs from the plain version's")
         check(torch.equal(s1[frozen], st0[frozen]),
@@ -2865,57 +2945,171 @@ def main() -> None:
         copies = [(xbc, st0.clone())] + [
             (xbc.clone(), st0.clone())
             for _ in range(n_copies(B * S * s_C * 4) - 1)]
+        pair_err = None if carry else float(
+            (conv1d_pair(sp, xbc).float() - ref.float()).abs().max())
+        pair_ms, _ = time_calls(lambda x, s: conv1d_pair(sp, x), copies, 100)
+        print(f"    the unfused pair F.conv1d + F.silu (no state): "
+              f"{pair_ms:.4f} device ms" + (f", {pair_err:.3e} from the "
+                                            "plain version" if pair_err
+                                            is not None else ""),
+              flush=True)
         ssm_row(f"ssm_conv[{'decode' if S == 1 else 'prefill'} B{B} S{S}]",
                 lambda x, s: ssm_conv(x, sp["w"], sp["b"], s, adv, carry),
                 lambda x, s: ssm_conv_plain(x, sp["w"], sp["b"], s, adv,
                                             carry),
                 copies, nbytes, 0.0, "src/repro/models/ssm.py:43 (jnp)",
-                shape, path, err, tol)
+                shape, path, err, tol,
+                extra=dict(conv1d_silu_pair_ms=pair_ms,
+                           conv1d_silu_pair_err=pair_err))
         return y
 
-    def ssm_decode_case(sp, B, advance, timed=False, path=None):
-        """y within one bf16 ulp, the f32 state within 1e-5 of its scale,
-        a frozen row's state bit-equal to before."""
-        zx, z, xbc_raw, dtr = ssm_rows_in(B, 1)
+    def ssm_decode_inputs(B, advance):
+        """A decode token's inputs as the model hands them over: the conv's
+        input (a strided xBC view of the projection's row), its dt view, a
+        conv state, an SSD state and the advance mask."""
+        zx, z, xbc, dtr = ssm_rows_in(B, 1)
         with drawing_from(gen_ssm):
-            xbc = randn(B, s_C).bfloat16()
+            conv = randn(B, mamba.ssm_conv - 1, s_C).bfloat16()
             state = randn(B, sH, sP, sN, scale=0.3)
-        dt = dtr[:, 0]
-        adv = torch.tensor(advance, dtype=torch.bool, device=dev)
-        a1, a2 = state.clone(), state.clone()
-        y = ssm_decode_update(xbc, dt, sp["dt_bias"], sp["A_log"], sp["D"],
-                              a1, adv)
-        ref = ssm_decode_update_plain(xbc, dt, sp["dt_bias"], sp["A_log"],
-                                      sp["D"], a2, adv)
+        return (xbc[:, 0], dtr[:, 0], conv, state,
+                torch.tensor(advance, dtype=torch.bool, device=dev))
+
+    def ssm_step_case(sp, B, advance, timed=False, path=None):
+        """The decode conv and update in one launch (``ssm_decode_step``)
+        against its plain version (``ssm_conv_plain`` then
+        ``ssm_decode_update_plain``): y within one bf16 ulp, the SSD state
+        within 1e-5 of its scale, the conv state bit-equal; a frozen row's
+        states untouched; each slot alone bit-equal (y and both states) to
+        its row of the batch. Timed beside the unfused ``conv1d_pair`` of
+        the token (no state, no update)."""
+        xbc, dt, conv, state, adv = ssm_decode_inputs(B, advance)
+        vec = (sp["dt_bias"], sp["A_log"], sp["D"])
+        s1, s2 = state.clone(), state.clone()
+        c1, c2 = conv.clone(), conv.clone()
+        y = ssm_decode_step(xbc, dt, sp["w"], sp["b"], c1, *vec, s1, adv)
+        ref = ssm_decode_step_plain(xbc, dt, sp["w"], sp["b"], c2, *vec, s2,
+                                    adv)
+        alone = []
+        for r in range(B):
+            sr, cr = state[r:r + 1].clone(), conv[r:r + 1].clone()
+            yr = ssm_decode_step(xbc[r:r + 1], dt[r:r + 1], sp["w"], sp["b"],
+                                 cr, *vec, sr, adv[r:r + 1])
+            alone.append((yr, sr, cr))
         torch.cuda.synchronize()
         err = float((y.float() - ref.float()).abs().max())
         tol = bf16_tol(ref)
-        s_err = float((a1 - a2).abs().max())
-        s_tol = 1e-5 * float(a2.abs().max())
-        shape = f"B{B} H{sH} P{sP} N{sN} advance {advance}"
-        print(f"  ssm_decode_update {shape}: y max_abs_err {err:.3e} (tol "
-              f"{tol:.3e}); state {s_err:.3e} (tol {s_tol:.3e}); frozen rows"
-              f" bit-equal {torch.equal(a1[~adv], state[~adv])}", flush=True)
-        check(err <= tol, f"ssm_decode_update {shape}: y {err} > {tol}")
-        check(s_err <= s_tol, f"ssm_decode_update {shape}: state {s_err} > "
+        s_err = float((s1 - s2).abs().max())
+        s_tol = 1e-5 * float(s2.abs().max())
+        same = [torch.equal(yr[0], y[r]) and torch.equal(sr[0], s1[r])
+                and torch.equal(cr[0], c1[r])
+                for r, (yr, sr, cr) in enumerate(alone)]
+        frozen = (torch.equal(s1[~adv], state[~adv])
+                  and torch.equal(c1[~adv], conv[~adv]))
+        shape = f"B{B} H{sH} P{sP} N{sN} C{s_C} advance {advance}"
+        print(f"  ssm_decode_step {shape}: y max_abs_err {err:.3e} (tol "
+              f"{tol:.3e}); state {s_err:.3e} (tol {s_tol:.3e}); conv state "
+              f"bit-equal {torch.equal(c1, c2)}; frozen rows untouched "
+              f"{frozen}; each slot alone bit-equal {same}", flush=True)
+        check(err <= tol, f"ssm_decode_step {shape}: y {err} > {tol}")
+        check(s_err <= s_tol, f"ssm_decode_step {shape}: state {s_err} > "
               f"{s_tol}")
-        check(torch.equal(a1[~adv], state[~adv]),
-              f"ssm_decode_update {shape}: a frozen row's state moved")
+        check(torch.equal(c1, c2), f"ssm_decode_step {shape}: the conv state "
+              "differs from the plain version's")
+        check(frozen, f"ssm_decode_step {shape}: a frozen row's state moved")
+        check(all(same), f"ssm_decode_step {shape}: a slot alone differs "
+              f"from its row of the batch: {same}")
         if not timed:
             return
         n_adv = int(adv.sum())
         row = sH * sP * sN * 4
-        nbytes = (B * row + n_adv * row + B * (s_C + sH + s_di) * 2
-                  + 3 * sH * 2)
-        copies = [(state.clone(),)] + [
-            (state.clone(),) for _ in range(n_copies(B * row) - 1)]
-        ssm_row(f"ssm_decode_update[B{B}]",
-                lambda s: ssm_decode_update(xbc, dt, sp["dt_bias"],
-                                            sp["A_log"], sp["D"], s, adv),
-                lambda s: ssm_decode_update_plain(
-                    xbc, dt, sp["dt_bias"], sp["A_log"], sp["D"], s, adv),
+        conv_row = (mamba.ssm_conv - 1) * s_C * 2
+        nbytes = (B * row + n_adv * row + B * conv_row + n_adv * conv_row
+                  + B * (s_C + sH + s_di) * 2
+                  + (mamba.ssm_conv + 1) * s_C * 2 + 3 * sH * 2)
+        copies = [(state.clone(), conv.clone())
+                  for _ in range(n_copies(B * row))]
+        yard_ms, _ = time_calls(lambda s, c: conv1d_pair(sp, xbc[:, None]),
+                                copies, 100)
+        ssm_row(f"ssm_decode_step[B{B}]",
+                lambda s, c: ssm_decode_step(xbc, dt, sp["w"], sp["b"], c,
+                                             *vec, s, adv),
+                lambda s, c: ssm_decode_step_plain(xbc, dt, sp["w"], sp["b"],
+                                                   c, *vec, s, adv),
                 copies, nbytes, 4.0 * B * sH * sP * sN,
-                "src/repro/models/ssm.py:150 (jnp)", shape, path, err, tol)
+                "src/repro/models/ssm.py:43 and :150 (jnp)", shape, path,
+                err, tol, extra=dict(conv1d_silu_pair_ms=yard_ms))
+        print(f"    the unfused pair F.conv1d + F.silu of the token (no "
+              f"state, no update): {yard_ms:.4f} device ms", flush=True)
+
+    def ssm_step_run(sp, B=4, advance=(True, False, True, True), steps=64):
+        """``steps`` decode steps in a row through ``ssm_decode_step`` and
+        through its plain version from the same states, a row frozen: the
+        conv state bit-equal after each step (a slot's last ticket
+        replaces its B and C conv state before the next launch reads it),
+        y within one bf16 ulp and the SSD state within 1e-5 of its scale
+        at each step."""
+        xbc, dt, conv, state, adv = ssm_decode_inputs(B, list(advance))
+        vec = (sp["dt_bias"], sp["A_log"], sp["D"])
+        s1, s2, c1, c2 = state.clone(), state.clone(), conv.clone(), \
+            conv.clone()
+        conv_same, worst_y, worst_s = [], 0.0, 0.0
+        for i in range(steps):
+            with drawing_from(gen_ssm):
+                x = randn(B, s_F).bfloat16()[:, s_di:s_di + s_C]
+                d = randn(B, sH).bfloat16()
+            y = ssm_decode_step(x, d, sp["w"], sp["b"], c1, *vec, s1, adv)
+            ref = ssm_decode_step_plain(x, d, sp["w"], sp["b"], c2, *vec, s2,
+                                        adv)
+            conv_same.append(torch.equal(c1, c2))
+            worst_y = max(worst_y, float((y.float() - ref.float()).abs().max())
+                          / bf16_tol(ref))
+            worst_s = max(worst_s, float((s1 - s2).abs().max())
+                          / (1e-5 * float(s2.abs().max())))
+        torch.cuda.synchronize()
+        frozen = (torch.equal(s1[~adv], state[~adv])
+                  and torch.equal(c1[~adv], conv[~adv]))
+        print(f"  ssm_decode_step: {steps} steps in a row at B{B} advance "
+              f"{list(advance)}: conv state bit-equal to the plain pair's "
+              f"after {sum(conv_same)} of {steps}; y at most {worst_y:.3f} of "
+              f"its tolerance, the state at most {worst_s:.3f} of its; the "
+              f"frozen row untouched {frozen}", flush=True)
+        check(all(conv_same), f"ssm_decode_step: the conv state differs from "
+              f"the plain pair's after {steps - sum(conv_same)} steps")
+        check(worst_y <= 1 and worst_s <= 1 and frozen,
+              f"ssm_decode_step: {steps} steps: y {worst_y}, state {worst_s} "
+              f"of their tolerances, frozen row untouched {frozen}")
+        return dict(steps=steps, conv_state_equal_steps=sum(conv_same),
+                    y_of_tol=worst_y, state_of_tol=worst_s)
+
+    def ssm_step_streams(sp, B=4, advance=(True, False, True, True),
+                         reps=16):
+        """``ssm_decode_step`` launched on two streams at once (two engines
+        on one card), each on its own copy of the states: y and both
+        states bit-equal to the same launch alone on the default stream
+        (a slot's ticket is a stream's own)."""
+        xbc, dt, conv, state, adv = ssm_decode_inputs(B, list(advance))
+        vec = (sp["dt_bias"], sp["A_log"], sp["D"])
+        s0, c0 = state.clone(), conv.clone()
+        ref = ssm_decode_step(xbc, dt, sp["w"], sp["b"], c0, *vec, s0, adv)
+        copies = [(state.clone(), conv.clone()) for _ in range(2 * reps)]
+        streams = (torch.cuda.Stream(), torch.cuda.Stream())
+        for st in streams:
+            st.wait_stream(torch.cuda.current_stream())
+        outs = []
+        for i in range(reps):
+            for j, st in enumerate(streams):
+                s, c = copies[2 * i + j]
+                with torch.cuda.stream(st):
+                    outs.append((ssm_decode_step(xbc, dt, sp["w"], sp["b"], c,
+                                                 *vec, s, adv), s, c))
+        torch.cuda.synchronize()
+        bad = sum(not (torch.equal(y, ref) and torch.equal(s, s0)
+                       and torch.equal(c, c0)) for y, s, c in outs)
+        print(f"  ssm_decode_step B{B} on two streams at once: {bad} of "
+              f"{len(outs)} launches differ from the launch alone",
+              flush=True)
+        check(bad == 0, f"ssm_decode_step: {bad} of {len(outs)} launches on "
+              "two streams differ from the launch alone")
 
     def ssd_prefill_case(sp, B, S, carry, timed=False, path=None):
         """y and the final f32 state against the plain ``ssd_chunked``
@@ -3102,17 +3296,20 @@ def main() -> None:
         80-column edge) and ``out_proj`` (5120 x 2560) under q8_0 and q4_0
         at M 1, 4 and 512."""
         sp = ssm_params()
-        ssm_conv_case(sp, 4, 1, [True, False, True, True], timed=True,
-                      path="ssm q8_0")
-        ssm_conv_case(sp, 1, 1, timed=True, path="ssm q8_0 alone")
+        ssm_conv_case(sp, 4, 1, [True, False, True, True])
+        ssm_conv_case(sp, 1, 1)
         for S in (1, 2, 3, 37, 301):
             for carry in (True, False):
                 ssm_conv_case(sp, 2, S, carry=carry)
+        ssm_conv_case(sp, 1, 300, carry=False)
+        ssm_conv_case(sp, 4, 300, carry=False)
         ssm_conv_case(sp, 1, 512, carry=False, timed=True, path="ssm stall")
-        ssm_decode_case(sp, 4, [True, False, True, True], timed=True,
-                        path="ssm q8_0")
-        ssm_decode_case(sp, 1, [True], timed=True, path="ssm q8_0 alone")
-        ssm_decode_case(sp, 2, [False, True])
+        ssm_step_case(sp, 4, [True, False, True, True], timed=True,
+                      path="ssm q8_0")
+        ssm_step_case(sp, 1, [True], timed=True, path="ssm q8_0 alone")
+        ssm_step_case(sp, 2, [False, True])
+        ssm_step_readings.update(ssm_step_run(sp))
+        ssm_step_streams(sp)
         for S in (1, 3, 37, 63, 64, 65, 301, 512, 1100):
             for carry in (True, False):
                 ssd_prefill_case(sp, 1, S, carry,
@@ -3147,7 +3344,7 @@ def main() -> None:
               f"state at most {r_s:.3e} of its scale (tol "
               f"{SSD_STATE_REL_TOL:.0e})", flush=True)
 
-    ssd_readings, ssd_memory = [], {}
+    ssd_readings, ssd_memory, ssm_step_readings = [], {}, {}
     print("SSM kernels vs plain versions on the card:", flush=True)
     t0 = time.perf_counter()
     ssm_kernel_cases()
@@ -3443,16 +3640,19 @@ def main() -> None:
         return {**dict.fromkeys(ops.launch_counts(), 0), **launches}
 
     def ssm_launches(engine, n, norms, prefill):
-        """An SSM config's launches over n layer passes: the conv, the
-        state update (decode) or the scan (prefill), the gated norm and
-        the residual add + norm a layer, ``in_proj`` and ``out_proj``
-        through quant_matmul under quantized weights (library products
-        under bf16, as is the tied head), and ``norms`` RMSNorms alone."""
+        """An SSM config's launches over n layer passes: the conv and the
+        scan (prefill) or the conv and state update in one launch
+        (decode, ``ssm_decode_step``; the conv alone never runs there),
+        the gated norm and the residual add + norm a layer,
+        ``in_proj`` and ``out_proj`` through quant_matmul under quantized
+        weights (library products under bf16, as is the tied head), and
+        ``norms`` RMSNorms alone."""
         quantized = engine.quant_policy in ("q8_0", "q4_0")
         return every_kernel({
-            "rmsnorm": norms, "add_rmsnorm": n, "ssm_conv": n,
+            "rmsnorm": norms, "add_rmsnorm": n,
+            "ssm_conv": n if prefill else 0,
             "gated_rmsnorm": n, "quant_matmul": 2 * n if quantized else 0,
-            "ssm_decode_update": 0 if prefill else n,
+            "ssm_decode_step": 0 if prefill else n,
             "ssd_prefill": n if prefill else 0})
 
     def per_megastep(engine):
@@ -4163,7 +4363,8 @@ def main() -> None:
         out = dict(kernel_cases_s=ssm_kernel_s, checks_s=0.0,
                    ssd_prefill_max_rel_err=[max(r[i] for r in ssd_readings)
                                             for i in (0, 1)],
-                   ssd_prefill_memory=ssd_memory)
+                   ssd_prefill_memory=ssd_memory,
+                   ssm_decode_step_run=ssm_step_readings)
         print(f"SSM path: {ssm_arch} at full width and depth "
               f"({get_config(ssm_arch).num_layers} layers), bf16 / q8_0 / "
               "q4_0 weights (served by launch.serve)", flush=True)
@@ -4217,8 +4418,9 @@ def main() -> None:
                     ssm_ms = (g["ssm_conv"] + g["ssm_decode"]
                               + g["gated_rmsnorm"])
                     print(f"  {label}: device ms a step in the SSM kernels "
-                          f"{ssm_ms:.3f} (conv {g['ssm_conv']:.3f}, state "
-                          f"update {g['ssm_decode']:.3f}, gated norm "
+                          f"{ssm_ms:.3f} (the conv and state update in one "
+                          f"launch {g['ssm_decode']:.3f}, the conv alone "
+                          f"{g['ssm_conv']:.3f}, gated norm "
                           f"{g['gated_rmsnorm']:.3f}) of "
                           f"{prof['device_ms_per_step']:.3f}; device idle "
                           f"share {prof['device_idle_share']:.3f}; CUDA "
@@ -5185,7 +5387,9 @@ def main() -> None:
                       "paged_path": paged_path, "under_load": load,
                       "second_path_step_checks": step_checks,
                       "paper_models": paper, "moe": moe, "ssm": ssm,
-                      "unembed_rows_equal_across_m": unembed_rows_equal}))
+                      "unembed_rows_equal_across_m": unembed_rows_equal,
+                      "decode_attention_two_streams":
+                          attention_stream_readings}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 // The SSM family's kernels (Mamba-2 SSD), for sm_90a: the short causal
-// conv with its state, the SSD state update of one decode token, the
-// chunked SSD scan of a prefill, and the gated RMSNorm.
+// conv with its state, the conv and SSD state update of one decode token
+// in one launch, the chunked SSD scan of a prefill, and the gated RMSNorm.
 //
 // No Pallas kernel of the JAX package stands behind these: it computes the
 // SSD layer with jnp outside any kernel,
@@ -14,9 +14,21 @@
 // mamba2-2.7b); the scan builds (B, Q, Q, H) f32 tensors a chunk.
 //
 // Bounds and designs.
-// - ssm_conv: bytes. One pass over its rows, reading each input once; at
-//   decode they are a few hundred kilobytes, so the launch latency bounds
-//   it.
+// - ssm_conv (the prefill's conv): bytes, 11 MB at 1 x 512 of mamba2's
+//   5376 channels, but its silu's f32 arithmetic (an exp and an IEEE
+//   division a value, 2.75 M values there) keeps the card's CUDA cores
+//   about as long. A thread takes a 16-byte run of 8 channels and
+//   kConvPos positions: every load of its stretch (kConvPos + 3 rows of
+//   16 bytes, from device memory or the state) is issued before any
+//   arithmetic, the products and partial sums run on bf16 pairs (mul.rn
+//   / add.rn.bf16x2, rounded where the plain version rounds), and the
+//   stores are 16 bytes; y and the state are bit-equal to the plain
+//   version's. Launch bounds hold it to 80 registers a thread, so 6 CTAs
+//   of 128 threads fit an SM. Tried and not kept (PERF.md): stretches of 8
+//   and 16 positions, CTAs of 64 threads, no register bound (84 a
+//   thread), and silu by the fast exp and division with the exact
+//   expression only where their bf16 rounding could differ (bit-equal,
+//   but the check cost what it saved).
 // - gated_rmsnorm: bytes, and at decode (4 rows of 5120) a chain of
 //   dependent latencies: the loads, the gates, the reduction, the
 //   scaling. A thread takes one 16-byte run (one CTA of 640 threads a row
@@ -28,13 +40,28 @@
 //   memory) was about as fast at decode and slower at prefill, and a
 //   launch under programmatic dependent launch did not make the decode
 //   step faster; neither was kept (PERF.md). Folding the decode's gated
-//   norm into ssm_decode_update's launch (the CTA that takes a slot's
+//   norm into the decode update's launch (the CTA that takes a slot's
 //   last ticket normalizes the row) was bit-equal and slower on the card
 //   (PERF.md).
-// - ssm_decode_update: bytes. The state (B, H, P, N) f32 is read once and
-//   written once, in place; a warp takes one (slot, head, p) row of N
-//   states in 16-byte loads, a CTA eight rows, so one slot of 80 heads of
-//   64 is 640 CTAs on 132 SMs (the split along P fills the card at 1 slot).
+// - ssm_decode_step (the decode's conv and SSD update in one launch):
+//   bytes. The state (B, H, P, N) f32 is read once and written once, in
+//   place; at 1 slot (2.6 MB) the launch, the dependent chain dt -> decay
+//   -> state and the tail take most of the time. A CTA takes a head: 8
+//   warps of 8 p rows (80 CTAs a slot at mamba2's 80 heads of P 64), a
+//   lane the same four n of each row, so the lane loads its B and C once;
+//   all its float4 state loads are issued first, and one thread of the
+//   CTA computes the head's dt, decay and D meanwhile. Every CTA computes
+//   the conv of B and C (256 channels at N 128) and of its own x channels
+//   into shared memory; the slot's last CTA by a ticket writes B and C's
+//   conv state. What holds it back (PERF.md): ptxas gives it 111
+//   registers a thread, so 2 CTAs of 256 threads fit an SM: 264 run at
+//   once, and 4 slots (320 CTAs) take a second wave; 1 slot is 80 CTAs
+//   on 132 SMs. A conv launch and an update launch back to back (the
+//   update 4 rows a warp, 4 warps a CTA, 320 CTAs a slot) were slower
+//   at 1 and at 4 slots and were taken out. 4 x 4 and 8 x 4 rows x warps
+//   (more CTAs, each repeating the B and C conv, and more tickets a slot)
+//   are timed beside 8 x 8 by tools/ssm_step_tiles.py (PERF.md); register
+//   bounds spilled.
 // - ssd_prefill: two launches a slice of at most `slice` chunks (the
 //   caller's, kernels/ssm.py's SCAN_SLICE), the slices in order, so its
 //   f32 scratch of incoming states holds one slice's chunks, not the
@@ -106,10 +133,15 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kConvThreads = 128;  // channels a CTA
-constexpr int kConvRun = 32;       // positions a thread walks
+constexpr int kConvThreads = 128;  // conv: 16-byte runs a CTA
+constexpr int kConvPos = 4;        // conv: positions a thread (its stretch)
+constexpr int kConvMinCtas = 6;    // conv: CTAs an SM (80 registers a thread, no spill)
 constexpr int kWidth = 4;          // the conv's width (every config's)
-constexpr int kDecRows = 8;        // decode: p rows a CTA, a warp each
+constexpr int kHalo = kWidth - 1;  // the inputs before a position that its output reads
+constexpr int kStepRows = 8;       // ssm_decode_step: p rows a warp
+constexpr int kStepWarps = 8;      // ssm_decode_step: warps a CTA
+constexpr int kStepTile = kStepRows * kStepWarps;  // ssm_decode_step: p rows a CTA
+constexpr int kDecN = 128;         // decode: the widest N (a float4 a lane)
 constexpr int kNormMaxThreads = 1024;  // gated norm: a CTA a row, a thread a 16-byte run
 constexpr int kQ = 64;             // the prefill scan's chunk (wgmma's M)
 constexpr int kHP = 64;            // the scan's head dim P (a 128-byte row)
@@ -127,92 +159,264 @@ __device__ __forceinline__ float softplus(float v) {
   return __fadd_rn(fmaxf(v, 0.f), log1pf(expf(-fabsf(v))));
 }
 
+__device__ __forceinline__ uint4 ld16(const bf16* p) { return *reinterpret_cast<const uint4*>(p); }
+__device__ __forceinline__ uint4 ldg16(const bf16* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+__device__ __forceinline__ void st16(bf16* p, uint4 v) { *reinterpret_cast<uint4*>(p) = v; }
+// the low and high bf16 of a pair, as f32
+__device__ __forceinline__ float lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+__device__ __forceinline__ uint32_t pack2(float l, float h) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(l, h);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// A product and a sum of bf16 pairs, each rounded once to bf16. The f32
+// product of two bf16 values is exact, and rounding an f32 sum to bf16
+// gives the sum rounded once (24 >= 2 * 8 + 2 bits), so these are the
+// plain version's f32 op then bf16 rounding, bit for bit; .rn keeps the
+// compiler from contracting them into an fma.
+__device__ __forceinline__ uint32_t mul2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t add2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
 // ------------------------------------------------------------ causal conv --
-// grid (ceil(C / kConvThreads), ceil(S / kConvRun), B). Thread (c, run)
-// keeps the kWidth - 1 inputs before its run in registers and slides them
-// along it. Position s < 0 of a row is state row kWidth - 1 + s (zero
-// without carry). The thread of run 0 also writes the new state (the last
-// kWidth - 1 positions of state ++ x), after reading every old state value
-// it needs: no other thread reads the state (a later run starts at
-// s >= kConvRun >= kWidth - 1).
-__global__ void __launch_bounds__(kConvThreads)
+static_assert(kWidth == 4, "conv_run takes a window of four inputs");
+
+// A 16-byte run's output (8 channels) at one position from its window
+// a0..a3 (oldest first): each product and partial sum rounded to bf16 on
+// bf16 pairs, the bias added, then silu in f32, rounded once.
+__device__ __forceinline__ uint4 conv_run(const uint4& a0, const uint4& a1, const uint4& a2,
+                                          const uint4& a3, const uint4 (&w)[kWidth],
+                                          const uint4& bias) {
+  const uint32_t x0[4] = {a0.x, a0.y, a0.z, a0.w}, x1[4] = {a1.x, a1.y, a1.z, a1.w};
+  const uint32_t x2[4] = {a2.x, a2.y, a2.z, a2.w}, x3[4] = {a3.x, a3.y, a3.z, a3.w};
+  const uint32_t w0[4] = {w[0].x, w[0].y, w[0].z, w[0].w}, w1[4] = {w[1].x, w[1].y, w[1].z, w[1].w};
+  const uint32_t w2[4] = {w[2].x, w[2].y, w[2].z, w[2].w}, w3[4] = {w[3].x, w[3].y, w[3].z, w[3].w};
+  const uint32_t bb[4] = {bias.x, bias.y, bias.z, bias.w};
+  uint32_t out[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t acc = mul2(x0[i], w0[i]);
+    acc = add2(acc, mul2(x1[i], w1[i]));
+    acc = add2(acc, mul2(x2[i], w2[i]));
+    acc = add2(acc, mul2(x3[i], w3[i]));
+    acc = add2(acc, bb[i]);
+    out[i] = pack2(silu(lo(acc)), silu(hi(acc)));
+  }
+  return make_uint4(out[0], out[1], out[2], out[3]);
+}
+
+// A thread a (row b, 16-byte run of 8 channels, stretch of kConvPos
+// positions); consecutive threads take consecutive runs, so a warp loads
+// and stores 512 contiguous bytes a position. Every load is issued first:
+// the stretch's window (its positions and the kHalo before them; position
+// s < 0 is state row kHalo + s, zero without carry), the weights and the
+// bias. Then the outputs position by position, stored 16 bytes at a time.
+// Only stretch 0 reads the old state; its own thread then loads the new
+// state (the last kHalo positions of state ++ x) and writes it.
+__global__ void __launch_bounds__(kConvThreads, kConvMinCtas)
     ssm_conv_kernel(const bf16* __restrict__ x, long long x_sb, long long x_ss,
                     const bf16* __restrict__ w, const bf16* __restrict__ bias, bf16* state,
-                    const unsigned char* __restrict__ advance, bf16* __restrict__ y, int S, int C,
-                    int carry) {
-  const int c = blockIdx.x * kConvThreads + threadIdx.x;
-  if (c >= C) return;
-  const int b = blockIdx.z;
-  constexpr int K = kWidth - 1;
-  const int s0 = blockIdx.y * kConvRun;
-  const int s1 = min(s0 + kConvRun, S);
+                    const unsigned char* __restrict__ advance, bf16* __restrict__ y, int B, int S,
+                    int C, int carry) {
+  const int runs = C / 8, stretches = (S + kConvPos - 1) / kConvPos;
+  const int t = blockIdx.x * kConvThreads + threadIdx.x;  // < 2^31 (the caller's check)
+  if (t >= B * stretches * runs) return;
+  const int c = t % runs * 8, rest = t / runs;
+  const int s0 = rest % stretches * kConvPos, b = rest / stretches;
   const bf16* xr = x + b * x_sb + c;
-  bf16* st = state + (size_t)b * K * C + c;
-  auto at = [&](int pos) -> float {  // position pos of state ++ x (pos < S)
-    if (pos >= 0) return f(xr[pos * x_ss]);
-    return carry ? f(st[(size_t)(K + pos) * C]) : 0.f;
+  bf16* st = state + (size_t)b * kHalo * C + c;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  auto input = [&](int pos) -> uint4 {  // position pos < S of state ++ x
+    if (pos >= 0) return ldg16(xr + pos * x_ss);
+    return carry ? ld16(st + (size_t)(kHalo + pos) * C) : zero;
   };
-  float wt[kWidth], win[kWidth];
+  uint4 win[kHalo + kConvPos], wt[kWidth];
 #pragma unroll
-  for (int j = 0; j < kWidth; ++j) wt[j] = f(w[(size_t)j * C + c]);
-  const float bc = f(bias[c]);
+  for (int j = 0; j < kHalo + kConvPos; ++j)
+    win[j] = s0 - kHalo + j < S ? input(s0 - kHalo + j) : zero;
 #pragma unroll
-  for (int j = 0; j < K; ++j) win[j] = at(s0 - K + j);
-  for (int s = s0; s < s1; ++s) {
-    win[K] = f(xr[s * x_ss]);
-    float acc = rb(__fmul_rn(win[0], wt[0]));
+  for (int j = 0; j < kWidth; ++j) wt[j] = ldg16(w + (size_t)j * C + c);
+  const uint4 bc = ldg16(bias + c);
+  bf16* yr = y + ((size_t)b * S + s0) * C + c;
 #pragma unroll
-    for (int j = 1; j < kWidth; ++j) acc = rb(__fadd_rn(acc, rb(__fmul_rn(win[j], wt[j]))));
-    y[((size_t)b * S + s) * C + c] = __float2bfloat16(silu(rb(__fadd_rn(acc, bc))));
-#pragma unroll
-    for (int j = 0; j < K; ++j) win[j] = win[j + 1];
+  for (int i = 0; i < kConvPos; ++i) {
+    if (s0 + i >= S) break;
+    st16(yr + i * C, conv_run(win[i], win[i + 1], win[i + 2], win[i + 3], wt, bc));
   }
-  if (blockIdx.y != 0 || (advance != nullptr && !advance[b])) return;
-  float next[K];
+  if (s0 != 0 || (advance != nullptr && !advance[b])) return;
+  uint4 next[kHalo];  // loaded here, not with the window: fewer registers
 #pragma unroll
-  for (int j = 0; j < K; ++j) next[j] = at(S - K + j);
+  for (int j = 0; j < kHalo; ++j) next[j] = input(S - kHalo + j);
 #pragma unroll
-  for (int j = 0; j < K; ++j) st[(size_t)j * C] = __float2bfloat16(next[j]);
+  for (int j = 0; j < kHalo; ++j) st16(st + (size_t)j * C, next[j]);
 }
 
 // ---------------------------------------------------- decode state update --
-// grid (ceil(P / kDecRows), H, B), a warp a (b, h, p) row of N states:
-// lane l takes n = 4 l, 4 l + 128, ... (N % 4 == 0) in float4 loads.
-// S <- S decay + (dt x) B_n; y = sum_n S C_n + x D, rounded once.
-__global__ void __launch_bounds__(kDecRows * 32)
-    ssm_decode_kernel(const bf16* __restrict__ xbc, long long xbc_sb, const bf16* __restrict__ dt,
-                      long long dt_sb, const bf16* __restrict__ dt_bias,
-                      const bf16* __restrict__ A_log, const bf16* __restrict__ D, float* state,
-                      const unsigned char* __restrict__ advance, bf16* __restrict__ y, int H,
-                      int P, int N) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int p = blockIdx.x * kDecRows + warp;
-  const int h = blockIdx.y, b = blockIdx.z;
-  if (p >= P) return;
-  const bf16* row = xbc + b * xbc_sb;
-  const int di = H * P;
+// dt = softplus(dt + dt_bias), the decay exp(dt A) with A = -exp(A_log),
+// and D, of head h of row b, into head[0..2].
+__device__ __forceinline__ void head_scalars(const bf16* __restrict__ dt, long long dt_sb,
+                                             const bf16* __restrict__ dt_bias,
+                                             const bf16* __restrict__ A_log,
+                                             const bf16* __restrict__ D, int b, int h,
+                                             float* head) {
   const float dtv = softplus(__fadd_rn(f(dt[b * dt_sb + h]), f(dt_bias[h])));
-  const float A = -expf(f(A_log[h]));
-  const float decay = expf(__fmul_rn(dtv, A));
-  const float xv = f(row[h * P + p]);
-  const float dx = __fmul_rn(dtv, xv);
-  float* sp = state + (((size_t)b * H + h) * P + p) * N;
-  const bool write = advance == nullptr || advance[b];
-  float acc = 0.f;
-  for (int n = lane * 4; n < N; n += 128) {
-    float4 s = *reinterpret_cast<const float4*>(sp + n);
-    float* sv = reinterpret_cast<float*>(&s);
+  head[0] = dtv;
+  head[1] = expf(__fmul_rn(dtv, -expf(f(A_log[h]))));
+  head[2] = f(D[h]);
+}
+
+// A warp's R rows once their inputs are in registers: s, the lane's
+// float4 of each row (n = 4 lane ..); bn and cn, its four B and C values;
+// xw, the rows' x values, two to a word. S <- S decay + (dt x) B_n,
+// written back to sp where `write`; y = sum_n S C_n + x D, rounded once,
+// stored by lane 0 8 bytes at a time. The sum over n: a lane's four in
+// order, then the warp's xor tree over lanes (zeros past N): fixed by N
+// alone.
+template <int R>
+__device__ __forceinline__ void decode_rows(float4 (&s)[R], uint2 bn, uint2 cn,
+                                            const uint32_t (&xw)[R / 2], const float* head,
+                                            float* sp, int N, bool lane_on, bool write, bf16* yp,
+                                            int lane) {
+  static_assert(R % 4 == 0, "decode_rows stores y four rows at a time");
+  const float dtv = head[0], decay = head[1], Dh = head[2];
+  const float bv[4] = {lo(bn.x), hi(bn.x), lo(bn.y), hi(bn.y)};
+  const float cv[4] = {lo(cn.x), hi(cn.x), lo(cn.y), hi(cn.y)};
+  float xv[R], acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    xv[r] = r % 2 ? hi(xw[r / 2]) : lo(xw[r / 2]);
+    const float dx = __fmul_rn(dtv, xv[r]);
+    float v[4] = {s[r].x, s[r].y, s[r].z, s[r].w};
+    acc[r] = 0.f;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      sv[j] = __fadd_rn(__fmul_rn(sv[j], decay), __fmul_rn(dx, f(row[di + n + j])));
-      acc = fmaf(sv[j], f(row[di + N + n + j]), acc);
+      v[j] = __fadd_rn(__fmul_rn(v[j], decay), __fmul_rn(dx, bv[j]));
+      acc[r] = fmaf(v[j], cv[j], acc[r]);
     }
-    if (write) *reinterpret_cast<float4*>(sp + n) = s;
+    if (write && lane_on)
+      *reinterpret_cast<float4*>(sp + (size_t)r * N) = make_float4(v[0], v[1], v[2], v[3]);
   }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-  if (lane == 0)
-    y[(size_t)b * di + h * P + p] = __float2bfloat16(__fadd_rn(acc, __fmul_rn(xv, f(D[h]))));
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], o);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < R; r += 4) {
+      float out[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) out[k] = __fadd_rn(acc[r + k], __fmul_rn(xv[r + k], Dh));
+      *reinterpret_cast<uint2*>(yp + r) = make_uint2(pack2(out[0], out[1]), pack2(out[2], out[3]));
+    }
+  }
+}
+
+// One decode token's conv and SSD update. grid (P / kStepTile, H, B): a
+// CTA of kStepWarps warps takes kStepTile p rows of one (slot b, head h),
+// a warp kStepRows of them; lane l holds n = 4 l .. 4 l + 3 of each (N <=
+// kDecN), so it takes its B and C once for all its rows. Every lane
+// issues its float4 state loads before anything waits; meanwhile the
+// CTA's last thread computes the head's dt, decay and D once, into shared
+// memory.
+//
+// xbc is the conv's input. The CTA's first N / 4 + kStepTile / 8 threads
+// each take a 16-byte run of the channels the CTA reads (B and C, which
+// every CTA of the slot computes alike, then its rows' x) and compute its
+// conv output from the old conv state, the token and the weights (their
+// loads issued before the state's), into shared memory. A CTA owns its x
+// channels and replaces their conv state itself. Every CTA of the slot
+// reads the B and C conv state, so the slot's last CTA by its ticket (an
+// int32 a slot, which atomicInc wraps back to 0) replaces it, from the
+// values its own threads hold; no CTA waits: the ticket is taken before
+// the update and read after it.
+__global__ void __launch_bounds__(kStepWarps * 32)
+    ssm_decode_step_kernel(const bf16* __restrict__ xbc, long long xbc_sb,
+                           const bf16* __restrict__ dt, long long dt_sb,
+                           const bf16* __restrict__ conv_w, const bf16* __restrict__ conv_b,
+                           bf16* conv_state, const bf16* __restrict__ dt_bias,
+                           const bf16* __restrict__ A_log, const bf16* __restrict__ D,
+                           float* state, const unsigned char* __restrict__ advance,
+                           bf16* __restrict__ y, unsigned* tickets, int H, int P, int N) {
+  constexpr int R = kStepRows;
+  __shared__ float head[3];
+  __shared__ __align__(16) bf16 conv_out[2 * kDecN + kStepTile];  // B, C, the CTA's x
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, n = lane * 4;
+  const int h = blockIdx.y, b = blockIdx.z, di = H * P, C = di + 2 * N;
+  const int pc = blockIdx.x * kStepTile, p0 = pc + warp * R;
+  // p0 < P holds at this grid; without the test ptxas gives the kernel 122
+  // registers a thread in place of 111, and it runs slower on the H100
+  const bool rows_on = p0 < P, lane_on = rows_on && n < N;
+  const bool write = advance == nullptr || advance[b];
+  const bf16* row = xbc + b * xbc_sb;
+  float* sp = state + (((size_t)b * H + h) * P + p0) * N + n;
+  uint2 bn = make_uint2(0, 0), cn = bn;
+  uint32_t xw[R / 2];
+  const bf16* xsrc = conv_out + 2 * N + warp * R;
+  // the conv's run j < N / 4 is channels di + 8 j of B and C; then the
+  // CTA's x runs
+  const int bc_runs = N / 4, at = tid < bc_runs ? 8 * tid : 2 * N + 8 * (tid - bc_runs);
+  const bool conv_on = tid < bc_runs + kStepTile / 8;
+  const int c = tid < bc_runs ? di + at : h * P + pc + 8 * (tid - bc_runs);
+  bf16* cs = conv_state + (size_t)b * kHalo * C + c;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  uint4 win[kWidth] = {zero, zero, zero, zero}, wt[kWidth] = {zero, zero, zero, zero}, bc = zero;
+  if (conv_on) {
+#pragma unroll
+    for (int j = 0; j < kHalo; ++j) win[j] = ld16(cs + (size_t)j * C);
+    win[kHalo] = ldg16(row + c);
+#pragma unroll
+    for (int j = 0; j < kWidth; ++j) wt[j] = ldg16(conv_w + (size_t)j * C + c);
+    bc = ldg16(conv_b + c);
+  }
+  float4 s[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    s[r] = lane_on ? *reinterpret_cast<const float4*>(sp + (size_t)r * N)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+  if (tid == kStepWarps * 32 - 1) head_scalars(dt, dt_sb, dt_bias, A_log, D, b, h, head);
+  if (conv_on) {
+    st16(conv_out + at, conv_run(win[0], win[1], win[2], win[3], wt, bc));
+    if (write && tid >= bc_runs) {
+#pragma unroll
+      for (int j = 0; j < kHalo; ++j) st16(cs + (size_t)j * C, win[j + 1]);
+    }
+  }
+  __syncthreads();  // every B and C conv state value this CTA reads is read
+  unsigned t = 0;
+  if (write && tid == 0) {
+    __threadfence();
+    t = atomicInc(tickets + b, gridDim.x * gridDim.y - 1);
+  }
+  if (lane_on) {
+    bn = *reinterpret_cast<const uint2*>(conv_out + n);
+    cn = *reinterpret_cast<const uint2*>(conv_out + N + n);
+  }
+#pragma unroll
+  for (int r = 0; r < R; r += 4) {
+    const uint2 v = *reinterpret_cast<const uint2*>(xsrc + r);
+    xw[r / 2] = v.x;
+    xw[r / 2 + 1] = v.y;
+  }
+  if (rows_on)
+    decode_rows(s, bn, cn, xw, head, sp, N, lane_on, write, y + (size_t)b * di + h * P + p0,
+                lane);
+  // the slot's last CTA (its ticket is the slot's CTA count less one)
+  if (write && warp == 0 && __shfl_sync(0xffffffffu, t, 0) == gridDim.x * gridDim.y - 1 &&
+      tid < bc_runs) {
+    __threadfence();
+#pragma unroll
+    for (int j = 0; j < kHalo; ++j) st16(cs + (size_t)j * C, win[j + 1]);
+  }
 }
 
 // ---------------------------------------------------------- gated RMSNorm --
@@ -758,39 +962,52 @@ __global__ void __launch_bounds__(kScanThreads)
 
 }  // namespace
 
-// x (B, S, C) bf16 at row strides (x_sb, x_ss) and unit column stride; w
-// (kWidth, C), b (C,) bf16; state (B, kWidth - 1, C) bf16, read (carry) and
-// written in place for the rows where advance (B,) bool is set (null: every
-// row); y (B, S, C) bf16. Returns the launch's cudaError_t.
+// x (B, S, C) bf16 at row strides (x_sb, x_ss), both multiples of 8, and
+// unit column stride, 16-byte aligned; w (kWidth, C), b (C,) bf16; state
+// (B, kWidth - 1, C) bf16, read (carry) and written in place for the rows
+// where advance (B,) bool is set (null: every row); y (B, S, C) bf16; C %
+// 8 == 0. Returns the launch's cudaError_t.
 extern "C" int ssm_conv(const void* x, long long x_sb, long long x_ss, const void* w,
                         const void* b, void* state, const void* advance, void* y, int B, int S,
                         int C, int carry, void* stream) {
-  static_assert(kConvRun >= kWidth - 1, "a run must hold the state's positions");
-  if (B <= 0 || S <= 0 || C <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((C + kConvThreads - 1) / kConvThreads, (S + kConvRun - 1) / kConvRun, B);
-  ssm_conv_kernel<<<grid, kConvThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (B <= 0 || S <= 0 || C <= 0 || C % 8 || x_sb % 8 || x_ss % 8 ||
+      reinterpret_cast<uintptr_t>(x) % 16)
+    return cudaErrorInvalidValue;
+  const long long threads = (long long)B * ((S + kConvPos - 1) / kConvPos) * (C / 8);
+  if (threads >= (1ll << 31) - kConvThreads) return cudaErrorInvalidValue;
+  ssm_conv_kernel<<<(unsigned)((threads + kConvThreads - 1) / kConvThreads), kConvThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), x_sb, x_ss, static_cast<const bf16*>(w),
       static_cast<const bf16*>(b), static_cast<bf16*>(state),
-      static_cast<const unsigned char*>(advance), static_cast<bf16*>(y), S, C, carry);
+      static_cast<const unsigned char*>(advance), static_cast<bf16*>(y), B, S, C, carry);
   return cudaGetLastError();
 }
 
-// xbc (B, H*P + 2N) bf16 rows at stride xbc_sb (x, then B, then C); dt
-// (B, H) bf16 rows at stride dt_sb (before softplus); dt_bias, A_log, D
-// (H,) bf16; state (B, H, P, N) f32, 16-byte aligned, N % 4 == 0, updated
-// in place where advance (B,) bool is set (null: every row); y (B, H*P)
-// bf16. Returns the launch's cudaError_t.
-extern "C" int ssm_decode_update(const void* xbc, long long xbc_sb, const void* dt,
-                                 long long dt_sb, const void* dt_bias, const void* A_log,
-                                 const void* D, void* state, const void* advance, void* y, int B,
-                                 int H, int P, int N, void* stream) {
-  if (B <= 0 || H <= 0 || P <= 0 || N <= 0 || N % 4) return cudaErrorInvalidValue;
-  const dim3 grid((P + kDecRows - 1) / kDecRows, H, B);
-  ssm_decode_kernel<<<grid, kDecRows * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+// One decode token's conv and state update in one launch: xbc (B, H*P +
+// 2N) bf16, the token's conv input (x, then B, then C), rows at stride
+// xbc_sb, a multiple of 8, 16-byte aligned; dt (B, H) bf16 rows at stride
+// dt_sb (before softplus); conv_w (kWidth, H*P + 2N), conv_b bf16;
+// conv_state (B, kWidth - 1, H*P + 2N) bf16; dt_bias, A_log, D (H,) bf16;
+// state (B, H, P, N) f32, 16-byte aligned; y (B, H*P) bf16. Both states
+// are replaced in place where advance (B,) bool is set (null: every row).
+// tickets: B int32 zeros, left zero. P % 64 == 0, N % 4 == 0, N <= 128.
+// Returns the launch's cudaError_t.
+extern "C" int ssm_decode_step(const void* xbc, long long xbc_sb, const void* dt, long long dt_sb,
+                               const void* conv_w, const void* conv_b, void* conv_state,
+                               const void* dt_bias, const void* A_log, const void* D,
+                               void* state, const void* advance, void* y, void* tickets, int B,
+                               int H, int P, int N, void* stream) {
+  if (B <= 0 || H <= 0 || P <= 0 || P % kStepTile || N <= 0 || N % 4 || N > kDecN ||
+      xbc_sb % 8 || reinterpret_cast<uintptr_t>(xbc) % 16)
+    return cudaErrorInvalidValue;
+  const dim3 grid(P / kStepTile, H, B);
+  ssm_decode_step_kernel<<<grid, kStepWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(xbc), xbc_sb, static_cast<const bf16*>(dt), dt_sb,
-      static_cast<const bf16*>(dt_bias), static_cast<const bf16*>(A_log),
-      static_cast<const bf16*>(D), static_cast<float*>(state),
-      static_cast<const unsigned char*>(advance), static_cast<bf16*>(y), H, P, N);
+      static_cast<const bf16*>(conv_w), static_cast<const bf16*>(conv_b),
+      static_cast<bf16*>(conv_state), static_cast<const bf16*>(dt_bias),
+      static_cast<const bf16*>(A_log), static_cast<const bf16*>(D), static_cast<float*>(state),
+      static_cast<const unsigned char*>(advance), static_cast<bf16*>(y),
+      static_cast<unsigned*>(tickets), H, P, N);
   return cudaGetLastError();
 }
 

@@ -38,6 +38,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.tickets import tickets
 
 NEG_INF = -1e30
 LOADERS = {"bf16": 0, "q8_0": 1, "q4_0": 2}
@@ -50,8 +51,6 @@ SPLIT = 128
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_I, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, _I,
              _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P)
-_TICKETS = {}                  # device -> the kernel's int32 ticket counts
-_OUTGROWN = []                 # ticket counts replaced by larger ones
 
 
 def num_splits(S: int) -> int:
@@ -63,22 +62,6 @@ def split_scratch_elems(B: int, Hkv: int, G: int, S: int, D: int) -> int:
     """f32 elements of the kernel's scratch: per (batch, kv head, split)
     the unnormalized acc (G x D), then m (G) and l (G)."""
     return B * Hkv * num_splits(S) * G * (D + 2)
-
-
-def _tickets(n: int, device) -> torch.Tensor:
-    """At least n int32 ticket counts on ``device``, zero between
-    launches: allocated zeroed once, and each launch's merging CTAs set
-    the counts they used back to 0. Launches on the current stream run
-    one after another, so they share the counts safely. Counts that a
-    larger launch outgrows stay allocated: a captured CUDA graph may
-    still hold their address."""
-    t = _TICKETS.get(device)
-    if t is None or t.numel() < n:
-        if t is not None:
-            _OUTGROWN.append(t)
-        t = torch.zeros((max(n, 256),), dtype=torch.int32, device=device)
-        _TICKETS[device] = t
-    return t
 
 
 def as_lens(kv_len, batch: int, device) -> torch.Tensor:
@@ -219,13 +202,13 @@ def launch_decode_kernel(loader: str, q: torch.Tensor, k: torch.Tensor,
         return out.zero_()
     n_part = split_scratch_elems(B, Hkv, G, S, D)
     part = torch.empty((n_part,), dtype=torch.float32, device=q.device)
-    tickets = _tickets(B * Hkv, q.device)
+    counts = tickets(B * Hkv, q.device)
     fn = build.function("decode_attention", "decode_attention", _ARGTYPES)
     err = fn(LOADERS[loader], q.data_ptr(), k.data_ptr(), v.data_ptr(),
              k_scale.data_ptr() if ng else None,
              v_scale.data_ptr() if ng else None, lens.data_ptr(),
-             out.data_ptr(), part.data_ptr(), n_part, tickets.data_ptr(),
-             tickets.numel(),
+             out.data_ptr(), part.data_ptr(), n_part, counts.data_ptr(),
+             counts.numel(),
              block_table.data_ptr() if block_table is not None else None,
              max_pages, P, B, Hkv, G, S, D, ng, int(window), SPLIT,
              softmax_scale(D),

@@ -63,6 +63,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.kernels.tickets import tickets
 
 MAX_K = 8                      # experts a token the route kernel takes
 MAX_EXPERTS = 1024
@@ -171,27 +172,6 @@ def route_launches(T: int, D: int, E: int, K: int) -> int:
     return 1 if T <= one else 3
 
 
-_TICKETS = {}
-
-
-def _ticket(x: torch.Tensor) -> torch.Tensor:
-    """The one-launch route's int32 ticket on x's device and current
-    stream, which its cluster leaders take in turn when there is more than
-    one cluster; it wraps to 0 at each launch's end. Launches on one
-    stream run one after another and share it; each stream has its own.
-    Made zeroed on a stream's first such call, which must not be inside a
-    CUDA graph's capture (the engine's warm-up on its capture stream makes
-    it before); a graph keeps its capture stream's ticket, so the graphs
-    of one capture stream are replayed on one stream."""
-    key = (x.device, _stream(x))
-    if key not in _TICKETS:
-        _require(not torch.cuda.is_current_stream_capturing(),
-                 "moe_route: the stream being captured has no ticket yet; "
-                 "run the route once on it before the capture")
-        _TICKETS[key] = torch.zeros((1,), dtype=torch.int32, device=x.device)
-    return _TICKETS[key]
-
-
 def route_segment(P: int) -> int:
     """The slot kernel's segment of pairs a warp: 32 x n pairs, n from the
     number of pairs P alone, the least that lets ``ROUTE_SEGMENTS``
@@ -266,8 +246,9 @@ def moe_route(x: torch.Tensor, w: torch.Tensor, K: int, C: int,
     src = torch.empty((E, C), dtype=torch.int32, device=dev)
     launches = route_launches(T, D, E, K)
     # one cluster takes 16 experts (two blocks of 8) or more; past 16 the
-    # one-launch route may need more clusters, and so their ticket
-    ticket = _ticket(x) if launches == 1 and E > 16 else None
+    # one-launch route may need more clusters, and so their ticket (the
+    # first of the stream's counts, which its last leader wraps to 0)
+    ticket = tickets(1, x.device) if launches == 1 and E > 16 else None
     fn = build.function("moe", "moe_route", _ROUTE_ARGS)
     err = fn(x.data_ptr(), w.data_ptr(), logits.data_ptr(), T, D, E, K, C,
              gates.data_ptr(), experts.data_ptr(), slots.data_ptr(),

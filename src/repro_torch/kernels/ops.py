@@ -23,7 +23,7 @@ products (the counterpart of the JAX package's ``kernels/ops.py``).
 - ``moe_route``, ``moe_gate_up_swiglu``, ``moe_down`` and
   ``moe_combine``: the mixture-of-experts FFN's kernels
   (``kernels/moe.py``), wrappers of the same kind.
-- ``ssm_conv``, ``ssm_decode_update``, ``ssd_prefill`` and
+- ``ssm_conv``, ``ssm_decode_step``, ``ssd_prefill`` and
   ``gated_rmsnorm``: the SSM family's kernels (``kernels/ssm.py``),
   wrappers of the same kind.
 - ``launch_counts``: every kernel wrapper's launch count by name. A
@@ -56,7 +56,7 @@ from repro_torch.kernels.moe import (moe_combine, moe_down,
                                      moe_gate_up_swiglu, moe_route)
 from repro_torch.kernels.quant_matmul import quant_matmul, quant_matmul_swiglu
 from repro_torch.kernels.ssm import (gated_rmsnorm, ssd_prefill, ssm_conv,
-                                     ssm_decode_update)
+                                     ssm_decode_step)
 from repro_torch.quant.quantize import QuantizedTensor
 
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -65,14 +65,14 @@ KERNELS = (decode_attention, decode_attention_quant, quant_matmul,
            quant_matmul_swiglu, flash_attention, rmsnorm, add_rmsnorm, swiglu,
            rope_cache_write, rope_cache_write_prefill, moe_route,
            moe_gate_up_swiglu, moe_down, moe_combine, ssm_conv,
-           ssm_decode_update, ssd_prefill, gated_rmsnorm)
+           ssm_decode_step, ssd_prefill, gated_rmsnorm)
 
 __all__ = ["matmul", "attention", "decode_attention",
            "decode_attention_quant", "flash_attention", "quant_matmul",
            "quant_matmul_swiglu", "rmsnorm", "add_rmsnorm", "swiglu",
            "rope_cache_write", "rope_cache_write_prefill", "moe_route",
            "moe_gate_up_swiglu", "moe_down", "moe_combine", "ssm_conv",
-           "ssm_decode_update", "ssd_prefill", "gated_rmsnorm", "KERNELS",
+           "ssm_decode_step", "ssd_prefill", "gated_rmsnorm", "KERNELS",
            "launch_counts"]
 
 

@@ -1,29 +1,45 @@
 """The SSM family's kernels (Mamba-2 SSD, ``csrc/ssm.cu``): the causal
-conv with its state, the decode state update, the chunked SSD prefill
-scan, and the gated RMSNorm.
+conv with its state, the decode step (the token's conv and the state
+update in one launch), the chunked SSD prefill scan, and the gated
+RMSNorm.
 
 No Pallas kernel of the JAX package stands behind them: its
 ``models/ssm.py`` computes the layer with ``jnp`` outside any kernel.
 Eagerly, a decode step of the layer is about ten PyTorch launches, each
 reading or writing the layer's f32 state; each kernel here is one launch
 but the scan (``scan_launches``). The design of each is described in the
-source. The decode path runs ``ssm_conv``, ``ssm_decode_update`` and
-``gated_rmsnorm``; the prefill path ``ssm_conv``, ``ssd_prefill`` and
-``gated_rmsnorm``.
+source. The decode path runs ``ssm_decode_step`` and ``gated_rmsnorm``;
+the prefill path ``ssm_conv``, ``ssd_prefill`` and ``gated_rmsnorm``.
 
 - ``ssm_conv(x, w, b, state, advance, carry)``: the depthwise causal conv
-  of width W (the kernel: ``CONV_WIDTH``, every config's) over x (B, S, C) (rows may be strided, columns contiguous),
-  plus the bias and silu (the JAX ``_causal_conv``), → y (B, S, C) in x's
-  dtype. The conv state (B, W - 1, C) holds the W - 1 inputs before x: it
-  is read (``carry``; else taken as zeros) and replaced in place by the
-  last W - 1 inputs of state ++ x, for the rows where ``advance`` (B,)
-  bool is set (None: every row); a frozen row's state is untouched.
-- ``ssm_decode_update(xbc, dt, dt_bias, A_log, D, state, advance)``: one
-  token's SSD update. xbc (B, H P + 2 N) is the conv's output (x, then B,
-  then C), dt (B, H) the projection's raw dt; dt = softplus(dt +
-  dt_bias) and A = -exp(A_log) in f32, S <- S exp(dt A) + dt x (x) B and
-  y = S C + D x in f32, rounded once → y (B, H P). The f32 state
-  (B, H, P, N) is updated in place where ``advance`` is set.
+  of width W (the kernel: ``CONV_WIDTH``, every config's) over x (B, S, C)
+  (rows may be strided, columns contiguous), plus the bias and silu (the
+  JAX ``_causal_conv``), → y (B, S, C) in x's dtype. The conv state
+  (B, W - 1, C) holds the W - 1 inputs before x: it is read (``carry``;
+  else taken as zeros) and replaced in place by the last W - 1 inputs of
+  state ++ x, for the rows where ``advance`` (B,) bool is set (None: every
+  row); a frozen row's state is untouched. A thread of the kernel takes a
+  16-byte run of 8 channels and ``CONV_STRETCH`` positions, its loads all
+  issued before its arithmetic; the kernel takes C a multiple of 8 and x
+  rows at strides that are multiples of 8, 16-byte aligned. Its y and
+  state are bit-equal to the plain version's.
+- ``ssm_decode_step(xbc, dt, conv_w, conv_b, conv_state, dt_bias, A_log,
+  D, state, advance)``: one decode token's conv and SSD update in one
+  launch, the decode path's. xbc (B, H P + 2 N) is the conv's input (x,
+  then B, then C), dt (B, H) the projection's raw dt; the conv is
+  ``ssm_conv``'s of one position, then dt = softplus(dt + dt_bias) and A
+  = -exp(A_log) in f32, S <- S exp(dt A) + dt x (x) B and y = S C + D x in
+  f32, rounded once → y (B, H P). The conv state and the f32 state
+  (B, H, P, N) are updated in place where ``advance`` is set. Its plain
+  version is ``ssm_conv_plain`` then ``ssm_decode_update_plain`` (the JAX
+  ``ssm_decode``'s update). A CTA of the kernel takes ``STEP_ROWS`` p rows
+  of one (slot, head), a lane of a warp the same four n of each row, so a
+  row's sum over n has one order from N alone and a slot's bits do not
+  depend on B. Every CTA of a slot computes the conv of B and C, and the
+  slot's last CTA, by an int32 ticket of the stream
+  (``kernels/tickets.py``), replaces their conv state. The kernel takes P
+  a multiple of ``STEP_ROWS`` and N a multiple of 4 up to
+  ``DECODE_MAX_STATE``.
 - ``ssd_prefill(xbc, dt, dt_bias, A_log, D, state, carry)``: the chunked
   SSD over a whole prompt, xbc (B, S, H P + 2 N), dt (B, S, H), from the
   state (``carry``; else zeros), → y (B, S, H P): the scan's y rounded to
@@ -62,19 +78,24 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_ops import rmsnorm_plain
+from repro_torch.kernels.tickets import tickets
 
 CONV_WIDTH = 4                 # the conv kernel's width
+CONV_STRETCH = 4               # positions a thread of the conv kernel takes
 MAX_STATE = 128                # the scan kernel's largest N
 SCAN_CHUNK = 64                # the scan kernel's chunk
 SCAN_HEAD_DIM = 64             # the scan kernel's P (wgmma's 64 rows)
 SCAN_KERNELS = 2               # launches of one slice of an ssd_prefill call
 SCAN_SLICE = 8                 # chunks a slice (the f32 scratch's depth)
 NORM_MAX_D = 8192              # the gated norm kernel's widest row
+DECODE_MAX_STATE = 128         # the decode step's largest N (a float4 a lane)
+STEP_ROWS = 64                 # p rows a CTA of ``ssm_decode_step``
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _CONV_ARGS = (_P, _L, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
-_DECODE_ARGS = (_P, _L, _P, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+_STEP_ARGS = (_P, _L, _P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+              _I, _I, _P)
 _SCAN_ARGS = (_P, _L, _L, _P, _L, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
               _I, _I, _I, _P)
 _NORM_ARGS = (_P, _P, _L, _P, _P, _I, _I, _F, _I, _P)
@@ -178,11 +199,16 @@ def ssm_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
              f"{CONV_WIDTH}, got {W}")
     _check_cuda("ssm_conv", x, w, b, state, advance)
     _bf16("ssm_conv", x, w, b, state)
-    _require(w.is_contiguous() and state.is_contiguous(),
-             "ssm_conv: w and the state must be contiguous")
+    x_ss = x.stride(1) if S > 1 else 0
+    _require(w.is_contiguous() and state.is_contiguous() and C % 8 == 0
+             and x.stride(0) % 8 == 0 and x_ss % 8 == 0
+             and all(t.data_ptr() % 16 == 0 for t in (x, w, b, state)),
+             f"ssm_conv: the kernel takes C a multiple of 8 (got {C}), x "
+             "rows at strides that are multiples of 8, 16-byte aligned, and "
+             "a contiguous w and state")
     y = torch.empty((B, S, C), dtype=x.dtype, device=x.device)
     fn = build.function("ssm", "ssm_conv", _CONV_ARGS)
-    err = fn(x.data_ptr(), x.stride(0), x.stride(1), w.data_ptr(),
+    err = fn(x.data_ptr(), x.stride(0), x_ss, w.data_ptr(),
              b.data_ptr(), state.data_ptr(), _advance("ssm_conv", advance, B),
              y.data_ptr(), B, S, C, int(carry), _stream(x))
     build.check(err, "ssm_conv")
@@ -213,7 +239,7 @@ def _check_ssd(what: str, xbc: torch.Tensor, dt: torch.Tensor,
     return H, P, N
 
 
-# -- the decode state update --------------------------------------------------
+# -- the decode state update (the plain half of ``ssm_decode_step``) ----------
 def ssm_decode_update_plain(xbc: torch.Tensor, dt: torch.Tensor,
                             dt_bias: torch.Tensor, A_log: torch.Tensor,
                             D: torch.Tensor, state: torch.Tensor,
@@ -236,37 +262,68 @@ def ssm_decode_update_plain(xbc: torch.Tensor, dt: torch.Tensor,
     return y.reshape(B, H * P).to(xbc.dtype)
 
 
-def ssm_decode_update(xbc: torch.Tensor, dt: torch.Tensor,
-                      dt_bias: torch.Tensor, A_log: torch.Tensor,
-                      D: torch.Tensor, state: torch.Tensor,
-                      advance: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """xbc (B, H P + 2 N), dt (B, H) → y (B, H P); the f32 state
-    (B, H, P, N) is updated in place."""
+# -- the decode conv and state update in one launch ---------------------------
+def ssm_decode_step_plain(xbc: torch.Tensor, dt: torch.Tensor,
+                          conv_w: torch.Tensor, conv_b: torch.Tensor,
+                          conv_state: torch.Tensor, dt_bias: torch.Tensor,
+                          A_log: torch.Tensor, D: torch.Tensor,
+                          state: torch.Tensor,
+                          advance: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """``ssm_conv_plain`` of the token, then ``ssm_decode_update_plain``."""
+    x = ssm_conv_plain(xbc[:, None], conv_w, conv_b, conv_state, advance)
+    return ssm_decode_update_plain(x[:, 0], dt, dt_bias, A_log, D, state,
+                                   advance)
+
+
+def ssm_decode_step(xbc: torch.Tensor, dt: torch.Tensor, conv_w: torch.Tensor,
+                    conv_b: torch.Tensor, conv_state: torch.Tensor,
+                    dt_bias: torch.Tensor, A_log: torch.Tensor,
+                    D: torch.Tensor, state: torch.Tensor,
+                    advance: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One decode token's conv and state update: xbc (B, H P + 2 N) the
+    token's conv input (rows may be strided), dt (B, H) → y (B, H P); the
+    conv state (B, W - 1, H P + 2 N) and the f32 state (B, H, P, N) are
+    updated in place where ``advance`` is set (see the module docstring)."""
     if xbc.device.type == "cpu":
-        return ssm_decode_update_plain(xbc, dt, dt_bias, A_log, D, state,
-                                       advance)
-    B = xbc.shape[0]
-    H, P, N = _check_ssd("ssm_decode_update", xbc, dt, (dt_bias, A_log, D),
+        return ssm_decode_step_plain(xbc, dt, conv_w, conv_b, conv_state,
+                                     dt_bias, A_log, D, state, advance)
+    B, C = xbc.shape
+    H, P, N = _check_ssd("ssm_decode_step", xbc, dt, (dt_bias, A_log, D),
                          state)
-    _check_cuda("ssm_decode_update", xbc, dt, dt_bias, A_log, D, state,
-                advance)
-    _bf16("ssm_decode_update", xbc, dt, dt_bias, A_log, D)
-    _require(N % 4 == 0 and state.is_contiguous()
-             and state.data_ptr() % 16 == 0,
-             f"ssm_decode_update: N {N} must be a multiple of 4 and the "
-             "state contiguous and 16-byte aligned")
+    _require(tuple(conv_w.shape) == (CONV_WIDTH, C)
+             and tuple(conv_b.shape) == (C,)
+             and tuple(conv_state.shape) == (B, CONV_WIDTH - 1, C),
+             f"ssm_decode_step: the kernel's conv width is {CONV_WIDTH}; "
+             f"conv_w {tuple(conv_w.shape)}, conv_b {tuple(conv_b.shape)}, "
+             f"conv state {tuple(conv_state.shape)} for xbc {(B, C)}")
+    _check_cuda("ssm_decode_step", xbc, dt, conv_w, conv_b, conv_state,
+                dt_bias, A_log, D, state, advance)
+    _bf16("ssm_decode_step", xbc, dt, conv_w, conv_b, conv_state, dt_bias,
+          A_log, D)
+    _require(P % STEP_ROWS == 0 and N % 4 == 0 and N <= DECODE_MAX_STATE
+             and state.is_contiguous() and conv_w.is_contiguous()
+             and conv_state.is_contiguous() and xbc.stride(0) % 8 == 0
+             and all(t.data_ptr() % 16 == 0
+                     for t in (xbc, conv_w, conv_b, conv_state, state)),
+             f"ssm_decode_step: the kernel takes P a multiple of {STEP_ROWS} "
+             f"(got {P}), N a multiple of 4 up to {DECODE_MAX_STATE} (got "
+             f"{N}), xbc rows at a stride that is a multiple of 8, "
+             "contiguous states and weights, all 16-byte aligned")
     y = torch.empty((B, H * P), dtype=xbc.dtype, device=xbc.device)
-    fn = build.function("ssm", "ssm_decode_update", _DECODE_ARGS)
+    counts = tickets(B, xbc.device)
+    fn = build.function("ssm", "ssm_decode_step", _STEP_ARGS)
     err = fn(xbc.data_ptr(), xbc.stride(0), dt.data_ptr(), dt.stride(0),
+             conv_w.data_ptr(), conv_b.data_ptr(), conv_state.data_ptr(),
              dt_bias.data_ptr(), A_log.data_ptr(), D.data_ptr(),
-             state.data_ptr(), _advance("ssm_decode_update", advance, B),
-             y.data_ptr(), B, H, P, N, _stream(xbc))
-    build.check(err, "ssm_decode_update")
-    ssm_decode_update.launches += 1
+             state.data_ptr(), _advance("ssm_decode_step", advance, B),
+             y.data_ptr(), counts.data_ptr(), B, H, P, N, _stream(xbc))
+    build.check(err, "ssm_decode_step")
+    ssm_decode_step.launches += 1
     return y
 
 
-ssm_decode_update.launches = 0
+ssm_decode_step.launches = 0
 
 
 # -- the chunked SSD scan -----------------------------------------------------

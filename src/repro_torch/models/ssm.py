@@ -112,10 +112,9 @@ def ssm_decode(p, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
     B = x.shape[0]
     zxbcdt = layers.linear(p["in_proj"], x)
     z, xbc, dt = _split_in_proj(cfg, zxbcdt)
-    xbc = ops.ssm_conv(xbc, p["conv_w"], p["conv_b"], cache["conv"],
-                       advance)
-    y = ops.ssm_decode_update(xbc[:, 0], dt[:, 0], p["dt_bias"], p["A_log"],
-                              p["D_skip"], cache["state"], advance)
+    y = ops.ssm_decode_step(xbc[:, 0], dt[:, 0], p["conv_w"], p["conv_b"],
+                            cache["conv"], p["dt_bias"], p["A_log"],
+                            p["D_skip"], cache["state"], advance)
     y = ops.gated_rmsnorm(y[:, None], z, p["norm_w"], cfg.norm_eps)
     return layers.linear(p["out_proj"], y).reshape(B, 1, -1)
 

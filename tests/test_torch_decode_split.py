@@ -188,12 +188,12 @@ def test_scratch_size_matches_its_formula():
 
 def test_ticket_counts_start_zeroed_and_are_shared():
     """The kernel's ticket counts come zeroed, hold at least B * Hkv, and
-    are allocated once for all launches on a device that fit them."""
-    from repro_torch.kernels.decode_attention import _tickets
-    t = _tickets(4 * 8, CPU)
+    are allocated once for all launches on a stream that fit them."""
+    from repro_torch.kernels.tickets import tickets
+    t = tickets(4 * 8, CPU)
     assert t.dtype == torch.int32 and t.numel() >= 32
     assert int(t.abs().sum()) == 0
-    assert _tickets(2, CPU) is t
-    big = _tickets(t.numel() + 1, CPU)
+    assert tickets(2, CPU) is t
+    big = tickets(t.numel() + 1, CPU)
     assert big.numel() > t.numel() and int(big.abs().sum()) == 0
-    assert _tickets(1, CPU) is big
+    assert tickets(1, CPU) is big

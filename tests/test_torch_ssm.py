@@ -450,12 +450,14 @@ def test_resume_after_preemption(mode):
 
 
 def test_decode_step_launch_sequence():
-    """One SSM decode step is, a layer, in_proj, the conv, the state
-    update, the gated norm, out_proj and the residual add + norm: the
-    wrappers' calls (their plain versions on the CPU) once each a layer."""
+    """One SSM decode step is, a layer, in_proj, the conv and the state
+    update in one call (``ssm_decode_step``), the gated norm, out_proj and
+    the residual add + norm; a prefill runs the conv and the scan apart:
+    the wrappers' calls (their plain versions on the CPU) once each a
+    layer."""
     jm, jp, model, params = _pair("f32")
     calls = []
-    names = ("ssm_conv", "ssm_decode_update", "gated_rmsnorm", "ssd_prefill",
+    names = ("ssm_conv", "ssm_decode_step", "gated_rmsnorm", "ssd_prefill",
              "add_rmsnorm", "rmsnorm")
     saved = {n: getattr(ops, n) for n in names}
 
@@ -470,8 +472,8 @@ def test_decode_step_launch_sequence():
         cache = model.init_cache(2, MAX_LEN)
         model.decode_step(params, torch.ones((2, 1), dtype=torch.long), cache)
         L = model.cfg.num_layers
-        assert calls == ["rmsnorm"] + ["ssm_conv", "ssm_decode_update",
-                                       "gated_rmsnorm", "add_rmsnorm"] * L
+        assert calls == ["rmsnorm"] + ["ssm_decode_step", "gated_rmsnorm",
+                                       "add_rmsnorm"] * L
         calls.clear()
         model.prefill(params, torch.ones((2, 5), dtype=torch.long), cache)
         assert calls == ["rmsnorm"] + ["ssm_conv", "ssd_prefill",
