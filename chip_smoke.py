@@ -22,7 +22,9 @@ Phases (any failed check raises and the process exits nonzero):
    alone (its merge tickets are a stream's own); the fused RMSNorm, residual
    add + RMSNorm (h bit-equal) and SwiGLU kernels at M 4 and 2048, the
    decode RoPE + cache write in the three cache formats, with ring slots
-   S - 1 and S and frozen rows, and the prefill RoPE + cache write at the
+   S - 1 and S and frozen rows, at every (head_dim, G) instance and past
+   one CTA's 1024 runs, decode attention also timed at the main path's
+   served kv_len (about 40), and the prefill RoPE + cache write at the
    prefill buckets in the three formats (bit-equal but on .5 ties of the
    quantized payloads); the paged decode attention (all three loaders,
    reading a pool through a shuffled block table) bit-equal to the dense
@@ -40,9 +42,12 @@ Phases (any failed check raises and the process exits nonzero):
    the gate-up GEMM at every new linear shape at M 4 and 2048 and at the
    untied heads (N 128256 and 32000, f32 logits); both RoPE + cache
    writes with the fused-QKV bias, and the prefill one with S past the
-   cache (the ring write) in the three cache formats; the four MoE
+   cache (the ring write) in the three cache formats; the five MoE
    kernels (``moe_route``, ``moe_gate_up_swiglu``, ``moe_down``,
-   ``moe_combine``) against their plain versions at phi3.5-moe-42b-a6.6b's
+   ``moe_combine``, and ``moe_down_combine``, the last two in one pass at
+   a decode's capacity, bit-equal to ``moe_combine(moe_down(...))`` and
+   timed beside the two apart) against their plain versions at
+   phi3.5-moe-42b-a6.6b's
    expert layer at T 4, 1 and 2048 and with a skewed router and tied
    logits that force drops, and the route alone at T 2048 with every token
    the same row (each k's pairs all to one expert) and with tied logits
@@ -406,11 +411,12 @@ def bf16_tol(ref) -> float:
 # a kernel's group is the first whose name its name holds: gated_rmsnorm
 # and add_rmsnorm before rmsnorm, the prefill RoPE before the decode one,
 # the fused gate-up GEMM before quant_matmul; the scan's two kernels (its
-# state walk and its chunk outputs) apart
+# state walk and its chunk outputs) apart; the MoE down GEMM's decode sums
+# + combine a group of their own
 GROUPS = ("decode_attention", "quant_matmul_swiglu", "quant_matmul",
           "gated_rmsnorm", "add_rmsnorm", "rmsnorm", "swiglu",
           "rope_cache_write_prefill", "rope_cache_write", "flash_attention",
-          "moe_route", "moe_gemm", "moe_combine", "ssm_decode", "ssd_prefill_state", "ssd_prefill_out", "ssm_conv",
+          "moe_route", "moe_down_combine", "moe_gemm", "moe_combine", "ssm_decode", "ssd_prefill_state", "ssd_prefill_out", "ssm_conv",
           "memcpy", "other")
 
 
@@ -1003,15 +1009,17 @@ def main() -> None:
         quant_matmul_swiglu_plain)
     from repro_torch.kernels import moe as moe_kernels
     from repro_torch.kernels.moe import (
-        moe_combine, moe_combine_plain, moe_down, moe_down_plain,
-        moe_gate_up_swiglu, moe_gate_up_swiglu_plain, moe_route,
-        moe_route_plain, route_from_logits_plain, router_logits_plain)
+        moe_combine, moe_combine_plain, moe_down, moe_down_combine,
+        moe_down_combine_plain, moe_down_plain, moe_gate_up_swiglu,
+        moe_gate_up_swiglu_plain, moe_route, moe_route_plain,
+        route_from_logits_plain, router_logits_plain)
     from repro_torch.kernels import ssm as ssm_kernels
     from repro_torch.kernels.ssm import (
         gated_rmsnorm, gated_rmsnorm_plain, ssd_prefill, ssd_prefill_plain,
         ssm_conv, ssm_conv_plain, ssm_decode_step, ssm_decode_step_plain)
     from repro_torch.launch import serve
     from repro_torch.models import Model
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models import ssm as ssm_mod
     from repro_torch.quant import (QuantizedTensor, dequantize,
                                    dequantize_rows, quantize, quantize_rows,
@@ -1048,6 +1056,16 @@ def main() -> None:
         print(f"  ptxas on quant_matmul.cu: {short.group(0)}: {regs} "
               f"registers, {st_b} / {ld_b} bytes spill stores / loads",
               flush=True)
+        check(st_b == 0 and ld_b == 0, f"ptxas spilled registers in {fn}")
+    # the decode RoPE + cache write (up to 1024 threads a CTA, so at most
+    # 64 registers a thread) does not spill in any cache format
+    for fn, regs, st_b, ld_b in build.ptxas_usage("fused_ops"):
+        short = re.search(r"rope_cache_write_kernelILi(\d)EE", fn)
+        if not short:
+            continue
+        print(f"  ptxas on fused_ops.cu: rope_cache_write_kernel format "
+              f"{short.group(1)}: {regs} registers, {st_b} / {ld_b} bytes "
+              "spill stores / loads", flush=True)
         check(st_b == 0 and ld_b == 0, f"ptxas spilled registers in {fn}")
     # both attention kernels' instances at the (head_dim, G) pairs of the
     # paper's other models keep their registers too (every loader)
@@ -1143,8 +1161,8 @@ def main() -> None:
                  "add_rmsnorm", "swiglu", "rope_cache_write",
                  "rope_cache_write_prefill", "moe_route",
                  "moe_gate_up_swiglu", "moe_down", "moe_combine",
-                 "ssm_conv", "ssm_decode_step", "ssd_prefill",
-                 "gated_rmsnorm")
+                 "moe_down_combine", "ssm_conv", "ssm_decode_step",
+                 "ssd_prefill", "gated_rmsnorm")
         saved = {n: getattr(ops, n) for n in names}
         wrap = off_by_one if fault else (lambda fn: fn)
         ops.quant_matmul = quant_matmul_plain
@@ -1161,6 +1179,7 @@ def main() -> None:
         ops.moe_gate_up_swiglu = moe_gate_up_swiglu_plain
         ops.moe_down = moe_down_plain
         ops.moe_combine = moe_combine_plain
+        ops.moe_down_combine = moe_down_combine_plain
         ops.ssm_conv = ssm_conv_plain
         ops.ssm_decode_step = (no_decay(ssm_decode_step_plain, at=6) if fault
                                else ssm_decode_step_plain)
@@ -1184,7 +1203,8 @@ def main() -> None:
         names = ("apply_rope", "kv_cache_write", "kv_cache_write_prefill",
                  "_with_bias")
         moe_names = ("moe_route_plain", "moe_gate_up_swiglu_plain",
-                     "moe_down_plain", "moe_combine_plain")
+                     "moe_down_plain", "moe_combine_plain",
+                     "moe_down_combine_plain")
         ssm_names = ("ssm_conv_plain", "ssm_decode_update_plain",
                      "ssm_decode_step_plain",
                      "ssd_prefill_plain", "gated_rmsnorm_plain",
@@ -1243,6 +1263,8 @@ def main() -> None:
     gen_paper.manual_seed(6)
     gen_streams = torch.Generator(device=dev)    # launches on two streams
     gen_streams.manual_seed(27)
+    gen_rope = torch.Generator(device=dev)       # the decode RoPE's instances
+    gen_rope.manual_seed(28)
     draw_from = [gen]          # the generator randn takes by default
 
     def randn(*shape, scale=1.0, g=None):
@@ -2371,6 +2393,21 @@ def main() -> None:
     qwen = get_config("qwen2-0.5b")
     print("the paper's other models: their kernel instances and shapes vs "
           "the plain versions:", flush=True)
+    with drawing_from(gen_rope):
+        # the decode RoPE + cache write at each (head_dim, G) instance in
+        # the three formats (a frozen row, ring slots S - 1 and S), and
+        # past one CTA's 1024 runs (two CTAs a slot); the main path's
+        # decode attention timed at its served kv_len (the served
+        # requests' caches hold under 72 positions)
+        for (d, g_), arch in new_pairs.items():
+            pc = get_config(arch)
+            for fmt in ("bf16", "q8_0", "q4_0"):
+                rope_case(fmt, 3, pc.num_heads, pc.num_kv_heads, 200, d,
+                          [199, 200, 63], [True, True, False])
+        for fmt in ("bf16", "q8_0", "q4_0"):
+            rope_case(fmt, 2, 64, 64, 64, 128, [5, 64], [True, False])
+        attention_case("bf16", B, Hq, Hkv, S, D, [40, 38, 45, 41], 0,
+                       timed=True, instance="kv_len 40", path="main")
     with drawing_from(gen_paper):
         for (d, g_), arch in new_pairs.items():
             pc = get_config(arch)
@@ -2474,12 +2511,13 @@ def main() -> None:
 
     def moe_row(name, kern, plain, args, nbytes, flops, replaces, shape,
                 path, err, tol, lib=None, lib_args=None, shape_of=None,
-                per_call=1):
+                per_call=1, lib_name="torch.bmm over all experts padded to C"):
         """Time an MoE kernel (``per_call`` launches a call: the route's
         from ``route_launches``), its plain version and,
         for the grouped GEMMs, ``torch.bmm`` over all experts padded to C
-        (the JAX einsum's work), and keep its row. The weights read by a
-        call exceed the 50 MB L2, so one copy of the inputs serves."""
+        (the JAX einsum's work; ``lib_name`` names another yardstick), and
+        keep its row. The weights read by a call exceed the 50 MB L2, so
+        one copy of the inputs serves."""
         ms, call_ms = time_calls(kern, [args], 50, per_call=per_call)
         attempts = time_calls.attempts
         plain_ms, _ = time_calls(plain, [args], 5)
@@ -2490,13 +2528,12 @@ def main() -> None:
             no_pallas_counterpart=True, shape=shape, path=path, launches=0,
             max_abs_err=err, tol=tol, ms=ms, call_ms=call_ms,
             plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
-            library_ms=lib_ms,
-            library="torch.bmm over all experts padded to C" if lib else None,
+            library_ms=lib_ms, library=lib_name if lib else None,
             grid=None, trace_attempts=attempts)
         if shape_of:
             rows[name]["shape_of"] = shape_of
         print(f"    device ms {ms:.4f} (per call back to back {call_ms:.4f};"
-              f" {attempts} trace(s))  plain {plain_ms:.4f}  bmm "
+              f" {attempts} trace(s))  plain {plain_ms:.4f}  library "
               + (f"{lib_ms:.4f}" if lib else "-")
               + f"  bound {t_bound:.4f} ({by}, {nbytes / 1e6:.3f} MB, "
               f"{flops / 1e9:.3f} GFLOP) -> {t_bound / ms:.1%} of bound",
@@ -2644,9 +2681,27 @@ def main() -> None:
         torch.cuda.synchronize()
         check(torch.equal(out, outp), f"moe_combine {label} T{T}: not "
               "bit-equal to the plain version")
+        # at a capacity within the 16-row tile the down GEMM and the
+        # combine are one pair of launches: bit-equal to the two kernels
+        # apart, within one bf16 ulp of the plain pair
+        fused = moe_kernels.moe_down_combined(C)
+        if fused:
+            dc_args = (h, wd, gates, experts, slots, counts, sh)
+            outf = moe_down_combine(*dc_args)
+            outfp = moe_down_combine_plain(*dc_args)
+            torch.cuda.synchronize()
+            check(torch.equal(outf, out), f"moe_down_combine {label} T{T}:"
+                  " not bit-equal to moe_combine(moe_down(...))")
+            err_f = float((outf.float() - outfp.float()).abs().max())
+            tol_f = bf16_tol(outfp)
+            check(err_f <= tol_f, f"moe_down_combine {label} T{T}: "
+                  f"{err_f} > {tol_f} against the plain pair")
         print(f"  moe GEMMs [{label} T{T}]: each expert's first row alone "
               f"bit-equal; moe_combine bit-equal"
-              + (" (with the shared experts)" if shared else ""), flush=True)
+              + (" (with the shared experts)" if shared else "")
+              + ("; moe_down_combine bit-equal to moe_down + moe_combine, "
+                 f"max_abs_err vs the plain pair {err_f:.3e} (tol "
+                 f"{tol_f:.3e})" if fused else ""), flush=True)
         if not timed:
             return dropped
         used = int(act.sum())
@@ -2664,19 +2719,46 @@ def main() -> None:
                 2.0 * kept * D * F2, "src/repro/models/moe.py:107-112",
                 shape, path, err_h, tol_h, torch.bmm, (buf, wgu), shape_of,
                 per_call=moe_kernels.gemm_launches(wgu, C, mapped=True))
+        shared_bytes = T * D * 2 if sh is not None else 0
+        if fused:
+            # the weights of the experts with rows, their h rows, the
+            # pairs, out (and the shared output) once
+            name = f"moe_down_combine[{label} T{T}]"
+            moe_row(name, lambda *a: moe_down_combine(*a),
+                    lambda *a: moe_down_combine_plain(*a), dc_args,
+                    used * Fw * D * 2 + kept * Fw * 2 + T * K * 12
+                    + T * D * 2 + shared_bytes, 2.0 * kept * Fw * D,
+                    "src/repro/models/moe.py:113-125", shape, path, err_f,
+                    tol_f, shape_of=shape_of,
+                    per_call=moe_kernels.DOWN_COMBINE_LAUNCHES)
+            pair = lambda hh, ww, g_, e_, s_, c_, sh_: moe_combine(
+                moe_down(hh, ww, c_), g_, e_, s_, sh_)
+            rows[name]["pair_ms"] = time_calls(
+                pair, [dc_args], 50,
+                per_call=moe_kernels.gemm_launches(wd, C) + 1)[0]
+            print(f"    moe_down + moe_combine apart {rows[name]['pair_ms']:.4f}",
+                  flush=True)
+            del buf, hbuf
+            return dropped
         moe_row(f"moe_down[{label} T{T}]", lambda *a: moe_down(*a),
                 lambda *a: moe_down_plain(*a), (h, wd, counts),
                 used * Fw * D * 2 + kept * Fw * 2 + kept * D * 2,
                 2.0 * kept * Fw * D, "src/repro/models/moe.py:113-116",
                 shape, path, err_y, tol_y, torch.bmm, (hbuf, wd), shape_of,
                 per_call=moe_kernels.gemm_launches(wd, C))
-        nbytes = (kept * D * 2 + T * K * 12 + T * D * 2
-                  + (T * D * 2 if sh is not None else 0))
+        nbytes = kept * D * 2 + T * K * 12 + T * D * 2 + shared_bytes
+        keep = (slots < C)[..., None]
+        slot_c = torch.clamp(slots, max=C - 1).long()
+        gather_einsum = lambda yy, g_, e_, s_, sh_: torch.einsum(
+            "tkd,tk->td", torch.where(keep, yy[e_.long(), slot_c], 0).float(),
+            g_)
         moe_row(f"moe_combine[{label} T{T}]", lambda *a: moe_combine(*a),
                 lambda *a: moe_combine_plain(*a),
                 (y, gates, experts, slots, sh), nbytes, 2.0 * T * K * D,
                 "src/repro/models/moe.py:119-125", shape, path, 0.0, 0.0,
-                shape_of=shape_of)
+                gather_einsum, (y, gates, experts, slots, sh), shape_of,
+                lib_name="pair: the indexed gather y[experts, slots] (with "
+                         "the drop mask) + torch.einsum('tkd,tk->td')")
         del buf, hbuf
         return dropped
 
@@ -3610,30 +3692,36 @@ def main() -> None:
         engine.run()
         return out
 
-    def ffn_launches(engine, n, heads):
-        """The linears' and SwiGLU's launches over n layer passes and
-        ``heads`` unembeddings (the MoE kernels of an MoE config in place
-        of the FFN's): with quantized weights three quant_matmul
-        (wqkv, wo, w_down) and the gate-up GEMM with its SwiGLU a layer,
-        and one quant_matmul an unembedding by an untied (quantized)
-        ``lm_head``; with plain weights the linears and the head are
-        library products and the SwiGLU runs alone. A tied head is the
-        embedding table's transpose, always a library product."""
+    def ffn_launches(engine, n, heads, tokens):
+        """The linears' and SwiGLU's launches over n layer passes of
+        ``tokens`` tokens and ``heads`` unembeddings (the MoE kernels of
+        an MoE config in place of the FFN's): with quantized weights three
+        quant_matmul (wqkv, wo, w_down) and the gate-up GEMM with its
+        SwiGLU a layer, and one quant_matmul an unembedding by an untied
+        (quantized) ``lm_head``; with plain weights the linears and the
+        head are library products and the SwiGLU runs alone. A tied head
+        is the embedding table's transpose, always a library product."""
         quantized = engine.quant_policy in ("q8_0", "q4_0")
         head = heads * (not engine.cfg.tie_embeddings)
         if engine.cfg.is_moe:
             # bf16 weights: library linears; a layer pass routes, runs the
             # two grouped GEMMs (again for the shared experts as one group)
-            # and combines
-            groups = n * (1 + bool(engine.cfg.num_shared_experts))
+            # and combines; at a capacity within the 16-row tile (decode)
+            # the routed down GEMM and the combine are moe_down_combine
+            shared = n * bool(engine.cfg.num_shared_experts)
+            fused = moe_kernels.moe_down_combined(
+                moe_mod.capacity(engine.cfg, tokens))
             return {"quant_matmul": 0, "quant_matmul_swiglu": 0,
                     "swiglu": 0, "moe_route": n,
-                    "moe_gate_up_swiglu": groups, "moe_down": groups,
-                    "moe_combine": n}
+                    "moe_gate_up_swiglu": n + shared,
+                    "moe_down": shared + (0 if fused else n),
+                    "moe_combine": 0 if fused else n,
+                    "moe_down_combine": n if fused else 0}
         return {"quant_matmul": 3 * n + head if quantized else 0,
                 "quant_matmul_swiglu": n if quantized else 0,
                 "swiglu": 0 if quantized else n, "moe_route": 0,
-                "moe_gate_up_swiglu": 0, "moe_down": 0, "moe_combine": 0}
+                "moe_gate_up_swiglu": 0, "moe_down": 0, "moe_combine": 0,
+                "moe_down_combine": 0}
 
     def every_kernel(launches):
         """``launches`` with every other kernel of ``ops.KERNELS`` at 0."""
@@ -3669,18 +3757,21 @@ def main() -> None:
         return every_kernel({
             "decode_attention": 0 if quant_cache else L * K,
             "decode_attention_quant": L * K if quant_cache else 0,
-            **ffn_launches(engine, L * K, K), "flash_attention": 0,
+            **ffn_launches(engine, L * K, K, engine.slots),
+            "flash_attention": 0,
             "rmsnorm": K, "add_rmsnorm": 2 * L * K,
             "rope_cache_write": L * K, "rope_cache_write_prefill": 0})
 
     def per_prefill(engine):
-        """Kernel launches of one prefill call (eager)."""
+        """Kernel launches of one prefill call (eager). An MoE stall
+        prefill here is a bucket of 512 positions or more, past the
+        16-row tile: the down GEMM and the combine apart."""
         L = engine.cfg.num_layers
         if engine.cfg.is_recurrent:
             return ssm_launches(engine, L, 1, prefill=True)
         return every_kernel({
             "decode_attention": 0, "decode_attention_quant": 0,
-            **ffn_launches(engine, L, 1), "flash_attention": L,
+            **ffn_launches(engine, L, 1, 512), "flash_attention": L,
             "rmsnorm": 1, "add_rmsnorm": 2 * L,
             "rope_cache_write": 0, "rope_cache_write_prefill": L})
 
@@ -4092,10 +4183,13 @@ def main() -> None:
               [r.output[:16] for r in res.requests[:4]],
               f"{label}: the profiled replay served other tokens")
         g = prof["device_ms_per_step_by_group"]
-        moe_ms = g["moe_route"] + g["moe_gemm"] + g["moe_combine"]
+        moe_ms = (g["moe_route"] + g["moe_gemm"] + g["moe_combine"]
+                  + g["moe_down_combine"])
         print(f"  {label}: device ms a step in the MoE kernels {moe_ms:.3f}"
               f" (route {g['moe_route']:.3f}, grouped GEMMs "
-              f"{g['moe_gemm']:.3f}, combine {g['moe_combine']:.3f}) of "
+              f"{g['moe_gemm']:.3f}, the down sums + combine "
+              f"{g['moe_down_combine']:.3f}, combine alone "
+              f"{g['moe_combine']:.3f}) of "
               f"{prof['device_ms_per_step']:.3f}; device idle share "
               f"{prof['device_idle_share']:.3f}", flush=True)
         out["slots4"].update(prof, moe_device_ms_per_step=moe_ms)

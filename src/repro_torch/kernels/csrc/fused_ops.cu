@@ -25,7 +25,8 @@
 // device memory: the residual sum h is written once and normalized from
 // registers (add + norm move 4 rows of d, where the separate add and norm
 // moved 5); the prefill RoPE forms each cos/sin once for the G + 1 heads
-// that use it and writes q, k, v and the cache rows in one pass.
+// that use it and writes q, k, v and the cache rows in one pass, and the
+// decode RoPE forms them once a slot for all its heads.
 //
 // Numerics follow the plain PyTorch versions in kernels/fused_ops.py, op
 // for op, with every product and sum rounded on its own (the _rn
@@ -37,6 +38,8 @@
 // as 1, payload = clamp(rint(x / scale)) with an f32 division, scales
 // stored as bf16). Only the sum of squares of RMSNorm is taken in another
 // order than PyTorch's.
+#include <algorithm>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,7 +50,8 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;      // RMSNorm and SwiGLU
 constexpr int kResident = 4;       // RMSNorm: runs a thread keeps in registers
-constexpr int kRopeThreads = 128;  // RoPE + cache write (decode and prefill)
+constexpr int kRopeThreads = 128;  // the prefill's RoPE + cache write
+constexpr int kDecodeRopeThreads = 1024;  // the decode RoPE + cache write: at most, a CTA
 constexpr int kVec = 8;            // elements a thread loads at once
 
 enum CacheFormat { kBf16 = 0, kQ8 = 1, kQ4 = 2 };
@@ -231,109 +235,154 @@ __global__ void __launch_bounds__(kThreads)
 // With a bias (non-null, one bf16 value a fused-QKV column) each element
 // read is first x + bias rounded to bf16, as the bf16 add after the
 // projection rounds it; then as without.
-// CTA (kv head h, slot b): ropes the G query heads of h (out to q_out) and
-// K head h at position lens[b] (half-split rotation, cos/sin of pos *
-// freq, freq = 1 / theta^(2i * (1/D))), and writes K and V into ring slot
-// lens[b] % S of (b, h) when advance[b] (always when advance is null);
-// other rows' cache is not touched. A paged cache (table non-null: K/V
-// and scale pools (n_blocks, Hkv, P, .), S = max_pages * P) takes ring
-// slot pos = lens[b] % S to row pos % P of the pool block
-// table[b][pos / P]; a frozen row writes nothing there either. The
-// quantized formats stage the bf16
-// K and V rows in shared memory, take one scale per group of g = D / ng
-// features, and write the int8 payload (q4_0: nibble pairs, low nibble =
-// even feature).
+// CTA (slot b, chunk of 1024 threads; one chunk up to 1024 runs): a thread
+// takes one run of kVec elements of a head row and its partner run D/2
+// further on, as one 16-byte load each, over the row's heads in their
+// order (the Hq query heads, then the Hkv K heads, then the Hkv V heads).
+// The slot's cos and sin at position lens[b] (half-split rotation, cos /
+// sin of pos * freq, freq = 1 / theta^(2i * (1/D))) are formed once a CTA,
+// a thread each, into shared memory; the frequency needs no position, so
+// it is formed while lens[b] and the row are in flight. Query and K runs
+// are rotated and rounded to bf16; q goes to q_out, and K and V into ring
+// slot lens[b] % S of (b, kv head) when advance[b] (always when advance is
+// null); other rows' cache is not touched. A paged cache (table non-null:
+// K/V and scale pools (n_blocks, Hkv, P, .), S = max_pages * P) takes ring
+// slot pos = lens[b] % S to row pos % P of the pool block table[b][pos /
+// P]; a frozen row writes nothing there either. The quantized formats take
+// one scale a group of g = D / ng features: a group spans g / kVec
+// adjacent lanes of one half of the head row (g dividing D / 2), or the
+// head's runs in both halves (ng == 1), so its amax is taken by warp
+// shuffles over those lanes, with no shared-memory pass; the payload is
+// written as 8 bytes (q8_0) or 4 (q4_0: nibble pairs, low nibble = even
+// feature) a run. Shapes: D a multiple of 16 with D / 16 a power of two
+// up to 32, so a head's runs never straddle a warp (the launcher checks).
 template <int FMT>
-__global__ void __launch_bounds__(kRopeThreads)
+__global__ void __launch_bounds__(kDecodeRopeThreads)
     rope_cache_write_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
                             bf16* __restrict__ q_out,
                             void* __restrict__ k_cache, void* __restrict__ v_cache,
                             bf16* __restrict__ k_scale, bf16* __restrict__ v_scale,
                             const int* __restrict__ lens,
                             const unsigned char* __restrict__ advance,
-                            const int* __restrict__ table, int max_pages, int P, int G,
-                            int S, int D, int ng, float theta) {
-  extern __shared__ float rows[];  // quantized formats: K row, V row (D each), 2 * ng scales
-  const int h = blockIdx.x, b = blockIdx.y, Hkv = gridDim.x;
-  const int half = D / 2, Hq = Hkv * G;
-  const bf16* src = qkv + (size_t)b * (Hq + 2 * Hkv) * D;
+                            const int* __restrict__ table, int max_pages, int P, int Hkv,
+                            int G, int S, int D, int ng, float theta) {
+  extern __shared__ float cs[];  // cos (D / 2), then sin (D / 2), of the slot's position
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int half = D / 2, runs = half / kVec, Hq = Hkv * G;
+  // the slot's scalars first: all but the row's loads wait on them
   const int pos = lens[b];
   const bool adv = advance == nullptr || advance[b] != 0;
   const int slot = pos % S;
-  const size_t cache_row =
-      table == nullptr ? ((size_t)b * Hkv + h) * S + slot
-                       : ((size_t)table[(size_t)b * max_pages + slot / P] * Hkv + h) * P + slot % P;
-  const float inv_d = __fdiv_rn(1.f, (float)D);
-  for (int idx = threadIdx.x; idx < (G + 1) * half; idx += kRopeThreads) {
-    const int hh = idx / half, i = idx - hh * half;
-    const float freq = __fdiv_rn(1.f, powf(theta, __fmul_rn((float)(2 * i), inv_d)));
-    const float ang = __fmul_rn((float)pos, freq);
-    const float c = cosf(ang), s = sinf(ang);
-    const int col = (hh < G ? h * G + hh : Hq + h) * D;  // the head's first column
-    float x1 = to_f(src[col + i]), x2 = to_f(src[col + i + half]);
+  const int blk = table == nullptr ? 0 : table[(size_t)b * max_pages + slot / P];
+  // this thread's run: kVec elements at i0 of head `head`, and its partner
+  const int idx = blockIdx.y * blockDim.x + tid;
+  const bool on = idx < (Hq + 2 * Hkv) * runs;
+  const int head = idx / runs, i0 = (idx - head * runs) * kVec;
+  float x1[kVec], x2[kVec];
+  if (on) {
+    const bf16* src = qkv + ((size_t)b * (Hq + 2 * Hkv) + head) * D;
+    load<kVec>(src + i0, x1);
+    load<kVec>(src + i0 + half, x2);
     if (bias != nullptr) {
-      x1 = rounded<bf16>(__fadd_rn(x1, to_f(bias[col + i])));
-      x2 = rounded<bf16>(__fadd_rn(x2, to_f(bias[col + i + half])));
-    }
-    const bf16 o1 = __float2bfloat16(__fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, s)));
-    const bf16 o2 = __float2bfloat16(__fadd_rn(__fmul_rn(x1, s), __fmul_rn(x2, c)));
-    if (hh < G) {
-      bf16* qo = q_out + ((size_t)b * Hq + h * G + hh) * D;
-      qo[i] = o1;
-      qo[i + half] = o2;
-    } else if (FMT == kBf16) {
-      if (adv) {
-        bf16* ko = static_cast<bf16*>(k_cache) + cache_row * D;
-        ko[i] = o1;
-        ko[i + half] = o2;
+      float b1[kVec], b2[kVec];
+      load<kVec>(bias + (size_t)head * D + i0, b1);
+      load<kVec>(bias + (size_t)head * D + i0 + half, b2);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        x1[j] = rounded<bf16>(__fadd_rn(x1[j], b1[j]));
+        x2[j] = rounded<bf16>(__fadd_rn(x2[j], b2[j]));
       }
-    } else {
-      rows[i] = to_f(o1);
-      rows[i + half] = to_f(o2);
-    }
-  }
-  const int vcol = (Hq + Hkv + h) * D;
-  auto v_at = [&](int i) {  // element i of V head h, with its bias
-    return bias == nullptr ? to_f(src[vcol + i])
-                           : rounded<bf16>(__fadd_rn(to_f(src[vcol + i]), to_f(bias[vcol + i])));
-  };
-  if (FMT == kBf16) {
-    if (adv)
-      for (int i = threadIdx.x; i < D; i += kRopeThreads)
-        static_cast<bf16*>(v_cache)[cache_row * D + i] = __float2bfloat16(v_at(i));
-    return;
-  }
-  if (!adv) return;  // uniform over the CTA: no thread reaches a barrier
-  for (int i = threadIdx.x; i < D; i += kRopeThreads) rows[D + i] = v_at(i);
-  __syncthreads();
-  // groups 0 .. ng-1 of K, then ng .. 2ng-1 of V: rows[j * g ...]
-  const int g = D / ng;
-  const float qmax = FMT == kQ8 ? 127.f : 7.f;
-  float* scales = rows + 2 * D;
-  for (int j = threadIdx.x; j < 2 * ng; j += kRopeThreads) {
-    float amax = 0.f;
-    for (int t = 0; t < g; ++t) amax = fmaxf(amax, fabsf(rows[j * g + t]));
-    float sc = __fmul_rn(amax, __fdiv_rn(1.f, qmax));
-    if (sc == 0.f) sc = 1.f;
-    scales[j] = sc;
-    (j < ng ? k_scale : v_scale)[cache_row * ng + j % ng] = __float2bfloat16(sc);
-  }
-  __syncthreads();
-  auto quant = [&](int i) {  // element i of the staged K|V rows
-    const float q = rintf(__fdiv_rn(rows[i], scales[i / g]));
-    return (int)fminf(fmaxf(q, -qmax), qmax);
-  };
-  if (FMT == kQ8) {
-    for (int i = threadIdx.x; i < 2 * D; i += kRopeThreads) {
-      int8_t* dst = static_cast<int8_t*>(i < D ? k_cache : v_cache);
-      dst[cache_row * D + i % D] = (int8_t)quant(i);
     }
   } else {
-    for (int p = threadIdx.x; p < D; p += kRopeThreads) {  // D / 2 pairs of K, then of V
-      const int e = 2 * p;
-      const int packed = (quant(e) & 0xF) | ((quant(e + 1) & 0xF) << 4);
-      int8_t* dst = static_cast<int8_t*>(e < D ? k_cache : v_cache);
-      dst[cache_row * half + (e % D) / 2] = (int8_t)packed;
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) x1[j] = x2[j] = 0.f;
+  }
+  if (tid < D) {
+    const int i = tid < half ? tid : tid - half;
+    const float freq =
+        __fdiv_rn(1.f, powf(theta, __fmul_rn((float)(2 * i), __fdiv_rn(1.f, (float)D))));
+    const float ang = __fmul_rn((float)pos, freq);
+    cs[tid] = tid < half ? cosf(ang) : sinf(ang);
+  }
+  __syncthreads();
+  if (on && head < Hq + Hkv) {  // a query or K run: rotated, rounded to bf16
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      const float c = cs[i0 + j], s = cs[half + i0 + j];
+      const float o1 = __fsub_rn(__fmul_rn(x1[j], c), __fmul_rn(x2[j], s));
+      const float o2 = __fadd_rn(__fmul_rn(x1[j], s), __fmul_rn(x2[j], c));
+      x1[j] = rounded<bf16>(o1);
+      x2[j] = rounded<bf16>(o2);
+    }
+  }
+  if (on && head < Hq) {
+    bf16* qo = q_out + ((size_t)b * Hq + head) * D;
+    store<kVec>(qo + i0, x1);
+    store<kVec>(qo + i0 + half, x2);
+  }
+  if (!adv) return;  // uniform over the CTA, past its one barrier
+  const bool is_v = head >= Hq + Hkv;
+  const bool kv = on && head >= Hq;
+  const int h = head - Hq - (is_v ? Hkv : 0);
+  const size_t row = table == nullptr ? ((size_t)b * Hkv + h) * S + slot
+                                      : ((size_t)blk * Hkv + h) * P + slot % P;
+  if constexpr (FMT == kBf16) {
+    if (kv) {
+      bf16* dst = static_cast<bf16*>(is_v ? v_cache : k_cache) + row * D;
+      store<kVec>(dst + i0, x1);
+      store<kVec>(dst + i0 + half, x2);
+    }
+  } else {
+    const int g = D / ng;
+    const float qmax = FMT == kQ8 ? 127.f : 7.f;
+    float a1 = 0.f, a2 = 0.f;  // the amax of the run's group and of its partner's
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      a1 = fmaxf(a1, fabsf(x1[j]));
+      a2 = fmaxf(a2, fabsf(x2[j]));
+    }
+    if (g == D) a1 = a2 = fmaxf(a1, a2);
+    const int lanes = g == D ? runs : g / kVec;  // uniform: every lane shuffles
+    for (int o = 1; o < lanes; o <<= 1) {
+      a1 = fmaxf(a1, __shfl_xor_sync(0xffffffffu, a1, o));
+      a2 = fmaxf(a2, __shfl_xor_sync(0xffffffffu, a2, o));
+    }
+    float s1 = __fmul_rn(a1, __fdiv_rn(1.f, qmax));
+    float s2 = __fmul_rn(a2, __fdiv_rn(1.f, qmax));
+    if (s1 == 0.f) s1 = 1.f;
+    if (s2 == 0.f) s2 = 1.f;
+    if (!kv) return;
+    bf16* scales = (is_v ? v_scale : k_scale) + row * ng;
+    if (i0 % g == 0) {
+      scales[i0 / g] = __float2bfloat16(s1);
+      if (g != D) scales[(i0 + half) / g] = __float2bfloat16(s2);
+    }
+    int q1[kVec], q2[kVec];
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      q1[j] = (int)fminf(fmaxf(rintf(__fdiv_rn(x1[j], s1)), -qmax), qmax);
+      q2[j] = (int)fminf(fmaxf(rintf(__fdiv_rn(x2[j], s2)), -qmax), qmax);
+    }
+    if constexpr (FMT == kQ8) {
+      int8_t* dst = static_cast<int8_t*>(is_v ? v_cache : k_cache) + row * D;
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        w[j / 4] |= (uint32_t)(q1[j] & 0xFF) << (8 * (j % 4));
+        w[2 + j / 4] |= (uint32_t)(q2[j] & 0xFF) << (8 * (j % 4));
+      }
+      *reinterpret_cast<uint2*>(dst + i0) = make_uint2(w[0], w[1]);
+      *reinterpret_cast<uint2*>(dst + i0 + half) = make_uint2(w[2], w[3]);
+    } else {
+      int8_t* dst = static_cast<int8_t*>(is_v ? v_cache : k_cache) + row * half;
+      uint32_t w1 = 0u, w2 = 0u;
+#pragma unroll
+      for (int j = 0; j < kVec / 2; ++j) {
+        w1 |= (uint32_t)((q1[2 * j] & 0xF) | ((q1[2 * j + 1] & 0xF) << 4)) << (8 * j);
+        w2 |= (uint32_t)((q2[2 * j] & 0xF) | ((q2[2 * j + 1] & 0xF) << 4)) << (8 * j);
+      }
+      *reinterpret_cast<uint32_t*>(dst + i0 / 2) = w1;
+      *reinterpret_cast<uint32_t*>(dst + (i0 + half) / 2) = w2;
     }
   }
 }
@@ -579,22 +628,33 @@ extern "C" int swiglu(int f32, const void* gu, void* out, int M, int F, void* st
 // advance (B,) bool or null (every row); bias (width,) bf16 or null (no
 // bias), the fused-QKV projection's. A paged cache passes its block
 // table (B, max_pages) int32, its leaves as pools (n_blocks, Hkv, P, .)
-// and S = max_pages * P; table null means a dense cache. Returns the
-// launch's cudaError_t.
+// and S = max_pages * P; table null means a dense cache. D must be a
+// multiple of 16 with D / 16 a power of two up to 32, a quantized group
+// g = D / ng a multiple of 8 dividing D / 2 (or ng 1), and qkv, bias,
+// q_out, k and v 16-byte aligned. Returns the launch's cudaError_t.
 extern "C" int rope_cache_write(int fmt, const void* qkv, const void* bias, void* q_out,
                                 void* k, void* v,
                                 void* k_scale, void* v_scale, const void* lens,
                                 const void* advance, const void* table, int max_pages,
                                 int P, int B, int Hkv, int G, int S, int D, int ng,
                                 float theta, void* stream) {
-  if (B <= 0 || Hkv <= 0 || G <= 0 || S <= 0 || D <= 0 || D % 2) return cudaErrorInvalidValue;
+  if (B <= 0 || Hkv <= 0 || G <= 0 || S <= 0 || D <= 0) return cudaErrorInvalidValue;
+  const int runs = D / 2 / kVec;
+  if (D % (2 * kVec) || runs > 32 || (runs & (runs - 1))) return cudaErrorInvalidValue;
   if (table != nullptr && (P <= 0 || max_pages <= 0 || S != max_pages * P))
     return cudaErrorInvalidValue;
+  if (fmt != kBf16 &&
+      (ng <= 0 || D % ng || (ng != 1 && ((D / ng) % kVec || (D / 2) % (D / ng)))))
+    return cudaErrorInvalidValue;
+  if (!aligned16(qkv) || (bias && !aligned16(bias)) || !aligned16(q_out) || !aligned16(k) ||
+      !aligned16(v))
+    return cudaErrorInvalidValue;
   const int* tb = static_cast<const int*>(table);
-  if (fmt != kBf16 && (ng <= 0 || D % ng)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(Hkv, B);
-  const size_t smem = fmt == kBf16 ? 0 : (size_t)(2 * D + 2 * ng) * sizeof(float);
+  const int items = (Hkv * G + 2 * Hkv) * runs;
+  const int threads = std::min(kDecodeRopeThreads, std::max(items, D) + 31) / 32 * 32;
+  const dim3 grid(B, (items + threads - 1) / threads);
+  const size_t smem = (size_t)D * sizeof(float);
   const bf16* src = static_cast<const bf16*>(qkv);
   const bf16* bs = static_cast<const bf16*>(bias);
   bf16* qo = static_cast<bf16*>(q_out);
@@ -604,13 +664,13 @@ extern "C" int rope_cache_write(int fmt, const void* qkv, const void* bias, void
   const unsigned char* adv = static_cast<const unsigned char*>(advance);
   switch (fmt) {
     case kBf16:
-      rope_cache_write_kernel<kBf16><<<grid, kRopeThreads, smem, st>>>(src, bs, qo, k, v, ks, vs, ln, adv, tb, max_pages, P, G, S, D, ng, theta);
+      rope_cache_write_kernel<kBf16><<<grid, threads, smem, st>>>(src, bs, qo, k, v, ks, vs, ln, adv, tb, max_pages, P, Hkv, G, S, D, ng, theta);
       break;
     case kQ8:
-      rope_cache_write_kernel<kQ8><<<grid, kRopeThreads, smem, st>>>(src, bs, qo, k, v, ks, vs, ln, adv, tb, max_pages, P, G, S, D, ng, theta);
+      rope_cache_write_kernel<kQ8><<<grid, threads, smem, st>>>(src, bs, qo, k, v, ks, vs, ln, adv, tb, max_pages, P, Hkv, G, S, D, ng, theta);
       break;
     case kQ4:
-      rope_cache_write_kernel<kQ4><<<grid, kRopeThreads, smem, st>>>(src, bs, qo, k, v, ks, vs, ln, adv, tb, max_pages, P, G, S, D, ng, theta);
+      rope_cache_write_kernel<kQ4><<<grid, threads, smem, st>>>(src, bs, qo, k, v, ks, vs, ln, adv, tb, max_pages, P, Hkv, G, S, D, ng, theta);
       break;
     default:
       return cudaErrorInvalidValue;

@@ -144,7 +144,10 @@
 // moe_combine_kernel (moe.py:119-125, 136-139): out[t] = bf16(sum over k
 // in order of gate[t, k] * f32(y[e_tk, slot_tk])), a dropped pair adding
 // 0, each product and sum rounded once (no fma contraction), then + the
-// shared experts' output in bf16 (rounded once). Bound: bytes.
+// shared experts' output in bf16 (rounded once). Bound: bytes. At decode
+// (C <= 16) moe_down's split sums and this combine are one kernel,
+// moe_down_combine_kernel (a launch and y's round trip fewer); the
+// prefill keeps the two.
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the driver at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -939,7 +942,8 @@ __device__ __forceinline__ GemmItem gemm_item(int i, const int* list, const int*
 // out (G, C, N) bf16 over the rows c < counts[g] (all C without counts);
 // GLU: w (G, K, 2N), out = silu(gate) * up; else w (G, K, N). With
 // partial (split route) the item's f32 sums go to partial (chunks, G, C,
-// N') instead, and moe_gemm_sum_kernel writes out.
+// N') instead, and moe_gemm_sum_kernel writes out (or, for moe_down at
+// decode, moe_down_combine_kernel adds them into the combine).
 template <int R, bool GLU>
 __global__ void __launch_bounds__(kGemmThreads, GemmGeo<R>::kCtasPerSm)
     moe_gemm_kernel(const __grid_constant__ GemmMaps p, const bf16* __restrict__ a,
@@ -1103,8 +1107,9 @@ __global__ void __launch_bounds__(kGemmThreads, GemmGeo<R>::kCtasPerSm)
     }
 
     const int cw = wg ? I.c1 : I.c0;              // this warpgroup's first weight column
-    if (ctas_k > 1) {
-      // split route: the chunk's sums, f32, straight from the fragments
+    if (partial != nullptr) {
+      // split route (or the decode's fused combine, one chunk or more):
+      // the chunk's sums, f32, straight from the fragments
       // (8 consecutive columns of a row a quad: whole 32-byte sectors)
       float* P = partial + ((size_t)(I.kc * G + I.g) * C + I.m0) * Nw;
 #pragma unroll
@@ -1261,10 +1266,12 @@ bool make_map(CUtensorMap* map, const void* base, int d0, int d1, int d2, int b0
   return make_map(map, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
+// sum: with partial, moe_gemm_sum_kernel writes out from the partials
+// (else they are left for moe_down_combine_kernel)
 template <int R, bool GLU>
 cudaError_t launch_gemm(const bf16* a, const int* map, const bf16* w, const int* counts,
                         bf16* out, float* partial, bf16* gathered, int G, int C, int K, int N,
-                        int rows, int kper, int ctas, cudaStream_t stream) {
+                        int rows, int kper, int ctas, cudaStream_t stream, bool sum = true) {
   using T = GemmGeo<R>;
   auto kernel = moe_gemm_kernel<R, GLU>;
   const int Nw = GLU ? 2 * N : N;
@@ -1294,7 +1301,7 @@ cudaError_t launch_gemm(const bf16* a, const int* map, const bf16* w, const int*
   kernel<<<ctas, kGemmThreads, T::kSmem, stream>>>(p, a, map, counts, out, partial, G, C, K, N,
                                                    kper, chunks);
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || partial == nullptr) return e;
+  if (e != cudaSuccess || partial == nullptr || !sum) return e;
   moe_gemm_sum_kernel<GLU><<<dim3(C, G), 128, 0, stream>>>(partial, counts, out, G, C, N, chunks);
   return cudaGetLastError();
 }
@@ -1337,6 +1344,88 @@ __global__ void __launch_bounds__(kCombineThreads)
     }
     *reinterpret_cast<uint4*>(out + (size_t)t * D + c0) = res;
   }
+}
+
+
+// ------------------------------------------------- down + combine (decode) --
+// moe_down's split-route sums and the combine in one pass, at decode
+// (C <= the 16-row tile): out[t] = bf16(sum over k in order of gate[t, k]
+// * f32(y_tk)) (+ shared, in bf16), where y_tk = bf16(sum over the chunks
+// in order of partial[chunk, e_tk, slot_tk]) for a kept pair and 0 for a
+// dropped one (slot >= C): the rounding points of moe_gemm_sum_kernel
+// <false> followed by moe_combine_kernel, so out has their bits, and y is
+// never written. grid (column runs of kDcCols, T); a thread kDcVec
+// columns of its token. A warp reads the token's K (expert, slot, gate)
+// once (lane k the pair k) and hands them round by shuffles; each thread
+// issues up to kDcBatch of its (pair, chunk) loads before the first add.
+// Bound: the partials of the token's kept pairs, read once, and out.
+constexpr int kDcThreads = 128;
+constexpr int kDcVec = 4;                       // columns a thread (one float4 a partial)
+constexpr int kDcCols = kDcThreads * kDcVec;    // columns a CTA
+constexpr int kDcBatch = 16;                    // loads a thread keeps in flight
+
+__global__ void __launch_bounds__(kDcThreads)
+    moe_down_combine_kernel(const float* __restrict__ partial, const float* __restrict__ gates,
+                            const int* __restrict__ experts, const int* __restrict__ slots,
+                            const bf16* __restrict__ shared, bf16* __restrict__ out, int G,
+                            int K, int C, int D, int chunks) {
+  const int t = blockIdx.y;
+  const int c0 = (blockIdx.x * kDcThreads + threadIdx.x) * kDcVec;
+  const int lane = threadIdx.x % 32;
+  const bool live = c0 < D;                     // the loads and the store; every lane shuffles
+  int e_l = 0, s_l = C;
+  float g_l = 0.f;
+  if (lane < K) {
+    e_l = experts[t * K + lane];
+    s_l = slots[t * K + lane];
+    g_l = gates[t * K + lane];
+  }
+  const size_t plane = (size_t)G * C * D;
+  const int n = K * chunks;                     // (pair, chunk) loads, pair-major
+  float s[kDcVec], acc[kDcVec];
+#pragma unroll
+  for (int i = 0; i < kDcVec; ++i) s[i] = acc[i] = 0.f;
+  for (int f0 = 0; f0 < n; f0 += kDcBatch) {
+    float4 buf[kDcBatch];
+#pragma unroll
+    for (int j = 0; j < kDcBatch; ++j) {
+      const int f = f0 + j, k = f / chunks, ch = f - k * chunks;
+      const int e = __shfl_sync(0xffffffffu, e_l, k < K ? k : 0);
+      const int sl = __shfl_sync(0xffffffffu, s_l, k < K ? k : 0);
+      buf[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (f < n && sl < C && live)
+        buf[j] = __ldcg(reinterpret_cast<const float4*>(
+            partial + ch * plane + ((size_t)e * C + sl) * D + c0));
+    }
+#pragma unroll
+    for (int j = 0; j < kDcBatch; ++j) {
+      const int f = f0 + j, k = f / chunks, ch = f - k * chunks;
+      const float gk = __shfl_sync(0xffffffffu, g_l, k < K ? k : 0);
+      if (f >= n) continue;                     // uniform over the CTA
+      const float v[kDcVec] = {buf[j].x, buf[j].y, buf[j].z, buf[j].w};
+#pragma unroll
+      for (int i = 0; i < kDcVec; ++i) s[i] = __fadd_rn(ch == 0 ? 0.f : s[i], v[i]);
+      if (ch == chunks - 1) {                   // y_tk, rounded once; its term
+#pragma unroll
+        for (int i = 0; i < kDcVec; ++i) {
+          const float term = __fmul_rn(__bfloat162float(__float2bfloat16_rn(s[i])), gk);
+          acc[i] = k == 0 ? term : __fadd_rn(acc[i], term);
+        }
+      }
+    }
+  }
+  if (!live) return;
+  alignas(8) bf16 o[kDcVec];
+#pragma unroll
+  for (int i = 0; i < kDcVec; ++i) o[i] = __float2bfloat16_rn(acc[i]);
+  if (shared != nullptr) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(shared + (size_t)t * D + c0);
+    const bf16* sh = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+    for (int i = 0; i < kDcVec; ++i)
+      o[i] = __float2bfloat16_rn(__fadd_rn(__bfloat162float(o[i]), __bfloat162float(sh[i])));
+  }
+  *reinterpret_cast<uint2*>(out + (size_t)t * D + c0) = *reinterpret_cast<const uint2*>(o);
 }
 
 }  // namespace
@@ -1493,5 +1582,35 @@ extern "C" int moe_combine(const void* y, const void* gates, const void* experts
       static_cast<const bf16*>(y), static_cast<const float*>(gates),
       static_cast<const int*>(experts), static_cast<const int*>(slots),
       static_cast<const bf16*>(shared), static_cast<bf16*>(out), K, C, D);
+  return cudaGetLastError();
+}
+
+// moe_down and moe_combine in two launches at decode: the down GEMM of h
+// (G, C, F) bf16 and w (G, F, D) over the rows c < counts[g] on the
+// 16-row tile (C <= 16), its f32 sums into partial (chunks, G, C, D) by
+// chunk (one chunk or more), then moe_down_combine_kernel: out (T, D) bf16
+// from the token's K pairs (gates (T, K) f32, experts and slots (T, K)
+// int32) and shared (T, D) bf16 or null. k_per_chunk and ctas as
+// moe_gemm's. Returns the first failing launch's cudaError_t.
+extern "C" int moe_down_combine(const void* h, const void* w, const void* counts,
+                                const void* gates, const void* experts, const void* slots,
+                                const void* shared, void* out, void* partial, int G, int C,
+                                int F, int D, int T, int K, int k_per_chunk, int ctas,
+                                void* stream) {
+  if (G < 1 || G > kMaxGroups || C < 1 || C > 16 || F < 8 || F % 8 || D % 8 || T < 1 ||
+      K < 1 || K > kMaxK || k_per_chunk < 64 || k_per_chunk % 64 || ctas < 1 ||
+      partial == nullptr)
+    return cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = launch_gemm<16, false>(
+      static_cast<const bf16*>(h), nullptr, static_cast<const bf16*>(w),
+      static_cast<const int*>(counts), nullptr, static_cast<float*>(partial), nullptr, G, C, F,
+      D, G * C, k_per_chunk, ctas, s, /*sum=*/false);
+  if (e != cudaSuccess) return e;
+  const int chunks = (F + k_per_chunk - 1) / k_per_chunk;
+  moe_down_combine_kernel<<<dim3((D + kDcCols - 1) / kDcCols, T), kDcThreads, 0, s>>>(
+      static_cast<const float*>(partial), static_cast<const float*>(gates),
+      static_cast<const int*>(experts), static_cast<const int*>(slots),
+      static_cast<const bf16*>(shared), static_cast<bf16*>(out), G, K, C, D, chunks);
   return cudaGetLastError();
 }

@@ -395,6 +395,21 @@ def _kernel_bias(what: str, bias: Optional[torch.Tensor]) -> list:
     return [bias]
 
 
+def decode_rope_takes(D: int, ng: int) -> bool:
+    """Whether the decode RoPE + cache-write kernel takes head dim D with
+    ng scales a cache row (0: a bf16 cache). A thread takes a 16-byte run
+    of 8 elements in each half of a head row, and a head's D / 16 runs
+    lie in one warp: D a multiple of 16, D / 16 a power of two up to 32.
+    A quantization group of g = D / ng features takes its amax by warp
+    shuffles over the runs it spans: g a multiple of 8 dividing D / 2,
+    or the whole row (ng 1)."""
+    runs = D // 16
+    if D <= 0 or D % 16 or runs > 32 or runs & (runs - 1):
+        return False
+    return ng in (0, 1) or (D % ng == 0 and (D // ng) % 8 == 0
+                            and (D // 2) % (D // ng) == 0)
+
+
 def rope_cache_write(qkv: torch.Tensor, cache: Dict, lens: torch.Tensor,
                      advance: Optional[torch.Tensor], theta: float,
                      fmt: str, block_table: Optional[torch.Tensor] = None,
@@ -428,7 +443,15 @@ def rope_cache_write(qkv: torch.Tensor, cache: Dict, lens: torch.Tensor,
         extra.append(block_table)
     extra += _kernel_bias("rope_cache_write", bias)
     _check_cuda("rope_cache_write", qkv, *leaves, *extra)
+    _require(decode_rope_takes(D, ng),
+             f"rope_cache_write[{fmt}]: the kernel takes no head dim {D} "
+             f"with {ng} scales a row")
     q = torch.empty((B, Hq, D), dtype=torch.bfloat16, device=qkv.device)
+    _require(all(t.data_ptr() % 16 == 0 for t in
+                 [qkv, q, *leaves[:2], *_kernel_bias("rope_cache_write",
+                                                     bias)]),
+             "rope_cache_write: qkv, the bias and the cache must be "
+             "16-byte aligned")
     if B == 0:
         return q
     fn = build.function("fused_ops", "rope_cache_write", _ROPE_ARGS)

@@ -40,6 +40,10 @@ each expert's count. The design of each is described in the source.
 - ``moe_combine(y, gates, experts, slots, shared)``: out (T, D) = the
   gate-weighted sum over k, in k order, of f32(y[e, slot]) (0 for a
   dropped pair), rounded once, then + ``shared`` in the output dtype.
+- ``moe_down_combine(h, w, gates, experts, slots, counts, shared)``: the
+  two above at decode (``moe_down_combined(C)``), with their bits: the
+  down GEMM writes its f32 sums by chunk and one kernel adds them, rounds
+  y and combines, so y never reaches device memory.
 
 The shared experts (kimi-k2) run through the two GEMMs as one group of T
 rows with no counts and no map, so they round where the JAX MoE rounds
@@ -47,7 +51,8 @@ them (moe.py:128-139). The GEMMs' tiling is set here, in plain
 functions the CPU tests hold: the row tile (``row_tile``), the chunks of
 K (``moe_gemm_plan``, from K, the weight width and the SM count alone),
 the route (``moe_gemm_split``), the gathering of mapped rows
-(``moe_gemm_gathers``) and the persistent grid (``moe_gemm_ctas``).
+(``moe_gemm_gathers``), the persistent grid (``moe_gemm_ctas``) and
+the decode's down + combine (``moe_down_combined``).
 Each ``*_plain`` function is the plain PyTorch version with the same
 rounding points (an f32 product of the operands, one cast), looping over
 the experts that have rows; each wrapper runs it for CPU tensors only,
@@ -76,6 +81,8 @@ _ROUTE_ARGS = (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                _P)
 _GEMM_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)
 _COMBINE_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+_DOWN_COMBINE_ARGS = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _I, _I, _I, _P)
 
 Route = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
               torch.Tensor, torch.Tensor]
@@ -348,6 +355,15 @@ def moe_gemm_split(C: int, chunks: int) -> bool:
     return chunks > 1 and C <= row_tile(C)
 
 
+def moe_down_combined(C: int) -> bool:
+    """Whether ``moe_down`` and ``moe_combine`` run as one kernel pair
+    (``moe_down_combine``): at decode, C within the 16-row tile, the down
+    GEMM writes its f32 sums by chunk (one chunk or more) and one kernel
+    adds them and combines, so y is never written; the prefill's C takes
+    the two apart."""
+    return C <= ROW_TILES[0]
+
+
 def moe_gemm_ctas(G: int, C: int, N: int, chunks: int, sms: int) -> int:
     """The persistent grid: the call's work items (all groups counted),
     at most two CTAs an SM at the 16-row tile and one past it."""
@@ -364,6 +380,9 @@ def _sms(dev: torch.device) -> int:
     if dev not in _SMS:
         _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
     return _SMS[dev]
+
+
+DOWN_COMBINE_LAUNCHES = 2      # the down GEMM and moe_down_combine_kernel
 
 
 def gemm_launches(w: torch.Tensor, C: int, mapped: bool = False) -> int:
@@ -501,3 +520,77 @@ def moe_combine(y: torch.Tensor, gates: torch.Tensor, experts: torch.Tensor,
 
 
 moe_combine.launches = 0
+
+
+# -- down + combine at decode -------------------------------------------------
+def moe_down_combine_plain(h: torch.Tensor, w: torch.Tensor,
+                           gates: torch.Tensor, experts: torch.Tensor,
+                           slots: torch.Tensor,
+                           counts: Optional[torch.Tensor] = None,
+                           shared: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """``moe_combine_plain(moe_down_plain(h, w, counts), ...)``."""
+    return moe_combine_plain(moe_down_plain(h, w, counts), gates, experts,
+                             slots, shared)
+
+
+def moe_down_combine(h: torch.Tensor, w: torch.Tensor, gates: torch.Tensor,
+                     experts: torch.Tensor, slots: torch.Tensor,
+                     counts: Optional[torch.Tensor] = None,
+                     shared: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``moe_combine(moe_down(h, w, counts), gates, experts, slots,
+    shared)`` at decode (``moe_down_combined(C)``): h (G, C, F), w
+    (G, F, D) → out (T, D) in h's dtype, with the same bits; on the card
+    the down GEMM writes its f32 sums by chunk and
+    ``moe_down_combine_kernel`` adds them, rounds y and combines in one
+    pass (``DOWN_COMBINE_LAUNCHES`` launches; y is never written)."""
+    G, C, Fw = h.shape
+    T, K = gates.shape
+    _require(w.shape[0] == G and w.shape[1] == Fw,
+             f"moe_down_combine: h {tuple(h.shape)} against w "
+             f"{tuple(w.shape)}")
+    _require(experts.shape == slots.shape == (T, K),
+             f"moe_down_combine: gates {tuple(gates.shape)}, experts "
+             f"{tuple(experts.shape)}, slots {tuple(slots.shape)}")
+    D = w.shape[2]
+    if shared is not None:
+        _require(tuple(shared.shape) == (T, D),
+                 f"moe_down_combine: shared {tuple(shared.shape)} for "
+                 f"({T}, {D})")
+    if h.device.type == "cpu":
+        return moe_down_combine_plain(h, w, gates, experts, slots, counts,
+                                      shared)
+    _require(moe_down_combined(C), f"moe_down_combine: capacity {C} is "
+             f"past the {ROW_TILES[0]}-row tile (moe_down_combined)")
+    _require(h.dtype == w.dtype == torch.bfloat16
+             and gates.dtype == torch.float32
+             and (shared is None or shared.dtype == torch.bfloat16),
+             "moe_down_combine kernel takes bf16 h, w and shared, f32 gates")
+    _require(experts.dtype == slots.dtype == torch.int32
+             and (counts is None or counts.dtype == torch.int32),
+             "moe_down_combine: experts, slots and counts are int32")
+    _require(Fw % 8 == 0 and D % 8 == 0 and 0 < K <= MAX_K,
+             f"moe_down_combine: F {Fw} and D {D} must be multiples of 8, "
+             f"K {K} within {MAX_K}")
+    _require(G <= MAX_EXPERTS, f"moe_down_combine: {G} groups (at most "
+             f"{MAX_EXPERTS})")
+    _check_cuda("moe_down_combine", h, w, gates, experts, slots, counts,
+                shared)
+    out = torch.empty((T, D), dtype=h.dtype, device=h.device)
+    if T == 0:
+        return out
+    sms = _sms(w.device)
+    chunks, kper = moe_gemm_plan(Fw, D, sms)
+    partial = torch.empty((chunks, G, C, D), dtype=torch.float32,
+                          device=w.device)
+    fn = build.function("moe", "moe_down_combine", _DOWN_COMBINE_ARGS)
+    err = fn(h.data_ptr(), w.data_ptr(), _ptr(counts), gates.data_ptr(),
+             experts.data_ptr(), slots.data_ptr(), _ptr(shared),
+             out.data_ptr(), partial.data_ptr(), G, C, Fw, D, T, K, kper,
+             moe_gemm_ctas(G, C, D, chunks, sms), _stream(h))
+    build.check(err, "moe_down_combine")
+    moe_down_combine.launches += 1
+    return out
+
+
+moe_down_combine.launches = 0

@@ -20,9 +20,10 @@ products (the counterpart of the JAX package's ``kernels/ops.py``).
 - ``rmsnorm``, ``add_rmsnorm``, ``swiglu``, ``rope_cache_write`` and
   ``rope_cache_write_prefill``: the fused small ops of ``fused_ops.py``,
   wrappers of the same kind.
-- ``moe_route``, ``moe_gate_up_swiglu``, ``moe_down`` and
-  ``moe_combine``: the mixture-of-experts FFN's kernels
-  (``kernels/moe.py``), wrappers of the same kind.
+- ``moe_route``, ``moe_gate_up_swiglu``, ``moe_down``, ``moe_combine``
+  and ``moe_down_combine`` (the last two at decode): the
+  mixture-of-experts FFN's kernels (``kernels/moe.py``), wrappers of the
+  same kind.
 - ``ssm_conv``, ``ssm_decode_step``, ``ssd_prefill`` and
   ``gated_rmsnorm``: the SSM family's kernels (``kernels/ssm.py``),
   wrappers of the same kind.
@@ -52,7 +53,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_ops import (add_rmsnorm, rmsnorm,
                                            rope_cache_write,
                                            rope_cache_write_prefill, swiglu)
-from repro_torch.kernels.moe import (moe_combine, moe_down,
+from repro_torch.kernels.moe import (moe_combine, moe_down, moe_down_combine,
                                      moe_gate_up_swiglu, moe_route)
 from repro_torch.kernels.quant_matmul import quant_matmul, quant_matmul_swiglu
 from repro_torch.kernels.ssm import (gated_rmsnorm, ssd_prefill, ssm_conv,
@@ -64,16 +65,16 @@ torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 KERNELS = (decode_attention, decode_attention_quant, quant_matmul,
            quant_matmul_swiglu, flash_attention, rmsnorm, add_rmsnorm, swiglu,
            rope_cache_write, rope_cache_write_prefill, moe_route,
-           moe_gate_up_swiglu, moe_down, moe_combine, ssm_conv,
-           ssm_decode_step, ssd_prefill, gated_rmsnorm)
+           moe_gate_up_swiglu, moe_down, moe_combine, moe_down_combine,
+           ssm_conv, ssm_decode_step, ssd_prefill, gated_rmsnorm)
 
 __all__ = ["matmul", "attention", "decode_attention",
            "decode_attention_quant", "flash_attention", "quant_matmul",
            "quant_matmul_swiglu", "rmsnorm", "add_rmsnorm", "swiglu",
            "rope_cache_write", "rope_cache_write_prefill", "moe_route",
-           "moe_gate_up_swiglu", "moe_down", "moe_combine", "ssm_conv",
-           "ssm_decode_step", "ssd_prefill", "gated_rmsnorm", "KERNELS",
-           "launch_counts"]
+           "moe_gate_up_swiglu", "moe_down", "moe_combine",
+           "moe_down_combine", "ssm_conv", "ssm_decode_step", "ssd_prefill",
+           "gated_rmsnorm", "KERNELS", "launch_counts"]
 
 
 def launch_counts() -> Dict[str, int]:

@@ -16,6 +16,10 @@
   6. the shared experts, always on (kimi-k2): the two GEMMs as one group
      of all T rows, their output added in the activation dtype.
 
+At decode (``moe_down_combined(C)``) the down GEMM and the combine are
+one pair of launches, ``moe_down_combine``, with the same bits: y is
+never written there.
+
 The rounding points are the JAX module's: gu in f32, silu(g) · u in f32
 cast once; y in f32 cast once; the combine in f32 cast once; the shared
 output added to it in the activation dtype. Unlike the JAX einsums, the
@@ -41,7 +45,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.moe import capacity as _capacity
-from repro_torch.kernels.moe import router_logits_plain
+from repro_torch.kernels.moe import moe_down_combined, router_logits_plain
 from repro_torch.models.params import ParamSpec
 from repro_torch.quant.quantize import FLOAT_FORMATS
 
@@ -94,13 +98,18 @@ def moe_forward(p, cfg: ModelConfig, x: torch.Tensor,
         x2, p["router"]["w"], cfg.experts_per_token, C, reads)
     h = ops.moe_gate_up_swiglu(x2, p["experts"]["w_gate_up"], C, counts,
                                src)
-    y = ops.moe_down(h, p["experts"]["w_down"], counts)
     shared = None
     if "shared" in p:
         w_gu, w_d = p["shared"]["w_gate_up"], p["shared"]["w_down"]
         h_s = ops.moe_gate_up_swiglu(x2, w_gu[None], T)
         shared = ops.moe_down(h_s, w_d[None])[0]
-    out = ops.moe_combine(y, gates, experts, slots, shared)
+    w_down = p["experts"]["w_down"]
+    if moe_down_combined(C):
+        out = ops.moe_down_combine(h, w_down, gates, experts, slots, counts,
+                                   shared)
+    else:
+        y = ops.moe_down(h, w_down, counts)
+        out = ops.moe_combine(y, gates, experts, slots, shared)
     return out.reshape(B, S, D)
 
 

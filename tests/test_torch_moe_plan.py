@@ -162,3 +162,82 @@ def test_plain_gemms_match_jax(dtype, T):
         tol = 1e-5 * scale if dtype == "f32" else 2.0 ** -7 * scale
         np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
                                    atol=tol)
+
+
+@pytest.mark.parametrize("arch,T,fused", [
+    (PHI, 1, True), (PHI, 4, True), (PHI, 2048, False), (KIMI, 4, True),
+    (KIMI, 512, True), (KIMI, 1024, False), ("ragged", 16, True),
+    ("ragged", 333, False)])
+def test_down_combine_route(arch, T, fused):
+    """``moe_down_combined``: at decode (C within the 16-row tile) the
+    down GEMM writes its f32 sums by chunk and one kernel adds them into
+    the combine; past it (the prefill) the two stay apart. The route reads
+    C alone: kimi-k2's 384 experts keep C at 16 up to T 512."""
+    E, K, cf = ((4, 2, 1.25) if arch == "ragged" else
+                (get_config(arch).num_experts,
+                 get_config(arch).experts_per_token,
+                 get_config(arch).capacity_factor))
+    C = moe.capacity(E, K, cf, T)
+    assert moe.moe_down_combined(C) == fused == (moe.row_tile(C) == 16)
+
+
+def _routed(T, E, K, D, Fw, dtype, drops, rng):
+    """Rows through the plain routing: a router that sends every token to
+    experts 0 and 1 (past their capacity) where ``drops``."""
+    x = rng.standard_normal((T, D)).astype(np.float32)
+    w_r = rng.standard_normal((D, E)).astype(np.float32) * D ** -0.5
+    if drops:
+        x[:, 0] = 8.0
+        w_r[0, :2] = [1.0, 0.9]
+    w_gu = rng.standard_normal((E, D, 2 * Fw)).astype(np.float32) * D ** -0.5
+    w_d = rng.standard_normal((E, Fw, D)).astype(np.float32) * Fw ** -0.5
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    tx, tgu, td = (torch.from_numpy(a).to(tdt) for a in (x, w_gu, w_d))
+    C = moe.capacity(E, K, 1.25, T)
+    gates, experts, slots, counts, src, _ = moe.route_from_logits_plain(
+        moe.router_logits_plain(tx, torch.from_numpy(w_r).to(tdt)), K, C)
+    th = moe.moe_gate_up_swiglu(tx, tgu, C, counts, src)
+    live = torch.arange(C)[None] < counts[:, None]
+    th = torch.where(live[..., None], th, torch.zeros((), dtype=tdt))
+    return tx, tgu, td, th, gates, experts, slots, counts, C
+
+
+@pytest.mark.parametrize("case", ["drops", "shared"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_down_combine_plain_matches_jax_and_the_pair(dtype, case):
+    """``moe_down_combine``'s plain version bit-equal to
+    ``moe_combine_plain(moe_down_plain(...))``, and against the JAX
+    module's down einsum, gather back and combine (moe.py:113-125) with
+    the shared experts' add (:136-139): a ragged E 4, D 40, F 24 layer at
+    T 12 (C 8), with pairs dropped past C, or kimi-k2's form of a shared
+    expert (one group of all T rows)."""
+    E, K, D, Fw, T = 4, 2, 40, 24, 12
+    rng = np.random.default_rng(len(case) + len(dtype))
+    tx, tgu, td, th, gates, experts, slots, counts, C = _routed(
+        T, E, K, D, Fw, dtype, case == "drops", rng)
+    assert moe.moe_down_combined(C)
+    keep = slots < C
+    assert bool((~keep).any()) == (case == "drops")
+    shared = None
+    if case == "shared":
+        sh = moe.moe_gate_up_swiglu(tx, tgu[1:2], T)
+        shared = moe.moe_down(sh, td[2:3])[0]
+    got = moe.moe_down_combine(th, td, gates, experts, slots, counts, shared)
+    pair = moe.moe_combine_plain(moe.moe_down_plain(th, td, counts), gates,
+                                 experts, slots, shared)
+    assert got.dtype == th.dtype and torch.equal(got, pair)
+    jdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
+    jh, jd = (jnp.asarray(a.float().numpy()).astype(jdt) for a in (th, td))
+    y_buf = jnp.einsum("ecf,efd->ecd", jh, jd,
+                       preferred_element_type=jnp.float32).astype(jdt)
+    ek, sk = jnp.asarray(experts.numpy()), jnp.asarray(slots.numpy())
+    per_pair = jnp.where(jnp.asarray(keep.numpy())[..., None],
+                         y_buf[ek, jnp.minimum(sk, C - 1)], 0)
+    want = jnp.einsum("tkd,tk->td", per_pair.astype(jnp.float32),
+                      jnp.asarray(gates.numpy())).astype(jdt)
+    if shared is not None:
+        want = want + jnp.asarray(shared.float().numpy()).astype(jdt)
+    want = np.asarray(want.astype(jnp.float32))
+    scale = np.abs(want).max()
+    tol = 1e-5 * scale if dtype == "f32" else 2.0 ** -7 * scale
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
