@@ -82,7 +82,21 @@ Phases (any failed check raises and the process exits nonzero):
    build check that fails on a ptxas spill or a serialized ``wgmma`` in
    ``ssm.cu``;
    ``quant_matmul`` at ``in_proj`` (2560 x 10576, a ragged N) and
-   ``out_proj`` under q8_0 and q4_0 at M 1, 4 and 512;
+   ``out_proj`` under q8_0 and q4_0 at M 1, 4 and 512; the (head_dim
+   128, G 8) instances of deepseek-67b and qwen1.5-110b (kimi-k2's
+   attention too) in both attention kernels, every loader of the decode
+   kernel, ragged and windowed lengths, timed at deepseek-67b's decode (4
+   slots, kv_len 1024) and prefill (4 x 512) shapes, with the decode RoPE
+   + cache write there and a build check that every (128, 8) instance is
+   compiled without a spill; ``quant_matmul`` and the gate-up GEMM at
+   every linear shape of mistral-nemo-12b, deepseek-67b and qwen1.5-110b
+   at M 4 and 2048 and their untied heads, and at the V0 projections of
+   the main path (``wq``, ``wk``, ``w_gate``); ``quant_matmul(out=)`` into
+   a column range of a wider row (both routes, both formats, f32 out, an
+   N copied element by element) bit-equal to the call without ``out=``
+   with the neighbouring columns untouched, an unaligned view refused;
+   ``torch.mm(out=)`` (the bf16-weight V0 projections) into a wider row
+   with no copy kernel in its trace;
 4. main path: llama3.2-1b at full width (seeded random weights, q8_0
    weights, bf16 cache) served by ``repro_torch.launch.serve`` with 4
    slots, max_len 1024, 8-substep megasteps and chunked admission, 8
@@ -96,7 +110,18 @@ Phases (any failed check raises and the process exits nonzero):
    against the plain versions (beside a planted fault the check must
    catch); then serves the same requests again under the profiler for
    the device's idle share, from a trace that holds exactly the
-   expected events;
+   expected events; then (4b) the same traffic through ``launch.serve
+   --prefill-chunk 4`` (chunks under K 8, so a prefilling slot waits for
+   its refill: ``chunk_refills`` as the prompts predict, streams equal to
+   ``reference_decode`` and to the main path's, the same launches a
+   capture and the same CUDA events a megastep), and the unfused V0
+   (``get_config("llama3.2-1b", scheduler_version="v0")``: ``wq`` / ``wk``
+   / ``wv`` and ``w_gate`` / ``w_up`` apart, the standalone SwiGLU under
+   q8_0 weights): launch counts, streams against ``reference_decode``, one
+   decode step against the plain versions, a profile with no copy kernel
+   more a megastep than the fused main path's, V0 and V1 ms a step in
+   turns (four pairs), and a V0 stall leg (one 4 x 512 prefill against the
+   plain versions);
 5. serving under load: the main path again through ``launch.serve
    --pipeline-depth 2`` (streams equal to depth 1's, the same launch
    counts, no stream-wide or device-wide synchronize inside a served
@@ -137,7 +162,12 @@ Phases (any failed check raises and the process exits nonzero):
    paged cache (streams equal to the dense legs', stall admission
    through ``_paged_splice``), and a leg whose pool of 13 blocks blocks
    admissions FIFO and evicts registry entries; then the same 4 layers
-   with bf16 weights (cuBLAS linears and the standalone SwiGLU kernel);
+   with bf16 weights (cuBLAS linears and the standalone SwiGLU kernel;
+   profiled), and the same 4 layers under V0, its weights cut by columns
+   from them (cuBLAS writing each projection into its columns of one row
+   through ``torch.mm(out=)``: streams, launch counts, a decode step
+   against the plain versions, a profile with no copy kernel more a
+   megastep than the fused leg's);
    then a stochastic leg
    (temperature 0.8) through the sampling graph: greedy rows exact,
    sampled tokens inside their top-k / top-p filters, the same tokens
@@ -172,7 +202,7 @@ Phases (any failed check raises and the process exits nonzero):
    q8_0`` refused with the engine's error, and the first request alone
    on 1 slot;
 11. one ``{"kernels": [...]}`` line, the card line, and the last line
-   ``{"ok": true, "device": {...}}``;
+   ``{"ok": true, "device": {...}}`` (after phase 13);
 12. the SSM family (run right after phase 10): mamba2-2.7b at full width
    and all 64 layers, served by ``launch.serve`` under bf16, q8_0 and
    q4_0 weights on 4 slots (8 requests) and its first request alone on 1
@@ -197,7 +227,23 @@ Phases (any failed check raises and the process exits nonzero):
    q4_0 stall leg against the fused
    reference, a leg with ``--kv-quant q8_0 --page-size 16
    --prefix-cache`` (no-ops, the engine's warning, the q8_0 streams), and
-   preemption with resume under chunked and stall admission.
+   preemption with resume under chunked and stall admission;
+13. the assigned dense models (run after phase 9): mistral-nemo-12b under
+   bf16, q8_0 and q4_0 weights, deepseek-67b under q4_0 and q8_0 and
+   qwen1.5-110b under q4_0, each at full width and depth on the one card,
+   every weight quantized as ``Model.init`` draws it (its peak allocation
+   over the quantized tree checked to stay within one matrix's draw, and
+   under the float tree's bytes), served by ``launch.serve`` through the
+   main path's traffic on 4 slots (launch counts with the untied head,
+   streams against ``reference_decode``, ms a step and tok/s beside the
+   CLI's floor), then the first request alone on one slot (one decode
+   step from its cache against the plain versions beside the planted
+   fault), and in
+   each model's stall format one 512-token prompt under stall admission
+   (its 1 x 512 prefill against the plain versions beside the planted
+   lookahead fault); each model's memory freed before the next; then
+   deepseek-67b's first 4 layers under q8_0 and q4_0 caches (the (128, 8)
+   quantized loaders on a served path).
 
 Exits nonzero without printing a result when CUDA is unavailable, or
 when run outside a checkout of the repository.
@@ -207,6 +253,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -265,6 +312,17 @@ MOE_LAYERS = 24
 # the paper's six models (its Fig. 4), smallest first
 PAPER_ORDER = ("qwen2-0.5b", "qwen2-1.5b", "llama3.2-1b", "llama3.2-3b",
                "llama3.2-8b", "mistral-7b-v0.1")
+# the assigned dense models at full width and depth on one 80 GB card,
+# with the weight formats each is served in (weights as stored:
+# mistral-nemo-12b 24.5 / 13.6 / 7.9 GB under bf16 / q8_0 / q4_0,
+# deepseek-67b 39.1 / 72.4 GB under q4_0 / q8_0, qwen1.5-110b 64.4 GB
+# under q4_0; its q8_0, about 118 GB, does not fit), and the format of
+# each one's stall leg
+DENSE_CELLS = (("mistral-nemo-12b", ("bf16", "q8_0", "q4_0")),
+               ("deepseek-67b", ("q4_0", "q8_0")),
+               ("qwen1.5-110b", ("q4_0",)))
+DENSE_STALL = {"mistral-nemo-12b": "q8_0", "deepseek-67b": "q4_0",
+               "qwen1.5-110b": "q4_0"}
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
@@ -517,6 +575,11 @@ def profile_served(engine, make_requests, prelude=None):
         by_name[e.name] = by_name.get(e.name, 0.0) + \
             e.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_name.values())
+    # elementwise copy kernels (not the megastep's host copies): the
+    # engine's bookkeeping has some; an unfused projection written into
+    # its row adds none
+    copies = sum("copy" in e.name.lower() and "memcpy" not in e.name.lower()
+                 for e in events)
     groups = dict.fromkeys(GROUPS, 0.0)
     for name, ms in by_name.items():
         groups[group_of(name)] += ms / st.steps
@@ -536,6 +599,7 @@ def profile_served(engine, make_requests, prelude=None):
                 device_idle_share=1 - busy_ms / wall_ms,
                 device_ms_per_step_by_group=groups,
                 events_per_megastep=per_megastep,
+                copy_kernels_per_megastep=copies / st.graph_replays,
                 profile_attempts=attempt), requests
 
 
@@ -1047,13 +1111,14 @@ def main() -> None:
               + "".join(f"\n    {n[:200]}" for n in notes), flush=True)
         check(stem not in ("flash_attention", "moe", "ssm") or not notes,
               f"ptxas serialized {stem}.cu's wgmma groups")
-    # the fused gate-up kernels keep quant_matmul's budget (two CTAs an
-    # SM, at most 128 registers a thread) without spilling
+    # the GEMM with its output row stride, and the fused gate-up kernels,
+    # keep quant_matmul's budget (two CTAs an SM, at most 128 registers a
+    # thread) without spilling
     for fn, regs, st_b, ld_b in build.ptxas_usage("quant_matmul"):
-        short = re.search(r"[a-z_]*swiglu(_split)?_kernel(I\w*?EE)?", fn)
+        short = re.search(r"\d([a-z_]+_kernel)(I\w*?EE)?", fn)
         if not short:
             continue
-        print(f"  ptxas on quant_matmul.cu: {short.group(0)}: {regs} "
+        print(f"  ptxas on quant_matmul.cu: {short.group(0)[1:]}: {regs} "
               f"registers, {st_b} / {ld_b} bytes spill stores / loads",
               flush=True)
         check(st_b == 0 and ld_b == 0, f"ptxas spilled registers in {fn}")
@@ -1068,8 +1133,10 @@ def main() -> None:
               "spill stores / loads", flush=True)
         check(st_b == 0 and ld_b == 0, f"ptxas spilled registers in {fn}")
     # both attention kernels' instances at the (head_dim, G) pairs of the
-    # paper's other models keep their registers too (every loader)
-    new_pairs_ptx = {(64, 7), (128, 6), (128, 3), (128, 4)}
+    # paper's other models and of deepseek-67b / qwen1.5-110b (128, 8)
+    # keep their registers too (every loader)
+    new_pairs_ptx = {(64, 7), (128, 6), (128, 3), (128, 4), (128, 8)}
+    seen_128_8 = []
     for stem, pat in (
             ("decode_attention",
              r"decode_attention_split_kernelILi(\d)ELi(\d+)ELi(\d+)EE"),
@@ -1087,6 +1154,12 @@ def main() -> None:
                 f"{st_b} / {ld_b} bytes spill stores / loads", flush=True)
             check(pair not in new_pairs_ptx or (st_b == 0 and ld_b == 0),
                   f"ptxas spilled registers in {fn}")
+            if pair == (128, 8):
+                seen_128_8.append((stem, a))
+    check(set(seen_128_8) == {("decode_attention", 0),
+                              ("decode_attention", 1),
+                              ("decode_attention", 2), ("flash_attention", 128)},
+          f"the (128, 8) instances in ptxas's report: {sorted(seen_128_8)}")
     # the MoE kernels (the grouped GEMM's four instances and its two
     # split-sum kernels among them) keep their registers
     gemm_instances = 0
@@ -1626,8 +1699,12 @@ def main() -> None:
         ref = quant_matmul_plain(x, w, out_dtype)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
+        # f32 logits: 1e-5 of the scale up to K 4096 (every head before
+        # the assigned dense models'), growing with K past it, as the
+        # error of a K-term f32 sum in another order does (a K 8192 head
+        # read 1.04e-5 of its scale on the H100, PERF.md)
         tol = (bf16_tol(ref) if out_dtype == torch.bfloat16
-               else 1e-5 * float(ref.abs().max()))
+               else 1e-5 * max(1.0, K / 4096) * float(ref.abs().max()))
         name = f"quant_matmul[{fmt} {label} {K}x{N}" + (
             "]" if M <= 8 else f" M{M}]")
         print(f"  {name} M{M} -> {out_dtype}: max_abs_err {err:.3e} "
@@ -2251,11 +2328,14 @@ def main() -> None:
 
     print("fused small ops vs plain versions on the card:", flush=True)
     d_model, d_ff = cfg_full.d_model, cfg_full.d_ff
-    # the standalone SwiGLU runs only under plain weights (the plain-weight
-    # leg of section 6): with quantized ones the gate-up GEMM computes it
+    # the standalone SwiGLU runs under plain weights (the plain-weight leg
+    # of section 8) and under the unfused V0 whatever the weights (its
+    # rows report V0's main path and stall leg, llama3.2-1b's widths):
+    # with quantized V1 weights the gate-up GEMM computes it
     for M, path in ((B, "main"), (2048, "prefill")):
         rmsnorm_case(M, d_model, torch.bfloat16, timed=True, path=path)
-        swiglu_case(M, d_ff, torch.bfloat16, timed=True, path="plain")
+        swiglu_case(M, d_ff, torch.bfloat16, timed=True,
+                    path="v0 main" if M == B else "v0 stall")
     for M in (1, 333):
         rmsnorm_case(M, d_model, torch.bfloat16)
         swiglu_case(M, d_ff, torch.bfloat16)
@@ -2496,6 +2576,153 @@ def main() -> None:
                               timed=fmt == "bf16", path="window")
             rope_prefill_case(fmt, 2, 40, 16, 4, 2, 32, with_bias=True)
             rope_prefill_case(fmt, 2, 70, 64, 12, 2, 128, with_bias=True)
+
+    # -- the assigned dense models and V0: instances, shapes, out= ---------
+    # deepseek-67b's and qwen1.5-110b's (head_dim 128, G 8) in both
+    # attention kernels (kimi-k2's attention is (128, 8) too): the decode
+    # RoPE + cache write there, decode attention at 4 slots of kv_len 1024
+    # in every loader (timed; bf16 reports the full model's run, the
+    # quantized loaders its 4-layer quantized-cache legs), ragged and
+    # windowed lengths, the prefill attention at 4 x 512 (timed: the stall
+    # leg's instance) and ragged; quant_matmul and the gate-up GEMM at
+    # every new linear shape at M 4 and 2048 and the untied heads; the V0
+    # projections of the main path; quant_matmul(out=) into a wider row
+    gen_dense = torch.Generator(device=dev)      # the assigned models' cases
+    gen_dense.manual_seed(29)
+    t_dense_cases = time.perf_counter()
+    ds67 = get_config("deepseek-67b")
+    print("the assigned dense models: the (128, 8) instances, their linear "
+          "shapes, the V0 projections and quant_matmul(out=) vs the plain "
+          "versions:", flush=True)
+    with drawing_from(gen_dense):
+        hq, hkv, d = ds67.num_heads, ds67.num_kv_heads, ds67.head_dim
+        inst = "D128 G8"
+        for fmt in ("bf16", "q8_0", "q4_0"):
+            rope_case(fmt, 3, hq, hkv, 200, d, [199, 200, 63],
+                      [True, True, False])
+            attention_case(fmt, B, hq, hkv, S, d, [S] * B, 0, timed=True,
+                           instance=inst,
+                           path="dense deepseek-67b q4_0" if fmt == "bf16"
+                           else f"dense deepseek-67b 4 layers {fmt} cache")
+            attention_case(fmt, B, hq, hkv, S, d, [0, 1, 37, S], 0,
+                           timed=False, instance=inst)
+            attention_case(fmt, B, hq, hkv, S, d, [0, 5, 700, S], 100,
+                           timed=False, instance=inst)
+        flash_case(B, hq, hkv, 512, 512, d, 0, 0, timed=True, instance=inst,
+                   path="dense deepseek-67b stall")
+        flash_case(2, hq, hkv, 333, 333, d, 0, 0, timed=False)
+        flash_case(2, hq, hkv, 512, 512, d, 100, 0, timed=False)
+        # each new linear once per format (deepseek-67b and qwen1.5-110b
+        # share wqkv and wo), M 4 on the model's 4-slot run, M 2048 on its
+        # stall leg's format (launches: its 1 x 512 prefill)
+        timed_shapes = set()
+        for arch, fmts in DENSE_CELLS:
+            pc = get_config(arch)
+            stall_fmt = DENSE_STALL[arch]
+            for label, (K, N) in (
+                    ("wqkv", (pc.d_model, pc.q_dim + 2 * pc.kv_dim)),
+                    ("wo", (pc.q_dim, pc.d_model)),
+                    ("w_down", (pc.d_ff, pc.d_model))):
+                for fmt in ("q8_0", "q4_0"):
+                    served = fmt in fmts
+                    fresh = (fmt, K, N) not in timed_shapes
+                    qmm_case(fmt, label, B, K, N, torch.bfloat16,
+                             timed=served and fresh,
+                             path=f"dense {arch} {fmt}")
+                    timed_shapes.add((fmt, K, N))
+                qmm_case(stall_fmt, label, 2048, K, N, torch.bfloat16,
+                         timed=True, path=f"dense {arch} stall")
+            for fmt in ("q8_0", "q4_0"):
+                qmm_swiglu_case(fmt, B, pc.d_model, pc.d_ff,
+                                timed=fmt in fmts, path=f"dense {arch} {fmt}")
+                qmm_case(fmt, "lm_head", B, pc.d_model, pc.padded_vocab,
+                         torch.float32, timed=fmt in fmts,
+                         path=f"dense {arch} {fmt}")
+            qmm_swiglu_case(stall_fmt, 2048, pc.d_model, pc.d_ff, timed=True,
+                            path=f"dense {arch} stall")
+        # the V0 projections of the main path (llama3.2-1b q8_0): wq, wk (wv
+        # alike) and w_gate (w_up alike), at decode M and the stall leg's
+        # 4 x 512
+        for label, (K, N) in (("wq", (cfg_full.d_model, cfg_full.q_dim)),
+                              ("wk", (cfg_full.d_model, cfg_full.kv_dim)),
+                              ("w_gate", (cfg_full.d_model, cfg_full.d_ff))):
+            qmm_case("q8_0", label, B, K, N, torch.bfloat16, timed=True,
+                     path="v0 main")
+            qmm_case("q8_0", label, 2048, K, N, torch.bfloat16, timed=True,
+                     path="v0 stall")
+        # quant_matmul(out=) a column range of a wider row: bit-equal to
+        # the call without it, the other columns untouched (both routes,
+        # both formats, f32 out, an N whose rows are copied element by
+        # element), and an unaligned view refused
+        out_cases = []
+        for fmt, M, K, N, dt, at, ldc in (
+                ("q8_0", B, 2048, 512, torch.bfloat16, 2048, 3072),
+                ("q4_0", B, 2048, 2048, torch.bfloat16, 0, 3072),
+                ("q8_0", 1, 5120, 1024, torch.bfloat16, 4096, 6144),
+                ("q8_0", 9, 2048, 8192, torch.bfloat16, 8192, 16384),
+                ("q8_0", 2048, 2048, 512, torch.bfloat16, 2560, 3072),
+                ("q4_0", 333, 2048, 8192, torch.bfloat16, 8192, 16384),
+                ("q8_0", B, 96, 50, torch.float32, 4, 60),
+                ("q4_0", 300, 96, 50, torch.float32, 8, 64)):
+            x = randn(M, K).bfloat16()
+            w = quantize(randn(K, N, scale=K ** -0.5), fmt)
+            want = quant_matmul(x, w, out_dtype=dt)
+            buf = torch.full((M, ldc), 7.0, dtype=dt, device=dev)
+            view = buf[:, at:at + N]
+            got = quant_matmul(x, w, out_dtype=dt, out=view)
+            rest = torch.cat([buf[:, :at], buf[:, at + N:]], dim=1)
+            torch.cuda.synchronize()
+            check(got.data_ptr() == view.data_ptr()
+                  and torch.equal(view, want) and bool((rest == 7).all()),
+                  f"quant_matmul(out=) {fmt} M{M} K{K} N{N} at column {at} "
+                  f"of {ldc}: {int((view != want).sum())} elements differ "
+                  f"from the call without out=, {int((rest != 7).sum())} "
+                  "neighbouring elements written")
+            out_cases.append(f"{fmt} M{M} K{K} N{N} {str(dt)[6:]} at {at} "
+                             f"of {ldc}")
+        x = randn(B, 2048).bfloat16()
+        w = quantize(randn(2048, 512, scale=2048 ** -0.5), "q8_0")
+        buf = torch.empty((B, 3072), dtype=torch.bfloat16, device=dev)
+        try:
+            quant_matmul(x, w, out=buf[:, 3:515])
+        except ValueError as e:
+            check("16-byte-aligned" in str(e), f"quant_matmul(out=): {e}")
+        else:
+            fail("quant_matmul wrote into a view whose start is not 16-byte "
+                 "aligned")
+        print("  quant_matmul(out=) bit-equal to the call without out=, "
+              "neighbouring columns untouched: " + "; ".join(out_cases)
+              + "; a view at column 3 (not 16-byte aligned) refused",
+              flush=True)
+        # the bf16-weight V0 projections: torch.mm(out=) hands cuBLAS the
+        # view's row pitch, and its trace holds no copy kernel
+        wb = randn(2048, 512, scale=2048 ** -0.5).bfloat16()
+        for M in (B, 2048):
+            xb = randn(M, 2048).bfloat16()
+            buf = torch.full((M, 3072), 7.0, dtype=torch.bfloat16, device=dev)
+            view = buf[:, 2048:2560]
+            want = torch.mm(xb, wb)
+            torch.mm(xb, wb, out=view)
+            rest = torch.cat([buf[:, :2048], buf[:, 2560:]], dim=1)
+            torch.cuda.synchronize()
+            err = float((view.float() - want.float()).abs().max())
+            check(err <= bf16_tol(want) and bool((rest == 7).all()),
+                  f"torch.mm(out=) M{M}: {err} from the contiguous product, "
+                  f"{int((rest != 7).sum())} neighbouring elements written")
+            names = [e.name for e in cuda_events(
+                lambda: torch.mm(xb, wb, out=view), [()], 4)]
+            copies = [n for n in names if "copy" in n.lower()]
+            check(names and not copies, f"torch.mm(out=) M{M}: trace "
+                  f"{sorted(set(n[:60] for n in names))}: copy kernels "
+                  f"{copies[:2]}")
+            print(f"  torch.mm(out=) M{M} into columns 2048-2559 of 3072: "
+                  f"bit-equal to the contiguous product "
+                  f"{torch.equal(view, want)} (error {err:.3e}); trace of 4 "
+                  f"calls: {len(names)} CUDA events, no copy kernel "
+                  f"({sorted(set(n[:50] for n in names))})", flush=True)
+    dense_cases_s = time.perf_counter() - t_dense_cases
+    print(f"  the assigned dense models' kernel cases: {dense_cases_s:.1f} s",
+          flush=True)
 
     # -- the mixture-of-experts kernels --------------------------------------
     moe_src = "src/repro_torch/kernels/csrc/moe.cu"
@@ -3699,7 +3926,9 @@ def main() -> None:
         quant_matmul (wqkv, wo, w_down) and the gate-up GEMM with its
         SwiGLU a layer, and one quant_matmul an unembedding by an untied
         (quantized) ``lm_head``; with plain weights the linears and the
-        head are library products and the SwiGLU runs alone. A tied head
+        head are library products and the SwiGLU runs alone. The unfused
+        V0 has seven linears a layer (wq, wk, wv, wo, w_gate, w_up,
+        w_down) and the standalone SwiGLU under any weights. A tied head
         is the embedding table's transpose, always a library product."""
         quantized = engine.quant_policy in ("q8_0", "q4_0")
         head = heads * (not engine.cfg.tie_embeddings)
@@ -3717,9 +3946,15 @@ def main() -> None:
                     "moe_down": shared + (0 if fused else n),
                     "moe_combine": 0 if fused else n,
                     "moe_down_combine": n if fused else 0}
-        return {"quant_matmul": 3 * n + head if quantized else 0,
-                "quant_matmul_swiglu": n if quantized else 0,
-                "swiglu": 0 if quantized else n, "moe_route": 0,
+        # the unfused V0: wq, wk and wv, and w_gate and w_up, each its own
+        # GEMM, and the standalone SwiGLU whatever the weights
+        qkv = 1 if engine.cfg.fuse_qkv else 3
+        fused_gu = engine.cfg.fuse_gate_up
+        linears = qkv + 2 + (0 if fused_gu else 2)
+        return {"quant_matmul": linears * n + head if quantized else 0,
+                "quant_matmul_swiglu": n if quantized and fused_gu else 0,
+                "swiglu": 0 if quantized and fused_gu else n,
+                "moe_route": 0,
                 "moe_gate_up_swiglu": 0, "moe_down": 0, "moe_combine": 0,
                 "moe_down_combine": 0}
 
@@ -3869,6 +4104,217 @@ def main() -> None:
     check([r.output for r in replay] == main_streams,
           "main path: the profiled replay served other tokens")
     del eng, res
+    torch.cuda.empty_cache()
+
+    # -- 4b. the main path with --prefill-chunk 4, and the unfused V0 ------
+    v0_counts = {}     # launches on these legs, into ``counts`` below
+
+    def warmed_engine(model, params, **kw):
+        """A 4-slot engine (max_len 1024, K 8, greedy; ``kw`` overrides),
+        the counters zeroed before a warmup request like launch.serve's,
+        which captures its graph; (engine, warmup stats, counters after
+        the warmup)."""
+        eng = ServingEngine(model, params, **{
+            **dict(slots=4, max_len=1024, sampling=SamplingConfig(),
+                   megastep_k=8), **kw})
+        zero_counts()
+        eng.submit(Request(uid=-1, prompt=np.arange(1, 6, dtype=np.int32),
+                           max_new_tokens=32))
+        eng.run()
+        warm, after = eng.stats, ops.launch_counts()
+        eng.reset()
+        return eng, warm, after
+
+    def served_ms(eng):
+        st = eng.stats
+        return dict(ms_per_step=1e3 * st.decode_wall_s / st.steps,
+                    tok_s=st.tokens_generated / st.decode_wall_s,
+                    steps=st.steps, megasteps=st.megasteps)
+
+    def as_v0(params, cfg):
+        """A fused (V1) tree with each fused weight cut by columns into
+        V0's projections (exact: a quantized weight's groups run along
+        K)."""
+        def cut(w, widths):
+            out, at = [], 0
+            for n in widths:
+                if isinstance(w, QuantizedTensor):
+                    out.append(QuantizedTensor(
+                        w.data[:, at:at + n].contiguous(),
+                        w.scales[:, at:at + n].contiguous(), w.fmt, w.group))
+                else:
+                    out.append(w[:, at:at + n].contiguous())
+                at += n
+            return out
+        layers_v0 = []
+        for p_l in params["layers"]:
+            a, m = dict(p_l["attn"]), dict(p_l["mlp"])
+            ws = cut(a.pop("wqkv")["w"], (cfg.q_dim, cfg.kv_dim, cfg.kv_dim))
+            a.update({n: {"w": w} for n, w in zip(("wq", "wk", "wv"), ws)})
+            g_, u_ = cut(m.pop("w_gate_up")["w"], (cfg.d_ff, cfg.d_ff))
+            m.update(w_gate={"w": g_}, w_up={"w": u_})
+            layers_v0.append({**p_l, "attn": a, "mlp": m})
+        return {**params, "layers": layers_v0}
+
+    t_leg = time.perf_counter()
+    print("main path with --prefill-chunk 4 (under K 8: a prefilling slot "
+          "whose chunk runs dry waits, cache frozen, for the refill)",
+          flush=True)
+    zero_counts()
+    with kernels_only():
+        res = serve.main(["--arch", "llama3.2-1b", "--no-reduced",
+                          "--precision", "q8_0", "--kv-quant", "bf16",
+                          "--slots", "4", "--max-len", "1024",
+                          "--megastep-k", "8", "--requests", "8",
+                          "--max-new", "32", "--temperature", "0",
+                          "--prefill-chunk", "4", "--device", "cuda"])
+    torch.cuda.synchronize()
+    eng = res.engine
+    label = "main path, prefill chunk 4"
+    v0_counts["chunk 4"] = check_served(eng, res.requests, label,
+                                        res.warmup_stats,
+                                        res.launches_after_warmup)
+    want_refills = sum(-(-len(r.prompt) // 4) - 1 for r in res.requests)
+    check(eng.prefill_chunk == 4
+          and eng.stats.chunk_refills == want_refills > 0,
+          f"{label}: {eng.stats.chunk_refills} chunk refills, the prompts "
+          f"predict {want_refills}")
+    check(dict(eng.graph_launches) == main_graph_launches,
+          f"{label}: a capture enqueued {eng.graph_launches}, the main "
+          f"path's {main_graph_launches}")
+    for r in res.requests:
+        check(r.output == eng.model.reference_decode(
+            eng.params, r.prompt, r.max_new_tokens, max_len=1024),
+            f"{label}: request {r.uid} differs from reference_decode")
+    check([r.output for r in res.requests] == main_streams,
+          f"{label}: streams differ from the main path's (chunk 16)")
+    chunk_leg = dict(served_ms(eng), chunk_refills=eng.stats.chunk_refills,
+                     want_refills=want_refills)
+    prof, replay = profile_served(
+        eng, lambda: serve.make_requests(eng.cfg.vocab_size, 8, 32, seed=0))
+    check(prof["events_per_megastep"] == main_path["events_per_megastep"],
+          f"{label}: {prof['events_per_megastep']} CUDA events a megastep, "
+          f"the main path's {main_path['events_per_megastep']}")
+    check([r.output for r in replay] == main_streams,
+          f"{label}: the profiled replay served other tokens")
+    chunk_leg.update(prof, leg_s=time.perf_counter() - t_leg)
+    print(f"  {label}: {chunk_leg['chunk_refills']} chunk refills as the "
+          f"prompts predict; streams == reference_decode and the main "
+          f"path's; {chunk_leg['ms_per_step']:.3f} ms a step "
+          f"({chunk_leg['steps']} steps, {chunk_leg['megasteps']} "
+          f"megasteps; the main path {main_path['steps']} steps); "
+          f"{prof['events_per_megastep']} CUDA events a megastep as the "
+          f"main path's; {chunk_leg['leg_s']:.1f} s", flush=True)
+    del eng, res
+    torch.cuda.empty_cache()
+
+    t_leg = time.perf_counter()
+    print("V0 main path: llama3.2-1b at full width, scheduler_version v0 "
+          "(wq / wk / wv and w_gate / w_up apart, the standalone SwiGLU), "
+          "q8_0 weights, bf16 cache", flush=True)
+    cfg_v0 = get_config("llama3.2-1b", scheduler_version="v0",
+                        quant_policy="q8_0")
+    model_v0 = Model(cfg_v0, device=dev)
+    g_v = torch.Generator(device=dev)
+    g_v.manual_seed(0)
+    params_v0 = model_v0.init(g_v)
+    p0 = params_v0["layers"][0]
+    check(not cfg_v0.fuse_qkv and not cfg_v0.fuse_gate_up
+          and set(p0["attn"]) == {"wq", "wk", "wv", "wo"}
+          and set(p0["mlp"]) == {"w_gate", "w_up", "w_down"}
+          and isinstance(p0["mlp"]["w_up"]["w"], QuantizedTensor),
+          "V0: the params are not the unfused projections")
+    eng0, warm, after = warmed_engine(model_v0, params_v0,
+                                      quant_policy="q8_0")
+    reqs = serve.make_requests(cfg_v0.vocab_size, 8, 32, seed=0)
+    for r in reqs:
+        eng0.submit(r)
+    with kernels_only(quantized=False):
+        eng0.run()
+    torch.cuda.synchronize()
+    label = "V0 main path"
+    v0_counts["v0 main"] = check_served(eng0, reqs, label, warm, after)
+    for r in reqs:
+        check(r.output == model_v0.reference_decode(
+            params_v0, r.prompt, r.max_new_tokens, max_len=1024),
+            f"{label}: request {r.uid} differs from reference_decode")
+    v0_main = served_ms(eng0)
+    v0_main.update(step_vs_plain(eng0, label))
+    prof, replay = profile_served(
+        eng0, lambda: serve.make_requests(cfg_v0.vocab_size, 8, 32, seed=0))
+    check([r.output for r in replay] == [r.output for r in reqs],
+          f"{label}: the profiled replay served other tokens")
+    check(prof["copy_kernels_per_megastep"]
+          == main_path["copy_kernels_per_megastep"],
+          f"{label}: {prof['copy_kernels_per_megastep']} copy kernels a "
+          f"megastep, the fused main path's "
+          f"{main_path['copy_kernels_per_megastep']}")
+    v0_main.update(prof)
+    print(f"  {label}: streams == reference_decode (8 requests); "
+          f"{v0_main['ms_per_step']:.3f} ms a step; "
+          f"{prof['events_per_megastep']} CUDA events a megastep (fused "
+          f"{main_path['events_per_megastep']}), "
+          f"{prof['copy_kernels_per_megastep']:.0f} copy kernels a "
+          "megastep as the fused path's", flush=True)
+    # V0 and V1 served in turns on one card (V1: the main path's model and
+    # weights, as launch.serve draws them)
+    model_v1 = Model(get_config("llama3.2-1b", quant_policy="q8_0"),
+                     device=dev)
+    g_v.manual_seed(0)
+    eng1 = warmed_engine(model_v1, model_v1.init(g_v),
+                         quant_policy="q8_0")[0]
+
+    def turn(e):
+        e.reset()
+        for r in serve.make_requests(cfg_v0.vocab_size, 8, 32, seed=0):
+            e.submit(r)
+        e.run()
+        torch.cuda.synchronize()
+        return served_ms(e)["ms_per_step"]
+    turns = [(w, turn(eng1 if w == "v1" else eng0))
+             for w in ("v1", "v0", "v0", "v1", "v1", "v0", "v0", "v1")]
+    v0_runs = [ms for w, ms in turns if w == "v0"]
+    v1_runs = [ms for w, ms in turns if w == "v1"]
+    v0_main.update(turns=turns, v0_median_ms=float(np.median(v0_runs)),
+                   v1_median_ms=float(np.median(v1_runs)))
+    print(f"  V0 / V1 ms a step in turns (v1 v0 v0 v1 v1 v0 v0 v1): "
+          + ", ".join(f"{w} {ms:.3f}" for w, ms in turns)
+          + f"; medians V0 {v0_main['v0_median_ms']:.3f}, V1 "
+          f"{v0_main['v1_median_ms']:.3f}, V1 / V0 tok/s "
+          f"{v0_main['v0_median_ms'] / v0_main['v1_median_ms']:.3f}",
+          flush=True)
+    del eng1, model_v1
+    # V0 under stall admission: one 4 x 512 prefill (the unfused
+    # projections at M 2048)
+    eng0s, warm, after = warmed_engine(model_v0, params_v0,
+                                       quant_policy="q8_0",
+                                       admission="stall")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg_v0.vocab_size, n).astype(np.int32)
+               for n in PREFILL_PROMPTS[:4]]
+    reqs = [Request(uid=i, prompt=p_, max_new_tokens=8)
+            for i, p_ in enumerate(prompts)]
+    for r in reqs:
+        eng0s.submit(r)
+    with kernels_only(quantized=False):
+        eng0s.run()
+    torch.cuda.synchronize()
+    label = "V0 stall leg (4 x 512)"
+    v0_counts["v0 stall"] = check_served(eng0s, reqs, label, warm, after)
+    check(eng0s.stats.prefill_batches == 1, f"{label}: "
+          f"{eng0s.stats.prefill_batches} prefill calls, not one bucket")
+    for r in (reqs[0], reqs[3]):
+        check(r.output == model_v0.reference_decode(
+            params_v0, r.prompt, 8, max_len=1024, stepwise_prefill=False),
+            f"{label}: request {r.uid} differs from "
+            "reference_decode(stepwise_prefill=False)")
+    v0_main["stall"] = prefill_vs_plain(eng0s, list(PREFILL_PROMPTS[:4]),
+                                        label, seeds=1)
+    v0_main["legs_s"] = time.perf_counter() - t_leg
+    print(f"  {label}: one prefill call, streams == reference_decode("
+          f"stepwise_prefill=False) (requests 0, 3); the V0 legs took "
+          f"{v0_main['legs_s']:.1f} s", flush=True)
+    del eng0, eng0s, model_v0, params_v0, p0
     torch.cuda.empty_cache()
 
     def serving_under_load():
@@ -5179,7 +5625,47 @@ def main() -> None:
     torch.cuda.synchronize()
     counts["plain"] = check_served(eng, reqs, label, warm, after_warm)
     step_checks["plain"] = step_vs_plain(eng, label)
+    plain_prof = profile_served(
+        eng, lambda: serve.make_requests(cfg4.vocab_size, 6, 16, seed=1))[0]
+    step_checks["plain"].update(plain_prof)
     del eng
+
+    # the same 4 layers under V0, the weights cut by columns from the
+    # plain leg's: cuBLAS writes q, k and v (and g and u) into one row
+    # through torch.mm(out=); the profile holds no copy kernel more than
+    # the fused leg's
+    label = ("V0 plain-weight leg (4 layers, bf16 weights, wq / wk / wv "
+             "and w_gate / w_up apart)")
+    model4_v0 = Model(dataclasses.replace(cfg4, scheduler_version="v0"),
+                      device=dev)
+    params4_v0 = as_v0(params4, cfg4)
+    eng, warm, after_warm = warmed_engine(model4_v0, params4_v0)
+    reqs = serve.make_requests(cfg4.vocab_size, 6, 16, seed=1)
+    for r in reqs:
+        eng.submit(r)
+    with kernels_only(quantized=False):
+        eng.run()
+    torch.cuda.synchronize()
+    v0_counts["v0 plain"] = check_served(eng, reqs, label, warm, after_warm)
+    for r in reqs:
+        check(r.output == model4_v0.reference_decode(
+            params4_v0, r.prompt, r.max_new_tokens, max_len=1024),
+            f"{label}: request {r.uid} differs from reference_decode")
+    step_checks["v0 plain"] = step_vs_plain(eng, label)
+    prof = profile_served(
+        eng, lambda: serve.make_requests(cfg4.vocab_size, 6, 16, seed=1))[0]
+    check(prof["copy_kernels_per_megastep"]
+          == plain_prof["copy_kernels_per_megastep"],
+          f"{label}: {prof['copy_kernels_per_megastep']} copy kernels a "
+          f"megastep, the fused leg's "
+          f"{plain_prof['copy_kernels_per_megastep']}")
+    step_checks["v0 plain"].update(prof)
+    print(f"  {label}: streams == reference_decode; "
+          f"{prof['events_per_megastep']} CUDA events a megastep (fused "
+          f"{plain_prof['events_per_megastep']}), "
+          f"{prof['copy_kernels_per_megastep']:.0f} copy kernels a megastep"
+          " as the fused leg's", flush=True)
+    del eng, model4_v0, params4_v0
 
     # the stochastic leg: sampled requests beside greedy ones, through
     # the sampling graph
@@ -5467,10 +5953,229 @@ def main() -> None:
                   f"{c['slots4']['tok_s']:8.1f} / {c['slots1']['tok_s']:7.1f}"
                   f" tok/s  floor {c['floor_ms']:.3f} ms", flush=True)
 
+    # -- 13. the assigned dense models at full width and depth --------------
+    dense_counts = {}  # launches on these paths, into ``counts`` below
+
+    def float_tree_bytes(model):
+        """(bf16 bytes of the whole float tree, elements of its largest
+        matrix) from the model's parameter specs."""
+        total, largest = 0, 0
+
+        def walk(node):
+            nonlocal total, largest
+            if isinstance(node, dict):
+                for v in node.values():
+                    walk(v)
+            elif isinstance(node, list):
+                for v in node:
+                    walk(v)
+            else:
+                n = math.prod(node.shape)
+                total += 2 * n
+                if len(node.shape) >= 2:
+                    largest = max(largest, n)
+        walk(model.param_specs())
+        return total, largest
+
+    @contextlib.contextmanager
+    def init_peak(record):
+        """``Model.init`` records the card's peak allocation over the
+        memory allocated before it: the quantized tree, one matrix's f32
+        draw and bf16 copy, and one 4096-column block's quantization
+        temporaries at most, never the float tree."""
+        real = Model.init
+
+        def init(self, *a, **kw):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            params = real(self, *a, **kw)
+            torch.cuda.synchronize()
+            tree, largest = float_tree_bytes(self)
+            record.update(peak_bytes=torch.cuda.max_memory_allocated() - base,
+                          params_bytes=serve._nbytes(params),
+                          float_tree_bytes=tree, largest_matrix=largest)
+            return params
+        Model.init = init
+        try:
+            yield
+        finally:
+            Model.init = real
+
+    def dense_cell(name, fmt, base_alloc):
+        """The model at full width and depth under ``fmt`` weights and a
+        bf16 cache: served by ``launch.serve`` through the main path's
+        traffic on 4 slots (launch counts, every stream against
+        ``reference_decode``, ms a step beside the CLI's floor, the init's
+        peak), then its first request alone on a 1-slot engine (one decode
+        step from its cache against the plain versions beside the planted
+        fault) and,
+        in the model's stall format, one 512-token prompt under stall
+        admission (a 1 x 512 prefill against the plain versions beside the
+        planted lookahead fault); all its memory freed before the next."""
+        t0 = time.perf_counter()
+        rec = {}
+        zero_counts()
+        with init_peak(rec), kernels_only(quantized=fmt != "bf16"):
+            res = serve.main([
+                "--arch", name, "--no-reduced", "--precision", fmt,
+                "--kv-quant", "bf16", "--slots", "4", "--max-len", "1024",
+                "--megastep-k", "8", "--requests", "8", "--max-new", "32",
+                "--temperature", "0", "--device", "cuda"])
+        torch.cuda.synchronize()
+        eng = res.engine
+        label = f"{name} ({fmt} weights, 4 slots)"
+        dense_counts[f"dense {name} {fmt}"] = check_served(
+            eng, res.requests, label, res.warmup_stats,
+            res.launches_after_warmup)
+        for r in res.requests:
+            check(r.output == eng.model.reference_decode(
+                eng.params, r.prompt, r.max_new_tokens, max_len=1024),
+                f"{label}: request {r.uid} stream differs from "
+                "reference_decode")
+        # the init: the quantized tree plus one matrix's draw (f32 and
+        # bf16, 6 bytes an element) and one column block's temporaries
+        # (2^25 elements), never the float tree
+        slack = 6 * rec["largest_matrix"] + 2 ** 30
+        check(rec["peak_bytes"] <= rec["params_bytes"] + slack,
+              f"{label}: Model.init peaked at {rec['peak_bytes']} bytes, "
+              f"over the tree's {rec['params_bytes']} + one matrix's draw")
+        check(fmt == "bf16" or rec["peak_bytes"] < rec["float_tree_bytes"],
+              f"{label}: Model.init peaked at {rec['peak_bytes']} bytes, "
+              f"the float tree's {rec['float_tree_bytes']}")
+        cell = dict(slots4=served_ms(eng), floor_ms=res.floor["ms"],
+                    weight_bytes=res.floor["bytes"], init=rec,
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        cell["x_floor"] = cell["slots4"]["ms_per_step"] / cell["floor_ms"]
+        model, params, first = eng.model, eng.params, res.requests[0]
+        del eng, res
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the paper's single user: the first request alone on one slot
+        eng, warm, after = warmed_engine(model, params, slots=1,
+                                         quant_policy=fmt)
+        req = Request(uid=0, prompt=first.prompt, max_new_tokens=32)
+        eng.submit(req)
+        with kernels_only(quantized=fmt != "bf16"):
+            eng.run()
+        torch.cuda.synchronize()
+        label1 = f"{name} ({fmt} weights, 1 slot)"
+        dense_counts[f"dense {name} {fmt} alone"] = check_served(
+            eng, [req], label1, warm, after)
+        check(req.output == first.output, f"{label1}: the stream differs "
+              "from the same request's among 4 slots (== reference_decode)")
+        cell["slots1"] = served_ms(eng)
+        # the decode step against the plain versions from this engine's
+        # one-slot cache: at deepseek-67b's 72.4 GB of q8_0 weights the
+        # plain versions' f32 copy of a matrix (3.4 GB for its head) and
+        # a 4-slot cache with its clone (3.2 GB) do not fit beside them
+        gc.collect()
+        torch.cuda.empty_cache()
+        cell["step_check_allocated_gb"] = torch.cuda.memory_allocated() / 1e9
+        cell.update(step_vs_plain(eng, label1, seeds=1))
+        del eng
+        if fmt == DENSE_STALL[name]:
+            eng, warm, after = warmed_engine(model, params, slots=1,
+                                             quant_policy=fmt,
+                                             admission="stall")
+            rng = np.random.default_rng(13)
+            req = Request(uid=0, prompt=rng.integers(
+                1, model.cfg.vocab_size, 512).astype(np.int32),
+                max_new_tokens=8)
+            eng.submit(req)
+            with kernels_only(quantized=fmt != "bf16"):
+                eng.run()
+            torch.cuda.synchronize()
+            label_s = f"{name} ({fmt} weights, stall admission, 1 x 512)"
+            dense_counts[f"dense {name} stall"] = check_served(
+                eng, [req], label_s, warm, after)
+            check(eng.stats.prefill_batches == 1, f"{label_s}: "
+                  f"{eng.stats.prefill_batches} prefill calls")
+            check(req.output == model.reference_decode(
+                params, req.prompt, 8, max_len=1024, stepwise_prefill=False),
+                f"{label_s}: the stream differs from reference_decode("
+                "stepwise_prefill=False)")
+            cell["stall"] = prefill_vs_plain(eng, [512], label_s, seeds=1)
+            del eng
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() - base_alloc
+        check(left < 2 ** 28, f"{name} {fmt}: {left} bytes still allocated "
+              "after the cell")
+        cell["cell_s"] = time.perf_counter() - t0
+        s4, s1, ini = cell["slots4"], cell["slots1"], cell["init"]
+        print(f"  {name} {fmt}: {s4['ms_per_step']:.3f} ms a step, "
+              f"{s4['tok_s']:.1f} tok/s at 4 slots ({cell['x_floor']:.2f}x "
+              f"the floor {cell['floor_ms']:.3f} ms, "
+              f"{cell['weight_bytes'] / 1e9:.3f} GB); "
+              f"{s1['ms_per_step']:.3f} ms a step, {s1['tok_s']:.1f} tok/s "
+              f"alone; init peak {ini['peak_bytes'] / 1e9:.3f} GB for a "
+              f"{ini['params_bytes'] / 1e9:.3f} GB tree (the float tree "
+              f"{ini['float_tree_bytes'] / 1e9:.3f} GB); streams == "
+              f"reference_decode; {cell['cell_s']:.1f} s", flush=True)
+        return cell
+
+    def dense_quant_cache_leg(kvq):
+        """deepseek-67b's (128, 8) decode attention over a quantized
+        cache: its first 4 layers at full width, q4_0 weights, through
+        ``launch.serve --num-layers 4 --kv-quant``."""
+        zero_counts()
+        with kernels_only():
+            res = serve.main([
+                "--arch", "deepseek-67b", "--no-reduced", "--num-layers", "4",
+                "--precision", "q4_0", "--kv-quant", kvq, "--slots", "4",
+                "--max-len", "1024", "--megastep-k", "8", "--requests", "8",
+                "--max-new", "16", "--temperature", "0", "--device", "cuda"])
+        torch.cuda.synchronize()
+        eng = res.engine
+        label = f"deepseek-67b (4 layers, q4_0 weights, {kvq} cache)"
+        dense_counts[f"dense deepseek-67b 4 layers {kvq} cache"] = \
+            check_served(eng, res.requests, label, res.warmup_stats,
+                         res.launches_after_warmup)
+        for r in res.requests:
+            check(r.output == eng.model.reference_decode(
+                eng.params, r.prompt, r.max_new_tokens, max_len=1024),
+                f"{label}: request {r.uid} differs from reference_decode")
+        out = step_vs_plain(eng, label, seeds=1)
+        print(f"  {label}: streams == reference_decode", flush=True)
+        del eng, res
+        torch.cuda.empty_cache()
+        return out
+
+    t_phase = time.perf_counter()
+    print("assigned dense models: mistral-nemo-12b, deepseek-67b and "
+          "qwen1.5-110b at full width and depth, each weight quantized as "
+          "it is drawn", flush=True)
+    gc_base = torch.cuda.memory_allocated()
+    dense = {}
+    for name, fmts in DENSE_CELLS:
+        for fmt in fmts:
+            dense[f"{name} {fmt}"] = dense_cell(name, fmt, gc_base)
+    for kvq in ("q8_0", "q4_0"):
+        dense[f"deepseek-67b 4 layers {kvq} cache"] = \
+            dense_quant_cache_leg(kvq)
+    dense["phase_s"] = time.perf_counter() - t_phase
+    print("the assigned dense models on the H100 (ms a step at 4 slots / "
+          "alone, tok/s at 4 slots, x the weight-streaming floor, init peak "
+          "GB / tree GB):", flush=True)
+    for name, fmts in DENSE_CELLS:
+        for fmt in fmts:
+            c = dense[f"{name} {fmt}"]
+            print(f"  {name:16s} {fmt:5s} {c['slots4']['ms_per_step']:7.3f} "
+                  f"/ {c['slots1']['ms_per_step']:7.3f} ms  "
+                  f"{c['slots4']['tok_s']:8.1f} tok/s  floor "
+                  f"{c['floor_ms']:.3f} ms ({c['x_floor']:.2f}x)  init "
+                  f"{c['init']['peak_bytes'] / 1e9:.2f} / "
+                  f"{c['init']['params_bytes'] / 1e9:.2f} GB", flush=True)
+    print(f"assigned dense phase: {dense['phase_s']:.1f} s (its kernel cases "
+          f"took {dense_cases_s:.1f} s in phase 3)", flush=True)
 
     # -- 11. the kernel line --------------------------------------------------
     counts.update(moe_counts)
     counts.update(ssm_counts)
+    counts.update(v0_counts)
+    counts.update(dense_counts)
     for row in rows.values():
         kernel = row["name"].split("[")[0]
         path = row.pop("path")
@@ -5481,6 +6186,8 @@ def main() -> None:
                       "paged_path": paged_path, "under_load": load,
                       "second_path_step_checks": step_checks,
                       "paper_models": paper, "moe": moe, "ssm": ssm,
+                      "prefill_chunk_4": chunk_leg, "v0": v0_main,
+                      "dense_models": dense,
                       "unembed_rows_equal_across_m": unembed_rows_equal,
                       "decode_attention_two_streams":
                           attention_stream_readings}))

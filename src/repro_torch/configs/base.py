@@ -13,6 +13,15 @@ the SSM family (``ssm_state`` N, ``ssm_expand``, ``ssm_head_dim`` P,
 ``ssm_chunk``, ``ssm_conv``; ``num_heads`` 0: no attention). The other
 families of the JAX package (hybrid, audio, vlm) are refused until they
 are ported.
+
+The paper's execution version (``scheduler_version``, the JAX
+``configs/base.py:29-33``) and the fusion flags it drives: "v0" is the
+paper's serial, unfused baseline and forces ``fuse_qkv`` and
+``fuse_gate_up`` False (separate ``wq`` / ``wk`` / ``wv`` and ``w_gate``
+/ ``w_up`` projections); any other version leaves the flags as given
+(fused by default). On one card v1, v2 and v3 build the same fused
+model, as they do in the JAX package on one device: what v2 and v3 add
+is tensor-parallel sharding rules, which the port does not have yet.
 Execution
 knobs that the port does not have (a kernel-backend switch, scan
 unrolling, remat, sharding) are left out: on a CUDA tensor the
@@ -24,6 +33,9 @@ import dataclasses
 
 ARCH_TYPES = ("dense", "moe", "ssm")
 WEIGHT_FORMATS = ("bf16", "q8_0", "q4_0")
+# the paper's execution versions: v0 serial and unfused, v1 graph-level
+# fusion (fused QKV and gate-up), v2 / v3 v1 with tensor parallelism
+SCHEDULER_VERSIONS = ("v0", "v1", "v2", "v3")
 PARAM_DTYPES = ("bf16", "f32")
 
 
@@ -62,6 +74,9 @@ class ModelConfig:
     ssm_chunk: int = 256           # SSD chunk length (the plain scan's)
     ssm_conv: int = 4              # short conv width
 
+    scheduler_version: str = "v2"  # one of SCHEDULER_VERSIONS
+    fuse_qkv: bool = True          # forced False by scheduler_version v0
+    fuse_gate_up: bool = True
     quant_policy: str = "bf16"     # weight format: bf16|q8_0|q4_0
     quant_group: int = 32          # group size along the reduction dim
     kv_quant: str = "bf16"         # cache format: bf16|q8_0|q4_0
@@ -71,9 +86,16 @@ class ModelConfig:
         if self.arch_type not in ARCH_TYPES:
             raise ValueError(f"arch_type {self.arch_type!r} is not ported; "
                              f"the port serves {ARCH_TYPES}")
+        if self.scheduler_version not in SCHEDULER_VERSIONS:
+            raise ValueError(f"scheduler_version must be one of "
+                             f"{SCHEDULER_VERSIONS}, got "
+                             f"{self.scheduler_version!r}")
         if self.head_dim == 0 and self.num_heads:
             object.__setattr__(self, "head_dim",
                                self.d_model // self.num_heads)
+        if self.scheduler_version == "v0":
+            object.__setattr__(self, "fuse_qkv", False)
+            object.__setattr__(self, "fuse_gate_up", False)
         if self.num_heads % max(self.num_kv_heads, 1):
             raise ValueError(f"num_kv_heads {self.num_kv_heads} must "
                              f"divide num_heads {self.num_heads}")

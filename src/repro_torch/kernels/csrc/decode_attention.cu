@@ -502,12 +502,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* ks,
 
 // The (head_dim, query heads per kv head) pairs of the configs the port
 // serves: llama3.2-1b (64, 4), qwen2-0.5b (64, 7), qwen2-1.5b (128, 6),
-// llama3.2-3b (128, 3), llama3.1-8b and mistral-7b (128, 4), deepseek-7b
-// (128, 1), and the reduced smoke versions (32, 2). A config with another
-// pair adds it here. Nothing in the kernel asks G to be a power of two:
-// the loops over the G * D query elements and the G query rows stride by
-// the CTA's threads and warps and test their bounds, and the shared
-// memory's carve rounds the 3 * G softmax state to 16 bytes.
+// llama3.2-3b (128, 3), llama3.1-8b, mistral-7b and mistral-nemo-12b
+// (128, 4), deepseek-7b (128, 1), deepseek-67b and qwen1.5-110b (128, 8;
+// kimi-k2's attention too), and the reduced smoke versions (32, 2). A
+// config with another pair adds it here. Nothing in the kernel asks G to
+// be a power of two: the loops over the G * D query elements and the G
+// query rows stride by the CTA's threads and warps and test their bounds,
+// and the shared memory's carve rounds the 3 * G softmax state to 16
+// bytes.
 template <int LOADER>
 int dispatch(int D, int G, const void* q, const void* k, const void* v,
              const void* ks, const void* vs, const int* kv_len, void* out, float* part,
@@ -527,6 +529,8 @@ int dispatch(int D, int G, const void* q, const void* k, const void* v,
     return launch<LOADER, 128, 3>(q, k, v, ks, vs, kv_len, out, part, tk, tb, mp, P, B, Hkv, S, ng, window, split, scale, st);
   if (D == 128 && G == 4)
     return launch<LOADER, 128, 4>(q, k, v, ks, vs, kv_len, out, part, tk, tb, mp, P, B, Hkv, S, ng, window, split, scale, st);
+  if (D == 128 && G == 8)
+    return launch<LOADER, 128, 8>(q, k, v, ks, vs, kv_len, out, part, tk, tb, mp, P, B, Hkv, S, ng, window, split, scale, st);
   return kNotInstantiated;
 }
 

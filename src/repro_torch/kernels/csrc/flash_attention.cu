@@ -698,12 +698,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
 // most 1024) and ctas (the persistent grid: at most one CTA per SM). The
 // (D, G) pairs are those of the configs the port serves: llama3.2-1b
 // (64, 4), qwen2-0.5b (64, 7), qwen2-1.5b (128, 6), llama3.2-3b (128, 3),
-// llama3.1-8b and mistral-7b (128, 4), deepseek-7b (128, 1), and the
-// reduced smoke versions (32, 2); a config with another pair adds it
-// here, with block_k 128 at D <= 64 and 64 at D 128 (the tile sizes of
-// kernels/flash_attention.py::block_k). G enters only the work item's kv
-// head (query head / G), so any G serves. Returns the launch's cudaError_t (0 on success), or -1 when no
-// kernel is instantiated for (D, G, block_q, block_k).
+// llama3.1-8b, mistral-7b and mistral-nemo-12b (128, 4), deepseek-7b
+// (128, 1), deepseek-67b and qwen1.5-110b (128, 8; kimi-k2's attention
+// too), and the reduced smoke versions (32, 2); a config with another
+// pair adds it here, with block_k 128 at D <= 64 and 64 at D 128 (the
+// tile sizes of kernels/flash_attention.py::block_k). G enters only the
+// work item's kv head (query head / G), so any G serves. Returns the
+// launch's cudaError_t (0 on success), or -1 when no kernel is
+// instantiated for (D, G, block_q, block_k).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out, int B,
                                int Hkv, int G, int Sq, int Skv, int D, int causal, int window,
                                int q_offset, float scale, int block_q, int block_k,
@@ -725,6 +727,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
   FA_CASE(128, 6, 64)
   FA_CASE(128, 3, 64)
   FA_CASE(128, 4, 64)
+  FA_CASE(128, 8, 64)
 #undef FA_CASE
   return kNotInstantiated;
 }

@@ -77,6 +77,12 @@
 // chunks each reads the other's running sums through distributed shared
 // memory and stores one of the two column pairs of every thread's four
 // columns of h. gu never reaches device memory.
+//
+// quant_matmul's out may be a column range of a wider row: row m of the
+// result starts ldc >= N elements after row m - 1 (the unfused V0
+// projections write q, k and v, or g and u, into one row this way). Only
+// the stores move; the sums, and so the bits, are those of a contiguous
+// out, and the columns past N of each row are never written.
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the driver at run time
 #include <cuda_bf16.h>
@@ -294,12 +300,13 @@ __device__ __forceinline__ float silu_mul(float g, float u) {
 // cta_chunks), each of k_per_split rows; with gridDim.y > 1 it holds one
 // chunk and writes it to partial. SWIGLU: the CTA is one rank of a
 // two-CTA cluster (quant_matmul_swiglu_kernel) and out is h (M, N / 2).
+// out's rows are ldc elements apart (ldc >= N; N / 2 for h).
 template <int FMT, int MT, bool VEC, bool SWIGLU>
 __device__ __forceinline__ void qmm_cta(const Maps& maps, const bf16* __restrict__ x,
                                         const int8_t* __restrict__ w,
                                         const bf16* __restrict__ scales,
                                         void* __restrict__ out, float* __restrict__ partial,
-                                        int out_f32, int M, int K, int N, int group,
+                                        int out_f32, int M, int K, int N, int ldc, int group,
                                         int k_per_split, int cta_chunks, int n0) {
   using T = Tile<FMT, MT>;
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -505,7 +512,7 @@ __device__ __forceinline__ void qmm_cta(const Maps& maps, const bf16* __restrict
             if (n + c < N) dst[c] = v[c];
         }
       } else if (out_f32) {
-        float* dst = static_cast<float*>(out) + (size_t)m * N + n;
+        float* dst = static_cast<float*>(out) + (size_t)m * ldc + n;
         if (VEC && n < N) {
           *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
         } else {
@@ -514,7 +521,7 @@ __device__ __forceinline__ void qmm_cta(const Maps& maps, const bf16* __restrict
             if (n + c < N) dst[c] = v[c];
         }
       } else {
-        bf16* dst = static_cast<bf16*>(out) + (size_t)m * N + n;
+        bf16* dst = static_cast<bf16*>(out) + (size_t)m * ldc + n;
         if (VEC && n < N) {
           const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
           const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
@@ -537,8 +544,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 quant_matmul_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ x,
                     const int8_t* __restrict__ w, const bf16* __restrict__ scales,
                     void* __restrict__ out, float* __restrict__ partial, int out_f32,
-                    int M, int K, int N, int group, int k_per_split, int cta_chunks) {
-  qmm_cta<FMT, MT, VEC, false>(maps, x, w, scales, out, partial, out_f32, M, K, N, group,
+                    int M, int K, int N, int ldc, int group, int k_per_split,
+                    int cta_chunks) {
+  qmm_cta<FMT, MT, VEC, false>(maps, x, w, scales, out, partial, out_f32, M, K, N, ldc, group,
                                k_per_split, cta_chunks, blockIdx.z * Tile<FMT, MT>::kBN);
 }
 
@@ -550,9 +558,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 quant_matmul_swiglu_split_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ x,
                                  const int8_t* __restrict__ w, const bf16* __restrict__ scales,
                                  void* __restrict__ out, float* __restrict__ partial,
-                                 int out_f32, int M, int K, int N, int group, int k_per_split,
-                                 int cta_chunks) {
-  qmm_cta<FMT, MT, VEC, false>(maps, x, w, scales, out, partial, out_f32, M, K, N, group,
+                                 int out_f32, int M, int K, int N, int ldc, int group,
+                                 int k_per_split, int cta_chunks) {
+  qmm_cta<FMT, MT, VEC, false>(maps, x, w, scales, out, partial, out_f32, M, K, N, ldc, group,
                                k_per_split, cta_chunks, blockIdx.z * Tile<FMT, MT>::kBN);
 }
 
@@ -568,8 +576,8 @@ quant_matmul_swiglu_kernel(const __grid_constant__ Maps maps, const bf16* __rest
                            bf16* __restrict__ h, int M, int K, int N, int group,
                            int k_per_split, int cta_chunks) {
   const int n0 = (blockIdx.z & 1) * (N / 2) + (blockIdx.z >> 1) * Tile<FMT, MT>::kBN;
-  qmm_cta<FMT, MT, VEC, true>(maps, x, w, scales, h, nullptr, 0, M, K, N, group, k_per_split,
-                              cta_chunks, n0);
+  qmm_cta<FMT, MT, VEC, true>(maps, x, w, scales, h, nullptr, 0, M, K, N, N / 2, group,
+                              k_per_split, cta_chunks, n0);
 }
 
 __device__ __forceinline__ void store(void* out, size_t i, float v, int out_f32) {
@@ -577,14 +585,16 @@ __device__ __forceinline__ void store(void* out, size_t i, float v, int out_f32)
   else static_cast<bf16*>(out)[i] = __float2bfloat16(v);
 }
 
+// out[m, n] (rows ldc apart) = the split sums of element i = m * N + n
 __global__ void sum_splits_kernel(const float* __restrict__ partial,
                                   void* __restrict__ out, int out_f32, int splits,
-                                  int MN) {
+                                  int N, int ldc, int MN) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= MN) return;
   float s = 0.f;
   for (int p = 0; p < splits; ++p) s += partial[(size_t)p * MN + i];
-  store(out, i, s, out_f32);
+  const int m = i / N;
+  store(out, (size_t)m * ldc + (i - m * N), s, out_f32);
 }
 
 // h[m, j] = swiglu of the split sums of gu[m, j] and gu[m, F + j], each
@@ -691,8 +701,8 @@ bool make_maps(Maps* maps, const void* x, const void* w, const void* scales, int
 // those of quant_matmul_swiglu)
 template <int FMT, int MT, bool VEC, bool GATE_UP>
 cudaError_t launch_gemm(const void* x, const void* w, const void* scales, void* out,
-                        float* partial, int out_f32, int M, int K, int N, int group,
-                        Plan plan, cudaStream_t st) {
+                        float* partial, int out_f32, int M, int K, int N, int ldc,
+                        int group, Plan plan, cudaStream_t st) {
   using T = Tile<FMT, MT>;
   auto kernel = GATE_UP ? quant_matmul_swiglu_split_kernel<FMT, MT, VEC>
                         : quant_matmul_kernel<FMT, MT, VEC>;
@@ -709,21 +719,21 @@ cudaError_t launch_gemm(const void* x, const void* w, const void* scales, void* 
   dim3 grid(ceil_div(M, MT), plan.ctas, ceil_div(N, T::kBN));
   kernel<<<grid, kThreads, T::kSmem, st>>>(
       maps, static_cast<const bf16*>(x), static_cast<const int8_t*>(w),
-      static_cast<const bf16*>(scales), out, partial, out_f32, M, K, N, group,
+      static_cast<const bf16*>(scales), out, partial, out_f32, M, K, N, ldc, group,
       plan.k_per_split, plan.chunks / plan.ctas);
   return cudaGetLastError();
 }
 
 template <int FMT, int MT, bool VEC>
 cudaError_t launch(const void* x, const void* w, const void* scales, void* out,
-                   float* partial, int out_f32, int M, int K, int N, int group,
+                   float* partial, int out_f32, int M, int K, int N, int ldc, int group,
                    Plan plan, cudaStream_t st) {
   cudaError_t err = launch_gemm<FMT, MT, VEC, false>(x, w, scales, out, partial, out_f32, M,
-                                                     K, N, group, plan, st);
+                                                     K, N, ldc, group, plan, st);
   if (err != cudaSuccess || plan.ctas == 1) return err;
   const int MN = M * N;
   sum_splits_kernel<<<ceil_div(MN, 256), 256, 0, st>>>(partial, out, out_f32,
-                                                       plan.ctas, MN);
+                                                       plan.ctas, N, ldc, MN);
   return cudaGetLastError();
 }
 
@@ -737,7 +747,7 @@ cudaError_t launch_swiglu(const void* x, const void* w, const void* scales, bf16
   const int N = 2 * F;
   if (plan.ctas > 1) {
     cudaError_t err = launch_gemm<FMT, MT, VEC, true>(x, w, scales, nullptr, partial, 0, M, K,
-                                                      N, group, plan, st);
+                                                      N, N, group, plan, st);
     if (err != cudaSuccess) return err;
     sum_splits_swiglu_kernel<<<ceil_div(M * F, 256), 256, 0, st>>>(partial, h, plan.ctas,
                                                                    M, F);
@@ -774,11 +784,13 @@ cudaError_t launch_swiglu(const void* x, const void* w, const void* scales, bf16
 
 template <int FMT, bool VEC>
 cudaError_t dispatch_m(const void* x, const void* w, const void* scales, void* out,
-                       float* partial, int out_f32, int M, int K, int N, int group,
+                       float* partial, int out_f32, int M, int K, int N, int ldc, int group,
                        Plan plan, cudaStream_t st) {
   if (m_tile(M) == 8)
-    return launch<FMT, 8, VEC>(x, w, scales, out, partial, out_f32, M, K, N, group, plan, st);
-  return launch<FMT, kBigMT, VEC>(x, w, scales, out, partial, out_f32, M, K, N, group, plan, st);
+    return launch<FMT, 8, VEC>(x, w, scales, out, partial, out_f32, M, K, N, ldc, group, plan,
+                               st);
+  return launch<FMT, kBigMT, VEC>(x, w, scales, out, partial, out_f32, M, K, N, ldc, group,
+                                  plan, st);
 }
 
 template <int FMT, bool VEC>
@@ -816,14 +828,18 @@ extern "C" int quant_matmul_grid(int M, int K, int N, int group, int* grid) {
 }
 
 // fmt: 0 = q8_0, 1 = q4_0. x (M, K) bf16; w int8 (K, N) / (K/2, N); scales
-// (K/group, N) bf16; out (M, N) bf16 or f32 (out_f32); partial: f32
-// scratch of partial_elems >= quant_matmul_workspace(M, K, N, group).
-// Returns the first failing launch's cudaError_t (0 on success).
+// (K/group, N) bf16; out (M, N) bf16 or f32 (out_f32), its rows ldc >= N
+// elements apart (with N % 16 == 0, whose stores are 4 columns wide, ldc a
+// multiple of 4 and out 16-byte aligned); partial: f32 scratch of
+// partial_elems >= quant_matmul_workspace(M, K, N, group). Returns the
+// first failing launch's cudaError_t (0 on success).
 extern "C" int quant_matmul(int fmt, const void* x, const void* w,
                             const void* scales, void* out, void* partial,
                             int partial_elems, int out_f32, int M, int K, int N,
-                            int group, void* stream) {
-  if (!takes_group(K, group)) return cudaErrorInvalidValue;
+                            int ldc, int group, void* stream) {
+  if (!takes_group(K, group) || ldc < N ||
+      (N % 16 == 0 && (ldc % 4 || reinterpret_cast<uintptr_t>(out) % 16)))
+    return cudaErrorInvalidValue;
   const Plan plan = split_plan(M, K, N, group);
   if (plan.ctas > 1 && partial_elems < plan.ctas * M * N) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -831,12 +847,16 @@ extern "C" int quant_matmul(int fmt, const void* x, const void* w,
   // 16-byte payload and scale copies need N % 16 == 0 (rows stay aligned)
   const bool vec = N % 16 == 0;
   if (fmt == kQ8) {
-    return vec ? dispatch_m<kQ8, true>(x, w, scales, out, part, out_f32, M, K, N, group, plan, st)
-               : dispatch_m<kQ8, false>(x, w, scales, out, part, out_f32, M, K, N, group, plan, st);
+    return vec ? dispatch_m<kQ8, true>(x, w, scales, out, part, out_f32, M, K, N, ldc, group, plan,
+                                       st)
+               : dispatch_m<kQ8, false>(x, w, scales, out, part, out_f32, M, K, N, ldc, group,
+                                        plan, st);
   }
   if (fmt == kQ4) {
-    return vec ? dispatch_m<kQ4, true>(x, w, scales, out, part, out_f32, M, K, N, group, plan, st)
-               : dispatch_m<kQ4, false>(x, w, scales, out, part, out_f32, M, K, N, group, plan, st);
+    return vec ? dispatch_m<kQ4, true>(x, w, scales, out, part, out_f32, M, K, N, ldc, group, plan,
+                                       st)
+               : dispatch_m<kQ4, false>(x, w, scales, out, part, out_f32, M, K, N, ldc, group,
+                                        plan, st);
   }
   return cudaErrorInvalidValue;
 }

@@ -8,7 +8,11 @@ products (the counterpart of the JAX package's ``kernels/ops.py``).
   to ``out_dtype``. The tied unembedding asks for f32 logits: on the
   card ``torch.mm(..., out_dtype=torch.float32)``, on the CPU an f32
   product of the bf16 values (rounding the logits to bf16 would flip
-  greedy tokens against the JAX package).
+  greedy tokens against the JAX package). ``out=`` writes the (M, N)
+  product into a view of a wider row (the unfused V0 projections, side
+  by side in one buffer): ``quant_matmul(out=)``, or on the card
+  ``torch.mm(out=)``, which hands cuBLAS the view's row pitch as its
+  leading dimension.
 - ``attention``: prefill attention in the (B, H, S, D) layout, the
   ``flash_attention`` kernel's wrapper. There is no ``use_pallas``
   switch and no tile picking: the kernel takes every Sq and Skv.
@@ -55,7 +59,8 @@ from repro_torch.kernels.fused_ops import (add_rmsnorm, rmsnorm,
                                            rope_cache_write_prefill, swiglu)
 from repro_torch.kernels.moe import (moe_combine, moe_down, moe_down_combine,
                                      moe_gate_up_swiglu, moe_route)
-from repro_torch.kernels.quant_matmul import quant_matmul, quant_matmul_swiglu
+from repro_torch.kernels.quant_matmul import (check_out, quant_matmul,
+                                              quant_matmul_swiglu)
 from repro_torch.kernels.ssm import (gated_rmsnorm, ssd_prefill, ssm_conv,
                                      ssm_decode_step)
 from repro_torch.quant.quantize import QuantizedTensor
@@ -74,20 +79,38 @@ __all__ = ["matmul", "attention", "decode_attention",
            "rope_cache_write", "rope_cache_write_prefill", "moe_route",
            "moe_gate_up_swiglu", "moe_down", "moe_combine",
            "moe_down_combine", "ssm_conv", "ssm_decode_step", "ssd_prefill",
-           "gated_rmsnorm", "KERNELS", "launch_counts"]
+           "gated_rmsnorm", "KERNELS", "launch_counts", "out_width"]
 
 
 def launch_counts() -> Dict[str, int]:
     return {k.__name__: k.launches for k in KERNELS}
 
 
+def out_width(w: Union[torch.Tensor, QuantizedTensor]) -> int:
+    """N of a plain or quantized (K, N) weight."""
+    return w.logical_shape[-1] if isinstance(w, QuantizedTensor) \
+        else w.shape[-1]
+
+
 def matmul(x: torch.Tensor, w: Union[torch.Tensor, QuantizedTensor], *,
-           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+           out_dtype: Optional[torch.dtype] = None,
+           out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x @ w for plain or quantized (K, N) weights; x's leading dims are
-    flattened into M."""
+    flattened into M. With ``out`` (an (M, N) row-major view with unit
+    column stride) the product is written there and ``out`` returned."""
     out_dtype = out_dtype or x.dtype
     lead, K = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, K)
+    if out is not None:
+        check_out("matmul", out, x2.shape[0], out_width(w), out_dtype)
+        if isinstance(w, QuantizedTensor):
+            return quant_matmul(x2, w, out_dtype=out_dtype, out=out)
+        if x.is_cuda:
+            if out_dtype != x.dtype:
+                raise ValueError("matmul(out=) on the card takes out_dtype "
+                                 f"{x.dtype}, got {out_dtype}")
+            return torch.mm(x2, w.to(x.dtype), out=out)
+        return out.copy_(torch.matmul(x2.float(), w.float()))
     if isinstance(w, QuantizedTensor):
         y = quant_matmul(x2, w, out_dtype=out_dtype)
     elif x.is_cuda:

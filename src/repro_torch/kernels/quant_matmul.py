@@ -17,6 +17,13 @@ chunk order either way, so that an output row does not depend on M) is
 described in the source. Any M and any N work; the quantization group
 must be a multiple of 32 that divides K.
 
+``quant_matmul(x, w, out=view)`` writes the (M, N) result into a view
+of a wider row-major buffer (unit column stride, rows ``ldc`` >= N
+elements apart): the unfused V0 projections write q, k and v (or g and
+u) side by side into one row this way, with no copy after the products.
+On the card the view's start and its row pitch must be 16-byte aligned;
+any other view raises. The bits are those of the call without ``out=``.
+
 ``quant_matmul_swiglu(x, w)`` is the FFN's gate-up product with the
 SwiGLU after it as the GEMM's last step: h (M, F) = silu(g) * u of the
 halves g, u of ``x @ dequant(w)`` for the fused weight w (K, 2F) =
@@ -48,17 +55,34 @@ from repro_torch.quant.quantize import QuantizedTensor, dequantize
 FORMATS = {"q8_0": 0, "q4_0": 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+_ARGTYPES = (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
 _SWIGLU_ARGTYPES = (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 
 
+def check_out(name: str, out: torch.Tensor, M: int, N: int,
+              dtype: torch.dtype) -> None:
+    """Raise unless ``out`` can take an (M, N) ``dtype`` result in place:
+    that shape and dtype, unit column stride, rows at least N apart."""
+    if (tuple(out.shape) != (M, N) or out.dtype != dtype
+            or (N > 1 and out.stride(1) != 1) or out.stride(0) < N):
+        raise ValueError(
+            f"{name}: out must be an ({M}, {N}) {dtype} row-major view with "
+            f"unit column stride, got {tuple(out.shape)} {out.dtype} "
+            f"strides {out.stride()}")
+
+
 def quant_matmul_plain(x: torch.Tensor, w: QuantizedTensor,
-                       out_dtype: Optional[torch.dtype] = None
-                       ) -> torch.Tensor:
-    """x (M, K) @ dequant(w) (K, N) → (M, N) in ``out_dtype``."""
+                       out_dtype: Optional[torch.dtype] = None,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (M, K) @ dequant(w) (K, N) → (M, N) in ``out_dtype``, written into
+    ``out`` when given (a view as ``check_out`` takes)."""
     out_dtype = out_dtype or x.dtype
+    if out is not None:
+        check_out("quant_matmul", out, x.shape[0], w.logical_shape[1],
+                  out_dtype)
     wd = dequantize(w, x.dtype)
-    return torch.matmul(x.float(), wd.float()).to(out_dtype)
+    y = torch.matmul(x.float(), wd.float()).to(out_dtype)
+    return y if out is None else out.copy_(y)
 
 
 @functools.lru_cache(maxsize=None)
@@ -123,22 +147,34 @@ def _partial(M: int, K: int, N: int, group: int, device) -> Optional[
 
 
 def quant_matmul(x: torch.Tensor, w: QuantizedTensor,
-                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                 out_dtype: Optional[torch.dtype] = None,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (M, K) bf16 @ dequant(w) → (M, N) in ``out_dtype`` (default
     x's dtype). w: q8_0 data (K, N) or q4_0 data (K // 2, N) int8,
-    scales (K // group, N) bf16."""
+    scales (K // group, N) bf16. ``out``: a view to write the result into
+    (``check_out``; on the card also a 16-byte-aligned start and row
+    pitch), which is returned."""
     out_dtype = out_dtype or x.dtype
     M, K = x.shape
     N = w.logical_shape[1]
     _check_shapes("quant_matmul", x, w)
     if x.device.type == "cpu":
-        return quant_matmul_plain(x, w, out_dtype)
+        return quant_matmul_plain(x, w, out_dtype, out)
     if x.dtype != torch.bfloat16 or out_dtype not in (torch.bfloat16,
                                                       torch.float32):
         raise ValueError(f"quant_matmul kernel takes bf16 x and a bf16 or "
                          f"f32 out_dtype, got {x.dtype} -> {out_dtype}")
     _check_cuda("quant_matmul", x, w)
-    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    if out is None:
+        out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    else:
+        check_out("quant_matmul", out, M, N, out_dtype)
+        if (out.device != x.device or out.data_ptr() % 16
+                or out.stride(0) * out.element_size() % 16):
+            raise ValueError("quant_matmul: out must be on x's device with "
+                             "a 16-byte-aligned start and row pitch, got "
+                             f"address {out.data_ptr():#x} and row stride "
+                             f"{out.stride(0)}")
     if M == 0 or N == 0:
         return out
     partial = _partial(M, K, N, w.group, x.device)
@@ -147,8 +183,8 @@ def quant_matmul(x: torch.Tensor, w: QuantizedTensor,
              w.scales.data_ptr(), out.data_ptr(),
              None if partial is None else partial.data_ptr(),
              0 if partial is None else partial.numel(),
-             int(out_dtype == torch.float32), M, K, N, w.group,
-             torch.cuda.current_stream(x.device).cuda_stream)
+             int(out_dtype == torch.float32), M, K, N, out.stride(0),
+             w.group, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, f"quant_matmul[{w.fmt}]")
     quant_matmul.launches += 1
     return out

@@ -37,7 +37,12 @@ takes bf16 weights only: ``--precision q8_0`` / ``q4_0`` exits with the
 engine's error. ``--pipeline-depth
 2`` keeps one megastep in flight while the host drains the one before.
 ``--num-layers`` cuts the depth (phi3.5-moe-42b-a6.6b's bf16 weights
-fill one 80 GB card at 24 of its 32 layers). ``--page-size`` pages the
+fill one 80 GB card at 24 of its 32 layers). Each weight is quantized to
+``--precision`` as ``Model.init`` draws it, so deepseek-67b (q4_0 /
+q8_0) and qwen1.5-110b (q4_0) serve at full depth on one card.
+``--prefill-chunk`` sets the prompt tokens staged a slot for chunked
+admission (default ``max(megastep_k, 16)``; under K a slot waits for its
+refill). ``--page-size`` pages the
 KV cache (``--cache-blocks`` sizes its pool),
 and ``--prefix-cache`` shares whole prompt pages across requests: every
 prompt then opens with the same seeded "system prompt" of two pages and
@@ -317,6 +322,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="prompt admission: ride inside the megastep "
                          "(chunked) or batched prefill calls between "
                          "megasteps (stall)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="on-device prompt chunk size for chunked "
+                         "admission (default: max(megastep_k, 16))")
     ap.add_argument("--page-size", type=int, default=0,
                     help="KV-cache page size in tokens; 0 = dense cache")
     ap.add_argument("--cache-blocks", type=int, default=0,
@@ -462,14 +470,18 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
         check_weight_format(cfg, args.precision)
     except ValueError as e:
         raise SystemExit(f"repro_torch.launch.serve: {e}") from e
-    model = Model(cfg, device=device)
+    # each weight is quantized to --precision as soon as it is drawn, so
+    # that the float tree of a large model never exists (Model.init)
+    model = Model(dataclasses.replace(cfg, quant_policy=args.precision),
+                  device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
-    params = model.init(gen, quantize=False)
+    params = model.init(gen)
     engine = ServingEngine(
         model, params, slots=args.slots, max_len=args.max_len,
         sampling=SamplingConfig(temperature=args.temperature, top_k=40),
         seed=args.seed, megastep_k=args.megastep_k,
+        prefill_chunk=args.prefill_chunk,
         quant_policy=args.precision, admission=args.admission,
         page_size=args.page_size, cache_blocks=args.cache_blocks,
         prefix_cache=args.prefix_cache, pipeline_depth=args.pipeline_depth,

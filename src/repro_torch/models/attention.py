@@ -19,6 +19,15 @@ models). It is not added after the product: the RoPE + cache-write
 kernels add it as they read each qkv element (``bias=``), so a layer
 launches no kernel more for it.
 
+The unfused V0 (``cfg.fuse_qkv`` False, the paper's serial baseline)
+keeps ``wq``, ``wk`` and ``wv`` apart, each with its own bias under
+``qkv_bias`` (the JAX ``attention.py:43-58``). Its three GEMM launches
+write q, k and v side by side into one (B·S, q_dim + 2·kv_dim) row
+(``ops.matmul(out=)``), the fused product's layout, so the RoPE +
+cache-write kernels run unchanged on it. ``Model.init`` keeps the three
+biases as slices of one buffer a layer (``join_qkv_bias``), which reach
+the kernels as one vector without a copy.
+
 A windowed config (``cfg.sliding_window``, mistral-7b) keeps a ring of
 ``min(max_len, window)`` positions a slot: the prefill attends within
 the window over all its positions and writes its last ring-length
@@ -53,17 +62,69 @@ from repro_torch.quant.quantize import (FLOAT_FORMATS, dequantize_rows,
                                         kv_group_size)
 
 
+QKV = ("wq", "wk", "wv")          # the unfused V0 projections, in order
+
+
 def attention_specs(cfg: ModelConfig) -> Dict:
-    return {"wqkv": layers.linear_spec(cfg.d_model,
-                                       cfg.q_dim + 2 * cfg.kv_dim,
-                                       bias=cfg.qkv_bias),
-            "wo": layers.linear_spec(cfg.q_dim, cfg.d_model)}
+    D, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    if cfg.fuse_qkv:
+        specs = {"wqkv": layers.linear_spec(D, qd + 2 * kvd,
+                                            bias=cfg.qkv_bias)}
+    else:
+        specs = {n: layers.linear_spec(D, width, bias=cfg.qkv_bias)
+                 for n, width in zip(QKV, (qd, kvd, kvd))}
+    specs["wo"] = layers.linear_spec(qd, D)
+    return specs
+
+
+def join_qkv_bias(p) -> None:
+    """Make an unfused layer's three biases slices of one buffer (in
+    place; a no-op for the fused layout or without a bias), so that
+    ``_qkv`` hands them to the kernels as one vector without a copy."""
+    if "wq" not in p or "b" not in p["wq"]:
+        return
+    buf = torch.cat([p[n]["b"] for n in QKV])
+    at = 0
+    for n in QKV:
+        width = p[n]["b"].numel()
+        p[n]["b"] = buf[at:at + width]
+        at += width
+
+
+def _qkv_bias(p) -> Optional[torch.Tensor]:
+    """The unfused layer's biases as one (q_dim + 2 kv_dim) vector: a view
+    where they are consecutive slices of one buffer (``join_qkv_bias``),
+    else their concatenation."""
+    bs = [p[n].get("b") for n in QKV]
+    if bs[0] is None:
+        return None
+    first, at, joined = bs[0], 0, True
+    for b in bs:
+        joined &= (b.is_contiguous() and b.dtype == first.dtype
+                   and b.untyped_storage().data_ptr()
+                   == first.untyped_storage().data_ptr()
+                   and b.storage_offset() == first.storage_offset() + at)
+        at += b.numel()
+    return first.as_strided((at,), (1,)) if joined else torch.cat(bs)
 
 
 def _qkv(p, x: torch.Tensor):
-    """The fused QKV product x @ wqkv, and its bias (None without one),
-    which the RoPE + cache-write kernels add."""
-    return ops.matmul(x, p["wqkv"]["w"]), p["wqkv"].get("b")
+    """The QKV product (..., q_dim + 2 kv_dim) of x and its bias (None
+    without one), which the RoPE + cache-write kernels add: x @ wqkv, or
+    under V0 x @ wq, x @ wk and x @ wv written side by side into one
+    row."""
+    if "wqkv" in p:
+        return ops.matmul(x, p["wqkv"]["w"]), p["wqkv"].get("b")
+    x2 = x.reshape(-1, x.shape[-1])
+    ws = [p[n]["w"] for n in QKV]
+    widths = [ops.out_width(w) for w in ws]
+    qkv = torch.empty((x2.shape[0], sum(widths)), dtype=x.dtype,
+                      device=x.device)
+    at = 0
+    for w, width in zip(ws, widths):
+        ops.matmul(x2, w, out=qkv[:, at:at + width])
+        at += width
+    return qkv.view(*x.shape[:-1], at), _qkv_bias(p)
 
 
 def attention_forward(p, cfg: ModelConfig, x: torch.Tensor, cache: Dict,

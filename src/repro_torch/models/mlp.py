@@ -1,8 +1,14 @@
-"""SwiGLU FFN with the gate and up projections fused into one matrix
-(the counterpart of the JAX package's ``models/mlp.py``). A quantized
-``w_gate_up`` runs the product and the SwiGLU as one operation
-(``ops.quant_matmul_swiglu``); a plain one runs ``linear`` and then
-``layers.swiglu``."""
+"""SwiGLU FFN (the counterpart of the JAX package's ``models/mlp.py``).
+
+With ``cfg.fuse_gate_up`` (the paper's V1 and later) the gate and up
+projections are one matrix, ``w_gate_up``: a quantized one runs the
+product and the SwiGLU as one operation (``ops.quant_matmul_swiglu``), a
+plain one runs ``linear`` and then ``layers.swiglu``. The unfused V0
+(``scheduler_version`` "v0") keeps ``w_gate`` and ``w_up`` apart: two
+GEMM launches write g and u into the two halves of one (M, 2F) row
+(``ops.matmul(out=)``), and the standalone SwiGLU kernel runs on it,
+under any weight format; nothing of V0 is fused.
+"""
 from __future__ import annotations
 
 from typing import Dict
@@ -16,15 +22,34 @@ from repro_torch.quant.quantize import QuantizedTensor
 
 
 def mlp_specs(cfg: ModelConfig) -> Dict:
-    return {"w_gate_up": layers.linear_spec(cfg.d_model, 2 * cfg.d_ff),
-            "w_down": layers.linear_spec(cfg.d_ff, cfg.d_model)}
+    D, F = cfg.d_model, cfg.d_ff
+    if cfg.fuse_gate_up:
+        specs = {"w_gate_up": layers.linear_spec(D, 2 * F)}
+    else:
+        specs = {"w_gate": layers.linear_spec(D, F),
+                 "w_up": layers.linear_spec(D, F)}
+    specs["w_down"] = layers.linear_spec(F, D)
+    return specs
+
+
+def gate_up(p, x2: torch.Tensor) -> torch.Tensor:
+    """The unfused V0 gate and up products of x2 (M, D), each written into
+    its half of one (M, 2F) buffer, [g | u]: the layout of the fused
+    product, which ``layers.swiglu`` takes."""
+    F = ops.out_width(p["w_up"]["w"])
+    gu = torch.empty((x2.shape[0], 2 * F), dtype=x2.dtype, device=x2.device)
+    ops.matmul(x2, p["w_gate"]["w"], out=gu[:, :F])
+    ops.matmul(x2, p["w_up"]["w"], out=gu[:, F:])
+    return gu
 
 
 def mlp_forward(p, x: torch.Tensor) -> torch.Tensor:
-    w = p["w_gate_up"]["w"]
-    if isinstance(w, QuantizedTensor):
-        h = ops.quant_matmul_swiglu(x.reshape(-1, x.shape[-1]), w)
-        h = h.reshape(*x.shape[:-1], h.shape[-1])
+    x2 = x.reshape(-1, x.shape[-1])
+    if "w_gate_up" not in p:
+        h = layers.swiglu(gate_up(p, x2))
+    elif isinstance(p["w_gate_up"]["w"], QuantizedTensor):
+        h = ops.quant_matmul_swiglu(x2, p["w_gate_up"]["w"])
     else:
-        h = layers.swiglu(layers.linear(p["w_gate_up"], x))
+        h = layers.swiglu(layers.linear(p["w_gate_up"], x2))
+    h = h.reshape(*x.shape[:-1], h.shape[-1])
     return layers.linear(p["w_down"], h)

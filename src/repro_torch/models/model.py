@@ -51,7 +51,8 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.params import ParamSpec, init_params
-from repro_torch.quant.quantize import FLOAT_FORMATS, quantize_tree
+from repro_torch.quant.quantize import (FLOAT_FORMATS, quantize_columns,
+                                        quantizes)
 
 
 def _norm_spec(d: int) -> ParamSpec:
@@ -117,16 +118,32 @@ class Model:
              quantize: Optional[bool] = None) -> Dict:
         """Seeded random parameters, quantized to ``cfg.quant_policy``
         unless ``quantize`` is False. An MoE config refuses a quantized
-        policy (``moe.check_weight_format``)."""
-        do_quant = (self.cfg.quant_policy not in FLOAT_FORMATS
+        policy (``moe.check_weight_format``).
+
+        Each matrix that ``quantize_tree`` would quantize is quantized as
+        soon as it is drawn (``quantizes``, ``quantize_columns``), so the
+        whole float tree never exists: the init's peak is the quantized
+        tree plus one leaf's draw (qwen1.5-110b's float tree would be
+        220 GB of bf16). The draws keep their order, so the parameters
+        are the bits of ``quantize_tree(init(quantize=False))``. Under
+        the unfused V0 attention with a QKV bias, the three biases are
+        slices of one buffer a layer (``attention.join_qkv_bias``)."""
+        cfg = self.cfg
+        do_quant = (cfg.quant_policy not in FLOAT_FORMATS
                     if quantize is None else quantize)
+        leaf = None
         if do_quant:
-            moe_mod.check_weight_format(self.cfg, self.cfg.quant_policy)
+            moe_mod.check_weight_format(cfg, cfg.quant_policy)
+
+            def leaf(path, t):
+                if not quantizes(path, t, cfg.quant_group):
+                    return t
+                return quantize_columns(t, cfg.quant_policy, cfg.quant_group)
         params = init_params(self.param_specs(), generator,
-                             dtype=self.dtype, device=self.device)
-        if do_quant:
-            params = quantize_tree(params, self.cfg.quant_policy,
-                                   self.cfg.quant_group)
+                             dtype=self.dtype, device=self.device, leaf=leaf)
+        for p_l in params["layers"]:
+            if "attn" in p_l:
+                attn.join_qkv_bias(p_l["attn"])
         return params
 
     def window_for(self, total_len: int) -> int:

@@ -8,11 +8,17 @@ the other matrices, ones for norms, zeros for biases. A
 ``torch.Generator`` does not give JAX's random bits, so tests that
 compare the two packages draw the JAX parameters and carry them over
 with ``repro_torch.bridge``.
+
+``leaf`` (optional) maps each drawn tensor, with its path in the tree
+(``"/layers/3/attn/wqkv/w"``, the path ``quantize_tree`` walks), to what
+the tree keeps: ``Model.init`` quantizes each matrix there as soon as it
+is drawn, so the whole float tree never exists. The draws keep their
+order whatever ``leaf`` does.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 
@@ -27,9 +33,11 @@ class ParamSpec:
 
 def init_params(specs, generator: torch.Generator, *,
                 dtype: torch.dtype = torch.bfloat16,
-                device: Union[str, torch.device, None] = None):
-    """Tensors for a spec tree, on ``device`` (default: the card).
-    ``generator`` must live on the same device."""
+                device: Union[str, torch.device, None] = None,
+                leaf: Optional[Callable[[str, torch.Tensor], object]] = None):
+    """Tensors for a spec tree, on ``device`` (default: the card), each
+    passed through ``leaf(path, tensor)`` when given. ``generator`` must
+    live on the same device."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator is on {generator.device}, params go "
@@ -49,13 +57,14 @@ def init_params(specs, generator: torch.Generator, *,
             std = fan_in ** -0.5
         w = torch.randn(spec.shape, generator=generator, device=dev,
                         dtype=torch.float32)
-        return (w * std).to(dtype)
+        return w.mul_(std).to(dtype)
 
-    def walk(node):
+    def walk(node, path: str):
         if isinstance(node, ParamSpec):
-            return make(node)
+            t = make(node)
+            return t if leaf is None else leaf(path, t)
         if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
-        return [walk(v) for v in node]
+            return {k: walk(v, f"{path}/{k}") for k, v in node.items()}
+        return [walk(v, f"{path}/{i}") for i, v in enumerate(node)]
 
-    return walk(specs)
+    return walk(specs, "")

@@ -68,11 +68,12 @@ def _to_int8(u: torch.Tensor) -> torch.Tensor:
 
 
 def _sign_extend_nibbles(packed: torch.Tensor):
-    u = packed.to(torch.int32) & 0xFF
-    lo = u & 0x0F
-    hi = (u >> 4) & 0x0F
-    lo = torch.where(lo > 7, lo - 16, lo).to(torch.int8)
-    hi = torch.where(hi > 7, hi - 16, hi).to(torch.int8)
+    """(low, high) nibbles of int8 bytes as int8 values in [-8, 7]. In
+    one-byte temporaries (a nibble n is (n ^ 8) - 8), so unpacking a
+    large matrix takes no int32 copies of it."""
+    u = packed.view(torch.uint8)
+    lo = ((u & 0x0F) ^ 8).view(torch.int8) - 8
+    hi = ((u >> 4) ^ 8).view(torch.int8) - 8
     return lo, hi
 
 
@@ -128,8 +129,9 @@ def dequantize(qt: QuantizedTensor,
     else:
         raise ValueError(qt.fmt)
     *lead, K, N = qt.logical_shape
-    qg = q.reshape(*lead, K // qt.group, qt.group, N).float()
-    w = qg * qt.scales[..., None, :].float()
+    # in place: one f32 copy of the matrix at a time
+    w = q.reshape(*lead, K // qt.group, qt.group, N).float()
+    w.mul_(qt.scales[..., None, :].float())
     return w.reshape(*lead, K, N).to(dtype)
 
 
@@ -203,13 +205,42 @@ def dequantize_rows(payload: torch.Tensor, scales: torch.Tensor, fmt: str,
     return x.reshape(q.shape).to(dtype)
 
 
-def quantize_tree(params, fmt: str, group: int = 32):
-    """Quantize every matmul weight of a nested-dict param tree.
+def quantizes(path: str, node: torch.Tensor, group: int) -> bool:
+    """Whether ``quantize_tree`` quantizes the leaf at ``path``: ndim >= 2,
+    K (axis -2) divisible by ``group``, and a path that contains neither
+    ``embed`` nor ``norm`` (embedding tables are read by gather, and the
+    tied unembedding shares the ``embedding`` leaf)."""
+    return (node.ndim >= 2 and node.shape[-2] % group == 0
+            and "embed" not in path and "norm" not in path)
 
-    Selected: tensors with ndim >= 2 whose K (axis -2) is divisible by
-    ``group``, on a path that contains neither ``embed`` nor ``norm``
-    (embedding tables are read by gather, and the tied unembedding
-    shares the ``embedding`` leaf). Already-quantized leaves pass
+
+def quantize_columns(w: torch.Tensor, fmt: str, group: int = 32,
+                     block: int = 0) -> QuantizedTensor:
+    """``quantize(w, fmt, group)`` of a (K, N) weight, ``block`` columns
+    at a time (default: 2^25 elements a block, in multiples of 16
+    columns) into preallocated payload and scales: the same bits (a
+    column's groups are its own), with f32 temporaries of one block
+    instead of the whole matrix."""
+    if w.ndim != 2:
+        return quantize(w, fmt, group)
+    K, N = w.shape
+    block = block or max(16, (1 << 25) // K // 16 * 16)
+    if N <= block:
+        return quantize(w, fmt, group)
+    data = torch.empty((K // 2 if fmt == "q4_0" else K, N),
+                       dtype=torch.int8, device=w.device)
+    scales = torch.empty((K // group, N), dtype=torch.bfloat16,
+                         device=w.device)
+    for c in range(0, N, block):
+        part = quantize(w[:, c:c + block], fmt, group)
+        data[:, c:c + block] = part.data
+        scales[:, c:c + block] = part.scales
+    return QuantizedTensor(data, scales, fmt, group)
+
+
+def quantize_tree(params, fmt: str, group: int = 32):
+    """Quantize every matmul weight of a nested-dict param tree (the
+    leaves ``quantizes`` selects). Already-quantized leaves pass
     through. Lists (per-layer params) are walked element by element.
     """
     if fmt in FLOAT_FORMATS:
@@ -222,8 +253,7 @@ def quantize_tree(params, fmt: str, group: int = 32):
             return {k: walk(v, f"{path}/{k}") for k, v in node.items()}
         if isinstance(node, list):
             return [walk(v, f"{path}/{i}") for i, v in enumerate(node)]
-        if (node.ndim >= 2 and node.shape[-2] % group == 0
-                and "embed" not in path and "norm" not in path):
+        if quantizes(path, node, group):
             return quantize(node, fmt, group)
         return node
 

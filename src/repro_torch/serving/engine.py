@@ -269,6 +269,7 @@ class ServingEngine:
                  sampling: SamplingConfig = SamplingConfig(),
                  seed: int = 0,
                  megastep_k: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
                  quant_policy: Optional[str] = None,
                  kv_quant: Optional[str] = None,
                  admission: str = "chunked",
@@ -310,9 +311,16 @@ class ServingEngine:
             raise ValueError(f"megastep_k must be >= 1 (got {megastep_k})")
         self.megastep_k = int(megastep_k) if megastep_k else \
             DEFAULT_MEGASTEP_K
-        # prompt tokens staged on the device per slot; any value >=
-        # megastep_k keeps a prefilling slot fed for a whole megastep
-        self.prefill_chunk = max(self.megastep_k, 16)
+        # prompt tokens staged on the device per slot (the JAX engine's
+        # prefill_chunk, default max(megastep_k, 16)); any value >=
+        # megastep_k keeps a prefilling slot fed for a whole megastep, a
+        # smaller one leaves it waiting, cache frozen, for the host's
+        # refill once its chunk runs dry (the starved-slot branch)
+        if prefill_chunk is not None and int(prefill_chunk) < 1:
+            raise ValueError(
+                f"prefill_chunk must be >= 1 (got {prefill_chunk})")
+        self.prefill_chunk = int(prefill_chunk) if prefill_chunk else \
+            max(self.megastep_k, 16)
         # megasteps dispatched and not yet drained that step() keeps: 1
         # is the serial loop, 2 drains megastep N while N+1 runs. Host
         # orchestration only, so it may be reassigned between steps.
