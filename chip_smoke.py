@@ -96,7 +96,22 @@ Phases (any failed check raises and the process exits nonzero):
    N copied element by element) bit-equal to the call without ``out=``
    with the neighbouring columns untouched, an unaligned view refused;
    ``torch.mm(out=)`` (the bf16-weight V0 projections) into a wider row
-   with no copy kernel in its trace;
+   with no copy kernel in its trace; the hybrid family's kernels at
+   recurrentgemma-2b's widths: ``rglru_scan`` at 1 x 512 and 4 x 300 and
+   edge lengths (y within one bf16 ulp, the state y's last row),
+   ``rglru_decode_step`` at 4 slots (a row frozen) and 1 (y within one
+   bf16 ulp, the state within 1e-5 of its scale), each sequence or slot
+   alone bit-equal to its row, timed beside
+   their bounds and plain versions; ``geglu`` at (4, 15360) and (2048,
+   15360); the GeGLU form of ``quant_matmul_swiglu`` at K 2560, F 7680, M
+   1, 4 and 2048 under q8_0 and q4_0 (bit-equal to ``geglu(quant_matmul(x,
+   w))``, rows bit-equal to M 1, timed beside that pair); the (256, 10)
+   instances of both attention kernels (decode at 4 slots of kv_len 1024
+   and of the served kv_len in all three loaders, windowed lengths; flash
+   causal at 4 x 512 and windowed (2048) at 1 x 4500, each timed beside
+   SDPA) and of the decode and prefill RoPE + cache writes (the ring write
+   too); ``quant_matmul`` at the model's linears at M 4 and 2048; a build
+   check that fails on a spill in ``rglru.cu`` or in a (256, 10) instance;
 4. main path: llama3.2-1b at full width (seeded random weights, q8_0
    weights, bf16 cache) served by ``repro_torch.launch.serve`` with 4
    slots, max_len 1024, 8-substep megasteps and chunked admission, 8
@@ -245,6 +260,25 @@ Phases (any failed check raises and the process exits nonzero):
    deepseek-67b's first 4 layers under q8_0 and q4_0 caches (the (128, 8)
    quantized loaders on a served path).
 
+14. the hybrid family (run right after phase 12): recurrentgemma-2b at
+   full width and all 26 layers (18 RG-LRU, 8 local attention), served by
+   ``launch.serve`` under bf16, q8_0 and q4_0 weights on 4 slots (8
+   requests of 32 tokens) and its first request alone on 1 slot: launch
+   counts a layer (``hybrid_launches``), no plain RG-LRU, GeGLU or
+   attention function on the card, streams against ``reference_decode``,
+   one decode step against the plain versions within
+   ``HYBRID_STEP_REL_TOL`` beside a planted fault (the state not decayed),
+   each RG-LRU layer on the same input within one bf16 ulp of the plain
+   versions, ms a step and tok/s beside the CLI's floor, a profiled q8_0
+   run for the idle share and device ms by kernel group; a q8_0 stall leg
+   (exact-length buckets of 300, 301 and 512 tokens, streams against
+   ``reference_decode(stepwise_prefill=False)``, a 2 x 300 prefill layer
+   by layer), a window leg at max_len 4096 (a 4500-token prompt through
+   the ring write and the windowed flash attention, a 2040-token one whose
+   decode crosses the ring's edge), ``--kv-quant q8_0 --page-size 16
+   --prefix-cache`` as no-ops with the engine's warning, and preemption
+   with resume under chunked and stall admission.
+
 Exits nonzero without printing a result when CUDA is unavailable, or
 when run outside a checkout of the repository.
 """
@@ -292,7 +326,7 @@ SSD_STATE_REL_TOL = 5e-5
 # Kernels vs plain versions through one whole decode step, and one fused
 # 4 x 300 prefill, of mamba2-2.7b, as a share of the largest logit. Each of
 # the 64 layers is within one bf16 ulp of its plain version on the same
-# input (``ssm_layers_vs_plain``); through the whole depth the two passes
+# input (``recurrent_layers_vs_plain``); through the whole depth the two passes
 # drift apart about linearly with the layer, and a prefill also carries
 # each position's flips into the later positions' states. Measured on an
 # H100 (PERF.md, Findings): decode 2.318e-2 to 3.560e-2 over bf16, q8_0
@@ -306,6 +340,17 @@ SSM_STALL_PROMPTS = (300, 301, 480, 512)
 # and the longest prompt it serves (the engine takes an SSM prompt of any
 # length at its exact length): eight of the scan's slices of 512
 SSM_LONG_PROMPT = 4096
+# the hybrid family's served model, and its decode-step tolerance: kernels
+# vs plain versions through one whole decode step of recurrentgemma-2b (26
+# layers: 18 RG-LRU, 8 local attention), as a share of the largest logit
+# (PERF.md, Findings: its readings and the planted fault's)
+HYBRID_ARCH = "recurrentgemma-2b"
+HYBRID_STEP_REL_TOL = 5e-2
+# the hybrid's stall leg: three exact-length buckets, one of them odd; its
+# window leg serves at max_len 4096, so each attention layer's ring is the
+# 2048-position window
+HYBRID_STALL_PROMPTS = (300, 301, 512)
+HYBRID_WINDOW_MAX_LEN = 4096
 # phi3.5-moe-42b-a6.6b's depth on one 80 GB card: its bf16 weights are
 # 2.6 GB a layer (16 experts of 157 MB), 83.8 GB at its 32 layers
 MOE_LAYERS = 24
@@ -475,7 +520,7 @@ GROUPS = ("decode_attention", "quant_matmul_swiglu", "quant_matmul",
           "gated_rmsnorm", "add_rmsnorm", "rmsnorm", "swiglu",
           "rope_cache_write_prefill", "rope_cache_write", "flash_attention",
           "moe_route", "moe_down_combine", "moe_gemm", "moe_combine", "ssm_decode", "ssd_prefill_state", "ssd_prefill_out", "ssm_conv",
-          "memcpy", "other")
+          "rglru_scan", "rglru_decode", "geglu", "memcpy", "other")
 
 
 def group_of(name: str) -> str:
@@ -1067,7 +1112,8 @@ def main() -> None:
     from repro_torch.kernels.fused_ops import (
         add_rmsnorm, add_rmsnorm_plain, rmsnorm, rmsnorm_plain,
         rope_cache_write, rope_cache_write_plain, rope_cache_write_prefill,
-        rope_cache_write_prefill_plain, swiglu, swiglu_plain)
+        rope_cache_write_prefill_plain, swiglu, swiglu_plain, geglu,
+        geglu_plain)
     from repro_torch.kernels.quant_matmul import (
         launch_grid, quant_matmul, quant_matmul_plain, quant_matmul_swiglu,
         quant_matmul_swiglu_plain)
@@ -1081,10 +1127,15 @@ def main() -> None:
     from repro_torch.kernels.ssm import (
         gated_rmsnorm, gated_rmsnorm_plain, ssd_prefill, ssd_prefill_plain,
         ssm_conv, ssm_conv_plain, ssm_decode_step, ssm_decode_step_plain)
+    from repro_torch.kernels import rglru as rglru_kernels
+    from repro_torch.kernels.rglru import (
+        rglru_decode_step, rglru_decode_step_plain, rglru_scan,
+        rglru_scan_plain)
     from repro_torch.launch import serve
     from repro_torch.models import Model
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models import hybrid as hybrid_mod
     from repro_torch.quant import (QuantizedTensor, dequantize,
                                    dequantize_rows, quantize, quantize_rows,
                                    quantize_tree, unpack_int4_rows)
@@ -1135,8 +1186,9 @@ def main() -> None:
     # both attention kernels' instances at the (head_dim, G) pairs of the
     # paper's other models and of deepseek-67b / qwen1.5-110b (128, 8)
     # keep their registers too (every loader)
-    new_pairs_ptx = {(64, 7), (128, 6), (128, 3), (128, 4), (128, 8)}
-    seen_128_8 = []
+    new_pairs_ptx = {(64, 7), (128, 6), (128, 3), (128, 4), (128, 8),
+                     (256, 10)}
+    seen_128_8, seen_256_10 = [], []
     for stem, pat in (
             ("decode_attention",
              r"decode_attention_split_kernelILi(\d)ELi(\d+)ELi(\d+)EE"),
@@ -1156,10 +1208,26 @@ def main() -> None:
                   f"ptxas spilled registers in {fn}")
             if pair == (128, 8):
                 seen_128_8.append((stem, a))
+            if pair == (256, 10):
+                seen_256_10.append((stem, a))
     check(set(seen_128_8) == {("decode_attention", 0),
                               ("decode_attention", 1),
                               ("decode_attention", 2), ("flash_attention", 128)},
           f"the (128, 8) instances in ptxas's report: {sorted(seen_128_8)}")
+    # recurrentgemma-2b's (256, 10): the decode kernel's three loaders, and
+    # the flash kernel at block_k 32 (Q in shared memory)
+    check(set(seen_256_10) == {("decode_attention", 0),
+                               ("decode_attention", 1),
+                               ("decode_attention", 2),
+                               ("flash_attention", 256)},
+          f"the (256, 10) instances in ptxas's report: {sorted(seen_256_10)}")
+    # the RG-LRU kernels keep their registers
+    for fn, regs, st_b, ld_b in build.ptxas_usage("rglru"):
+        short = re.search(r"\d(rglru_\w+?_kernel)", fn)
+        print(f"  ptxas on rglru.cu: {short.group(1) if short else fn}: "
+              f"{regs} registers, {st_b} / {ld_b} bytes spill stores / "
+              "loads", flush=True)
+        check(st_b == 0 and ld_b == 0, f"ptxas spilled registers in {fn}")
     # the MoE kernels (the grouped GEMM's four instances and its two
     # split-sum kernels among them) keep their registers
     gemm_instances = 0
@@ -1216,7 +1284,9 @@ def main() -> None:
 
     def no_decay(fn, at=3):
         """A planted fault: the SSD state is not decayed (A_log, argument
-        ``at`` of fn, -inf, so A = -exp(A_log) = 0 and exp(dt A) = 1)."""
+        ``at`` of fn, -inf, so A = -exp(A_log) = 0 and exp(dt A) = 1); or
+        the RG-LRU state (a_param -inf, so a = exp(-8 softplus(-inf) r) =
+        1)."""
         def run(*a, **kw):
             a = list(a)
             a[at] = torch.full_like(a[at], -math.inf)
@@ -1227,15 +1297,16 @@ def main() -> None:
     def plain_versions(fault: bool = False):
         """Route the model's kernel calls to the plain versions (the
         reference pass of the kernel-vs-plain checks), with the planted
-        faults in the attention, and in the SSD recurrence (no decay),
-        where ``fault``."""
+        faults in the attention, and in the SSD and RG-LRU recurrences (no
+        decay), where ``fault``."""
         names = ("quant_matmul", "quant_matmul_swiglu", "decode_attention",
                  "decode_attention_quant", "flash_attention", "rmsnorm",
                  "add_rmsnorm", "swiglu", "rope_cache_write",
                  "rope_cache_write_prefill", "moe_route",
                  "moe_gate_up_swiglu", "moe_down", "moe_combine",
                  "moe_down_combine", "ssm_conv", "ssm_decode_step",
-                 "ssd_prefill", "gated_rmsnorm")
+                 "ssd_prefill", "gated_rmsnorm", "geglu", "rglru_scan",
+                 "rglru_decode_step")
         saved = {n: getattr(ops, n) for n in names}
         wrap = off_by_one if fault else (lambda fn: fn)
         ops.quant_matmul = quant_matmul_plain
@@ -1259,6 +1330,13 @@ def main() -> None:
         ops.ssd_prefill = (no_decay(ssd_prefill_plain) if fault
                            else ssd_prefill_plain)
         ops.gated_rmsnorm = gated_rmsnorm_plain
+        ops.geglu = geglu_plain
+        # the RG-LRU's a_param (argument 5) -inf: softplus 0, a = 1, the
+        # state carried on undecayed
+        ops.rglru_scan = (no_decay(rglru_scan_plain, at=5) if fault
+                          else rglru_scan_plain)
+        ops.rglru_decode_step = (no_decay(rglru_decode_step_plain, at=5)
+                                 if fault else rglru_decode_step_plain)
         try:
             yield
         finally:
@@ -1282,6 +1360,14 @@ def main() -> None:
                      "ssm_decode_step_plain",
                      "ssd_prefill_plain", "gated_rmsnorm_plain",
                      "causal_conv", "ssd_chunked")
+        # the hybrid's: the RG-LRU's and the GeGLU's plain versions, and
+        # the attention kernels' (its local attention runs the kernels)
+        other = [(rglru_kernels, n) for n in (
+            "rglru_scan_plain", "rglru_decode_step_plain", "gates_plain",
+            "linear_scan")] + [(fused_ops, "geglu_plain"),
+                               (da_mod, "decode_attention_plain"),
+                               (fa_mod, "flash_attention_plain")]
+        saved_other = [(m, n, getattr(m, n)) for m, n in other]
         saved = {n: getattr(fused_ops, n) for n in names}
         saved_moe = {n: getattr(moe_kernels, n) for n in moe_names}
         saved_ssm = {n: getattr(ssm_kernels, n) for n in ssm_names}
@@ -1300,6 +1386,12 @@ def main() -> None:
 
         def refuse_ssm(*a, **kw):
             fail("a plain SSM function ran on the card in a served path")
+
+        def refuse_other(*a, **kw):
+            fail("a plain RG-LRU, GeGLU or attention function ran on the "
+                 "card in a served path")
+        for m, n in other:
+            setattr(m, n, refuse_other)
         for n in names:
             setattr(fused_ops, n, refuse)
         for n in moe_names:
@@ -1317,6 +1409,8 @@ def main() -> None:
                 setattr(moe_kernels, n, fn)
             for n, fn in saved_ssm.items():
                 setattr(ssm_kernels, n, fn)
+            for m, n, fn in saved_other:
+                setattr(m, n, fn)
             ops.swiglu = saved_swiglu
 
     gen = torch.Generator(device=dev)
@@ -1778,34 +1872,40 @@ def main() -> None:
     qmm_case("q4_0", "w_gate_up", 333, *linear_shapes["w_gate_up"],
              torch.bfloat16, timed=False)
 
-    def qmm_swiglu_case(fmt, M, K, Fw, timed=False, path=None):
-        """The gate-up GEMM with the SwiGLU as its last step: bit-equal to
-        the unfused kernels (quant_matmul, then swiglu) on the card,
-        within one bf16 ulp of the plain version, every row bit-equal to
-        the same row alone (M 1); timed beside the unfused pair, in turns
-        (fused, pair, pair, fused), where a path runs it."""
-        x = randn(M, K, g=gen_gate_up).bfloat16()
-        w = quantize(randn(K, 2 * Fw, scale=K ** -0.5, g=gen_gate_up), fmt)
-        h = quant_matmul_swiglu(x, w)
-        pair = swiglu(quant_matmul(x, w))
-        ref = quant_matmul_swiglu_plain(x, w)
+    def qmm_swiglu_case(fmt, M, K, Fw, timed=False, path=None, act="silu",
+                        g=None):
+        """The gate-up GEMM with the SwiGLU (``act`` "gelu": the GeGLU) as
+        its last step: bit-equal to the unfused kernels (quant_matmul, then
+        swiglu / geglu) on the card, within one bf16 ulp of the plain
+        version, every row bit-equal to the same row alone (M 1); timed
+        beside the unfused pair, in turns (fused, pair, pair, fused), where
+        a path runs it. ``g``: the generator (default ``gen_gate_up``)."""
+        g = g or gen_gate_up
+        glu = geglu if act == "gelu" else swiglu
+        x = randn(M, K, g=g).bfloat16()
+        w = quantize(randn(K, 2 * Fw, scale=K ** -0.5, g=g), fmt)
+        h = quant_matmul_swiglu(x, w, act=act)
+        pair = glu(quant_matmul(x, w))
+        ref = quant_matmul_swiglu_plain(x, w, act)
         torch.cuda.synchronize()
         ctas, splits, chunks = launch_grid(M, K, 2 * Fw, w.group)
         route = ("split-K merge" if splits > 1 else "two-CTA clusters")
         err = float((h.float() - ref.float()).abs().max())
         tol = bf16_tol(ref)
         name = f"quant_matmul_swiglu[{fmt} K{K} F{Fw}" + (
+            " geglu" if act == "gelu" else "") + (
             "]" if M <= 8 else f" M{M}]")
         print(f"  {name} M{M} ({route}, {chunks} K chunks): bit-equal to "
-              f"swiglu(quant_matmul(x, w)) {torch.equal(h, pair)}; "
+              f"{glu.__name__}(quant_matmul(x, w)) {torch.equal(h, pair)}; "
               f"max_abs_err vs plain {err:.3e} (tol {tol:.3e})", flush=True)
         check(h.shape == (M, Fw) and torch.equal(h, pair),
               f"{name} M{M}: {int((h != pair).sum())} elements differ from "
-              "swiglu(quant_matmul(x, w)) on the card")
+              f"{glu.__name__}(quant_matmul(x, w)) on the card")
         check(err <= tol, f"{name} M{M}: {err} > {tol}")
         if M > 1:
             for r in (0, M // 2, M - 1):
-                alone = quant_matmul_swiglu(x[r:r + 1].contiguous(), w)
+                alone = quant_matmul_swiglu(x[r:r + 1].contiguous(), w,
+                                            act=act)
                 check(torch.equal(alone[0], h[r]),
                       f"{name}: row {r} of the M {M} call differs from the "
                       "same row alone (M 1)")
@@ -1825,17 +1925,19 @@ def main() -> None:
         for first in (True, False):
             for is_fused in ((True, False) if first else (False, True)):
                 if is_fused:
-                    ms, c_ms = time_calls(quant_matmul_swiglu, copies, reps,
-                                          per_call=per)
+                    ms, c_ms = time_calls(
+                        lambda a, b: quant_matmul_swiglu(a, b, act=act),
+                        copies, reps, per_call=per)
                     fused_runs.append(ms)
                     call_ms.append(c_ms)
                     attempts.append(time_calls.attempts)
                 else:
                     pair_runs.append(time_calls(
-                        lambda a, b: swiglu(quant_matmul(a, b)), copies,
+                        lambda a, b: glu(quant_matmul(a, b)), copies,
                         reps, per_call=per + 1)[0])
         ms, pair_ms = sum(fused_runs) / 2, sum(pair_runs) / 2
-        plain_ms, _ = time_calls(quant_matmul_swiglu_plain, copies, 10)
+        plain_ms, _ = time_calls(
+            lambda a, b: quant_matmul_swiglu_plain(a, b, act), copies, 10)
         rows[name] = dict(
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/quant_matmul.cu",
@@ -1845,7 +1947,8 @@ def main() -> None:
             max_abs_err=err, tol=tol, ms=ms, call_ms=sum(call_ms) / 2,
             plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
             library_ms=None, library=None, unfused_ms=pair_ms,
-            unfused="quant_matmul then swiglu, the kernels at this shape",
+            unfused=f"quant_matmul then {glu.__name__}, the kernels at this "
+                    "shape",
             ms_runs=fused_runs, unfused_ms_runs=pair_runs,
             grid=dict(ctas=ctas, splits=splits, k_chunks=chunks,
                       route=route),
@@ -3659,6 +3762,246 @@ def main() -> None:
     ssm_kernel_cases()
     ssm_kernel_s = time.perf_counter() - t0
 
+    # -- the hybrid family's kernels (recurrentgemma-2b) ---------------------
+    # the RG-LRU scan and decode step, the GeGLU alone and as the gate-up
+    # GEMM's epilogue, the (256, 10) instances of both attention kernels and
+    # of the RoPE + cache writes, and quant_matmul at the model's linears
+    rglru_src = "src/repro_torch/kernels/csrc/rglru.cu"
+    gen_hybrid = torch.Generator(device=dev)     # the hybrid's kernel cases
+    gen_hybrid.manual_seed(30)
+    rgc = get_config(HYBRID_ARCH)
+    hW, hHq, hHkv, hD = (rgc.lru_width, rgc.num_heads, rgc.num_kv_heads,
+                         rgc.head_dim)
+    # the RG-LRU's f32 operations a position and channel, counted from the
+    # source: the two gates (an add, a sigmoid and a rounding each), the
+    # decay's exp, the step (7) and the gelu-gated output (15)
+    RGLRU_OPS = 35
+
+    def rglru_params():
+        with drawing_from(gen_hybrid):
+            return dict(ba=randn(hW, scale=0.5).bfloat16(),
+                        bx=randn(hW, scale=0.5).bfloat16(),
+                        a=(4.0 + randn(hW)).bfloat16())
+
+    def rglru_inputs(B, S):
+        """The conv's output x (B, S, w), the gate products' row
+        [x wa | x wx] (B, S, 2w), and the gate: a column view of in_proj's
+        (B, S, 2w) output, as the model hands them over (S None: one decode
+        token, (B, ...))."""
+        lead = (B,) if S is None else (B, S)
+        with drawing_from(gen_hybrid):
+            xg = randn(*lead, 2 * hW).bfloat16()
+            return (randn(*lead, hW).bfloat16(),
+                    randn(*lead, 2 * hW).bfloat16(), xg[..., hW:])
+
+    def rglru_row(name, kern, plain, copies, nbytes, flops, shape, path,
+                  err, tol, grid):
+        """Time an RG-LRU kernel and its plain version and keep its row.
+        No single PyTorch call computes either (library_ms null); the bound
+        is the bytes, or the counted f32 operations at 67 TFLOP/s."""
+        ms, call_ms = time_calls(kern, copies, 100, per_call=1)
+        attempts = time_calls.attempts
+        plain_ms, _ = time_calls(plain, copies, 5)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOPS * 1e3
+        t_bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else \
+            (t_ops, "operations")
+        rows[name] = dict(
+            name=name, route="cuda", source=rglru_src,
+            replaces="src/repro/models/hybrid.py:43-112 (jnp)",
+            no_pallas_counterpart=True, shape=shape, path=path, launches=0,
+            max_abs_err=err, tol=tol, ms=ms, call_ms=call_ms,
+            plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
+            library_ms=None, library=None, grid=grid,
+            trace_attempts=attempts)
+        print(f"    device ms {ms:.4f} (per call back to back {call_ms:.4f};"
+              f" {attempts} trace(s))  plain {plain_ms:.4f}  bound "
+              f"{t_bound:.4f} ({by}, {nbytes / 1e6:.3f} MB) -> "
+              f"{t_bound / ms:.1%} of bound; grid {grid}", flush=True)
+
+    def rglru_scan_case(rp, B, S, timed=False, path=None):
+        """y within one bf16 ulp of the plain version; the state the last
+        position's y, bit-equal to y's last row (whatever it held before:
+        the scan starts from zeros); each sequence alone bit-equal to its
+        row of the batch."""
+        x, gx, gate = rglru_inputs(B, S)
+        with drawing_from(gen_hybrid):
+            st0 = randn(B, hW)
+        vec = (rp["ba"], rp["bx"], rp["a"])
+        s1, s2 = st0.clone(), st0.clone()
+        y = rglru_scan(x, gx, gate, *vec, s1)
+        ref = rglru_scan_plain(x, gx, gate, *vec, s2)
+        alone = [rglru_scan(x[r:r + 1], gx[r:r + 1], gate[r:r + 1], *vec,
+                            st0[r:r + 1].clone()) for r in range(B)]
+        torch.cuda.synchronize()
+        err = float((y.float() - ref.float()).abs().max())
+        tol = bf16_tol(ref)
+        last = torch.equal(s1, y[:, -1].float())
+        same = [torch.equal(a[0], y[r]) for r, a in enumerate(alone)]
+        shape = f"B{B} S{S} w{hW}"
+        print(f"  rglru_scan {shape}: y max_abs_err {err:.3e} (tol "
+              f"{tol:.3e}); state == y's last row {last}; each sequence "
+              f"alone bit-equal {same}", flush=True)
+        check(err <= tol, f"rglru_scan {shape}: y {err} (tol {tol})")
+        check(last, f"rglru_scan {shape}: the state is not the last y")
+        check(all(same), f"rglru_scan {shape}: a sequence alone differs "
+              f"from its row of the batch: {same}")
+        if not timed:
+            return
+        nbytes = B * S * hW * (2 + 4 + 2 + 2) + B * hW * 4 + 3 * hW * 2
+        # copies of every input (the gate a view of its own in_proj row)
+        copies = [(x, gx, gate, st0.clone())] + [
+            (x.clone(), gx.clone(), gate._base.clone()[..., hW:],
+             st0.clone())
+            for _ in range(n_copies(B * S * hW * 10) - 1)]
+        rglru_row(f"rglru_scan[{shape}]",
+                  lambda a, g_, gt, st: rglru_scan(a, g_, gt, *vec, st),
+                  lambda a, g_, gt, st: rglru_scan_plain(a, g_, gt, *vec,
+                                                         st),
+                  copies, nbytes, float(RGLRU_OPS * B * S * hW), shape, path,
+                  err, tol, dict(ctas=math.prod(
+                      rglru_kernels.scan_grid(B, hW)),
+                      threads=rglru_kernels.SCAN_THREADS))
+
+    def rglru_step_case(rp, B, advance, timed=False, path=None):
+        """y within one bf16 ulp of the plain version, the state within
+        1e-5 of its scale, a frozen row's state untouched, each slot alone
+        bit-equal to its row of the batch."""
+        x, gx, gate = rglru_inputs(B, None)
+        with drawing_from(gen_hybrid):
+            st0 = randn(B, hW)
+        adv = torch.tensor(advance, dtype=torch.bool, device=dev)
+        vec = (rp["ba"], rp["bx"], rp["a"])
+        s1, s2 = st0.clone(), st0.clone()
+        y = rglru_decode_step(x, gx, gate, *vec, s1, adv)
+        ref = rglru_decode_step_plain(x, gx, gate, *vec, s2, adv)
+        alone = []
+        for r in range(B):
+            sr = st0[r:r + 1].clone()
+            alone.append((rglru_decode_step(x[r:r + 1], gx[r:r + 1],
+                                            gate[r:r + 1], *vec, sr,
+                                            adv[r:r + 1]), sr))
+        torch.cuda.synchronize()
+        err = float((y.float() - ref.float()).abs().max())
+        tol = bf16_tol(ref)
+        s_err = float((s1 - s2).abs().max())
+        s_tol = 1e-5 * float(s2.abs().max())
+        same = [torch.equal(a[0][0], y[r]) and torch.equal(a[1][0], s1[r])
+                for r, a in enumerate(alone)]
+        frozen = torch.equal(s1[~adv], st0[~adv])
+        shape = f"B{B} w{hW} advance {advance}"
+        print(f"  rglru_decode_step {shape}: y max_abs_err {err:.3e} (tol "
+              f"{tol:.3e}); state {s_err:.3e} (tol {s_tol:.3e}); frozen rows"
+              f" untouched {frozen}; each slot alone bit-equal {same}",
+              flush=True)
+        check(err <= tol and s_err <= s_tol, f"rglru_decode_step {shape}: "
+              f"y {err} (tol {tol}), state {s_err} (tol {s_tol})")
+        check(frozen, f"rglru_decode_step {shape}: a frozen row's state "
+              "moved")
+        check(all(same), f"rglru_decode_step {shape}: a slot alone differs "
+              f"from its row of the batch: {same}")
+        if not timed:
+            return
+        n_adv = int(adv.sum())
+        nbytes = B * hW * (2 + 4 + 2 + 2 + 4) + n_adv * hW * 4 + B + 6 * hW
+        copies = [(st0.clone(),) for _ in range(n_copies(B * hW * 8))]
+        rglru_row(f"rglru_decode_step[B{B}]",
+                  lambda st: rglru_decode_step(x, gx, gate, *vec, st, adv),
+                  lambda st: rglru_decode_step_plain(x, gx, gate, *vec, st,
+                                                     adv),
+                  copies, nbytes, float(RGLRU_OPS * B * hW), shape, path,
+                  err, tol, dict(ctas=math.prod(
+                      rglru_kernels.step_grid(B, hW)),
+                      threads=rglru_kernels.STEP_THREADS))
+
+    def geglu_case(M, Fw, timed=False, path=None):
+        with drawing_from(gen_hybrid):
+            gu = (randn(M, 2 * Fw) * 2).bfloat16()
+        rowwise_case("geglu", geglu, geglu_plain, (gu,),
+                     f"M{M} F{Fw} bfloat16", timed, path,
+                     3 * M * Fw * gu.element_size(),
+                     "src/repro/models/mlp.py:37 (layers.py:108 gelu)")
+
+    def hybrid_kernel_cases():
+        """The RG-LRU kernels at recurrentgemma-2b's width: the scan at
+        1 x 512 and 4 x 300 and edge lengths (a block of 48 and one past
+        it), the decode
+        step at 4 slots (a row frozen) and 1; the GeGLU alone at (4, 15360)
+        and (2048, 15360) and in the gate-up GEMM at K 2560, F 7680, M 4
+        and 2048 under q8_0 and q4_0; the (256, 10) instances: decode
+        attention at 4 slots of kv_len 1024 and of the served kv_len (all
+        three loaders), flash attention causal at 4 x 512 and windowed
+        (2048) at 1 x 4500 beside SDPA, the decode and prefill RoPE + cache
+        writes (the ring write too); quant_matmul at the model's linears at
+        M 4 and 2048."""
+        rp = rglru_params()
+        rglru_scan_case(rp, 1, 512, timed=True, path="hybrid stall")
+        rglru_scan_case(rp, 4, 300, timed=True, path="hybrid stall")
+        for B_, S_ in ((2, 37), (1, 1), (3, 16), (2, 48), (2, 49), (2, 301)):
+            rglru_scan_case(rp, B_, S_)
+        rglru_step_case(rp, 4, [True, False, True, True], timed=True,
+                        path="hybrid q8_0")
+        rglru_step_case(rp, 1, [True], timed=True, path="hybrid q8_0 alone")
+        rglru_step_case(rp, 2, [False, True])
+        geglu_case(B, rgc.d_ff, timed=True, path="hybrid bf16")
+        geglu_case(2048, rgc.d_ff, timed=True, path="hybrid bf16")
+        geglu_case(3, 100)
+        for fmt in ("q8_0", "q4_0"):
+            qmm_swiglu_case(fmt, B, rgc.d_model, rgc.d_ff, timed=True,
+                            path=f"hybrid {fmt}", act="gelu", g=gen_hybrid)
+            qmm_swiglu_case(fmt, 2048, rgc.d_model, rgc.d_ff,
+                            timed=fmt == "q8_0", path="hybrid stall",
+                            act="gelu", g=gen_hybrid)
+            qmm_swiglu_case(fmt, 1, rgc.d_model, rgc.d_ff, act="gelu",
+                            g=gen_hybrid)
+            qmm_swiglu_case(fmt, 9, 256, 100, act="gelu", g=gen_hybrid)
+        inst = f"D{hD} G{hHq // hHkv}"
+        with drawing_from(gen_hybrid):
+            for fmt in ("bf16", "q8_0", "q4_0"):
+                rope_case(fmt, 3, hHq, hHkv, 200, hD, [199, 200, 63],
+                          [True, True, False])
+            rope_prefill_case("bf16", 2, 300, 2048, hHq, hHkv, hD)
+            rope_prefill_case("bf16", 1, 2100, 2048, hHq, hHkv, hD)
+            for fmt in ("bf16", "q8_0", "q4_0"):
+                attention_case(fmt, B, hHq, hHkv, S, hD, [S] * B, 0,
+                               timed=fmt == "bf16", instance=inst,
+                               path="hybrid q8_0")
+                attention_case(fmt, B, hHq, hHkv, S, hD, [40, 33, 41, 37],
+                               0, timed=fmt == "bf16",
+                               instance=f"{inst} kv_len 40",
+                               path="hybrid q8_0")
+                attention_case(fmt, B, hHq, hHkv, S, hD, [0, 1, 300, S],
+                               64, timed=False, instance=inst)
+            flash_case(B, hHq, hHkv, 512, 512, hD, 0, 0, timed=True,
+                       instance=inst, path="hybrid stall")
+            flash_case(1, hHq, hHkv, 4500, 4500, hD, rgc.local_attn_window,
+                       0, timed=True, instance=inst, path="hybrid window")
+            for case in ((2, hHq, hHkv, 333, 333, hD, 0, 0),
+                         (2, hHq, hHkv, 300, 300, hD, 64, 0),
+                         (1, hHq, hHkv, 24, 16, hD, 12, 8)):
+                flash_case(*case, timed=False)
+            for label, (K, N) in (
+                    ("rg in_proj", (rgc.d_model, 2 * hW)),
+                    ("rg wa", (hW, hW)),
+                    ("rg wqkv", (rgc.d_model, rgc.q_dim + 2 * rgc.kv_dim)),
+                    ("rg w_down", (rgc.d_ff, rgc.d_model))):
+                for fmt in ("q8_0", "q4_0"):
+                    qmm_case(fmt, label, B, K, N, torch.bfloat16,
+                             timed=True, path=f"hybrid {fmt}")
+                qmm_case("q8_0", label, 2048, K, N, torch.bfloat16,
+                         timed=True, path="hybrid stall")
+                qmm_case("q4_0", label, 2048, K, N, torch.bfloat16,
+                         timed=False)
+
+    hybrid_readings = {}
+    print("the hybrid family's kernels vs plain versions on the card:",
+          flush=True)
+    t0 = time.perf_counter()
+    hybrid_kernel_cases()
+    hybrid_kernel_s = time.perf_counter() - t0
+    print(f"  the hybrid family's kernel cases: {hybrid_kernel_s:.1f} s",
+          flush=True)
+
     # -- shared checks of a served path -------------------------------------
     def clone_cache(c):
         out = {"lens": c["lens"].clone(),
@@ -3804,12 +4147,13 @@ def main() -> None:
             worst, fault_least = max(worst, err), min(fault_least, fault)
         return dict(max_rel_err=worst, fault_least_rel_err=fault_least)
 
-    def ssm_layers_vs_plain(engine, label, lens=None):
-        """Each SSM layer of one decode step from the engine's cache (with
-        ``lens``: of one fused prefill of a bucket of these true lengths)
-        through the kernels, the plain versions and the plain versions with
-        the planted fault (the state not decayed), on the same input and
-        states: the kernel pass's. Each layer's output and new SSD state
+    def recurrent_layers_vs_plain(engine, label, lens=None):
+        """Each SSM layer (a hybrid's RG-LRU layer) of one decode step from
+        the engine's cache (with ``lens``: of one fused prefill of a bucket
+        of these true lengths) through the kernels, the plain versions and
+        the plain versions with the planted fault (the state not decayed),
+        on the same input and states: the kernel pass's. Each layer's
+        output and new state
         must stay within one bf16 ulp of the plain version's scale
         (``bf16_tol``), and the planted fault must land beyond it in every
         layer. Then a whole pass through the plain versions gives, layer by
@@ -3819,8 +4163,13 @@ def main() -> None:
         model, params = engine.model, engine.params
         g = torch.Generator(device=dev)
         g.manual_seed(0)
+        hybrid = engine.cfg.arch_type == "hybrid"
+        mod = hybrid_mod if hybrid else ssm_mod
+        n_layers = (engine.model.kinds.count("rglru") if hybrid
+                    else engine.cfg.num_layers)
         if lens is None:
-            name, what = "ssm_decode", "decode_step"
+            name = "rglru_decode" if hybrid else "ssm_decode"
+            what = "decode_step"
             toks = torch.randint(1, engine.cfg.vocab_size, (engine.slots, 1),
                                  generator=g, device=dev)
 
@@ -3829,7 +4178,8 @@ def main() -> None:
                                          clone_cache(engine.cache))
         else:
             S = engine._bucket_len(max(lens))
-            name, what = "ssm_prefill", f"prefill ({len(lens)} x {S})"
+            name = "rglru_forward" if hybrid else "ssm_prefill"
+            what = f"prefill ({len(lens)} x {S})"
             toks = torch.randint(1, engine.cfg.vocab_size, (len(lens), S),
                                  generator=g, device=dev)
             seq_lens = torch.tensor(lens, device=dev)
@@ -3837,7 +4187,7 @@ def main() -> None:
             def run():
                 return model.prefill(params, toks, model.init_cache(
                     len(lens), engine.max_len), seq_lens=seq_lens)
-        real = getattr(ssm_mod, name)
+        real = getattr(mod, name)
         rel = bf16_tol(torch.ones(()))
         errs, inputs = [], {"kernels": [], "plain": []}
 
@@ -3864,32 +4214,32 @@ def main() -> None:
             return real(p, cfg, z, cache, *a)
 
         try:
-            setattr(ssm_mod, name, checked)
+            setattr(mod, name, checked)
             lk = run()
-            setattr(ssm_mod, name, recording)
+            setattr(mod, name, recording)
             with plain_versions():
                 lp = run()
         finally:
-            setattr(ssm_mod, name, real)
+            setattr(mod, name, real)
         torch.cuda.synchronize()
         L = len(errs)
-        check(L == engine.cfg.num_layers and len(inputs["plain"]) == L,
-              f"{label}: {L} SSM layer calls checked")
+        check(L == n_layers and len(inputs["plain"]) == L,
+              f"{label}: {L} recurrent layer calls checked")
         out_err = max(e[0][0] for e in errs)
         state_err = max(e[0][1] for e in errs)
         fault_least = min(e[1][0] for e in errs)
         drift = [share(k, p) for k, p in zip(inputs["kernels"],
                                             inputs["plain"])]
         at = sorted({0, 1, L // 4, L // 2, L - 1})
-        print(f"  {label}: {what} layer by layer on the same input: "
-              f"output at most {out_err:.3e}, SSD state {state_err:.3e} of "
+        print(f"  {label}: {what} {name} layer by layer on the same input: "
+              f"output at most {out_err:.3e}, state {state_err:.3e} of "
               f"their scales (tol one bf16 ulp, {rel:.3e}); planted fault at"
               f" least {fault_least:.3e} in every layer; a whole plain pass's"
               f" input drift from the kernel pass's by layer "
               + ", ".join(f"{l}: {drift[l]:.3e}" for l in at)
               + f"; logits {share(lk, lp):.3e}", flush=True)
         check(out_err <= rel and state_err <= rel,
-              f"{label}: an SSM layer's output ({out_err}) or SSD state "
+              f"{label}: a recurrent layer's output ({out_err}) or state "
               f"({state_err}) through the kernels is beyond one bf16 ulp of "
               "the plain versions' on the same input")
         check(fault_least > rel, f"{label}: the planted fault's error "
@@ -3978,6 +4328,32 @@ def main() -> None:
             "ssm_decode_step": 0 if prefill else n,
             "ssd_prefill": n if prefill else 0})
 
+    def hybrid_launches(engine, n, norms, prefill):
+        """A hybrid config's launches over n passes of each layer: an
+        RG-LRU layer runs the conv, the gate products (wa, wx) and the
+        RG-LRU scan (prefill) or decode step; an attention layer the RoPE
+        + cache write and the attention (prefill: the prefill kernels);
+        every layer two residual add + norms and the gate-up GEMM with its
+        GeGLU; under quantized weights in_proj, wa, wx, out_proj and w_down
+        (RG-LRU) or wqkv, wo and w_down (attention) through quant_matmul
+        and the gate-up through quant_matmul_swiglu (under bf16 library
+        products and the standalone GeGLU); ``norms`` RMSNorms alone."""
+        quantized = engine.quant_policy in ("q8_0", "q4_0")
+        kinds = engine.model.kinds
+        r, a = n * kinds.count("rglru"), n * kinds.count("attn")
+        return every_kernel({
+            "rmsnorm": norms, "add_rmsnorm": 2 * (r + a),
+            "quant_matmul": 5 * r + 3 * a if quantized else 0,
+            "quant_matmul_swiglu": r + a if quantized else 0,
+            "geglu": 0 if quantized else r + a,
+            "ssm_conv": r,
+            "rglru_scan": r if prefill else 0,
+            "rglru_decode_step": 0 if prefill else r,
+            "rope_cache_write": 0 if prefill else a,
+            "decode_attention": 0 if prefill else a,
+            "rope_cache_write_prefill": a if prefill else 0,
+            "flash_attention": a if prefill else 0})
+
     def per_megastep(engine):
         """Kernel launches of one megastep: K substeps of one attention,
         one RoPE + cache write, the linears and SwiGLU, and two residual
@@ -3986,6 +4362,8 @@ def main() -> None:
         add_rmsnorm), from the config's depth and head (an SSM config:
         ``ssm_launches``)."""
         L, K = engine.cfg.num_layers, engine.megastep_k
+        if engine.cfg.arch_type == "hybrid":
+            return hybrid_launches(engine, K, K, prefill=False)
         if engine.cfg.is_recurrent:
             return ssm_launches(engine, L * K, K, prefill=False)
         quant_cache = engine.kv_quant != "bf16"
@@ -4002,6 +4380,8 @@ def main() -> None:
         prefill here is a bucket of 512 positions or more, past the
         16-row tile: the down GEMM and the combine apart."""
         L = engine.cfg.num_layers
+        if engine.cfg.arch_type == "hybrid":
+            return hybrid_launches(engine, 1, 1, prefill=True)
         if engine.cfg.is_recurrent:
             return ssm_launches(engine, L, 1, prefill=True)
         return every_kernel({
@@ -4852,7 +5232,7 @@ def main() -> None:
         torch.cuda.synchronize()
         ssm_counts[key] = check_served(eng, reqs, label, warm, after_warm)
 
-    def ssm_resume_leg(model, params, admission):
+    def ssm_resume_leg(model, params, admission, label="SSM resume leg"):
         """A request preempted once it has tokens resumes from its prompt
         and tokens: chunked, its stream is ``reference_decode``'s; stall,
         its tokens after the resume are the fused reference of the prompt
@@ -4866,32 +5246,32 @@ def main() -> None:
                 eng.submit(r)
             while not reqs[0].output:
                 eng.step()
-            check(eng.preempt(reqs[0]), "SSM resume leg: nothing preempted")
+            check(eng.preempt(reqs[0]), f"{label}: nothing preempted")
             head = list(reqs[0].output)
             eng.run()
         torch.cuda.synchronize()
         r = reqs[0]
         check(r.done and len(r.output) == 24 and r.output[:len(head)] == head
-              and r.preemptions == 1, f"SSM resume leg ({admission}): "
+              and r.preemptions == 1, f"{label} ({admission}): "
               f"{len(r.output)} tokens, {r.preemptions} preemptions")
         if admission == "chunked":
             check(r.output == model.reference_decode(
                 params, r.prompt, 24, max_len=1024),
-                "SSM resume leg (chunked): the stream differs from "
+                f"{label} (chunked): the stream differs from "
                 "reference_decode")
         else:
             resumed = np.concatenate([r.prompt, np.asarray(head, np.int32)])
             check(r.output[len(head):] == model.reference_decode(
                 params, resumed, 24 - len(head), max_len=1024,
-                stepwise_prefill=False), "SSM resume leg (stall): the tokens"
+                stepwise_prefill=False), f"{label} (stall): the tokens"
                 " after the resume differ from reference_decode("
                 "stepwise_prefill=False) of the prompt and the tokens before")
         check(reqs[1].output == model.reference_decode(
             params, reqs[1].prompt, 24, max_len=1024,
             stepwise_prefill=admission == "chunked"),
-            f"SSM resume leg ({admission}): the other request's stream "
+            f"{label} ({admission}): the other request's stream "
             "differs from its reference")
-        print(f"  SSM resume leg ({admission}): preempted after "
+        print(f"  {label} ({admission}): preempted after "
               f"{len(head)} tokens, resumed to 24; "
               + ("stream == reference_decode" if admission == "chunked" else
                  "tokens after the resume == reference_decode(prompt + "
@@ -4941,7 +5321,7 @@ def main() -> None:
                     t0 = time.perf_counter()
                     cell.update(step_vs_plain(eng, label,
                                               tol=SSM_STEP_REL_TOL))
-                    cell.update(ssm_layers_vs_plain(eng, label))
+                    cell.update(recurrent_layers_vs_plain(eng, label))
                     out["checks_s"] += time.perf_counter() - t0
                     cell["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
                 if fmt == "q8_0" and slots == 4:
@@ -5031,7 +5411,7 @@ def main() -> None:
         out["stall"] = prefill_vs_plain(seng, [300] * 4, label,
                                         tol=SSM_PREFILL_REL_TOL)
         out["stall"]["prefill_calls_by_bucket"] = by_bucket
-        out["stall"].update(ssm_layers_vs_plain(seng, label, [300] * 4))
+        out["stall"].update(recurrent_layers_vs_plain(seng, label, [300] * 4))
         out["stall"]["served_s"] = served_s
         out["checks_s"] += time.perf_counter() - t0 - served_s
         print(f"  {label}: four exact-length prefill calls; streams == "
@@ -5124,6 +5504,235 @@ def main() -> None:
         return out
 
     ssm = ssm_phase()
+
+    # -- 14. the hybrid family (run right after the SSM family) --------------
+    hybrid_counts = {}  # launches on the hybrid's paths, into ``counts``
+
+    def hybrid_served(fmt, slots, extra=()):
+        """recurrentgemma-2b at full width and depth under ``fmt`` weights,
+        served by ``launch.serve`` with the main path's traffic on
+        ``slots`` slots (8 requests; 1 alone on 1 slot)."""
+        zero_counts()
+        torch.cuda.synchronize()
+        with kernels_only(quantized=fmt != "bf16"):
+            res = serve.main([
+                "--arch", HYBRID_ARCH, "--no-reduced", "--precision", fmt,
+                "--slots", str(slots), "--max-len", "1024", "--megastep-k",
+                "8", "--requests", "8" if slots == 4 else "1", "--max-new",
+                "32", "--temperature", "0", "--device", "cuda", *extra])
+        torch.cuda.synchronize()
+        return res
+
+    def hybrid_leg(eng, label, key, reqs, warm_reqs):
+        """Serve ``reqs`` on a (fresh) engine after a warmup that captures
+        its graph; launch counts into ``hybrid_counts[key]``."""
+        zero_counts()
+        for r in warm_reqs:
+            eng.submit(r)
+        eng.run()
+        warm, after_warm = eng.stats, ops.launch_counts()
+        eng.reset()
+        for r in reqs:
+            eng.submit(r)
+        t_leg = time.perf_counter()
+        with kernels_only():
+            eng.run()
+        torch.cuda.synchronize()
+        hybrid_counts[key] = check_served(eng, reqs, label, warm, after_warm)
+        return time.perf_counter() - t_leg
+
+    def hybrid_phase():
+        t_phase = time.perf_counter()
+        out = dict(kernel_cases_s=hybrid_kernel_s, checks_s=0.0,
+                   kernel_readings=hybrid_readings)
+        arch_cfg = get_config(HYBRID_ARCH)
+        print(f"hybrid path: {HYBRID_ARCH} at full width and depth "
+              f"({arch_cfg.num_layers} layers: "
+              f"{arch_cfg.layer_pattern().count('rglru')} RG-LRU, "
+              f"{arch_cfg.layer_pattern().count('attn')} local attention), "
+              "bf16 / q8_0 / q4_0 weights (served by launch.serve)",
+              flush=True)
+        streams = {}
+        for fmt in ("bf16", "q8_0", "q4_0"):
+            cell = {}
+            for slots in (4, 1):
+                res = hybrid_served(fmt, slots)
+                eng = res.engine
+                label = f"{HYBRID_ARCH} ({fmt} weights, {slots} slot(s))"
+                hybrid_counts[f"hybrid {fmt}" + ("" if slots == 4
+                                                 else " alone")] = \
+                    check_served(eng, res.requests, label, res.warmup_stats,
+                                 res.launches_after_warmup)
+                for r in res.requests:
+                    check(r.output == eng.model.reference_decode(
+                        eng.params, r.prompt, r.max_new_tokens,
+                        max_len=1024), f"{label}: request {r.uid} differs "
+                        "from reference_decode")
+                if slots == 1:
+                    check(res.requests[0].output == streams[fmt][0],
+                          f"{label}: the stream alone differs from the "
+                          "4-slot run's")
+                st = eng.stats
+                f = res.floor
+                num = dict(ms_per_step=1e3 * st.decode_wall_s / st.steps,
+                           tok_s=st.tokens_generated / st.decode_wall_s,
+                           steps=st.steps, tokens=st.tokens_generated,
+                           floor_ms=f["ms"], weight_bytes=f["weight_bytes"],
+                           state_bytes=f["state_bytes"],
+                           ring_bytes=f["ring_bytes"], kv_len=f["kv_len"])
+                num["x_floor"] = num["ms_per_step"] / f["ms"]
+                cell[f"slots{slots}"] = num
+                print(f"  {label}: {num['ms_per_step']:.3f} ms a step, "
+                      f"{num['tok_s']:.1f} tok/s; floor {f['ms']:.3f} ms "
+                      f"({num['x_floor']:.2f}x; {f['weight_bytes'] / 1e9:.3f}"
+                      f" GB of weights + {f['state_bytes'] / 1e6:.3f} MB of "
+                      f"state read and written + {f['ring_bytes'] / 1e6:.3f}"
+                      f" MB of the rings at kv_len {f['kv_len']:.1f}); "
+                      "streams == reference_decode", flush=True)
+                if slots == 4:
+                    streams[fmt] = [r.output for r in res.requests]
+                    t0 = time.perf_counter()
+                    cell.update(step_vs_plain(eng, label,
+                                              tol=HYBRID_STEP_REL_TOL))
+                    cell.update(recurrent_layers_vs_plain(eng, label))
+                    out["checks_s"] += time.perf_counter() - t0
+                    cell["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                if fmt == "q8_0" and slots == 4:
+                    # where the device time goes: the first 4 requests'
+                    # first 16 tokens again under the profiler
+                    prof, replay = profile_served(
+                        eng, lambda: serve.make_requests(
+                            eng.cfg.vocab_size, 4, 16, seed=0))
+                    check([r.output for r in replay] ==
+                          [o[:16] for o in streams[fmt][:4]],
+                          f"{label}: the profiled replay served other "
+                          "tokens")
+                    g = prof["device_ms_per_step_by_group"]
+                    print(f"  {label}: device ms a step by kernel group "
+                          + ", ".join(f"{k} {v:.4f}" for k, v in g.items()
+                                      if v)
+                          + f" of {prof['device_ms_per_step']:.3f}; device "
+                          f"idle share {prof['device_idle_share']:.3f}; CUDA"
+                          f" events a megastep {prof['events_per_megastep']}",
+                          flush=True)
+                    cell.update(prof)
+                    model, params = eng.model, eng.params
+                del eng, res
+                torch.cuda.empty_cache()
+            out[fmt] = cell
+
+        # stall admission: three prompts of distinct lengths, each its own
+        # exact-length bucket (one odd)
+        label = (f"hybrid stall leg ({HYBRID_ARCH}, q8_0 weights, buckets "
+                 f"{HYBRID_STALL_PROMPTS})")
+        seng = ServingEngine(model, params, slots=4, max_len=1024,
+                             sampling=SamplingConfig(), megastep_k=8,
+                             quant_policy="q8_0", admission="stall")
+        rng = np.random.default_rng(2)
+        prompts = [rng.integers(1, model.cfg.vocab_size, n).astype(np.int32)
+                   for n in HYBRID_STALL_PROMPTS]
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=8)
+                for i, p in enumerate(prompts)]
+        served_s = hybrid_leg(seng, label, "hybrid stall", reqs, [Request(
+            uid=-1, prompt=prompts[0][:37], max_new_tokens=2)])
+        check(seng.stats.prefill_batches == len(HYBRID_STALL_PROMPTS) and [
+            seng._bucket_len(n) for n in HYBRID_STALL_PROMPTS] ==
+            list(HYBRID_STALL_PROMPTS), f"{label}: "
+            f"{seng.stats.prefill_batches} prefill calls")
+        for r in reqs:
+            check(r.output == model.reference_decode(
+                params, r.prompt, 8, max_len=1024, stepwise_prefill=False),
+                f"{label}: request {r.uid} differs from reference_decode("
+                "stepwise_prefill=False)")
+        t0 = time.perf_counter()
+        out["stall"] = recurrent_layers_vs_plain(seng, label, [300] * 2)
+        out["checks_s"] += time.perf_counter() - t0
+        out["stall"]["served_s"] = served_s
+        print(f"  {label}: three exact-length prefill calls; streams == "
+              "reference_decode(stepwise_prefill=False)", flush=True)
+        del seng
+
+        # the window: max_len 4096, so each attention layer's ring is the
+        # 2048-position window; a 4500-token prompt through the ring write
+        # and the windowed flash attention, a 2040-token one whose decode
+        # crosses the ring's edge
+        label = (f"hybrid window leg ({HYBRID_ARCH}, q8_0 weights, stall "
+                 f"admission, max_len {HYBRID_WINDOW_MAX_LEN})")
+        weng = ServingEngine(model, params, slots=2,
+                             max_len=HYBRID_WINDOW_MAX_LEN,
+                             sampling=SamplingConfig(), megastep_k=8,
+                             quant_policy="q8_0", admission="stall")
+        check(Model.cache_len(weng.cache) == model.cfg.local_attn_window,
+              f"{label}: the ring is not the window")
+        long_p, edge_p = (rng.integers(1, model.cfg.vocab_size, n).astype(
+            np.int32) for n in (4500, 2040))
+        reqs = [Request(uid=0, prompt=long_p, max_new_tokens=16),
+                Request(uid=1, prompt=edge_p, max_new_tokens=24)]
+        wall = hybrid_leg(weng, label, "hybrid window", reqs, [Request(
+            uid=-1, prompt=edge_p[:9], max_new_tokens=2)])
+        for r in reqs:
+            check(r.output == model.reference_decode(
+                params, r.prompt, r.max_new_tokens,
+                max_len=HYBRID_WINDOW_MAX_LEN, stepwise_prefill=False),
+                f"{label}: request {r.uid} differs from reference_decode("
+                "stepwise_prefill=False)")
+        print(f"  {label}: a 4500-token prompt through the ring write and "
+              "the windowed prefill attention, a 2040-token one whose "
+              "decode crosses ring slot 2048; both streams == "
+              f"reference_decode(stepwise_prefill=False); {wall:.3f} s "
+              "served", flush=True)
+        out["window"] = dict(served_s=wall)
+        del weng
+        torch.cuda.empty_cache()
+
+        # --kv-quant q8_0 --page-size 16 --prefix-cache: no-ops, with the
+        # engine's warning; the streams are the q8_0 cell's
+        import warnings
+        label = (f"hybrid no-op leg ({HYBRID_ARCH}, q8_0, --kv-quant q8_0 "
+                 f"--page-size {PAGE} --prefix-cache)")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = hybrid_served("q8_0", 4, ("--kv-quant", "q8_0",
+                                            "--page-size", str(PAGE),
+                                            "--prefix-cache"))
+        eng = res.engine
+        check(any("prefix_cache requires" in str(w.message) for w in caught),
+              f"{label}: no prefix-cache warning")
+        check(not eng.paged and not eng.prefix_cache
+              and eng.kv_quant == "bf16", f"{label}: paged {eng.paged}, "
+              f"prefix cache {eng.prefix_cache}, kv_quant {eng.kv_quant}")
+        hybrid_counts["hybrid no-op"] = check_served(
+            eng, res.requests, label, res.warmup_stats,
+            res.launches_after_warmup)
+        check([r.output for r in res.requests] == streams["q8_0"],
+              f"{label}: streams differ from the q8_0 cell's")
+        print(f"  {label}: warned, dense bf16 rings; streams == the q8_0 "
+              "cell's (8 requests)", flush=True)
+        del eng, res
+        torch.cuda.empty_cache()
+
+        for admission in ("chunked", "stall"):
+            out[f"resume_{admission}"] = ssm_resume_leg(
+                model, params, admission, label="hybrid resume leg")
+        del model, params
+        torch.cuda.empty_cache()
+        out["phase_s"] = time.perf_counter() - t_phase
+        print(f"hybrid phase: {out['phase_s']:.1f} s, of which the "
+              f"kernel-vs-plain checks {out['checks_s']:.1f} s (the hybrid "
+              f"kernel cases took {out['kernel_cases_s']:.1f} s in phase "
+              "3)", flush=True)
+        print(f"{HYBRID_ARCH} on the H100 (ms a step at 4 slots / alone, "
+              "tok/s at 4 slots, x the floor):", flush=True)
+        for fmt in ("bf16", "q8_0", "q4_0"):
+            c = out[fmt]
+            print(f"  {fmt:5s} {c['slots4']['ms_per_step']:7.3f} / "
+                  f"{c['slots1']['ms_per_step']:7.3f} ms  "
+                  f"{c['slots4']['tok_s']:8.1f} tok/s  floor "
+                  f"{c['slots4']['floor_ms']:.3f} ms "
+                  f"({c['slots4']['x_floor']:.2f}x)", flush=True)
+        return out
+
+    hybrid = hybrid_phase()
 
     # -- 5. serving under load ------------------------------------------------
     load = serving_under_load()
@@ -6174,6 +6783,7 @@ def main() -> None:
     # -- 11. the kernel line --------------------------------------------------
     counts.update(moe_counts)
     counts.update(ssm_counts)
+    counts.update(hybrid_counts)
     counts.update(v0_counts)
     counts.update(dense_counts)
     for row in rows.values():
@@ -6186,6 +6796,7 @@ def main() -> None:
                       "paged_path": paged_path, "under_load": load,
                       "second_path_step_checks": step_checks,
                       "paper_models": paper, "moe": moe, "ssm": ssm,
+                      "hybrid": hybrid,
                       "prefill_chunk_4": chunk_leg, "v0": v0_main,
                       "dense_models": dense,
                       "unembed_rows_equal_across_m": unembed_rows_equal,

@@ -12,7 +12,11 @@ neither JAX nor the JAX package:
   into the port's list of per-layer dicts;
 - a cache's stacked per-layer ``lens`` (L, B), equal across layers,
   becomes the port's single ``lens`` (B,) (a dense KV cache, or an SSM
-  cache of conv and SSD states).
+  cache of conv and SSD states);
+- the JAX hybrid keeps its layers as a list of per-layer dicts, in its
+  params and in its cache, where each layer has its own ``lens`` (B,):
+  the list is kept, and the layers' ``lens``, equal across layers,
+  become the one ``lens``.
 """
 from __future__ import annotations
 
@@ -76,13 +80,18 @@ def _split_layers(tree) -> list:
 
 def from_jax(tree: Dict[str, Any],
              device: Union[str, torch.device, None] = None) -> Dict:
-    """The JAX package's params, or its dense KV or SSM cache, with numpy
-    leaves → the port's params or cache on ``device`` (default: the
-    card)."""
+    """The JAX package's params, or its dense KV, SSM or hybrid cache,
+    with numpy leaves → the port's params or cache on ``device`` (default:
+    the card)."""
     dev = resolve_device(device)
     out = _convert(tree, dev)
-    lens = out["layers"].pop("lens", None)
-    out["layers"] = _split_layers(out["layers"])
+    if isinstance(out["layers"], list):        # the hybrid's per-layer list
+        found = [layer.pop("lens") for layer in out["layers"]
+                 if "lens" in layer]
+        lens = torch.stack(found) if found else None
+    else:
+        lens = out["layers"].pop("lens", None)
+        out["layers"] = _split_layers(out["layers"])
     if lens is not None:
         if not bool((lens == lens[0]).all()):
             raise ValueError("per-layer cache lens differ; the port keeps "

@@ -10,9 +10,12 @@ the long-context fallback of ``Model.window_for``) and the MoE block
 ``capacity_factor``, ``num_shared_experts`` always-on experts and the
 Switch aux loss's ``router_aux_weight``) and the Mamba-2 SSD layer of
 the SSM family (``ssm_state`` N, ``ssm_expand``, ``ssm_head_dim`` P,
-``ssm_chunk``, ``ssm_conv``; ``num_heads`` 0: no attention). The other
-families of the JAX package (hybrid, audio, vlm) are refused until they
-are ported.
+``ssm_chunk``, ``ssm_conv``; ``num_heads`` 0: no attention), and the
+RG-LRU hybrid (recurrentgemma-2b: ``hybrid_pattern`` of "rglru" and
+"attn" layers, ``layer_pattern()``, ``rglru_width``, the local
+attention's ``local_attn_window``, and ``activation`` "gelu", whose FFN
+is a GeGLU). The other families of the JAX package (audio, vlm) are
+refused until they are ported.
 
 The paper's execution version (``scheduler_version``, the JAX
 ``configs/base.py:29-33``) and the fusion flags it drives: "v0" is the
@@ -30,8 +33,10 @@ hand-written kernels always run, on a CPU tensor their plain versions.
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
-ARCH_TYPES = ("dense", "moe", "ssm")
+ARCH_TYPES = ("dense", "moe", "ssm", "hybrid")
+ACTIVATIONS = ("silu", "gelu")
 WEIGHT_FORMATS = ("bf16", "q8_0", "q4_0")
 # the paper's execution versions: v0 serial and unfused, v1 graph-level
 # fusion (fused QKV and gate-up), v2 / v3 v1 with tensor parallelism
@@ -57,6 +62,7 @@ class ModelConfig:
     tie_embeddings: bool = False   # unembed with embedding.T
     norm_eps: float = 1e-6
     rope_theta: float = 10000.0
+    activation: str = "silu"       # the gated FFN: silu (SwiGLU) | gelu (GeGLU)
 
     sliding_window: int = 0        # 0 → full attention; >0 → window size
     window_long_ctx: int = 4096    # the window past max_full_attn positions
@@ -73,6 +79,13 @@ class ModelConfig:
     ssm_head_dim: int = 64         # P
     ssm_chunk: int = 256           # SSD chunk length (the plain scan's)
     ssm_conv: int = 4              # short conv width
+
+    # the hybrid (RecurrentGemma): its block pattern, repeated, e.g.
+    # ("rglru", "rglru", "attn"); the RG-LRU width (0: d_model); the
+    # window of its local attention layers
+    hybrid_pattern: Tuple[str, ...] = ()
+    rglru_width: int = 0
+    local_attn_window: int = 2048
 
     scheduler_version: str = "v2"  # one of SCHEDULER_VERSIONS
     fuse_qkv: bool = True          # forced False by scheduler_version v0
@@ -99,7 +112,8 @@ class ModelConfig:
         if self.num_heads % max(self.num_kv_heads, 1):
             raise ValueError(f"num_kv_heads {self.num_kv_heads} must "
                              f"divide num_heads {self.num_heads}")
-        for field, allowed in (("quant_policy", WEIGHT_FORMATS),
+        for field, allowed in (("activation", ACTIVATIONS),
+                               ("quant_policy", WEIGHT_FORMATS),
                                ("kv_quant", WEIGHT_FORMATS),
                                ("param_dtype", PARAM_DTYPES)):
             if getattr(self, field) not in allowed:
@@ -118,10 +132,26 @@ class ModelConfig:
 
     @property
     def is_recurrent(self) -> bool:
-        """A family whose cache is a fixed recurrent state (the JAX
-        package's ssm and hybrid): exact-length prefill buckets, no
-        paging and no ``kv_quant``."""
-        return self.arch_type == "ssm"
+        """A family whose cache holds a fixed recurrent state (the JAX
+        package's ssm and hybrid): the serving contract of exact-length
+        prefill buckets, no paging and no ``kv_quant``. Which layers a
+        config has is ``layer_pattern()``'s to say."""
+        return self.arch_type in ("ssm", "hybrid")
+
+    def layer_pattern(self) -> Tuple[str, ...]:
+        """Each layer's kind, ``num_layers`` long: "ssm", "rglru" or
+        "attn" (the JAX ``ModelConfig.layer_pattern``)."""
+        if self.arch_type == "ssm":
+            return ("ssm",) * self.num_layers
+        if self.arch_type == "hybrid":
+            pat = self.hybrid_pattern or ("rglru", "rglru", "attn")
+            return tuple(pat[i % len(pat)] for i in range(self.num_layers))
+        return ("attn",) * self.num_layers
+
+    @property
+    def lru_width(self) -> int:
+        """The RG-LRU width: ``rglru_width``, or d_model where 0."""
+        return self.rglru_width or self.d_model
 
     @property
     def d_inner(self) -> int:
@@ -142,9 +172,11 @@ class ModelConfig:
 
 def reduced(cfg: ModelConfig, **over) -> ModelConfig:
     """Reduced variant of the same family for CPU tests (the same sizes
-    the JAX package's ``reduced`` picks for a dense, MoE or SSM config:
-    at most 4 experts, top-2, one shared expert; an SSM config at d_model
-    128, N at most 16, P 32 and chunks of 64)."""
+    the JAX package's ``reduced`` picks for a dense, MoE, SSM or hybrid
+    config: at most 4 experts, top-2, one shared expert; an SSM config at
+    d_model 128, N at most 16, P 32 and chunks of 64; a hybrid at 3
+    layers, one whole rglru-rglru-attn pattern, window 64 and the RG-LRU
+    width d_model)."""
     base = dict(
         num_layers=2,
         d_model=min(cfg.d_model, 128),
@@ -159,11 +191,15 @@ def reduced(cfg: ModelConfig, **over) -> ModelConfig:
         base["num_experts"] = min(cfg.num_experts, 4)
         base["experts_per_token"] = min(cfg.experts_per_token, 2)
         base["num_shared_experts"] = min(cfg.num_shared_experts, 1)
-    if cfg.is_recurrent:
+    if cfg.arch_type == "ssm":
         base["d_model"] = 128
         base["ssm_state"] = min(cfg.ssm_state, 16)
         base["ssm_head_dim"] = 32
         base["ssm_chunk"] = 64
+    if cfg.arch_type == "hybrid":
+        base["rglru_width"] = 0
+        base["local_attn_window"] = 64
+        base["num_layers"] = 3
     if base["num_heads"] % max(base["num_kv_heads"], 1):
         base["num_kv_heads"] = 1
     base.update(over)

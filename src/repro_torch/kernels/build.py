@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` file is compiled with ``nvcc`` for ``sm_90a`` into
 its own shared library with a plain C interface, under
 ``build/repro_torch_kernels/`` at the repository root, at first use.
 All sources compile at once (one ``nvcc`` process each). A library is
-named after the hash of its source and flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is. Nothing is fetched or
+named after the hash of its source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source or header is rebuilt and an
+unchanged one is loaded as it is. Nothing is fetched or
 prebuilt. The compiler's report (ptxas ``-v``) is kept beside each
 library; ``perf_notes`` reads its performance warnings, ``ptxas_usage``
 each kernel's registers and spills.
@@ -42,7 +43,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: pathlib.Path) -> pathlib.Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # included by some sources
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:12]}.so"
 
 

@@ -421,7 +421,16 @@ decode_attention_split_kernel(const bf16* __restrict__ q, const void* __restrict
           for (int e = 0; e < 4; ++e)
             a4[e] += pg[j + e] * __bfloat162float(vs[(j + e) * kRow + d]);
         }
-        for (int j = n4; j < n; ++j) a4[j - n4] += pg[j] * __bfloat162float(vs[j * kRow + d]);
+        if constexpr (D > 128) {
+          // (the tail's index into a4 static: indexed by j - n4, ptxas
+          // kept a4 in local memory at (256, 10); the same sums)
+#pragma unroll
+          for (int e = 0; e < 3; ++e)
+            if (n4 + e < n)
+              a4[e] += pg[n4 + e] * __bfloat162float(vs[(n4 + e) * kRow + d]);
+        } else {
+          for (int j = n4; j < n; ++j) a4[j - n4] += pg[j] * __bfloat162float(vs[j * kRow + d]);
+        }
         acc[i] = acc[i] * alpha_s[g] + ((a4[0] + a4[1]) + (a4[2] + a4[3]));
       }
     }
@@ -504,9 +513,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* ks,
 // serves: llama3.2-1b (64, 4), qwen2-0.5b (64, 7), qwen2-1.5b (128, 6),
 // llama3.2-3b (128, 3), llama3.1-8b, mistral-7b and mistral-nemo-12b
 // (128, 4), deepseek-7b (128, 1), deepseek-67b and qwen1.5-110b (128, 8;
-// kimi-k2's attention too), and the reduced smoke versions (32, 2). A
-// config with another pair adds it here. Nothing in the kernel asks G to
-// be a power of two: the loops over the G * D query elements and the G
+// kimi-k2's attention too), recurrentgemma-2b's local attention (256, 10;
+// one kv head, so the splits along the cache are what spreads a few slots
+// over the SMs), and the reduced smoke versions (32, 2). A config with
+// another pair adds it here. Nothing in the kernel asks G to be a power of
+// two: the loops over the G * D query elements and the G
 // query rows stride by the CTA's threads and warps and test their bounds,
 // and the shared memory's carve rounds the 3 * G softmax state to 16
 // bytes.
@@ -531,6 +542,8 @@ int dispatch(int D, int G, const void* q, const void* k, const void* v,
     return launch<LOADER, 128, 4>(q, k, v, ks, vs, kv_len, out, part, tk, tb, mp, P, B, Hkv, S, ng, window, split, scale, st);
   if (D == 128 && G == 8)
     return launch<LOADER, 128, 8>(q, k, v, ks, vs, kv_len, out, part, tk, tb, mp, P, B, Hkv, S, ng, window, split, scale, st);
+  if (D == 256 && G == 10)
+    return launch<LOADER, 256, 10>(q, k, v, ks, vs, kv_len, out, part, tk, tb, mp, P, B, Hkv, S, ng, window, split, scale, st);
   return kNotInstantiated;
 }
 

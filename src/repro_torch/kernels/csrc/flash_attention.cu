@@ -56,6 +56,19 @@
 // kernels/flash_attention.py, the one place they are set; this file
 // instantiates those sizes and refuses others.
 //
+// Head dim 256 (recurrentgemma-2b's local attention) does not fit that
+// shape: a Q tile is 64 KB, a K/V stage 64 KB at 64 keys, and Q in
+// registers would be 64 more registers a consumer thread beside its 128 of
+// O. So at D 256 (QSMEM) the tiles are BK 32 keys (3 stages of 32 KB), Q
+// has one buffer and stays in shared memory: each consumer warp scales its
+// own 16 rows there in place, bf16(q * scale), and S = Q K^T takes both
+// operands from shared memory (wgmma m64n32k16, A and B by descriptor);
+// the Q buffer is released after the item's output is stored, and each
+// warp stages that output in its own 16 rows of it (the same swizzled
+// layout) instead of a separate buffer: 164 KB a CTA in all. The
+// producer loads the next item's Q only once the whole CTA has stored the
+// current item's output.
+//
 // Invariant: a row's bits do not depend on Sq, Skv or the batch. KV tiles
 // are anchored at key position 0 and have a fixed size per head dim; a
 // row's scores and its PV sums depend only on its own query and the keys;
@@ -96,6 +109,7 @@ constexpr int kNotInstantiated = -1;       // no kernel for these (D, G, block_q
 // BK rows x kCols columns, each row one swizzle span (128 or 64 bytes).
 template <int D, int BK>
 struct Geo {
+  static constexpr bool kQSmem = D > 128;                     // Q in shared memory (D 256)
   static constexpr int kCols = D < 64 ? D : 64;
   static constexpr int kBoxes = D / kCols;
   static constexpr int kRowBytes = kCols * 2;
@@ -104,10 +118,11 @@ struct Geo {
   static constexpr int kTileBytes = kBoxes * kBoxBytes;
   static constexpr int kStageBytes = 2 * kTileBytes;         // K then V
   static constexpr int kQBytes = kRows * D * 2;               // a Q tile, kBoxes column boxes
+  static constexpr int kQBufs = kQSmem ? 1 : 2;
   static constexpr int kOutPitch = D * 2 + 16;                // output staging row (padded)
-  static constexpr int kOutBytes = kRows * kOutPitch;
-  static constexpr int kSmem = kStages * kStageBytes + 2 * kQBytes + kOutBytes +
-                               (2 * kStages + 4) * 8 + 1024;  // + alignment
+  static constexpr int kOutBytes = kQSmem ? 0 : kRows * kOutPitch;  // QSMEM: in the Q tile
+  static constexpr int kSmem = kStages * kStageBytes + kQBufs * kQBytes + kOutBytes +
+                               (2 * kStages + 2 * kQBufs) * 8 + 1024;  // + alignment
 };
 
 struct Params {
@@ -237,6 +252,26 @@ struct Wgmma<32> {
   }
 };
 
+// d (m64 x 32 f32) (+)= a (m64 x k16 bf16) * b (k16 x 32 bf16), both
+// K-major in shared memory by descriptor (the QSMEM route's Q K^T)
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t adesc, uint64_t bdesc,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(adesc), "l"(bdesc), "r"(scale_d));
+}
+
+// generic-proxy writes to shared memory made visible to the async proxy
+// (wgmma operands, TMA writes after them)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 template <>
 struct Wgmma<64> {
   template <int TRANS_B>
@@ -322,12 +357,12 @@ flash_attention_kernel(const __grid_constant__ Params p, bf16* __restrict__ out,
 
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  uint8_t* qsm = smem + kStages * T::kStageBytes;          // two Q tiles
-  uint8_t* osm = qsm + 2 * T::kQBytes;                     // output staging
+  uint8_t* qsm = smem + kStages * T::kStageBytes;          // kQBufs Q tiles
+  uint8_t* osm = qsm + T::kQBufs * T::kQBytes;             // output staging (not QSMEM)
   uint64_t* full = reinterpret_cast<uint64_t*>(osm + T::kOutBytes);
   uint64_t* empty = full + kStages;
   uint64_t* qfull = empty + kStages;
-  uint64_t* qempty = qfull + 2;
+  uint64_t* qempty = qfull + T::kQBufs;
 
   const int tid = threadIdx.x;
   if (tid == 0) {
@@ -335,7 +370,7 @@ flash_attention_kernel(const __grid_constant__ Params p, bf16* __restrict__ out,
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], kConsumers / 128);   // one arrival per consumer warpgroup
     }
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < T::kQBufs; ++s) {
       mbar_init(&qfull[s], 1);
       mbar_init(&qempty[s], kConsumers / 32);   // one arrival per consumer warp
     }
@@ -350,24 +385,43 @@ flash_attention_kernel(const __grid_constant__ Params p, bf16* __restrict__ out,
       int it = 0;                               // K/V ring slot, counted over all items
       for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
         const Item I = item_at<G, BK>(p, w, BH, Sq, Skv, causal, window, q_offset);
-        const int qb = n & 1;
-        if (n >= 2) mbar_wait(&qempty[qb], ((n >> 1) - 1) & 1);
-        mbar_expect_tx(&qfull[qb], T::kQBytes);
+        if constexpr (T::kQSmem) {
+          // one Q buffer; the box loops stay rolled at D 256 (this thread
+          // runs on 24 registers)
+          if (n >= 1) mbar_wait(&qempty[0], (n - 1) & 1);
+          mbar_expect_tx(&qfull[0], T::kQBytes);
+#pragma unroll 1
+          for (int bx = 0; bx < T::kBoxes; ++bx)
+            tma_3d(qsm + bx * kRows * T::kRowBytes, &p.q, bx * T::kCols, I.q0, I.bh, &qfull[0]);
+        } else {
+          const int qb = n & 1;
+          if (n >= 2) mbar_wait(&qempty[qb], ((n >> 1) - 1) & 1);
+          mbar_expect_tx(&qfull[qb], T::kQBytes);
 #pragma unroll
-        for (int bx = 0; bx < T::kBoxes; ++bx)
-          tma_3d(qsm + qb * T::kQBytes + bx * kRows * T::kRowBytes, &p.q, bx * T::kCols, I.q0,
-                 I.bh, &qfull[qb]);
+          for (int bx = 0; bx < T::kBoxes; ++bx)
+            tma_3d(qsm + qb * T::kQBytes + bx * kRows * T::kRowBytes, &p.q, bx * T::kCols, I.q0,
+                   I.bh, &qfull[qb]);
+        }
         for (int i = 0; i < I.n_kv; ++i, ++it) {
           const int s = it % kStages;
           if (it >= kStages) mbar_wait(&empty[s], (it / kStages - 1) & 1);
           mbar_expect_tx(&full[s], T::kStageBytes);
           uint8_t* kd = smem + s * T::kStageBytes;
           const int t0 = (I.kt0 + i) * BK;
+          if constexpr (T::kQSmem) {
+#pragma unroll 1
+            for (int bx = 0; bx < T::kBoxes; ++bx) {
+              tma_3d(kd + bx * T::kBoxBytes, &p.k, bx * T::kCols, t0, I.kv, &full[s]);
+              tma_3d(kd + T::kTileBytes + bx * T::kBoxBytes, &p.v, bx * T::kCols, t0, I.kv,
+                     &full[s]);
+            }
+          } else {
 #pragma unroll
-          for (int bx = 0; bx < T::kBoxes; ++bx) {
-            tma_3d(kd + bx * T::kBoxBytes, &p.k, bx * T::kCols, t0, I.kv, &full[s]);
-            tma_3d(kd + T::kTileBytes + bx * T::kBoxBytes, &p.v, bx * T::kCols, t0, I.kv,
-                   &full[s]);
+            for (int bx = 0; bx < T::kBoxes; ++bx) {
+              tma_3d(kd + bx * T::kBoxBytes, &p.k, bx * T::kCols, t0, I.kv, &full[s]);
+              tma_3d(kd + T::kTileBytes + bx * T::kBoxBytes, &p.v, bx * T::kCols, t0, I.kv,
+                     &full[s]);
+            }
           }
         }
       }
@@ -396,23 +450,46 @@ flash_attention_kernel(const __grid_constant__ Params p, bf16* __restrict__ out,
       const int qi = I.q0 + warp * 16 + gid;       // query of rows r = 0 (qi) and 1 (qi + 8)
       const int pos[2] = {qi + q_offset, qi + 8 + q_offset};
 
-      // Q as the A operand: bf16(q * scale), from the TMA tile (0 past Sq)
-      const int qb = n & 1;
-      mbar_wait(&qfull[qb], (n >> 1) & 1);
-      uint32_t qf[KSTEPS][4];
-      const uint32_t qbase = smem_addr(qsm + qb * T::kQBytes) + lrow * T::kRowBytes;
+      // Q as the A operand: bf16(q * scale), from the TMA tile (0 past Sq):
+      // into registers, or (QSMEM) scaled in place in the tile, each warp
+      // its own 16 rows, then made visible to the warpgroup's wgmma
+      const int qb = n & 1;                        // (QSMEM: one buffer)
+      uint32_t qf[T::kQSmem ? 1 : KSTEPS][4];
+      if constexpr (T::kQSmem) {
+        mbar_wait(&qfull[0], n & 1);
+        // 16 rows x kBoxes boxes x 8 chunks of 16 bytes
+#pragma unroll 1
+        for (int c = lane; c < 16 * T::kBoxes * 8; c += 32) {
+          const int row = warp * 16 + c / (T::kBoxes * 8), bx = (c / 8) % T::kBoxes;
+          uint4* at = reinterpret_cast<uint4*>(qsm + bx * kRows * T::kRowBytes +
+                                               row * T::kRowBytes + (c % 8) * 16);
+          uint4 v = *at;
+          uint32_t* pair = reinterpret_cast<uint32_t*>(&v);
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        const int chunk = (kk % KPB) * 2 + (lane >> 4);
-        ldmatrix_x4(qf[kk], qbase + (kk / KPB) * kRows * T::kRowBytes + ((chunk ^ lswz) << 4));
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&qf[kk][r]);
-          qf[kk][r] = pack_bf16(__bfloat162float(x.x) * scale, __bfloat162float(x.y) * scale);
+          for (int r = 0; r < 4; ++r) {
+            const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&pair[r]);
+            pair[r] = pack_bf16(__bfloat162float(x.x) * scale, __bfloat162float(x.y) * scale);
+          }
+          *at = v;
         }
+        fence_proxy_async();
+        asm volatile("bar.sync %0, 128;\n" ::"r"(3 + warp / 4) : "memory");
+      } else {
+        mbar_wait(&qfull[qb], (n >> 1) & 1);
+        const uint32_t qbase = smem_addr(qsm + qb * T::kQBytes) + lrow * T::kRowBytes;
+#pragma unroll
+        for (int kk = 0; kk < KSTEPS; ++kk) {
+          const int chunk = (kk % KPB) * 2 + (lane >> 4);
+          ldmatrix_x4(qf[kk], qbase + (kk / KPB) * kRows * T::kRowBytes + ((chunk ^ lswz) << 4));
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&qf[kk][r]);
+            qf[kk][r] = pack_bf16(__bfloat162float(x.x) * scale, __bfloat162float(x.y) * scale);
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&qempty[qb]);
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&qempty[qb]);
 
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
@@ -424,12 +501,23 @@ flash_attention_kernel(const __grid_constant__ Params p, bf16* __restrict__ out,
       auto issue_s = [&](int slot) {
         const uint32_t kbase = smem_addr(smem + slot * T::kStageBytes);
 #pragma unroll
-        for (int kk = 0; kk < KSTEPS; ++kk)
-          Wgmma<BK>::template rs<0>(
-              sc, qf[kk],
-              make_desc(kbase + (kk / KPB) * T::kBoxBytes + (kk % KPB) * 32, 16,
-                        8 * T::kRowBytes, T::kLayout),
-              kk > 0);
+        for (int kk = 0; kk < KSTEPS; ++kk) {
+          if constexpr (T::kQSmem) {
+            // the warpgroup's 64 rows of Q's box kk / KPB
+            const uint32_t qaddr = smem_addr(qsm) + (kk / KPB) * kRows * T::kRowBytes +
+                                   (warp / 4) * 64 * T::kRowBytes + (kk % KPB) * 32;
+            wgmma_ss_n32(sc, make_desc(qaddr, 16, 8 * T::kRowBytes, T::kLayout),
+                         make_desc(kbase + (kk / KPB) * T::kBoxBytes + (kk % KPB) * 32, 16,
+                                   8 * T::kRowBytes, T::kLayout),
+                         kk > 0);
+          } else {
+            Wgmma<BK>::template rs<0>(
+                sc, qf[kk],
+                make_desc(kbase + (kk / KPB) * T::kBoxBytes + (kk % KPB) * 32, 16,
+                          8 * T::kRowBytes, T::kLayout),
+                kk > 0);
+          }
+        }
         wgmma_commit();
       };
       // O += bf16(p) V of ring slot `slot`, committed as one group (V
@@ -604,26 +692,60 @@ flash_attention_kernel(const __grid_constant__ Params p, bf16* __restrict__ out,
       // KV tile), staged through shared memory by each warp for its own 16
       // rows, then stored 16 bytes a lane, whole rows at a time (fragment
       // stores scatter 4 bytes a row); rows past Sq not stored
-      uint8_t* stage = osm + warp * 16 * T::kOutPitch;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j)
-          *reinterpret_cast<uint32_t*>(stage + (gid + 8 * r) * T::kOutPitch + j * 16 + tig * 4) =
-              pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
-      }
-      __syncwarp();
       constexpr int kChunks = D / 8;                 // 16-byte chunks a row
-      bf16* obase = out + ((size_t)I.bh * Sq + (qi - gid)) * D;
+      if constexpr (T::kQSmem) {
+        // staged in the warp's own 16 rows of the Q tile, at Q's swizzled
+        // addresses (box ch / 8, chunk (ch % 8) ^ (row % 8)); the
+        // warpgroup's last wgmma reading them completed above
+        auto staged = [&](int row, int ch) -> uint8_t* {
+          const int R = warp * 16 + row;
+          return qsm + (ch / 8) * kRows * T::kRowBytes + R * T::kRowBytes +
+                 (((ch % 8) ^ (R & 7)) << 4);
+        };
 #pragma unroll
-      for (int c = lane; c < 16 * kChunks; c += 32) {
-        const int row = c / kChunks, ch = c % kChunks;
-        if (qi - gid + row < Sq)
-          *reinterpret_cast<uint4*>(obase + row * D + ch * 8) =
-              *reinterpret_cast<const uint4*>(stage + row * T::kOutPitch + ch * 16);
+        for (int r = 0; r < 2; ++r) {
+          const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j)
+            *reinterpret_cast<uint32_t*>(staged(gid + 8 * r, j) + tig * 4) =
+                pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+        }
+        __syncwarp();
+        bf16* obase = out + ((size_t)I.bh * Sq + (qi - gid)) * D;
+        // (four stores at a time: unrolled whole, the stores' addresses
+        // took registers that the O accumulator needs, and ptxas spilled)
+#pragma unroll 4
+        for (int c = lane; c < 16 * kChunks; c += 32) {
+          const int row = c / kChunks, ch = c % kChunks;
+          if (qi - gid + row < Sq)
+            *reinterpret_cast<uint4*>(obase + row * D + ch * 8) =
+                *reinterpret_cast<const uint4*>(staged(row, ch));
+        }
+        __syncwarp();
+        // the tile goes back to the producer, whose TMA writes the next Q
+        fence_proxy_async();
+        if (lane == 0) mbar_arrive(&qempty[0]);
+      } else {
+        uint8_t* stage = osm + warp * 16 * T::kOutPitch;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j)
+            *reinterpret_cast<uint32_t*>(stage + (gid + 8 * r) * T::kOutPitch + j * 16 + tig * 4) =
+                pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+        }
+        __syncwarp();
+        bf16* obase = out + ((size_t)I.bh * Sq + (qi - gid)) * D;
+#pragma unroll
+        for (int c = lane; c < 16 * kChunks; c += 32) {
+          const int row = c / kChunks, ch = c % kChunks;
+          if (qi - gid + row < Sq)
+            *reinterpret_cast<uint4*>(obase + row * D + ch * 8) =
+                *reinterpret_cast<const uint4*>(stage + row * T::kOutPitch + ch * 16);
+        }
+        __syncwarp();
       }
-      __syncwarp();
     }
     if (warp / 4 == 0) turn_wait(1);
   }
@@ -700,9 +822,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
 // (64, 4), qwen2-0.5b (64, 7), qwen2-1.5b (128, 6), llama3.2-3b (128, 3),
 // llama3.1-8b, mistral-7b and mistral-nemo-12b (128, 4), deepseek-7b
 // (128, 1), deepseek-67b and qwen1.5-110b (128, 8; kimi-k2's attention
-// too), and the reduced smoke versions (32, 2); a config with another
-// pair adds it here, with block_k 128 at D <= 64 and 64 at D 128 (the
-// tile sizes of kernels/flash_attention.py::block_k). G enters only the
+// too), recurrentgemma-2b (256, 10), and the reduced smoke versions (32,
+// 2); a config with another pair adds it here, with block_k 128 at D <= 64,
+// 64 at D 128 and 32 at D 256 (the tile sizes of
+// kernels/flash_attention.py::block_k). G enters only the
 // work item's kv head (query head / G), so any G serves. Returns the
 // launch's cudaError_t (0 on success), or -1 when no kernel is
 // instantiated for (D, G, block_q, block_k).
@@ -728,6 +851,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
   FA_CASE(128, 3, 64)
   FA_CASE(128, 4, 64)
   FA_CASE(128, 8, 64)
+  FA_CASE(256, 10, 32)
 #undef FA_CASE
   return kNotInstantiated;
 }

@@ -1,12 +1,13 @@
 // The small fused ops of the decode step and the prefill, for sm_90a:
-// RMSNorm, alone or with the residual add before it, SwiGLU on the fused
-// gate-up row, and RoPE with the cache write, for one decode token and
-// for a whole prefill.
+// RMSNorm, alone or with the residual add before it, SwiGLU and GeGLU on
+// the fused gate-up row, and RoPE with the cache write, for one decode
+// token and for a whole prefill.
 //
 // No Pallas kernel of the JAX package stands behind these: there XLA fuses
 //   src/repro/models/layers.py:26      rmsnorm, with the residual adds of
 //   src/repro/models/model.py:284      the layer body
-//   src/repro/models/mlp.py:37         mlp_forward (silu(g) * u)
+//   src/repro/models/mlp.py:37         mlp_forward (silu(g) * u, or
+//   src/repro/models/layers.py:108     gelu(g) * u with the logistic gelu)
 //   src/repro/models/layers.py:51      apply_rope, with
 //   src/repro/models/attention.py:297  kv_cache_write (decode) and
 //   src/repro/models/model.py:722      _write_prefill_kv (prefill)
@@ -31,7 +32,9 @@
 // Numerics follow the plain PyTorch versions in kernels/fused_ops.py, op
 // for op, with every product and sum rounded on its own (the _rn
 // intrinsics keep nvcc from contracting them into FMAs): RMSNorm and
-// SwiGLU compute in f32 and round once to the output's type, and the
+// SwiGLU compute in f32 and round once to the output's type (GeGLU
+// rounds gelu(g) to it first, then the product, as the JAX mlp_forward
+// does: its gelu returns the input's type), and the
 // residual sum rounds once to x's type; RoPE rounds the rotated row to
 // bf16, and the quantized caches quantize that bf16 row as
 // quant.quantize_rows does (scale = amax * (1 / qmax), a zero scale taken
@@ -43,6 +46,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gelu.cuh"  // round_bf16, gelu_f32 (shared with quant_matmul.cu, rglru.cu)
 
 namespace {
 
@@ -228,6 +233,26 @@ __global__ void __launch_bounds__(kThreads)
     const float s = __fdiv_rn(a[i], __fadd_rn(1.f, expf(-a[i])));
     a[i] = __fmul_rn(s, b[i]);
   }
+  store<N>(out + (size_t)blockIdx.x * F + j, a);
+}
+
+__device__ __forceinline__ float round_to(float v, const bf16*) { return round_bf16(v); }
+__device__ __forceinline__ float round_to(float v, const float*) { return v; }
+
+// out[m, j] = gelu(gu[m, j]) * gu[m, F + j]: gelu in f32 rounded to T,
+// then the product rounded to T (two roundings, the JAX rounding points).
+// CTA (row m, run of kThreads * N columns), as swiglu_kernel.
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+    geglu_kernel(const T* __restrict__ gu, T* __restrict__ out, int F) {
+  const int j = (blockIdx.y * kThreads + threadIdx.x) * N;
+  if (j >= F) return;
+  const T* g = gu + (size_t)blockIdx.x * 2 * F + j;
+  float a[N], b[N];
+  load<N>(g, a);
+  load<N>(g + F, b);
+#pragma unroll
+  for (int i = 0; i < N; ++i) a[i] = __fmul_rn(round_to(gelu_f32(a[i]), g), b[i]);
   store<N>(out + (size_t)blockIdx.x * F + j, a);
 }
 
@@ -581,16 +606,23 @@ cudaError_t dispatch_rmsnorm(int x_f32, int w_f32, const void* x, const void* de
                : launch_rmsnorm<bf16, bf16>(x, delta, w, h, out, M, d, eps, st);
 }
 
-template <typename T>
-cudaError_t launch_swiglu(const void* gu, void* out, int M, int F, cudaStream_t st) {
+// SwiGLU (GELU false) or GeGLU (GELU true) of gu (M, 2F) into out (M, F)
+template <typename T, bool GELU>
+cudaError_t launch_glu(const void* gu, void* out, int M, int F, cudaStream_t st) {
   const T* gp = static_cast<const T*>(gu);
   T* op = static_cast<T*>(out);
   if (F % kVec == 0 && aligned16(gu) && aligned16(out)) {
     const dim3 grid(M, (F / kVec + kThreads - 1) / kThreads);
-    swiglu_kernel<T, kVec><<<grid, kThreads, 0, st>>>(gp, op, F);
+    if (GELU)
+      geglu_kernel<T, kVec><<<grid, kThreads, 0, st>>>(gp, op, F);
+    else
+      swiglu_kernel<T, kVec><<<grid, kThreads, 0, st>>>(gp, op, F);
   } else {
     const dim3 grid(M, (F + kThreads - 1) / kThreads);
-    swiglu_kernel<T, 1><<<grid, kThreads, 0, st>>>(gp, op, F);
+    if (GELU)
+      geglu_kernel<T, 1><<<grid, kThreads, 0, st>>>(gp, op, F);
+    else
+      swiglu_kernel<T, 1><<<grid, kThreads, 0, st>>>(gp, op, F);
   }
   return cudaGetLastError();
 }
@@ -618,7 +650,17 @@ extern "C" int add_rmsnorm(int x_f32, int w_f32, const void* x, const void* delt
 extern "C" int swiglu(int f32, const void* gu, void* out, int M, int F, void* stream) {
   if (M <= 0 || F <= 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return f32 ? launch_swiglu<float>(gu, out, M, F, st) : launch_swiglu<bf16>(gu, out, M, F, st);
+  return f32 ? launch_glu<float, false>(gu, out, M, F, st)
+             : launch_glu<bf16, false>(gu, out, M, F, st);
+}
+
+// gu (M, 2F) and out (M, F), both bf16 or both f32 (f32): out = gelu(g) *
+// u with the JAX rounding points. Returns the launch's cudaError_t.
+extern "C" int geglu(int f32, const void* gu, void* out, int M, int F, void* stream) {
+  if (M <= 0 || F <= 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return f32 ? launch_glu<float, true>(gu, out, M, F, st)
+             : launch_glu<bf16, true>(gu, out, M, F, st);
 }
 
 // fmt: 0 = bf16 cache, 1 = q8_0, 2 = q4_0. qkv (B, (Hkv*G + 2*Hkv) * D)

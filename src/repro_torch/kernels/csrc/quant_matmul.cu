@@ -77,6 +77,10 @@
 // chunks each reads the other's running sums through distributed shared
 // memory and stores one of the two column pairs of every thread's four
 // columns of h. gu never reaches device memory.
+// The activation is a template parameter (ACT): kSilu above, or kGelu,
+// the GeGLU of the hybrid family's FFN: h = bf16(bf16(gelu(g)) * u) with
+// the JAX layers.gelu in f32 (fused_ops.cu's geglu_kernel has the same
+// arithmetic), so h is bit-equal to geglu(quant_matmul(x, w)).
 //
 // quant_matmul's out may be a column range of a wider row: row m of the
 // result starts ldc >= N elements after row m - 1 (the unfused V0
@@ -91,6 +95,8 @@
 
 #include <algorithm>
 #include <cstring>
+
+#include "gelu.cuh"  // round_bf16, gelu_f32 (shared with fused_ops.cu, rglru.cu)
 
 namespace {
 
@@ -285,23 +291,30 @@ __device__ __forceinline__ void load_stage(uint8_t* st, uint64_t* bar, const Map
   }
 }
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
 // silu(g) * u in f32, as fused_ops.cu's swiglu_kernel computes it
 __device__ __forceinline__ float silu_mul(float g, float u) {
   const float s = __fdiv_rn(g, __fadd_rn(1.f, expf(-g)));
   return __fmul_rn(s, u);
 }
 
+// the gate-up epilogue's activation: none (the plain GEMM), SwiGLU, GeGLU
+enum Act { kNoAct = 0, kSilu = 1, kGelu = 2 };
+
+// h of the bf16 gate and up values g, u, before its rounding to bf16:
+// silu(g) * u in f32, or bf16(gelu(g)) * u (exact in f32)
+template <int ACT>
+__device__ __forceinline__ float glu(float g, float u) {
+  if constexpr (ACT == kGelu) return __fmul_rn(round_bf16(gelu_f32(g)), u);
+  return silu_mul(g, u);
+}
+
 // One CTA of the GEMM: columns [n0, n0 + BN) of rows [blockIdx.x * MT,
 // + MT). CTA y reduces the K chunks [y * cta_chunks, (y + 1) *
 // cta_chunks), each of k_per_split rows; with gridDim.y > 1 it holds one
-// chunk and writes it to partial. SWIGLU: the CTA is one rank of a
+// chunk and writes it to partial. ACT != kNoAct: the CTA is one rank of a
 // two-CTA cluster (quant_matmul_swiglu_kernel) and out is h (M, N / 2).
 // out's rows are ldc elements apart (ldc >= N; N / 2 for h).
-template <int FMT, int MT, bool VEC, bool SWIGLU>
+template <int FMT, int MT, bool VEC, int ACT>
 __device__ __forceinline__ void qmm_cta(const Maps& maps, const bf16* __restrict__ x,
                                         const int8_t* __restrict__ w,
                                         const bf16* __restrict__ scales,
@@ -454,7 +467,7 @@ __device__ __forceinline__ void qmm_cta(const Maps& maps, const bf16* __restrict
   }
   if (!VEC) cp_async_wait<0>();
 
-  if constexpr (SWIGLU) {
+  if constexpr (ACT != kNoAct) {
     // rank 0 holds the gate sums of h's columns hj.., rank 1 the up sums
     // of the same columns; rank r stores h for the column pair 2r, 2r + 1
     // of the thread's four (m16 tile t = r), from its own run sums and
@@ -476,8 +489,8 @@ __device__ __forceinline__ void qmm_cta(const Maps& maps, const bf16* __restrict
         const int m = m0 + wm0 + 8 * j + 2 * tig + e;
         if (m >= M) continue;
         // columns hj and hj + 1: c fragments (gid, 2tig + e), (gid + 8, 2tig + e)
-        const float h0 = silu_mul(round_bf16(e ? g4.y : g4.x), round_bf16(e ? u4.y : u4.x));
-        const float h1 = silu_mul(round_bf16(e ? g4.w : g4.z), round_bf16(e ? u4.w : u4.z));
+        const float h0 = glu<ACT>(round_bf16(e ? g4.y : g4.x), round_bf16(e ? u4.y : u4.x));
+        const float h1 = glu<ACT>(round_bf16(e ? g4.w : g4.z), round_bf16(e ? u4.w : u4.z));
         bf16* dst = static_cast<bf16*>(out) + (size_t)m * F + hj;
         if (VEC && hj + 1 < F) {
           *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(h0, h1);
@@ -546,8 +559,8 @@ quant_matmul_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ 
                     void* __restrict__ out, float* __restrict__ partial, int out_f32,
                     int M, int K, int N, int ldc, int group, int k_per_split,
                     int cta_chunks) {
-  qmm_cta<FMT, MT, VEC, false>(maps, x, w, scales, out, partial, out_f32, M, K, N, ldc, group,
-                               k_per_split, cta_chunks, blockIdx.z * Tile<FMT, MT>::kBN);
+  qmm_cta<FMT, MT, VEC, kNoAct>(maps, x, w, scales, out, partial, out_f32, M, K, N, ldc, group,
+                                k_per_split, cta_chunks, blockIdx.z * Tile<FMT, MT>::kBN);
 }
 
 // quant_matmul_kernel under another name: the split-K partials of the
@@ -560,8 +573,8 @@ quant_matmul_swiglu_split_kernel(const __grid_constant__ Maps maps, const bf16* 
                                  void* __restrict__ out, float* __restrict__ partial,
                                  int out_f32, int M, int K, int N, int ldc, int group,
                                  int k_per_split, int cta_chunks) {
-  qmm_cta<FMT, MT, VEC, false>(maps, x, w, scales, out, partial, out_f32, M, K, N, ldc, group,
-                               k_per_split, cta_chunks, blockIdx.z * Tile<FMT, MT>::kBN);
+  qmm_cta<FMT, MT, VEC, kNoAct>(maps, x, w, scales, out, partial, out_f32, M, K, N, ldc, group,
+                                k_per_split, cta_chunks, blockIdx.z * Tile<FMT, MT>::kBN);
 }
 
 // h (M, N / 2) = swiglu(x @ dequant(w)) without a split along K. grid:
@@ -569,15 +582,15 @@ quant_matmul_swiglu_split_kernel(const __grid_constant__ Maps maps, const bf16* 
 // cluster c's rank 0 computes the gate columns [c * BN, + BN), rank 1 the
 // up columns [F + c * BN, + BN). The gate block's columns past F and the
 // up block's past 2F are computed and not stored.
-template <int FMT, int MT, bool VEC>
+template <int FMT, int MT, bool VEC, int ACT>
 __global__ void __launch_bounds__(kThreads, 2)
 quant_matmul_swiglu_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ x,
                            const int8_t* __restrict__ w, const bf16* __restrict__ scales,
                            bf16* __restrict__ h, int M, int K, int N, int group,
                            int k_per_split, int cta_chunks) {
   const int n0 = (blockIdx.z & 1) * (N / 2) + (blockIdx.z >> 1) * Tile<FMT, MT>::kBN;
-  qmm_cta<FMT, MT, VEC, true>(maps, x, w, scales, h, nullptr, 0, M, K, N, N / 2, group,
-                              k_per_split, cta_chunks, n0);
+  qmm_cta<FMT, MT, VEC, ACT>(maps, x, w, scales, h, nullptr, 0, M, K, N, N / 2, group,
+                             k_per_split, cta_chunks, n0);
 }
 
 __device__ __forceinline__ void store(void* out, size_t i, float v, int out_f32) {
@@ -599,6 +612,7 @@ __global__ void sum_splits_kernel(const float* __restrict__ partial,
 
 // h[m, j] = swiglu of the split sums of gu[m, j] and gu[m, F + j], each
 // summed in split order (as sum_splits_kernel) and rounded to bf16
+template <int ACT>
 __global__ void sum_splits_swiglu_kernel(const float* __restrict__ partial,
                                          bf16* __restrict__ h, int splits, int M, int F) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -611,7 +625,7 @@ __global__ void sum_splits_swiglu_kernel(const float* __restrict__ partial,
     g += p0[p * MN];
     u += p0[p * MN + F];
   }
-  h[i] = __float2bfloat16(silu_mul(round_bf16(g), round_bf16(u)));
+  h[i] = __float2bfloat16(glu<ACT>(round_bf16(g), round_bf16(u)));
 }
 
 constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
@@ -739,7 +753,7 @@ cudaError_t launch(const void* x, const void* w, const void* scales, void* out,
 
 // h = swiglu(x @ dequant(w)), w (K, 2F): with a split along K the GEMM's
 // partials and the fused merge; without, one launch of two-CTA clusters
-template <int FMT, int MT, bool VEC>
+template <int FMT, int MT, bool VEC, int ACT>
 cudaError_t launch_swiglu(const void* x, const void* w, const void* scales, bf16* h,
                           float* partial, int M, int K, int F, int group, Plan plan,
                           cudaStream_t st) {
@@ -749,11 +763,11 @@ cudaError_t launch_swiglu(const void* x, const void* w, const void* scales, bf16
     cudaError_t err = launch_gemm<FMT, MT, VEC, true>(x, w, scales, nullptr, partial, 0, M, K,
                                                       N, N, group, plan, st);
     if (err != cudaSuccess) return err;
-    sum_splits_swiglu_kernel<<<ceil_div(M * F, 256), 256, 0, st>>>(partial, h, plan.ctas,
-                                                                   M, F);
+    sum_splits_swiglu_kernel<ACT><<<ceil_div(M * F, 256), 256, 0, st>>>(partial, h,
+                                                                        plan.ctas, M, F);
     return cudaGetLastError();
   }
-  auto kernel = quant_matmul_swiglu_kernel<FMT, MT, VEC>;
+  auto kernel = quant_matmul_swiglu_kernel<FMT, MT, VEC, ACT>;
   Maps maps;
   if (!make_maps<FMT, MT, VEC>(&maps, x, w, scales, M, K, N, group))
     return cudaErrorInvalidValue;
@@ -793,13 +807,25 @@ cudaError_t dispatch_m(const void* x, const void* w, const void* scales, void* o
                                   plan, st);
 }
 
+template <int FMT, bool VEC, int ACT>
+cudaError_t dispatch_swiglu_act(const void* x, const void* w, const void* scales, bf16* h,
+                                float* partial, int M, int K, int F, int group, Plan plan,
+                                cudaStream_t st) {
+  if (m_tile(M) == 8)
+    return launch_swiglu<FMT, 8, VEC, ACT>(x, w, scales, h, partial, M, K, F, group, plan, st);
+  return launch_swiglu<FMT, kBigMT, VEC, ACT>(x, w, scales, h, partial, M, K, F, group, plan,
+                                              st);
+}
+
 template <int FMT, bool VEC>
-cudaError_t dispatch_swiglu(const void* x, const void* w, const void* scales, bf16* h,
+cudaError_t dispatch_swiglu(int act, const void* x, const void* w, const void* scales, bf16* h,
                             float* partial, int M, int K, int F, int group, Plan plan,
                             cudaStream_t st) {
-  if (m_tile(M) == 8)
-    return launch_swiglu<FMT, 8, VEC>(x, w, scales, h, partial, M, K, F, group, plan, st);
-  return launch_swiglu<FMT, kBigMT, VEC>(x, w, scales, h, partial, M, K, F, group, plan, st);
+  if (act == kGelu)
+    return dispatch_swiglu_act<FMT, VEC, kGelu>(x, w, scales, h, partial, M, K, F, group, plan,
+                                                st);
+  return dispatch_swiglu_act<FMT, VEC, kSilu>(x, w, scales, h, partial, M, K, F, group, plan,
+                                              st);
 }
 
 }  // namespace
@@ -861,15 +887,17 @@ extern "C" int quant_matmul(int fmt, const void* x, const void* w,
   return cudaErrorInvalidValue;
 }
 
-// h (M, F) bf16 = swiglu(x (M, K) bf16 @ dequant(w)) with w the fused
-// gate-up weight (K, 2F) / (K/2, 2F), scales (K/group, 2F) bf16; partial:
-// f32 scratch of partial_elems >= quant_matmul_workspace(M, K, 2F,
-// group). Returns the first failing launch's cudaError_t (0 on success).
-extern "C" int quant_matmul_swiglu(int fmt, const void* x, const void* w,
+// h (M, F) bf16 = swiglu(x (M, K) bf16 @ dequant(w)) (act 1; act 2: the
+// GeGLU) with w the fused gate-up weight (K, 2F) / (K/2, 2F), scales
+// (K/group, 2F) bf16; partial: f32 scratch of partial_elems >=
+// quant_matmul_workspace(M, K, 2F, group). Returns the first failing
+// launch's cudaError_t (0 on success).
+extern "C" int quant_matmul_swiglu(int act, int fmt, const void* x, const void* w,
                                    const void* scales, void* h, void* partial,
                                    int partial_elems, int M, int K, int F, int group,
                                    void* stream) {
-  if (!takes_group(K, group) || F < 1) return cudaErrorInvalidValue;
+  if (!takes_group(K, group) || F < 1 || (act != kSilu && act != kGelu))
+    return cudaErrorInvalidValue;
   const int N = 2 * F;
   const Plan plan = split_plan(M, K, N, group);
   if (plan.ctas > 1 && partial_elems < plan.ctas * M * N) return cudaErrorInvalidValue;
@@ -881,12 +909,14 @@ extern "C" int quant_matmul_swiglu(int fmt, const void* x, const void* w,
   // aligned, so they need F % 16 == 0
   const bool vec = plan.ctas > 1 ? N % 16 == 0 : F % 16 == 0;
   if (fmt == kQ8) {
-    return vec ? dispatch_swiglu<kQ8, true>(x, w, scales, out, part, M, K, F, group, plan, st)
-               : dispatch_swiglu<kQ8, false>(x, w, scales, out, part, M, K, F, group, plan, st);
+    return vec ? dispatch_swiglu<kQ8, true>(act, x, w, scales, out, part, M, K, F, group, plan, st)
+               : dispatch_swiglu<kQ8, false>(act, x, w, scales, out, part, M, K, F, group, plan,
+                                             st);
   }
   if (fmt == kQ4) {
-    return vec ? dispatch_swiglu<kQ4, true>(x, w, scales, out, part, M, K, F, group, plan, st)
-               : dispatch_swiglu<kQ4, false>(x, w, scales, out, part, M, K, F, group, plan, st);
+    return vec ? dispatch_swiglu<kQ4, true>(act, x, w, scales, out, part, M, K, F, group, plan, st)
+               : dispatch_swiglu<kQ4, false>(act, x, w, scales, out, part, M, K, F, group, plan,
+                                             st);
   }
   return cudaErrorInvalidValue;
 }

@@ -7,8 +7,8 @@ CUDA kernel in ``csrc/flash_attention.cu``, designed for Hopper: work
 items of ``BLOCK_Q`` = 128 queries of one query head each walk their
 visible KV tiles of ``block_k`` keys. A producer thread feeds Q and a ring of K/V tiles
 by TMA; two consumer warpgroups run both products on the tensor cores
-with ``wgmma`` (Q K^T with Q in registers, P V with P taken straight
-from the score accumulators), software pipelined and taking turns, with
+with ``wgmma`` (Q K^T with Q in registers, or at head dim 256 in shared
+memory, P V with P taken straight from the score accumulators), software pipelined and taking turns, with
 the online softmax in registers. A persistent grid of at most one CTA
 per SM takes the items heaviest first, in the order ``tile_order``
 gives. The tile sizes, that order and the grid are set here and passed
@@ -63,10 +63,35 @@ def _block(size: int, pref: int = BLOCK) -> int:
     return b
 
 
+STAGES = 3                     # the kernel's K/V ring
+SMEM_PER_BLOCK = 232448        # the H100's shared memory a CTA may use
+
+
 def block_k(D: int) -> int:
     """Keys per KV tile at head dim D: 128, or 64 at D 128 (the score
-    and output accumulators of a warpgroup then fit its registers)."""
-    return 128 if D <= 64 else 64
+    and output accumulators of a warpgroup then fit its registers), or 32
+    at D 256 (three stages of K/V tiles and the Q tile then fit a CTA's
+    shared memory)."""
+    return 128 if D <= 64 else 64 if D <= 128 else 32
+
+
+def q_in_smem(D: int) -> bool:
+    """Whether the kernel keeps Q in shared memory (one buffer, the
+    output staged in it) rather than in registers: at D 256."""
+    return D > 128
+
+
+def smem_bytes(D: int) -> int:
+    """A CTA's shared memory at head dim D, as the kernel's ``Geo``
+    carves it: the K/V ring, the Q tiles (two, or one in shared memory),
+    the output staging (none when staged in Q), the mbarriers and 1024
+    bytes of alignment."""
+    cols = min(D, 64)
+    stage = 2 * (D // cols) * block_k(D) * cols * 2
+    q_bufs = 1 if q_in_smem(D) else 2
+    out = 0 if q_in_smem(D) else BLOCK_Q * (2 * D + 16)
+    return (STAGES * stage + q_bufs * BLOCK_Q * D * 2 + out
+            + (2 * STAGES + 2 * q_bufs) * 8 + 1024)
 
 
 def kv_tiles(q0: int, bq: int, Sq: int, Skv: int, bk: int, causal: bool,

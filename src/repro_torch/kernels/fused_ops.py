@@ -1,10 +1,10 @@
-"""RMSNorm (alone, or with the residual add before it), SwiGLU, and RoPE
-with the cache write (one decode token, or a whole prefill): the small
+"""RMSNorm (alone, or with the residual add before it), SwiGLU, GeGLU, and
+RoPE with the cache write (one decode token, or a whole prefill): the small
 fused kernels of ``csrc/fused_ops.cu``.
 
 No Pallas kernel of the JAX package stands behind them: inside the
 jitted megastep and prefill XLA fuses ``layers.rmsnorm`` with the
-residual adds, the SwiGLU of ``mlp_forward`` and ``apply_rope`` with
+residual adds, the SwiGLU or GeGLU of ``mlp_forward`` and ``apply_rope`` with
 ``attention.kv_cache_write`` / ``model._write_prefill_kv`` itself. Run
 eagerly, each of these ops is a handful of PyTorch launches; on the card
 each is one launch here. All of them are bound by the bytes they move;
@@ -18,6 +18,10 @@ intermediate in device memory) is described in the source.
   PyTorch's add rounds it, and out = ``rmsnorm(h, w, eps)``.
 - ``swiglu(gu)``: the fused gate-up output (..., 2 F) → (..., F),
   ``silu(g) * u`` in f32 with one rounding, read in place.
+- ``geglu(gu)``: the same for the GeGLU FFN (``cfg.activation``
+  "gelu", recurrentgemma): ``gelu(g) * u`` with the JAX rounding points,
+  ``gelu`` (the JAX ``layers.gelu``, its logistic form) in f32 rounded
+  to the input dtype, then the product rounded again.
 - ``rope_cache_write(qkv, cache, lens, advance, theta, fmt,
   block_table, bias)``: one token's fused-QKV rows (B, q_dim + 2 kv_dim)
   bf16 → the roped q (B, Hq, D); the roped K and the V row go into ring slot
@@ -196,6 +200,48 @@ def swiglu(gu: torch.Tensor) -> torch.Tensor:
 
 
 swiglu.launches = 0
+
+
+# -- GeGLU --------------------------------------------------------------------
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The JAX ``layers.gelu``: the tanh approximation with the tanh
+    written as 2 sigmoid(2z) - 1, in f32, rounded to x's dtype."""
+    xf = x.float()
+    z = 0.7978845608028654 * (xf + 0.044715 * xf * xf * xf)
+    t = 2.0 * torch.sigmoid(2.0 * z) - 1.0
+    return (0.5 * xf * (1.0 + t)).to(x.dtype)
+
+
+def geglu_plain(gu: torch.Tensor) -> torch.Tensor:
+    """gelu(g) * u of the halves g, u of the last axis: gelu rounded to
+    the input dtype, then the product (the JAX ``mlp_forward``)."""
+    g, u = gu.chunk(2, dim=-1)
+    return gelu(g) * u
+
+
+def geglu(gu: torch.Tensor) -> torch.Tensor:
+    """gu (..., 2 F) bf16 or f32 → (..., F)."""
+    if gu.device.type == "cpu":
+        return geglu_plain(gu)
+    _require(gu.shape[-1] % 2 == 0,
+             f"geglu: odd gate-up width {gu.shape[-1]}")
+    _require(gu.dtype in (torch.bfloat16, torch.float32),
+             f"geglu kernel takes bf16 or f32, got {gu.dtype}")
+    _check_cuda("geglu", gu)
+    Fw = gu.shape[-1] // 2
+    out = torch.empty(gu.shape[:-1] + (Fw,), dtype=gu.dtype, device=gu.device)
+    M = out.numel() // Fw if Fw else 0
+    if M == 0:
+        return out
+    fn = build.function("fused_ops", "geglu", _SWIGLU_ARGS)
+    err = fn(int(gu.dtype == torch.float32), gu.data_ptr(), out.data_ptr(),
+             M, Fw, _stream(gu))
+    build.check(err, "geglu")
+    geglu.launches += 1
+    return out
+
+
+geglu.launches = 0
 
 
 # -- RoPE and the decode cache write -----------------------------------------

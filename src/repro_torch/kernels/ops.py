@@ -18,10 +18,11 @@ products (the counterpart of the JAX package's ``kernels/ops.py``).
   switch and no tile picking: the kernel takes every Sq and Skv.
 - ``decode_attention`` / ``decode_attention_quant``: the kernels'
   wrappers, which take the plain version only for CPU tensors.
-- ``quant_matmul_swiglu``: the FFN's gate-up product with the SwiGLU as
-  its last step, for a quantized ``w_gate_up`` (``models/mlp.py``); a
-  plain ``w_gate_up`` takes ``matmul`` and then ``swiglu``.
-- ``rmsnorm``, ``add_rmsnorm``, ``swiglu``, ``rope_cache_write`` and
+- ``quant_matmul_swiglu``: the FFN's gate-up product with the SwiGLU (or,
+  ``act="gelu"``, the GeGLU) as its last step, for a quantized
+  ``w_gate_up`` (``models/mlp.py``); a plain ``w_gate_up`` takes
+  ``matmul`` and then ``swiglu`` / ``geglu``.
+- ``rmsnorm``, ``add_rmsnorm``, ``swiglu``, ``geglu``, ``rope_cache_write`` and
   ``rope_cache_write_prefill``: the fused small ops of ``fused_ops.py``,
   wrappers of the same kind.
 - ``moe_route``, ``moe_gate_up_swiglu``, ``moe_down``, ``moe_combine``
@@ -30,7 +31,10 @@ products (the counterpart of the JAX package's ``kernels/ops.py``).
   same kind.
 - ``ssm_conv``, ``ssm_decode_step``, ``ssd_prefill`` and
   ``gated_rmsnorm``: the SSM family's kernels (``kernels/ssm.py``),
-  wrappers of the same kind.
+  wrappers of the same kind; the hybrid family's RG-LRU layer runs
+  ``ssm_conv`` too.
+- ``rglru_scan`` and ``rglru_decode_step``: the RG-LRU recurrence of the
+  hybrid family (``kernels/rglru.py``), wrappers of the same kind.
 - ``launch_counts``: every kernel wrapper's launch count by name. A
   wrapper counts the launches it enqueues, also into a CUDA graph being
   captured; a graph's replays launch again without counting.
@@ -54,13 +58,14 @@ import torch
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.decode_attention_quant import decode_attention_quant
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.fused_ops import (add_rmsnorm, rmsnorm,
+from repro_torch.kernels.fused_ops import (add_rmsnorm, geglu, rmsnorm,
                                            rope_cache_write,
                                            rope_cache_write_prefill, swiglu)
 from repro_torch.kernels.moe import (moe_combine, moe_down, moe_down_combine,
                                      moe_gate_up_swiglu, moe_route)
 from repro_torch.kernels.quant_matmul import (check_out, quant_matmul,
                                               quant_matmul_swiglu)
+from repro_torch.kernels.rglru import rglru_decode_step, rglru_scan
 from repro_torch.kernels.ssm import (gated_rmsnorm, ssd_prefill, ssm_conv,
                                      ssm_decode_step)
 from repro_torch.quant.quantize import QuantizedTensor
@@ -71,7 +76,8 @@ KERNELS = (decode_attention, decode_attention_quant, quant_matmul,
            quant_matmul_swiglu, flash_attention, rmsnorm, add_rmsnorm, swiglu,
            rope_cache_write, rope_cache_write_prefill, moe_route,
            moe_gate_up_swiglu, moe_down, moe_combine, moe_down_combine,
-           ssm_conv, ssm_decode_step, ssd_prefill, gated_rmsnorm)
+           ssm_conv, ssm_decode_step, ssd_prefill, gated_rmsnorm, geglu,
+           rglru_scan, rglru_decode_step)
 
 __all__ = ["matmul", "attention", "decode_attention",
            "decode_attention_quant", "flash_attention", "quant_matmul",
@@ -79,7 +85,8 @@ __all__ = ["matmul", "attention", "decode_attention",
            "rope_cache_write", "rope_cache_write_prefill", "moe_route",
            "moe_gate_up_swiglu", "moe_down", "moe_combine",
            "moe_down_combine", "ssm_conv", "ssm_decode_step", "ssd_prefill",
-           "gated_rmsnorm", "KERNELS", "launch_counts", "out_width"]
+           "gated_rmsnorm", "geglu", "rglru_scan", "rglru_decode_step",
+           "KERNELS", "launch_counts", "out_width"]
 
 
 def launch_counts() -> Dict[str, int]:

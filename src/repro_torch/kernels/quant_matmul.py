@@ -32,13 +32,17 @@ returns the bits of ``swiglu(quant_matmul(x, w))`` without writing the
 (M, 2F) product to device memory: the split-K merge applies the SwiGLU
 where K is split across CTAs (decode M), and two CTAs of a cluster
 combine the gate and up blocks through distributed shared memory where
-it is not (prefill M).
+it is not (prefill M). ``quant_matmul_swiglu(x, w, act="gelu")`` is the
+GeGLU form of the same kernel (the activation is a template parameter):
+h = gelu(g) * u with the JAX rounding points (gelu rounded to bf16, then
+the product), the bits of ``fused_ops.geglu(quant_matmul(x, w))``.
 
 ``quant_matmul_plain`` is the plain PyTorch version, the JAX package's
 XLA path: dequantize to the activation dtype, multiply in f32, cast to
 ``out_dtype``; ``quant_matmul_swiglu_plain`` is it followed by
-``fused_ops.swiglu_plain``. The wrappers run them for CPU tensors only;
-a CUDA tensor always goes through the kernel, or the wrapper raises.
+``fused_ops.swiglu_plain`` (or ``geglu_plain``). The wrappers run them
+for CPU tensors only; a CUDA tensor always goes through the kernel, or
+the wrapper raises.
 """
 from __future__ import annotations
 
@@ -49,14 +53,15 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.fused_ops import swiglu_plain
+from repro_torch.kernels.fused_ops import geglu_plain, swiglu_plain
 from repro_torch.quant.quantize import QuantizedTensor, dequantize
 
 FORMATS = {"q8_0": 0, "q4_0": 1}
+ACTIVATIONS = {"silu": 1, "gelu": 2}    # the gate-up epilogue's, as the C enum
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
-_SWIGLU_ARGTYPES = (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+_SWIGLU_ARGTYPES = (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 
 
 def check_out(name: str, out: torch.Tensor, M: int, N: int,
@@ -193,25 +198,30 @@ def quant_matmul(x: torch.Tensor, w: QuantizedTensor,
 quant_matmul.launches = 0
 
 
-def quant_matmul_swiglu_plain(x: torch.Tensor,
-                              w: QuantizedTensor) -> torch.Tensor:
+def quant_matmul_swiglu_plain(x: torch.Tensor, w: QuantizedTensor,
+                              act: str = "silu") -> torch.Tensor:
     """swiglu(x (M, K) @ dequant(w) (K, 2F)) → (M, F) in x's dtype: the
     product rounded to x's dtype, then silu(g) * u in f32 with one
-    rounding."""
-    return swiglu_plain(quant_matmul_plain(x, w))
+    rounding; with ``act`` "gelu" the GeGLU, ``geglu_plain``."""
+    gu = quant_matmul_plain(x, w)
+    return geglu_plain(gu) if act == "gelu" else swiglu_plain(gu)
 
 
-def quant_matmul_swiglu(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
+def quant_matmul_swiglu(x: torch.Tensor, w: QuantizedTensor,
+                        act: str = "silu") -> torch.Tensor:
     """x (M, K) bf16, w the fused gate-up weight (K, 2F) in q8_0 / q4_0
     → h (M, F) bf16, bit-equal on the card to ``swiglu(quant_matmul(x,
-    w))``."""
+    w))``, or with ``act`` "gelu" to ``geglu(quant_matmul(x, w))``."""
     M, K = x.shape
     N = w.logical_shape[1]
     if N % 2:
         raise ValueError(f"quant_matmul_swiglu: odd gate-up width {N}")
+    if act not in ACTIVATIONS:
+        raise ValueError(f"quant_matmul_swiglu: act must be one of "
+                         f"{sorted(ACTIVATIONS)}, got {act!r}")
     _check_shapes("quant_matmul_swiglu", x, w)
     if x.device.type == "cpu":
-        return quant_matmul_swiglu_plain(x, w)
+        return quant_matmul_swiglu_plain(x, w, act)
     if x.dtype != torch.bfloat16:
         raise ValueError("quant_matmul_swiglu kernel takes bf16 x (and "
                          f"writes bf16 h), got {x.dtype}")
@@ -223,12 +233,12 @@ def quant_matmul_swiglu(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
     partial = _partial(M, K, N, w.group, x.device)
     fn = build.function("quant_matmul", "quant_matmul_swiglu",
                         _SWIGLU_ARGTYPES)
-    err = fn(FORMATS[w.fmt], x.data_ptr(), w.data.data_ptr(),
-             w.scales.data_ptr(), out.data_ptr(),
+    err = fn(ACTIVATIONS[act], FORMATS[w.fmt], x.data_ptr(),
+             w.data.data_ptr(), w.scales.data_ptr(), out.data_ptr(),
              None if partial is None else partial.data_ptr(),
              0 if partial is None else partial.numel(), M, K, F, w.group,
              torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, f"quant_matmul_swiglu[{w.fmt}]")
+    build.check(err, f"quant_matmul_swiglu[{w.fmt}, {act}]")
     quant_matmul_swiglu.launches += 1
     return out
 

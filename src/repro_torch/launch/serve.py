@@ -28,8 +28,10 @@ every megastep of the timed run is one graph replay. The run's output
 ends with the weight-streaming floor of a decode step (``step_floor``):
 for a mixture-of-experts config it counts the experts the run's routing
 actually read, beside the floor of reading every expert; for a recurrent
-config (mamba2-2.7b) it adds the state every slot reads and writes once
-a step, whatever the context. A recurrent config takes ``--page-size``,
+config (mamba2-2.7b, recurrentgemma-2b) it adds the state every slot
+reads and writes once a step, whatever the context, and for the hybrid
+(recurrentgemma-2b) also each local-attention layer's ring read at the
+run's kv_len and one row written. A recurrent config takes ``--page-size``,
 ``--prefix-cache`` and ``--kv-quant`` as the JAX package does, as no-ops
 (the engine warns that the prefix cache is disabled), and the output
 names the cache format and paging actually served. An MoE config
@@ -389,14 +391,21 @@ def _nbytes(node) -> int:
 
 
 def step_floor(engine: ServingEngine,
-               reads: Optional[torch.Tensor] = None) -> Dict[str, float]:
+               reads: Optional[torch.Tensor] = None,
+               kv_len: float = 0.0) -> Dict[str, float]:
     """The weight-streaming floor of one decode step: the bytes it must
     read once (every layer weight as stored, the final norm and the
     unembedding: the tied table whole, or the untied head) over the H100's
     memory rate. A recurrent config's step also reads and writes every
-    slot's conv and SSD states once (``state_bytes``: read plus written,
-    at the engine's slot count), which the floor adds. For an MoE config
-    the routed experts count only as often as the routing read them:
+    slot's recurrent states once (``state_bytes``: the SSM layers' conv
+    and SSD states, the RG-LRU layers' conv and recurrent states, read
+    plus written, at the engine's slot count), which the floor adds. A
+    hybrid's step also reads each local-attention layer's bf16 K and V
+    rows at ``kv_len`` positions a slot (the run's mean, which the caller
+    gives) and writes one row of each (``ring_bytes``); its rings are not
+    counted whole, since a step reads only the visible positions. For an
+    MoE config the routed experts count only as often as the routing read
+    them:
     ``reads`` (``Model.expert_reads`` over a run: experts with a pair,
     summed over MoE layer passes, and the passes) gives the mean experts
     a layer pass, and the floor counts that many experts a layer;
@@ -407,11 +416,15 @@ def step_floor(engine: ServingEngine,
     total = _nbytes(p["layers"]) + _nbytes(head) + _nbytes(p["final_norm"])
     out = dict(bytes=total, ms=total / HBM_BYTES_PER_S * 1e3)
     if cfg.is_recurrent:
-        state = 2 * _nbytes(engine.cache["layers"])
-        out = dict(bytes=total + state,
-                   ms=(total + state) / HBM_BYTES_PER_S * 1e3,
-                   weight_bytes=total, state_bytes=state,
-                   slots=engine.slots)
+        kinds = engine.model.kinds
+        state = 2 * _nbytes([c for c, kind in zip(engine.cache["layers"],
+                                                  kinds) if kind != "attn"])
+        row = 2 * cfg.num_kv_heads * cfg.head_dim * 2   # K and V, bf16
+        ring = int(kinds.count("attn") * engine.slots * row * (kv_len + 1))
+        out = dict(bytes=total + state + ring,
+                   ms=(total + state + ring) / HBM_BYTES_PER_S * 1e3,
+                   weight_bytes=total, state_bytes=state, ring_bytes=ring,
+                   kv_len=kv_len, slots=engine.slots)
     if not cfg.is_moe:
         return out
     experts = _nbytes([p_l["moe"]["experts"] for p_l in p["layers"]])
@@ -545,7 +558,10 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
               f"{st.poisoned} poisoned, {st.cancelled} cancelled (queue "
               f"bound {engine.max_queue or 'none'})")
     if cfg.is_recurrent:
-        print(f"recurrent state: {_nbytes(engine.cache['layers'])} bytes "
+        rings = (" (the local-attention rings included)"
+                 if "attn" in engine.model.kinds else "")
+        print(f"recurrent state: {_nbytes(engine.cache['layers'])} bytes"
+              f"{rings} "
               f"for {engine.slots} slots; page_size={engine.page_size} "
               f"(asked {args.page_size}), kv_quant={engine.kv_quant} (asked "
               f"{args.kv_quant}), prefix_cache={engine.prefix_cache}")
@@ -561,12 +577,23 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
         print(f"frontend: {args.requests - missed} completed, {missed} "
               f"deadline-expired, shed or failed, {st.cancelled} engine "
               "cancellations")
-    floor = step_floor(engine, reads)
+    # a hybrid's rings: the mean over the requests of the positions a slot
+    # sees halfway through its stream (prompt and tokens, within the ring)
+    ring_len = (Model.cache_len(engine.cache) if "attn" in engine.model.kinds
+                and cfg.is_recurrent else 0)
+    kv_len = (float(np.mean([min(len(r.prompt) + len(r.output) // 2,
+                                 ring_len) for r in requests]))
+              if ring_len and requests else 0.0)
+    floor = step_floor(engine, reads, kv_len)
     if cfg.is_recurrent:
         line = (f"floor: {floor['ms']:.3f} ms a decode step to read "
                 f"{floor['weight_bytes'] / 1e9:.3f} GB of weights and read "
                 f"and write {floor['state_bytes'] / 1e9:.3f} GB of state "
-                f"({floor['slots']} slots) at 3.35 TB/s")
+                f"({floor['slots']} slots)")
+        if floor["ring_bytes"]:
+            line += (f" and {floor['ring_bytes'] / 1e9:.6f} GB of the "
+                     f"local-attention rings (kv_len {floor['kv_len']:.1f})")
+        line += " at 3.35 TB/s"
     else:
         line = (f"floor: {floor['ms']:.3f} ms a decode step to read "
                 f"{floor['bytes'] / 1e9:.3f} GB of weights at 3.35 TB/s")

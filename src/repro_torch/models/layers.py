@@ -3,9 +3,10 @@
 Counterparts of the JAX package's ``models/layers.py`` with the same
 rounding points: norms and RoPE compute in f32 and cast back, the
 logits of the unembedding are f32. RMSNorm (alone, or with the residual
-add before it) and SwiGLU go through the fused kernels of
+add before it), SwiGLU and GeGLU go through the fused kernels of
 ``kernels/fused_ops.py``, where ``apply_rope`` (part of the plain
-versions of the RoPE + cache write kernels) lives too.
+versions of the RoPE + cache write kernels) and the JAX logistic
+``gelu`` live too.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import fused_ops, ops
 from repro_torch.models.params import ParamSpec
 
 
@@ -60,12 +61,29 @@ def linear_spec(d_in: int, d_out: int,
 
 
 def linear(p, x: torch.Tensor) -> torch.Tensor:
-    """x @ w. The one layer with a bias, the fused QKV projection, adds it
-    inside the RoPE + cache-write kernels (``models/attention.py``)."""
+    """x @ w. The layers with a bias add it inside the kernel that reads
+    the product next, not as a launch of its own: the fused QKV
+    projection's inside the RoPE + cache-write kernels
+    (``models/attention.py``), the RG-LRU gates' ``wa`` / ``wx`` inside
+    the RG-LRU kernels (``models/hybrid.py``)."""
     return ops.matmul(x, p["w"])
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The JAX ``layers.gelu`` (tanh approximation in its logistic form),
+    in f32, rounded to x's dtype."""
+    return fused_ops.gelu(x)
+
 
 
 def swiglu(gu: torch.Tensor) -> torch.Tensor:
     """silu(gate) * up of the fused gate-up output (..., 2 F), in f32 with
     one rounding to the input dtype (the fused kernel on the card)."""
     return ops.swiglu(gu)
+
+
+def geglu(gu: torch.Tensor) -> torch.Tensor:
+    """gelu(gate) * up of the fused gate-up output (..., 2 F), gelu
+    rounded to the input dtype and the product again (the fused kernel
+    on the card)."""
+    return ops.geglu(gu)

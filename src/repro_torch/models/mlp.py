@@ -1,13 +1,18 @@
-"""SwiGLU FFN (the counterpart of the JAX package's ``models/mlp.py``).
+"""The gated FFN, SwiGLU or GeGLU (the counterpart of the JAX package's
+``models/mlp.py``): h = act(g) * u, then ``w_down``, with act silu or,
+under ``cfg.activation`` "gelu" (recurrentgemma), the JAX logistic
+``gelu``, which keeps the JAX rounding points (gelu rounded to the
+activation dtype, then the product; the SwiGLU rounds once).
 
 With ``cfg.fuse_gate_up`` (the paper's V1 and later) the gate and up
 projections are one matrix, ``w_gate_up``: a quantized one runs the
-product and the SwiGLU as one operation (``ops.quant_matmul_swiglu``), a
-plain one runs ``linear`` and then ``layers.swiglu``. The unfused V0
+product and the activation as one operation (``ops.quant_matmul_swiglu``,
+``act`` "silu" or "gelu"), a plain one runs ``linear`` and then the
+standalone ``layers.swiglu`` / ``layers.geglu``. The unfused V0
 (``scheduler_version`` "v0") keeps ``w_gate`` and ``w_up`` apart: two
 GEMM launches write g and u into the two halves of one (M, 2F) row
-(``ops.matmul(out=)``), and the standalone SwiGLU kernel runs on it,
-under any weight format; nothing of V0 is fused.
+(``ops.matmul(out=)``), and the standalone kernel runs on it, under any
+weight format; nothing of V0 is fused.
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ def mlp_specs(cfg: ModelConfig) -> Dict:
 def gate_up(p, x2: torch.Tensor) -> torch.Tensor:
     """The unfused V0 gate and up products of x2 (M, D), each written into
     its half of one (M, 2F) buffer, [g | u]: the layout of the fused
-    product, which ``layers.swiglu`` takes."""
+    product, which ``layers.swiglu`` and ``layers.geglu`` take."""
     F = ops.out_width(p["w_up"]["w"])
     gu = torch.empty((x2.shape[0], 2 * F), dtype=x2.dtype, device=x2.device)
     ops.matmul(x2, p["w_gate"]["w"], out=gu[:, :F])
@@ -43,13 +48,15 @@ def gate_up(p, x2: torch.Tensor) -> torch.Tensor:
     return gu
 
 
-def mlp_forward(p, x: torch.Tensor) -> torch.Tensor:
+def mlp_forward(p, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
     x2 = x.reshape(-1, x.shape[-1])
+    glu = layers.geglu if activation == "gelu" else layers.swiglu
     if "w_gate_up" not in p:
-        h = layers.swiglu(gate_up(p, x2))
+        h = glu(gate_up(p, x2))
     elif isinstance(p["w_gate_up"]["w"], QuantizedTensor):
-        h = ops.quant_matmul_swiglu(x2, p["w_gate_up"]["w"])
+        kw = {"act": "gelu"} if activation == "gelu" else {}
+        h = ops.quant_matmul_swiglu(x2, p["w_gate_up"]["w"], **kw)
     else:
-        h = layers.swiglu(layers.linear(p["w_gate_up"], x2))
+        h = glu(layers.linear(p["w_gate_up"], x2))
     h = h.reshape(*x.shape[:-1], h.shape[-1])
     return layers.linear(p["w_down"], h)

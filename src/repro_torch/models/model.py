@@ -1,20 +1,29 @@
-"""The decoder, dense, mixture-of-experts or SSM: parameters, cache, the
-fused prefill and the decode step.
+"""The decoder, dense, mixture-of-experts, SSM or RG-LRU hybrid:
+parameters, cache, the fused prefill and the decode step.
 
-Counterpart of the dense, MoE and SSM families of the JAX package's
-``models/model.py`` (``init``, ``init_cache``, ``prefill`` with
+Counterpart of the dense, MoE, SSM and hybrid families of the JAX
+package's ``models/model.py`` (``init``, ``init_cache``, ``prefill`` with
 ``seq_lens``, ``decode_step`` with ``advance_mask``, ``reference_decode``
 with stepwise or fused prefill, ``window_for``, ``kv_quant_effective``
-and ``paging_effective``). An MoE config (``cfg.is_moe``) has a ``"moe"``
+and ``paging_effective``). Each layer's kind is ``cfg.layer_pattern()``'s:
+"attn", "ssm" or "rglru". An MoE config (``cfg.is_moe``) has a ``"moe"``
 FFN in each layer where a dense one has ``"mlp"`` (``models/moe.py``), in
-bf16 or f32 weights only. An SSM config (mamba2, ``cfg.is_recurrent``)
-has ``{"norm", "ssm"}`` layers (``models/ssm.py``) and no attention: its
-cache is each layer's conv and SSD states beside the one ``lens``, a
-fixed size whatever the context, never paged and never quantized
-(``kv_quant`` is a no-op, as in the JAX package), and a prefill starts
-from zero states and runs at its exact length (a prompt longer than
-``max_len`` too). The other families (hybrid, audio, vlm) and
-``cache_axes`` are not ported yet.
+bf16 or f32 weights only. An SSM config (mamba2) has ``{"norm", "ssm"}``
+layers (``models/ssm.py``) and no attention. A hybrid config
+(recurrentgemma) interleaves RG-LRU layers (``{"attn_norm", "rglru",
+"ffn_norm", "mlp"}``, ``models/hybrid.py``) with local-attention layers
+(``"attn"`` in place of ``"rglru"``), each with a GeGLU FFN; its attention
+window is ``cfg.local_attn_window`` whatever the length, and its
+attention layers keep a ring of ``min(max_len, window)`` positions.
+
+The recurrent families (``cfg.is_recurrent``: SSM and hybrid) share a
+serving contract: a cache of a fixed size a slot (the conv and
+recurrent states, and the hybrid's rings), never paged and never
+quantized (``kv_quant`` is a no-op, as in the JAX package: the hybrid's
+rings stay bf16), and a prefill that starts from zero states and runs at
+its exact length (a prompt longer than ``max_len`` too; the hybrid's
+rings then take the ring write). ``cache_axes`` and the audio and vlm
+families are not ported yet.
 
 A windowed config (``sliding_window`` > 0, mistral-7b; or any dense
 config past ``max_full_attn`` positions) keeps a ring of ``min(max_len,
@@ -27,18 +36,20 @@ attends over the whole ring, which is the window.
 
 Parameters are a nested dict like the JAX package's, except that the
 layer stack is a list of per-layer dicts instead of stacked (L, ...)
-leaves. The cache is ``{"lens": (B,) int32, "layers": [per-layer
-leaves]}``, and ``prefill`` and ``decode_step`` update it in place. A
-paged cache (``init_cache(page_size=)``) adds one ``"block_table"``
-(B, max_pages) int32 beside ``lens``, shared by every layer, whose
-leaves are block pools: the JAX package stacks an identical table and
-``lens`` into every layer, the port keeps one of each.
+leaves (the JAX hybrid keeps a list too). The cache is ``{"lens": (B,)
+int32, "layers": [per-layer leaves]}``, and ``prefill`` and
+``decode_step`` update it in place. A paged cache
+(``init_cache(page_size=)``) adds one ``"block_table"`` (B, max_pages)
+int32 beside ``lens``, shared by every layer, whose leaves are block
+pools: the JAX package stacks an identical table and ``lens`` into every
+layer, the port keeps one of each.
 Each residual add runs fused with the RMSNorm after it
 (``layers.add_rmsnorm``), and the decode step computes the attention's
 ``kv_len`` once for all layers.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Sequence, Union
 
 import torch
@@ -46,6 +57,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import hybrid as hy
 from repro_torch.models import layers
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
@@ -81,6 +93,11 @@ class Model:
         self.expert_reads = (torch.zeros((2,), dtype=torch.int64,
                                          device=self.device)
                              if cfg.is_moe else None)
+        self.kinds = cfg.layer_pattern()
+        # the attention layers' view of the config: a recurrent family's
+        # rings are bf16 whatever ``kv_quant`` asks (a no-op there)
+        self.attn_cfg = (cfg if cfg.kv_quant == self.kv_quant_effective()
+                         else dataclasses.replace(cfg, kv_quant="bf16"))
 
     @property
     def dtype(self) -> torch.dtype:
@@ -91,28 +108,29 @@ class Model:
         cfg = self.cfg
         specs = layers.embed_specs(cfg)
         specs["final_norm"] = _norm_spec(cfg.d_model)
-        if cfg.is_recurrent:
+        if "ssm" in self.kinds:
             specs["layers"] = [{"norm": _norm_spec(cfg.d_model),
                                 "ssm": ssm_mod.ssm_specs(cfg)}
-                               for _ in range(cfg.num_layers)]
+                               for _ in self.kinds]
             return specs
         ffn = ("moe", moe_mod.moe_specs) if cfg.is_moe else \
             ("mlp", mlp_mod.mlp_specs)
         specs["layers"] = [{
             "attn_norm": _norm_spec(cfg.d_model),
-            "attn": attn.attention_specs(cfg),
+            **({"rglru": hy.rglru_specs(cfg)} if kind == "rglru" else
+               {"attn": attn.attention_specs(cfg)}),
             "ffn_norm": _norm_spec(cfg.d_model),
             ffn[0]: ffn[1](cfg),
-        } for _ in range(cfg.num_layers)]
+        } for kind in self.kinds]
         return specs
 
     def ffn(self, p_l, z: torch.Tensor) -> torch.Tensor:
-        """A layer's FFN: the MoE of an MoE config, else the dense
-        SwiGLU MLP."""
+        """A layer's FFN: the MoE of an MoE config, else the dense gated
+        MLP (SwiGLU, or GeGLU under ``cfg.activation`` "gelu")."""
         if self.cfg.is_moe:
             return moe_mod.moe_forward(p_l["moe"], self.cfg, z,
                                        self.expert_reads)
-        return mlp_mod.mlp_forward(p_l["mlp"], z)
+        return mlp_mod.mlp_forward(p_l["mlp"], z, self.cfg.activation)
 
     def init(self, generator: torch.Generator,
              quantize: Optional[bool] = None) -> Dict:
@@ -148,9 +166,12 @@ class Model:
 
     def window_for(self, total_len: int) -> int:
         """The attention window of a sequence of ``total_len`` positions
-        (0: full attention): the config's sliding window, else the
-        long-context fallback past ``max_full_attn``."""
+        (0: full attention): a hybrid's local window whatever the length,
+        the config's sliding window, else the long-context fallback past
+        ``max_full_attn``."""
         cfg = self.cfg
+        if cfg.arch_type == "hybrid":
+            return cfg.local_attn_window
         if cfg.sliding_window:
             return cfg.sliding_window
         if total_len > cfg.max_full_attn:
@@ -182,24 +203,28 @@ class Model:
         default one a page a slot plus the garbage block, and a zeroed
         block table) when ``page_size`` > 0 and paging is effective. An
         SSM config's cache is each layer's zeroed conv and SSD states,
-        whatever ``max_len``."""
-        if self.cfg.is_recurrent:
+        whatever ``max_len``; a hybrid's RG-LRU layers hold their conv and
+        recurrent states, its attention layers a bf16 ring of
+        ``min(max_len, local_attn_window)`` positions."""
+        if "ssm" in self.kinds:
             return {"lens": torch.zeros((batch,), dtype=torch.int32,
                                         device=self.device),
                     "layers": [ssm_mod.init_ssm_cache(self.cfg, batch,
                                                       self.dtype, self.device)
-                               for _ in range(self.cfg.num_layers)]}
+                               for _ in self.kinds]}
         page_size = self.paging_effective(max_len, page_size)
+        window = self.window_for(max_len)
         cache = {
             "lens": torch.zeros((batch,), dtype=torch.int32,
                                 device=self.device),
-            "layers": [attn.init_kv_cache(self.cfg, batch, max_len,
-                                          self.window_for(max_len),
-                                          kv_quant=self.cfg.kv_quant,
-                                          device=self.device,
-                                          page_size=page_size,
-                                          num_blocks=cache_blocks)
-                       for _ in range(self.cfg.num_layers)],
+            "layers": [hy.init_rglru_cache(self.cfg, batch, self.dtype,
+                                           self.device) if kind == "rglru"
+                       else attn.init_kv_cache(
+                           self.cfg, batch, max_len, window,
+                           kv_quant=self.kv_quant_effective(),
+                           device=self.device, page_size=page_size,
+                           num_blocks=cache_blocks)
+                       for kind in self.kinds],
         }
         if page_size:
             cache["block_table"] = torch.zeros(
@@ -210,8 +235,9 @@ class Model:
     @staticmethod
     def cache_len(cache: Dict) -> int:
         """Positions a slot's cache holds: S (a windowed config's ring
-        length), or max_pages × P paged."""
-        S = cache["layers"][0]["k"].shape[2]
+        length; a hybrid's, read from its first attention layer), or
+        max_pages × P paged."""
+        S = next(c for c in cache["layers"] if "k" in c)["k"].shape[2]
         if "block_table" in cache:
             S *= cache["block_table"].shape[1]
         return S
@@ -228,7 +254,7 @@ class Model:
         (their last S_cache positions, at slots ``pos % S_cache``); that
         branch is uniform-length by contract, so ``seq_lens`` is ignored
         there and ``lens`` advances by S. The attention runs within
-        ``window_for(S)``. An SSM config runs every position of every
+        ``window_for(S)``. A recurrent config runs every position of every
         row from zero states (its caller does not pad it: the engine
         buckets recurrent prompts at their exact length), and ``lens``
         advances by S, as in the JAX package. The JAX package's
@@ -236,7 +262,8 @@ class Model:
         cache."""
         cfg = self.cfg
         B, S = tokens.shape
-        if not cfg.is_recurrent:
+        ssm = "ssm" in self.kinds
+        if not ssm:
             if "block_table" in cache:
                 raise ValueError("prefill writes a dense cache; the serving "
                                  "engine prefills into a dense scratch "
@@ -248,16 +275,20 @@ class Model:
         x = layers.embed(params, tokens)
         norms = _norms(params)
         z = layers.rmsnorm(x, norms[0], cfg.norm_eps)
-        if cfg.is_recurrent:
+        if ssm:
             for p_l, c_l, next_norm in zip(params["layers"], cache["layers"],
                                            norms[1:]):
                 z = ssm_mod.ssm_prefill(p_l["ssm"], cfg, z, c_l)
                 x, z = layers.add_rmsnorm(x, z, next_norm, cfg.norm_eps)
             cache["lens"] += S
         else:
-            for p_l, c_l, next_norm in zip(params["layers"], cache["layers"],
-                                           norms[1:]):
-                z = attn.attention_forward(p_l["attn"], cfg, z, c_l, window)
+            for p_l, c_l, kind, next_norm in zip(
+                    params["layers"], cache["layers"], self.kinds, norms[1:]):
+                if kind == "rglru":
+                    z = hy.rglru_forward(p_l["rglru"], cfg, z, c_l)
+                else:
+                    z = attn.attention_forward(p_l["attn"], self.attn_cfg, z,
+                                               c_l, window)
                 x, z = layers.add_rmsnorm(x, z, p_l["ffn_norm"],
                                           cfg.norm_eps)
                 x, z = layers.add_rmsnorm(x, self.ffn(p_l, z), next_norm,
@@ -278,8 +309,8 @@ class Model:
                     ) -> torch.Tensor:
         """tokens (B, 1) → logits (B, vocab) f32; the cache is updated
         in place. Rows where ``advance_mask`` (B,) is False keep their
-        cache frozen: no K/V write (no conv or SSD state update) and no
-        ``lens`` advance (the serving engine's retired and waiting
+        cache frozen: no K/V write (no conv, SSD or RG-LRU state update)
+        and no ``lens`` advance (the serving engine's retired and waiting
         slots). A paged cache is read and written through its block
         table."""
         cfg = self.cfg
@@ -287,7 +318,7 @@ class Model:
         lens = cache["lens"]
         norms = _norms(params)
         z = layers.rmsnorm(x, norms[0], cfg.norm_eps)
-        if cfg.is_recurrent:
+        if "ssm" in self.kinds:
             for p_l, c_l, next_norm in zip(params["layers"], cache["layers"],
                                            norms[1:]):
                 z = ssm_mod.ssm_decode(p_l["ssm"], cfg, z, c_l, advance_mask)
@@ -296,17 +327,22 @@ class Model:
         table = cache.get("block_table")
         # the positions each layer's attention reads, the same in every
         # layer: computed once a step
-        kv_len = torch.clamp(lens + 1, max=self.cache_len(cache))
+        kv_len = (torch.clamp(lens + 1, max=self.cache_len(cache))
+                  if "attn" in self.kinds else None)
         # a frozen row's junk token reaches the other rows only through an
         # MoE layer that can drop pairs (more rows than its capacity): then
         # it attends as the JAX package's does (attention_decode)
         B = tokens.shape[0]
         see_current = (cfg.is_moe and table is None
                        and B > moe_mod.capacity(cfg, B))
-        for p_l, c_l, next_norm in zip(params["layers"], cache["layers"],
-                                       norms[1:]):
-            z = attn.attention_decode(p_l["attn"], cfg, z, c_l, lens, kv_len,
-                                      advance_mask, table, see_current)
+        for p_l, c_l, kind, next_norm in zip(
+                params["layers"], cache["layers"], self.kinds, norms[1:]):
+            if kind == "rglru":
+                z = hy.rglru_decode(p_l["rglru"], cfg, z, c_l, advance_mask)
+            else:
+                z = attn.attention_decode(p_l["attn"], self.attn_cfg, z, c_l,
+                                          lens, kv_len, advance_mask, table,
+                                          see_current)
             x, z = layers.add_rmsnorm(x, z, p_l["ffn_norm"], cfg.norm_eps)
             x, z = layers.add_rmsnorm(x, self.ffn(p_l, z), next_norm,
                                       cfg.norm_eps)
@@ -336,8 +372,8 @@ class Model:
         unpadded (the stall-admission path). Returns the generated
         tokens (stops at EOS or ``max_new_tokens``). A fused prompt longer
         than ``max_len`` (or than a windowed config's ring) is written
-        into the cache's ring, as in the JAX package; an SSM config's
-        cache holds any length."""
+        into the cache's ring, as in the JAX package; a recurrent state
+        holds any length (a hybrid's rings take the ring write)."""
         if max_new_tokens <= 0:
             return []
         if len(prompt) == 0:

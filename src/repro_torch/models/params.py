@@ -4,7 +4,8 @@ Each model builds a nested dict (and, for the layer stack, a list) of
 :class:`ParamSpec`; ``init_params`` turns it into tensors drawn from an
 explicit ``torch.Generator``, with the JAX package's std rules
 (``models/params.py``): ``fan_out`` for the embedding, ``fan_in`` for
-the other matrices, ones for norms, zeros for biases. A
+the other matrices, ones for norms, zeros for biases, and 4.0 for the
+RG-LRU's ``a_param`` (``small_a``). A
 ``torch.Generator`` does not give JAX's random bits, so tests that
 compare the two packages draw the JAX parameters and carry them over
 with ``repro_torch.bridge``.
@@ -28,7 +29,7 @@ from repro_torch.device import resolve_device
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
-    init: str = "normal"              # normal | ones | zeros | fan_out
+    init: str = "normal"              # normal | ones | zeros | fan_out | small_a
 
 
 def init_params(specs, generator: torch.Generator, *,
@@ -48,6 +49,10 @@ def init_params(specs, generator: torch.Generator, *,
             return torch.ones(spec.shape, dtype=dtype, device=dev)
         if spec.init == "zeros":
             return torch.zeros(spec.shape, dtype=dtype, device=dev)
+        if spec.init == "small_a":
+            # the RG-LRU recurrence parameter: a constant logit, as the
+            # JAX params.py draws it (no random bits)
+            return torch.full(spec.shape, 4.0, dtype=dtype, device=dev)
         if spec.init == "fan_out":
             # embeddings: std 1/sqrt(d_model) so the tied unembedding
             # gives O(1) logits

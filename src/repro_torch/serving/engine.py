@@ -33,12 +33,13 @@ serves K tokens per slot.
 - **Nonfinite logits**: a slot whose logits hold a NaN or inf emits
   nothing, turns idle at once, and its request ends with
   ``error = "nonfinite-logits"``; the other slots are untouched.
-- **Recurrent families** (mamba2, ``cfg.is_recurrent``): the cache is
-  each layer's conv and SSD states, of a fixed size a slot, so paging,
-  the prefix cache and ``kv_quant`` are no-ops (the JAX package's
-  contract: the prefix cache warns and disables itself), a prompt longer
-  than ``max_len`` is served, and a fresh slot's states are zeroed at
-  its admission like its K/V rows.
+- **Recurrent families** (mamba2 and the recurrentgemma hybrid,
+  ``cfg.is_recurrent``): the cache is each layer's conv and SSD (or
+  RG-LRU) states, and the hybrid's local-attention rings, of a fixed
+  size a slot, so paging, the prefix cache and ``kv_quant`` are no-ops
+  (the JAX package's contract: the prefix cache warns and disables
+  itself), a prompt longer than ``max_len`` is served, and a fresh
+  slot's states are zeroed at its admission like its K/V rows.
 - **Paged cache** (``page_size`` > 0): every layer's K/V is a pool of
   ``cache_blocks`` blocks of ``page_size`` positions, and a block table
   (slots, max_pages) maps each slot's pages onto blocks, so the cache's

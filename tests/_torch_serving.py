@@ -10,6 +10,7 @@ Engines are cached per configuration and ``reset()`` on every use, as
 the JAX suites do: a JAX engine keeps its compiled megastep across a
 reset, which is most of its cost here.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

@@ -17,6 +17,7 @@ existing kernel tests' bf16 tolerance: all round at the same points and
 accumulate in f32, but the split version keeps a running max per tile
 and per split, so p is rounded to bf16 against another max.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

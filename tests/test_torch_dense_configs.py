@@ -23,6 +23,7 @@ equal; bf16 params, logits within 2.5% of their largest magnitude
 (test_torch_paper_models.py gives the reasons); the attention plain
 versions within one bf16 ulp of the output's scale.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 import functools
 import weakref

@@ -7,6 +7,7 @@ independently). Engine vs the JAX engine: f32 params, where the two
 models' logits agree to ~1e-6 (see test_torch_model.py), so greedy
 streams are equal.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

@@ -20,6 +20,7 @@ Tolerances: f32 params, logits within 1e-4 absolute and greedy streams
 equal; bf16 params, logits within 2.5% of their largest magnitude (as
 test_torch_paper_models.py).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 import functools
 

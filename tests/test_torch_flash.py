@@ -12,6 +12,7 @@ wrapper's CPU routing and input checks.
   Both keep q, k, v and p in f32, where the plain version rounds q*scale
   and p to bf16 as ``chunked_attention`` does.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

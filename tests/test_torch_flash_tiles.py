@@ -24,6 +24,7 @@ path runs), to the Pallas ``flash_attention`` in interpret mode, and to
 f32 but in other orders and over other tiles (the Pallas kernel keeps q
 and p in f32), so a bf16 output may differ by one rounding step.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import functools
 
 import jax.numpy as jnp
@@ -65,6 +66,9 @@ CASES = [
     (1, 8, 2, 50, 200, 64, 0, 13),
     (1, 8, 2, 64, 40, 64, 0, 8),
     (1, 8, 2, 24, 16, 64, 12, 8),
+    # recurrentgemma-2b's (256, 10): block_k 32, ragged tiles, its window
+    (1, 10, 1, 129, 129, 256, 0, 0),
+    (1, 10, 1, 150, 150, 256, 64, 0),
 ]
 def _t(a) -> torch.Tensor:
     return to_tensor(np.asarray(a), CPU)
@@ -244,6 +248,6 @@ def test_tile_constants():
     """An item holds two m64 warpgroups of rows; KV tiles are a multiple
     of the k16 step; one launch orders the query tiles of a 32K prompt."""
     assert fa.BLOCK_Q == 128
-    for D in (32, 64, 128):
+    for D in (32, 64, 128, 256):
         assert fa.block_k(D) % 16 == 0
     assert fa.MAX_TILES * fa.BLOCK_Q >= 32768

@@ -7,6 +7,7 @@ prompts (exact: greedy, f32 params); and the CLI's flags.
 
 The coroutines run under ``asyncio.run`` inside plain test functions.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import asyncio
 
 import numpy as np

@@ -15,6 +15,7 @@ Tolerances:
   ``logistic`` inside ``jax.nn.silu`` rounds differently from the port's
   f32 silu with one rounding.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

@@ -18,6 +18,7 @@ Tolerances:
   package's. Rows with ``advance`` False, and every position but the
   written slot, keep their bits.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

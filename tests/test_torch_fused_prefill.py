@@ -19,6 +19,7 @@ Tolerances:
 - The model, f32 params: logits within 1e-4 absolute, as in
   ``test_torch_prefill.py``.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

@@ -9,6 +9,7 @@ in f32, but in another order, and the Pallas kernels keep an online
 softmax over cache blocks; a bf16 output may therefore land one rounding
 step apart. f32 outputs: 1e-5 relative.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

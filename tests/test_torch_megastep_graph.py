@@ -9,6 +9,7 @@ Streams are compared exactly: the JAX engine and the port run f32
 params here, where the two models' logits agree to ~1e-6
 (test_torch_model.py), so greedy streams are equal.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

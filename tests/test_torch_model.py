@@ -11,6 +11,7 @@ Tolerances:
   differ by one ulp); measured worst case 1.1% over these configs.
 - f32 params: 1e-4 absolute, and greedy streams are equal.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

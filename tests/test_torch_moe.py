@@ -26,6 +26,7 @@ model's logits within 2.5% of their largest magnitude, for the silu
 reason test_torch_paper_models.py gives. Gates within 1e-6 relative (two
 softmax implementations). Greedy streams exactly.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 import functools
 

@@ -16,6 +16,7 @@ Tolerances: f32 within 1e-5 of the output's largest magnitude (the sums
 run in another order than XLA's); bf16 within one bf16 step at its scale
 (both round the f32 sums once, at the JAX module's points).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

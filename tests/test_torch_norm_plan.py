@@ -10,6 +10,7 @@ of the JAX ``rmsnorm(y * silu(z))`` (src/repro/models/ssm.py:143), which
 sum in other orders and round once to bf16, and a row alone bit-equal to
 the same row among 4 and among 512.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import inspect
 
 import jax

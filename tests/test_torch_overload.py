@@ -10,6 +10,7 @@ under every schedule, and with ``reference_decode`` wherever a request
 was neither poisoned nor cancelled. A poisoned request's output is a
 prefix of its reference stream.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import asyncio
 
 import numpy as np

@@ -2,6 +2,7 @@
 JAX package, its entry points run on the card unless asked for the CPU,
 the serve CLI runs end to end on the CPU, and ``chip_smoke.py`` refuses
 to report a result without a card."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import ast
 import os
 import pathlib

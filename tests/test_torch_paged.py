@@ -22,6 +22,7 @@ Tolerances:
 - Engine streams: equal (greedy, f32 params against the JAX engine).
   Every request keeps prompt + max_new within max_len.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

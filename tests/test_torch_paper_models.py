@@ -17,6 +17,7 @@ equal (as in test_torch_model.py and test_torch_prefill.py); bf16 params
 (qwen2's bias add in bf16), logits within 2.5% of their largest
 magnitude, for the silu reason those files give.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 import functools
 

@@ -18,6 +18,7 @@ the CPU (tiny deepseek-7b, f32 weights carried by ``bridge.from_jax``;
 
 Streams are compared exactly (greedy, f32 params).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 

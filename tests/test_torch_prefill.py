@@ -18,6 +18,7 @@ Tolerances:
   ``seq_lens`` are the padding's junk: neither package defines them,
   decode never reads them before overwriting them, so they are left out.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

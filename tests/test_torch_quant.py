@@ -7,6 +7,7 @@ exact .5 ties, because the two frameworks' f32 divisions can land one
 ulp apart there; everything else is bit-equal. Dequantized values
 follow from payload and scale, so they agree wherever the payloads do.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import importlib
 
 import jax

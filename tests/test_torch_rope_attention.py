@@ -27,6 +27,7 @@ f32 ulp from PyTorch's. The written rows as in test_torch_fused_ops.py:
 bf16 rows within one ulp, scales bit-equal, payloads at most one step
 apart on exact .5 ties.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 import functools
 

@@ -10,6 +10,7 @@ the segment length, with forced drops and tied logits, at the shapes of
 phi3.5-moe-42b-a6.6b (E 16, K 2) and kimi-k2-1t-a32b (E 384, K 8).
 Everything here is integer work: exact equality, no tolerance.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import inspect
 
 import jax

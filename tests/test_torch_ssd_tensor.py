@@ -31,6 +31,7 @@ split f32 value with a bf16 value, its three parts summed in f32, is
 within 2^-22 of the f32 product. The reduced mamba2's decode step, a
 frozen row included, matches the JAX ``Model`` (f32, 1e-5).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

@@ -30,6 +30,7 @@ params, the model's logits within 5% of their largest magnitude (measured
 eager op-by-op rounding the port keeps, so a logit moves by a few bf16
 steps). Greedy streams exactly.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 import functools
 

@@ -24,6 +24,7 @@ channels), with inputs drawn by numpy from a seed.
   states and y within 1e-5 of their scale, a frozen row's states
   untouched, one call a layer.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

@@ -17,6 +17,7 @@ params drawn by JAX and carried by ``repro_torch.bridge``).
   paging off for the window, and ``PromptTooLong`` raised in exactly the
   cases where the JAX ``submit`` raises it.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import functools
 
 import jax
